@@ -1,0 +1,111 @@
+"""``python -m repro_torch run`` -- single-mode runs from flags.
+
+    # 1024^2 ordered start at T=2.0: 200 sweeps, then 10 samples
+    python -m repro_torch run --n 1024 --init-p-up 1.0 --temperature 2.0 \\
+        --sweeps 200 --n-measure 10 --measure-every 5 --save ck.npz
+
+    # resume a checkpoint written by this package or by ``python -m repro``
+    python -m repro_torch run --restore ck.npz --sweeps 100
+
+Runs on the CUDA card unless ``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _build_spec(args):
+    from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, SweepSpec
+    sweep = None
+    if args.n_measure:
+        sweep = SweepSpec(thermalize=args.thermalize,
+                          measure_every=args.measure_every,
+                          n_measure=args.n_measure)
+    return RunSpec(lattice=LatticeSpec(n=args.n, m=args.m or args.n,
+                                       init_p_up=args.init_p_up),
+                   engine=EngineSpec(name=args.engine),
+                   temperature=args.temperature, seed=args.seed,
+                   sweep=sweep)
+
+
+def _sync(session) -> None:
+    if session.device.type == "cuda":
+        torch.cuda.synchronize(session.device)
+
+
+def cmd_run(args) -> int:
+    from repro_torch.api import Session
+    device = args.device or None
+    if args.restore:
+        session = Session.restore(args.restore, device=device)
+    else:
+        session = Session.open(_build_spec(args), device=device)
+    spec = session.spec
+    did = False
+    if spec.sweep is not None:
+        t0 = time.perf_counter()
+        traj = session.measure()
+        dt = time.perf_counter() - t0
+        tail = {k: np.asarray(v)[len(v) // 2:] for k, v in traj.items()}
+        print(f"measured {spec.sweep.n_measure} samples "
+              f"({spec.sweep.total_sweeps} sweeps) in {dt:.2f}s: " +
+              " ".join(f"{k}_mean={float(np.mean(v)):.4f}"
+                       for k, v in tail.items()))
+        did = True
+    if args.sweeps:
+        _sync(session)
+        t0 = time.perf_counter()
+        session.run(args.sweeps)
+        mag = session.magnetization()  # waits for the device
+        dt = time.perf_counter() - t0
+        print(f"ran {args.sweeps} sweeps in {dt:.2f}s on {session.device}; "
+              f"|m| = {abs(mag):.4f}")
+        did = True
+    if not did:
+        print("nothing to do: no --n-measure and --sweeps is 0",
+              file=sys.stderr)
+        return 2
+    if args.save:
+        session.save(args.save)
+        print(f"# wrote checkpoint {args.save} (step {session.step_count})")
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch",
+        description="Single-mode RunSpec launcher of the PyTorch port")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    run = sub.add_parser(
+        "run", help="execute a single-mode RunSpec",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    run.add_argument("--n", type=int, default=64)
+    run.add_argument("--m", type=int, default=0,
+                     help="lattice cols (default: --n)")
+    run.add_argument("--init-p-up", type=float, default=0.5)
+    run.add_argument("--engine", default="stencil_pallas")
+    run.add_argument("--temperature", type=float, default=2.0)
+    run.add_argument("--seed", type=int, default=1234)
+    run.add_argument("--thermalize", type=int, default=0)
+    run.add_argument("--measure-every", type=int, default=1)
+    run.add_argument("--n-measure", type=int, default=0,
+                     help="samples to record (0: plain --sweeps run)")
+    run.add_argument("--sweeps", type=int, default=0,
+                     help="plain sweeps to run (after any sweep plan)")
+    run.add_argument("--save", default="", help="checkpoint path to write")
+    run.add_argument("--restore", default="",
+                     help="checkpoint to resume (overrides the flags)")
+    run.add_argument("--device", default="",
+                     help="torch device, e.g. cpu (default: the CUDA card)")
+    run.set_defaults(fn=cmd_run)
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

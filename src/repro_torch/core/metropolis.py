@@ -1,0 +1,106 @@
+"""Checkerboard Metropolis with counter-based Philox, plain PyTorch.
+
+Counterpart of ``repro.core.metropolis``: two compact +-1 int8 colour
+planes, four-neighbour sums by rolls, and the Metropolis accept
+``u < exp(-2 beta nn s)``.  This module is the plain version of both
+CUDA kernels of ``repro_torch.kernels.stencil``, which must match it bit
+for bit.
+
+The accept is a lookup in a 10-entry float32 table
+(:func:`acceptance_table`), never a per-site ``exp``: ``torch.exp`` and
+the JAX package's ``jnp.exp`` round some float32 arguments differently,
+and a table computed once makes the CPU and the card agree exactly.  The
+arguments ``-2 beta nn s`` are exact in float32 (``-2 beta`` is a power-
+of-two scaling, nn in {0, +-2, +-4}, s = +-1), so a table built from the
+JAX package's ``jnp.exp`` of the same arguments reproduces its flips.
+The port's own table (float64 ``exp`` rounded once) decides flips as
+``jnp.exp`` does at most temperatures but not at all: ``jnp.exp`` is not
+correctly rounded, and where a flip-deciding entry differs by one ulp a
+run leaves the JAX trajectory.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import lattice as lat
+from . import rng
+
+#: neighbour sums nn in {-4, -2, 0, 2, 4}, spins s in {-1, +1}: table
+#: entry ``s_index * 5 + nn_index`` with s_index = (s + 1) / 2 and
+#: nn_index = (nn + 4) / 2
+TABLE_SIZE = 10
+
+#: sites per Philox chunk in the plain version: bounds its int64
+#: temporaries (about 20 live tensors of this many elements)
+_CHUNK_SITES = 1 << 22
+
+
+def acceptance_arguments(inv_temp) -> np.ndarray:
+    """The 10 float32 arguments ``-2 beta nn s`` in table order, computed
+    in float32 as the JAX package does (``beta = float32(inv_temp)``)."""
+    a = np.float32(-2.0) * np.float32(inv_temp)
+    return np.array([a * np.float32(nn) * np.float32(s)
+                     for s in (-1, 1) for nn in (-4, -2, 0, 2, 4)],
+                    dtype=np.float32)
+
+
+def acceptance_table(inv_temp) -> torch.Tensor:
+    """The 10-entry float32 acceptance table on the host: ``exp`` of
+    :func:`acceptance_arguments` in float64, rounded once to float32."""
+    args = torch.from_numpy(acceptance_arguments(inv_temp).astype(np.float64))
+    return torch.exp(args).to(torch.float32)
+
+
+def neighbor_sums(op_plane: torch.Tensor, is_black: bool) -> torch.Tensor:
+    """Four-neighbour spin sums for every target cell, in int8
+    (|sum| <= 4, so the narrow type is exact)."""
+    op = op_plane.to(torch.int8)
+    up = torch.roll(op, 1, dims=0)
+    down = torch.roll(op, -1, dims=0)
+    return up + down + op + lat.side_shift(op, is_black)
+
+
+def update_color(target, op_plane, uniforms, table, is_black: bool):
+    """One half-sweep with given uniforms: flip iff ``u < table[s, nn]``."""
+    nn = neighbor_sums(op_plane, is_black).to(torch.int64)
+    index = (target > 0).to(torch.int64) * 5 + (nn + 4) // 2
+    accept = table.to(uniforms.device)[index]
+    return torch.where(uniforms < accept, -target, target).to(target.dtype)
+
+
+def philox_uniforms(n: int, h: int, seed: int, offset: int, device):
+    """The (n, h) float32 uniforms of one half-sweep: lane 0 of Philox at
+    counter ``(offset, 0, row*h + col, 0)``, key ``seed_keys(seed)``."""
+    k0, k1 = rng.seed_keys(seed)
+    out = torch.empty((n * h,), dtype=torch.float32, device=device)
+    for s0 in range(0, n * h, _CHUNK_SITES):
+        s1 = min(n * h, s0 + _CHUNK_SITES)
+        idx = torch.arange(s0, s1, dtype=torch.int64, device=device)
+        bits = rng.philox4x32(offset, 0, idx & rng.MASK32, 0, k0, k1)[0]
+        out[s0:s1] = rng.u32_to_uniform(bits)
+    return out.reshape(n, h)
+
+
+def update_color_philox(target, op_plane, table, is_black: bool, seed: int,
+                        offset: int):
+    """One half-sweep drawing its uniforms from counter-based Philox."""
+    n, h = target.shape
+    u = philox_uniforms(n, h, seed, offset, target.device)
+    return update_color(target, op_plane, u, table, is_black)
+
+
+def run_sweeps_philox(black, white, table, n_sweeps: int, seed: int,
+                      start_offset: int = 0):
+    """``n_sweeps`` full sweeps (black, then white) at offsets
+    ``half_sweep_offset(start_offset, i, colour)``.  ``start_offset`` is
+    the cumulative half-sweep count already consumed, so a restored run
+    continues the same stream."""
+    for i in range(n_sweeps):
+        black = update_color_philox(
+            black, white, table, True, seed,
+            rng.half_sweep_offset(start_offset, i, 0))
+        white = update_color_philox(
+            white, black, table, False, seed,
+            rng.half_sweep_offset(start_offset, i, 1))
+    return black, white

@@ -1,0 +1,41 @@
+// Philox4x32-10 as one device function shared by every kernel.
+//
+// Same bits as repro_torch.core.rng.philox4x32 (and the JAX package's
+// core/rng.py): counter (c0, c1, c2, c3), key (k0, k1), the key schedule
+// adds W0/W1 before every round but the first.  __umulhi gives the high
+// half of each 32x32 product; the low half is the wrapping product.
+#pragma once
+
+#include <cstdint>
+
+namespace repro_torch {
+
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
+constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
+constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += kPhiloxW0;
+      k1 += kPhiloxW1;
+    }
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
+    const uint32_t lo0 = kPhiloxM0 * c.x;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
+    const uint32_t lo1 = kPhiloxM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// uint32 -> float32 in [0, 1]: round to nearest, then times 2^-32
+// (repro_torch.core.rng.u32_to_uniform).
+__device__ __forceinline__ float u32_to_uniform(uint32_t bits) {
+  return __uint2float_rn(bits) * 2.3283064365386963e-10f;
+}
+
+}  // namespace repro_torch

@@ -1,0 +1,109 @@
+"""``stencil_update``: one colour half-sweep, CUDA kernel and plain version.
+
+Replaces the Pallas kernel ``src/repro/kernels/stencil/stencil.py``
+(``stencil_update``), which stages row blocks i-1, i, i+1 into TPU VMEM.
+On the card (``csrc/stencil.cu``) one thread updates one target site:
+four neighbour reads in the opposite plane, one Philox4x32-10 draw at
+counter ``(offset, 0, row*h + col, 0)``, a table lookup and a select.
+It is bound by the Philox integer arithmetic, not by its 3 bytes per
+site, so the design keeps every thread independent (no shared tiles, no
+barriers) and lets the L1 cache serve the neighbour rows.  Each thread
+reads only its own target site, so the kernel updates the target plane
+in place, and so does the wrapper on every device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import metropolis, rng
+from repro_torch.kernels import _build
+
+
+def stencil_update_plain(target, op_plane, table, *, is_black: bool,
+                         seed: int, offset: int) -> torch.Tensor:
+    """The plain PyTorch version: returns the updated target plane."""
+    return metropolis.update_color_philox(target, op_plane, table, is_black,
+                                          seed, offset)
+
+
+def check_planes(*planes: torch.Tensor) -> None:
+    """Raise unless the planes are 2-D contiguous int8 tensors of one
+    shape on one device -- what the kernels take."""
+    first = planes[0]
+    for p in planes:
+        if p.dtype != torch.int8 or p.dim() != 2 or not p.is_contiguous():
+            raise ValueError(f"planes must be contiguous 2-D int8 tensors, "
+                             f"got {p.dtype} {tuple(p.shape)}")
+        if p.shape != first.shape or p.device != first.device:
+            raise ValueError(f"planes differ: {tuple(p.shape)} on {p.device}"
+                             f" vs {tuple(first.shape)} on {first.device}")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {first.device}")
+
+
+def table_arg(table: torch.Tensor):
+    """The 10-entry float32 table as a ctypes array (passed by value)."""
+    if table.numel() != metropolis.TABLE_SIZE:
+        raise ValueError(f"acceptance table needs {metropolis.TABLE_SIZE} "
+                         f"entries, got {table.numel()}")
+    values = table.to(torch.float32).flatten().tolist()
+    return (ctypes.c_float * metropolis.TABLE_SIZE)(*values)
+
+
+def raise_on_error(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def library():
+    """The compiled ``csrc/stencil.cu`` with its C signatures declared."""
+    lib = _build.load("stencil")
+    if lib.stencil_update_launch.argtypes is None:
+        u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
+        table = ctypes.POINTER(ctypes.c_float)
+        lib.cuda_error_string.argtypes = [i32]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        lib.stencil_update_launch.argtypes = [
+            ptr, ptr, i32, i32, i32, table, u32, u32, u32, ptr]
+        lib.stencil_update_launch.restype = i32
+        lib.stencil_resident_smem_bytes.argtypes = [i32, i32, i32]
+        lib.stencil_resident_smem_bytes.restype = ctypes.c_longlong
+        lib.stencil_sweeps_resident_launch.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, table, u32, u32, u32, i32, i32,
+            i32, ptr]
+        lib.stencil_sweeps_resident_launch.restype = i32
+    return lib
+
+
+def stencil_update(target, op_plane, table, *, is_black: bool, seed: int,
+                   offset: int) -> torch.Tensor:
+    """One colour half-sweep of ``target`` against ``op_plane``, in place.
+
+    ``table`` is the 10-entry float32 acceptance table
+    (``metropolis.acceptance_table``), ``seed`` a 64-bit int (both Philox
+    key lanes) and ``offset`` the uint32 Philox offset of this half-sweep.
+    CPU planes take the plain version; CUDA planes launch the kernel.
+    Returns ``target``.
+    """
+    check_planes(target, op_plane)
+    if target.device.type == "cpu":
+        return target.copy_(stencil_update_plain(
+            target, op_plane, table, is_black=is_black, seed=seed,
+            offset=offset))
+    lib = library()
+    n, h = target.shape
+    k0, k1 = rng.seed_keys(seed)
+    rc = lib.stencil_update_launch(
+        target.data_ptr(), op_plane.data_ptr(), n, h, int(is_black),
+        table_arg(table), k0, k1, int(offset) & rng.MASK32,
+        torch.cuda.current_stream(target.device).cuda_stream)
+    raise_on_error(lib, rc, "stencil_update")
+    stencil_update.launches += 1
+    return target
+
+
+#: kernel launches since the count was last set to 0
+stencil_update.launches = 0

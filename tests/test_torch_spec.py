@@ -1,0 +1,75 @@
+"""RunSpec JSON round trips between the two packages, and the specs the
+port does not run yet."""
+import json
+
+import pytest
+
+import repro.api as japi
+from repro_torch.api import spec as tspec
+
+FULL = {
+    "version": 1,
+    "lattice": {"n": 64, "m": 32, "init_p_up": 1.0},
+    "engine": {"name": "stencil_pallas", "params": {}},
+    "temperature": 2.269,
+    "seed": 2 ** 40 + 3,
+    "sweep": {"thermalize": 5, "measure_every": 2, "n_measure": 7,
+              "fields": ["m", "e"]},
+    "batch": None,
+    "mesh": None,
+}
+
+
+@pytest.mark.parametrize("sweep", [None, FULL["sweep"]])
+def test_reference_json_reads_in_port_and_back(sweep):
+    ref = japi.RunSpec.from_dict(dict(FULL, sweep=sweep))
+    port = tspec.RunSpec.from_json(ref.to_json())
+    assert port.to_json() == ref.to_json()
+    assert japi.RunSpec.from_json(port.to_json()) == ref
+
+
+def test_port_json_reads_in_reference():
+    port = tspec.RunSpec(lattice=tspec.LatticeSpec(16, 8, init_p_up=0.25),
+                         temperature=1.5, seed=2 ** 63,
+                         sweep=tspec.SweepSpec(thermalize=1, n_measure=3))
+    ref = japi.RunSpec.from_json(port.to_json())
+    assert ref.to_json() == port.to_json()
+    assert json.loads(port.to_json(indent=1)) == port.to_dict()
+
+
+def test_port_defaults_to_stencil_pallas():
+    spec = tspec.RunSpec.from_dict({"lattice": {"n": 8, "m": 8}})
+    assert spec.engine.name == "stencil_pallas"
+    assert spec.sim_config().inv_temp == 1.0 / spec.temperature
+
+
+@pytest.mark.parametrize("extra", [
+    {"batch": {"temperatures": [2.0, 2.2], "seeds": [1, 2], "grid": False}},
+    {"mesh": {"shape": [2, 1], "axis_names": ["data", "model"]}},
+])
+def test_batch_and_mesh_parse_then_raise(extra):
+    doc = json.dumps(dict(FULL, **extra))
+    japi.RunSpec.from_json(doc)  # a valid reference spec
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tspec.RunSpec.from_json(doc)
+
+
+def test_bad_batch_is_rejected_while_parsing():
+    doc = json.dumps(dict(FULL, batch={"temperatures": [], "seeds": None,
+                                       "grid": False}))
+    with pytest.raises(ValueError, match="at least one temperature"):
+        tspec.RunSpec.from_json(doc)
+
+
+@pytest.mark.parametrize("doc,match", [
+    (dict(FULL, engine={"name": "multispin", "params": {}}), "not ported"),
+    (dict(FULL, lattice={"n": 7, "m": 8}), "even"),
+    (dict(FULL, temperature=0.0), "positive"),
+    (dict(FULL, seed=2 ** 64), "uint64"),
+    (dict(FULL, colour=1), "unknown key"),
+    (dict(FULL, engine={"name": "stencil_pallas", "params": {"x": 1}}),
+     "takes no params"),
+])
+def test_invalid_specs_raise(doc, match):
+    with pytest.raises(ValueError, match=match):
+        tspec.RunSpec.from_dict(doc)

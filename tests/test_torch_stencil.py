@@ -1,0 +1,238 @@
+"""The stencil kernel pair's modules on the CPU: the plain versions
+(``repro_torch.core.metropolis``) and the wrappers against the JAX
+package's Pallas kernels (interpret mode) and its oracle, bit-exact with
+the acceptance table JAX computes; the tiled k-sweep algorithm of the
+CUDA kernel, emulated in PyTorch; and the Hopper planner."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import metropolis as jmetro
+from repro.kernels.stencil.resident import \
+    stencil_sweeps_resident as jax_resident
+from repro.kernels.stencil.stencil import stencil_update as jax_update
+from repro_torch.api import LatticeSpec, RunSpec, Session
+from repro_torch.core import metropolis, rng
+from repro_torch.kernels import resident
+from repro_torch.kernels.stencil import (stencil_sweeps_resident,
+                                         stencil_update)
+
+BETA = 1 / 1.7
+SEED = 2 ** 40 + 7
+
+
+def jax_table(beta):
+    """The table of ``jnp.exp`` over the exact float32 arguments -- the
+    values JAX's fused ``exp(-2 beta nn s)`` takes at every site."""
+    args = jnp.asarray(metropolis.acceptance_arguments(beta))
+    return torch.from_numpy(np.array(jnp.exp(args)))
+
+
+def planes(n, m, seed=0):
+    r = np.random.default_rng(seed)
+    return tuple(np.where(r.random((n, m // 2)) < 0.5, 1, -1).astype(np.int8)
+                 for _ in range(2))
+
+
+def t(a):
+    return torch.tensor(a)
+
+
+def test_acceptance_arguments_are_exact_products():
+    a = metropolis.acceptance_arguments(BETA)
+    assert a.dtype == np.float32 and a.shape == (metropolis.TABLE_SIZE,)
+    b = np.float32(-2.0) * np.float32(BETA)
+    assert a[0] == b * -4 * -1 and a[9] == b * 4 and a[2] == 0 == a[7]
+    table = metropolis.acceptance_table(BETA)
+    assert table.dtype == torch.float32 and float(table[2]) == 1.0
+
+
+@pytest.mark.parametrize("n,m", [(16, 32), (8, 12)])
+@pytest.mark.parametrize("is_black,offset", [(True, 0), (False, 5),
+                                             (True, 2 ** 32 - 1)])
+def test_update_color_philox_matches_reference(n, m, is_black, offset):
+    b, w = planes(n, m, seed=offset % 97)
+    want = jmetro.update_color_philox(jnp.asarray(b), jnp.asarray(w),
+                                      jnp.float32(BETA), is_black, SEED,
+                                      jnp.uint32(offset))
+    got = metropolis.update_color_philox(t(b), t(w), jax_table(BETA),
+                                         is_black, SEED, offset)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("start", [0, 6, 2 ** 32 - 3])
+def test_run_sweeps_philox_matches_reference(k, start):
+    b, w = planes(16, 32, seed=k)
+    want = jmetro.run_sweeps_philox(jnp.asarray(b), jnp.asarray(w),
+                                    jnp.float32(BETA), k, seed=SEED,
+                                    start_offset=jnp.uint32(start))
+    got = metropolis.run_sweeps_philox(t(b), t(w), jax_table(BETA), k, SEED,
+                                       start)
+    for x, y in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(x), y.numpy())
+
+
+@pytest.mark.parametrize("is_black,offset", [(True, 3), (False, 2 ** 32 - 2)])
+def test_stencil_update_wrapper_matches_pallas_kernel(is_black, offset):
+    b, w = planes(16, 32, seed=4)
+    want = jax_update(jnp.asarray(b), jnp.asarray(w), jnp.float32(BETA),
+                      is_black=is_black, seed=SEED, offset=offset,
+                      block_rows=8, interpret=True)
+    target = t(b)
+    before = stencil_update.launches
+    got = stencil_update(target, t(w), jax_table(BETA), is_black=is_black,
+                         seed=SEED, offset=offset)
+    assert got is target  # in place, as on the card
+    assert stencil_update.launches == before  # the CPU launches nothing
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_resident_wrapper_matches_pallas_kernel(k):
+    b, w = planes(16, 32, seed=5)
+    want = jax_resident(jnp.asarray(b), jnp.asarray(w), jnp.float32(BETA),
+                        n_sweeps=k, seed=SEED, start_offset=4,
+                        interpret=True)
+    plan = resident.plan_resident("stencil", 16, 32)
+    tb, tw = t(b), t(w)
+    before = stencil_sweeps_resident.launches
+    got = stencil_sweeps_resident(tb, tw, jax_table(BETA), n_sweeps=k,
+                                  seed=SEED, start_offset=4, plan=plan)
+    assert stencil_sweeps_resident.launches == before
+    np.testing.assert_array_equal(tb.numpy(), b)  # inputs untouched
+    for x, y in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(x), y.numpy())
+
+
+@pytest.mark.parametrize("budget_k", [4, 2, 1, None])
+@pytest.mark.parametrize("n_sweeps", [1, 3])
+def test_resident_equals_half_sweeps_both_sides_of_planner(budget_k,
+                                                           n_sweeps):
+    """The k-sweep wrapper, at each plan the budget allows (k capped at
+    MAX_SWEEPS_PER_LAUNCH; the per-half-sweep tier below the boundary),
+    equals n_sweeps x two half-sweep wrapper calls."""
+    n, m = 12, 20
+    budget = (resident.smem_bytes(n, m // 2, 1) - 1 if budget_k is None
+              else resident.smem_bytes(n, m // 2, budget_k))
+    plan = resident.plan_resident("stencil", n, m, budget_bytes=budget)
+    b, w = planes(n, m, seed=6)
+    table = metropolis.acceptance_table(BETA)
+    rb, rw = t(b), t(w)
+    for i in range(n_sweeps):
+        stencil_update(rb, rw, table, is_black=True, seed=SEED,
+                       offset=rng.half_sweep_offset(9, i, 0))
+        stencil_update(rw, rb, table, is_black=False, seed=SEED,
+                       offset=rng.half_sweep_offset(9, i, 1))
+    if budget_k is None:
+        assert plan is None
+        return
+    assert plan.k == min(budget_k, resident.MAX_SWEEPS_PER_LAUNCH)
+    got = stencil_sweeps_resident(t(b), t(w), table, n_sweeps=n_sweeps,
+                                  seed=SEED, start_offset=9, plan=plan)
+    assert torch.equal(got[0], rb) and torch.equal(got[1], rw)
+
+
+def tiled_sweeps(black, white, table, k, seed, start, tile_r, tile_c):
+    """PyTorch emulation of ``stencil_sweeps_resident_kernel``: every tile
+    plus a halo of 2k (indices wrapped modulo n and h) runs 2k
+    half-sweeps on its own, keyed on global (row, col); only the tile is
+    written back.  The extended tile's outer ring sees wrong neighbours,
+    as in the kernel."""
+    n, h = black.shape
+    halo = 2 * k
+    k0, k1 = rng.seed_keys(seed)
+    out_b, out_w = torch.empty_like(black), torch.empty_like(white)
+    for r0 in range(0, n, tile_r):
+        for c0 in range(0, h, tile_c):
+            rows = torch.arange(r0 - halo, r0 + tile_r + halo) % n
+            cols = torch.arange(c0 - halo, c0 + tile_c + halo) % h
+            ext = [black[rows][:, cols].clone(), white[rows][:, cols].clone()]
+            site = rows[:, None] * h + cols[None, :]
+            for s in range(k):
+                for color in (0, 1):
+                    tgt, op = ext[color], ext[1 - color]
+                    plus = ((rows % 2 == 1) == (color == 0))[:, None]
+                    side = torch.where(plus, torch.roll(op, -1, 1),
+                                       torch.roll(op, 1, 1))
+                    nn = (torch.roll(op, 1, 0) + torch.roll(op, -1, 0) + op
+                          + side).to(torch.int64)
+                    bits = rng.philox4x32(
+                        rng.half_sweep_offset(start, s, color), 0, site, 0,
+                        k0, k1)[0]
+                    u = rng.u32_to_uniform(bits)
+                    accept = table[(tgt > 0).to(torch.int64) * 5
+                                   + (nn + 4) // 2]
+                    ext[color] = torch.where(u < accept, -tgt, tgt)
+            rr = slice(halo, halo + min(tile_r, n - r0))
+            cc = slice(halo, halo + min(tile_c, h - c0))
+            out_b[r0:r0 + tile_r, c0:c0 + tile_c] = ext[0][rr, cc]
+            out_w[r0:r0 + tile_r, c0:c0 + tile_c] = ext[1][rr, cc]
+    return out_b, out_w
+
+
+@pytest.mark.parametrize("n,m,tile_r,tile_c,k", [
+    (16, 32, 8, 16, 1),     # tiles divide the plane
+    (12, 20, 5, 3, 2),      # ragged tiles, odd tile rows
+    (8, 8, 8, 4, 3),        # halo wider than the plane: multiple wraps
+])
+def test_tiled_k_sweeps_equal_whole_lattice_sweeps(n, m, tile_r, tile_c, k):
+    """The halo argument the CUDA k-sweep kernel rests on."""
+    b, w = planes(n, m, seed=n + k)
+    table = metropolis.acceptance_table(BETA)
+    want = metropolis.run_sweeps_philox(t(b), t(w), table, k, SEED, 2)
+    got = tiled_sweeps(t(b), t(w), table, k, SEED, 2, tile_r, tile_c)
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+
+
+def test_planner_default_and_boundary():
+    plan = resident.plan_resident("stencil", 32768, 32768)
+    assert plan.k == resident.MAX_SWEEPS_PER_LAUNCH
+    assert (plan.tile_rows, plan.tile_cols) == (resident.TILE_ROWS,
+                                                resident.TILE_COLS)
+    assert plan.smem_bytes == resident.smem_bytes(
+        resident.TILE_ROWS, resident.TILE_COLS, plan.k)
+    assert plan.smem_bytes <= resident.SMEM_BUDGET_BYTES
+    small = resident.plan_resident("stencil", 16, 12)
+    assert (small.tile_rows, small.tile_cols) == (16, 6)
+    need1 = resident.smem_bytes(16, 6, 1)
+    assert resident.plan_resident("stencil", 16, 12, need1).k == 1
+    assert resident.plan_resident("stencil", 16, 12, need1 - 1) is None
+
+
+def test_planner_reads_budget_at_call_time():
+    """The budget given when an engine is built decides its tier; the
+    default is the card's."""
+    spec = RunSpec(lattice=LatticeSpec(64, 64), seed=3)
+    assert Session.open(spec, device="cpu").engine.resident_plan.k == \
+        resident.MAX_SWEEPS_PER_LAUNCH
+    s = Session.open(spec, device="cpu", resident_budget_bytes=0)
+    assert s.engine.resident_plan is None
+    assert resident.plan_resident("stencil", 64, 64, budget_bytes=0) is None
+
+
+def test_planner_rejects_unported_family():
+    with pytest.raises(ValueError, match="ported"):
+        resident.plan_resident("multispin", 16, 16)
+
+
+def test_wrappers_validate_planes():
+    b, w = planes(8, 8)
+    table = metropolis.acceptance_table(BETA)
+    with pytest.raises(ValueError, match="int8"):
+        stencil_update(t(b).to(torch.int32), t(w), table, is_black=True,
+                       seed=1, offset=0)
+    with pytest.raises(ValueError, match="differ"):
+        stencil_update(t(b), t(w)[:4], table, is_black=True, seed=1,
+                       offset=0)
+    plan = resident.plan_resident("stencil", 16, 16)
+    with pytest.raises(ValueError, match="plan is for"):
+        stencil_sweeps_resident(t(b), t(w), table, n_sweeps=1, seed=1,
+                                start_offset=0, plan=plan)
+    plan8 = dataclasses.replace(plan, n=8, m=8)
+    with pytest.raises(ValueError, match="n_sweeps"):
+        stencil_sweeps_resident(t(b), t(w), table, n_sweeps=0, seed=1,
+                                start_offset=0, plan=plan8)
