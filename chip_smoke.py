@@ -3,32 +3,42 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises (and so exits non-zero) when it fails:
+Three kernel families, each a per-half-sweep kernel and a k-sweep
+kernel: stencil (int8 planes), multispin (8 nibble spins per uint32
+word) and bitplane (32 replicas per uint32 word).  Phases, each of which
+raises (and so exits non-zero) when it fails:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build every CUDA source of ``src/repro_torch/csrc`` with nvcc, and
-   read each kernel's SASS instruction mix with cuobjdump;
+2. build every CUDA source of ``src/repro_torch/csrc`` with nvcc (one
+   nvcc per source, started together), read each kernel's SASS
+   instruction mix with cuobjdump, and check each family's planner
+   shared memory against its library's own query;
 3. each kernel against its plain PyTorch version on the card, 0
-   mismatches required, at small shapes and at the main path's full
-   plane (32768, 16384); each kernel's time beside the plain version's,
-   and both sweep tiers' times at the full size;
-4. the Session at 512^2: the card's k-sweep tier, its per-half-sweep
-   tier (``resident_budget_bytes=0``) and the CPU plain versions give
-   one ``state_digest``, and restore-continue equals the uninterrupted
-   run;
-5. the main path at 32768^2 (2^30 spins): ``Session.open`` from an
-   ordered start at T = 2.0, ``run(200)``, ``measure()`` on the
-   planner's tier (k-sweeps); flips/ns, and |m| within 2e-3 of Onsager;
-   then the same spec on the per-half-sweep tier, whose planes must
-   equal the k-sweep tier's after the same sweeps.
+   mismatches required, at small shapes, ragged tiles, a halo wider than
+   the plane, seeds of at least 2^32, offsets near 2^31 and 2^32, and
+   the main path's full plane; each kernel's time and its plain
+   version's at the full plane, and both sweep tiers' times;
+4. the Session at 512^2 for each engine: the card's k-sweep tier, its
+   per-half-sweep tier (``resident_budget_bytes=0``) and the CPU plain
+   versions give one ``state_digest``, and restore-continue equals the
+   uninterrupted run;
+5. the main paths: ``stencil_pallas`` and ``multispin_pallas`` at
+   32768^2 (2^30 spins) from an ordered start at T = 2.0, ``run(200)``
+   and ``measure()``, |m| within 2e-3 of Onsager's value;
+   ``bitplane_pallas`` at 16384^2 x 32 replicas (2^33 replica-spins)
+   from a hot start at T = 3.0, ``run(200)`` and ``measure()``, each
+   replica's energy within 2e-3 of Onsager's exact value, each |m| below
+   0.01, no two replicas equal; flips/ns of each; then each spec on the
+   per-half-sweep tier, whose planes must equal the k-sweep tier's after
+   the same sweeps.
 
-Every Session path is driven with both kernels' launch counts set to 0
-just before it and read just after it: each path must launch the kernel
-of its tier and not the other.  The last lines are the ``kernels`` JSON
-(``launches`` from the full-size path of the kernel's tier, and every
-path's count), the peak device memory, the ``nvidia-smi`` line and the
-device JSON.  Without a CUDA device, or without the package beside this
-script, it exits non-zero and prints no result.
+Every Session path is driven with all six kernels' launch counts set to
+0 just before it and read just after it: each path must launch the
+kernel of its tier and no other.  The last lines are the ``kernels``
+JSON (``launches`` from the full-size path of the kernel's tier, and
+every path's count), the peak device memory, the ``nvidia-smi`` line and
+the device JSON.  Without a CUDA device, or without the package beside
+this script, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -46,22 +56,47 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 FULL_N = 32768
+BITPLANE_N = 16384
 SMALL_N = 512
 TEMPERATURE = 2.0
+BITPLANE_TEMPERATURE = 3.0
 SEED = 2 ** 33 + 5          # both Philox key lanes non-zero
-HALF_SWEEP_CHECK = 10       # sweeps of the full-size half-sweep-tier path
+HALF_SWEEP_CHECK = 10       # sweeps of the full-size half-sweep-tier paths
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-#: instructions per site update that no implementation avoids, by the
-#: SM pipe that executes them.  Lane 0 of Philox4x32-10 at counter
-#: (offset, 0, site, 0), key and offset the same for every site: 17
-#: 32x32 multiplies (a wide one counted once) and 17 three-input XORs,
-#: once the rounds' lanes that depend on the offset alone and the last
-#: rounds' unused lanes are taken out; then 2 three-input adds
-#: (neighbour sum, table index), 1 compare and 1 select; 1 uint32 ->
-#: float conversion.  Integer multiplies run on the FMA pipe, logic,
-#: adds and compares to the ALU pipe, conversions to the XU pipe, and
-#: the pipes run concurrently.
-PIPE_OPS_PER_SITE = {"fma": 17, "alu": 21, "xu": 1}
+#: instructions per element update that no implementation of the
+#: kernels' algorithm avoids, by the SM pipe that executes them (the
+#: pipes run concurrently).  Integer multiplies run on the FMA pipe
+#: (a wide multiply counted once), logic, adds, shifts and compares on
+#: the ALU pipe, conversions on the XU pipe.
+#: * stencil, per site: lane 0 of Philox4x32-10 at counter
+#:   (offset, 0, site, 0), key and offset the same for every site: 17
+#:   multiplies and 17 three-input XORs once the rounds' lanes that
+#:   depend on the offset alone and the last rounds' unused lanes are
+#:   taken out; 2 three-input adds (neighbour sum, table index), 1
+#:   compare, 1 select; 1 uint32 -> float conversion.
+#: * multispin, per word of 8 spins: two full Philox4x32-10 calls at
+#:   counters (2 off, 0, w, 0) and (2 off + 1, 0, w, 0): 18 multiplies
+#:   and 19 XORs each (the first round's offset product and the second
+#:   round's third lane are the same for every word), less the first
+#:   round's product of w and its XOR, which the two calls share: 35
+#:   multiplies, 37 XORs; 1 funnel shift and 2 three-input adds for the
+#:   neighbour sums; per nibble 1 index, 1 compare and 1 merge into the
+#:   flip word; 1 final XOR.
+#: * bitplane, per word of 32 replicas: a quarter of one full Philox
+#:   call (18 multiplies, 19 XORs per 4-site group); 5 three-input logic
+#:   operations of the carry-save count (sum and carry of up, down and
+#:   centre, then the count's three bits with the side word); per class
+#:   (10) 1 compare and 1 select to a 0 / ~0 accept mask; a tree of 9
+#:   three-input muxes: for each spin, the 5 masks of its classes by the
+#:   count's bit 0, bit 1 and bit 2 (4 muxes; count 4 has bits 0 and 1
+#:   clear), then the new word as t ? ~a1 : a0, the flip's XOR folded
+#:   into the last mux.
+PIPE_OPS = {
+    "stencil": {"fma": 17, "alu": 21, "xu": 1},
+    "multispin": {"fma": 2 * 18 - 1, "alu": 2 * 19 - 1 + 3 + 8 * 3 + 1,
+                  "xu": 0},
+    "bitplane": {"fma": 18 / 4, "alu": 19 / 4 + 5 + 10 * 2 + 9, "xu": 0},
+}
 #: results per clock per SM on compute capability 9.0 (CUDA C++
 #: Programming Guide, arithmetic instruction throughput): 32-bit integer
 #: multiply 64, add, logic and compare 64, type conversions 16
@@ -78,6 +113,24 @@ SASS_PIPES = {
     "xu": ("I2F", "F2I", "F2F", "MUFU"),
     "lsu": ("LDG", "STG", "LDS", "STS", "LD", "ST", "LDL", "STL"),
 }
+#: the six kernels: family, tier, TPU kernel replaced
+KERNELS = {
+    "stencil_update": ("stencil", "half-sweep",
+                       "src/repro/kernels/stencil/stencil.py:76"),
+    "stencil_sweeps_resident": ("stencil", "k-sweep",
+                                "src/repro/kernels/stencil/resident.py:91"),
+    "multispin_update": ("multispin", "half-sweep",
+                         "src/repro/kernels/multispin/multispin.py:87"),
+    "multispin_sweeps_resident": (
+        "multispin", "k-sweep", "src/repro/kernels/multispin/resident.py:103"),
+    "bitplane_update": ("bitplane", "half-sweep",
+                        "src/repro/kernels/bitplane/bitplane.py:72"),
+    "bitplane_sweeps_resident": (
+        "bitplane", "k-sweep", "src/repro/kernels/bitplane/resident.py:91"),
+}
+ENGINE_FAMILY = {"stencil_pallas": "stencil",
+                 "multispin_pallas": "multispin",
+                 "bitplane_pallas": "bitplane"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -92,33 +145,18 @@ def nvidia_smi(query: str) -> str:
     return out.strip().splitlines()[0]
 
 
-def timed_ms(torch, fn, reps: int, warmup: bool = True) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` calls, CUDA events,
-    after one untimed call unless ``warmup`` is false."""
-    if warmup:
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def clocks_per_site() -> float:
-    """SM clocks per site update at the busiest pipe, or at the
+def clocks_per_element(family: str) -> float:
+    """SM clocks per element update at the busiest pipe, or at the
     dispatch rate where that is lower."""
-    pipes = max(PIPE_OPS_PER_SITE[p] / PIPE_PER_CLOCK_PER_SM[p]
-                for p in PIPE_OPS_PER_SITE)
-    return max(pipes, sum(PIPE_OPS_PER_SITE.values())
-               / DISPATCH_PER_CLOCK_PER_SM)
+    ops = PIPE_OPS[family]
+    pipes = max(ops[p] / PIPE_PER_CLOCK_PER_SM[p] for p in ops)
+    return max(pipes, sum(ops.values()) / DISPATCH_PER_CLOCK_PER_SM)
 
 
-def bound(bytes_moved: float, site_updates: float, sm_clocks_per_s: float):
+def bound(family: str, bytes_moved: float, updates: float,
+          sm_clocks_per_s: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = site_updates * clocks_per_site() / sm_clocks_per_s
+    t_ops = updates * clocks_per_element(family) / sm_clocks_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -141,11 +179,21 @@ def sass_mix(compiler: str, library_path) -> dict:
     return mix
 
 
-def random_planes(torch, n: int, h: int, seed: int):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    return tuple((torch.randint(0, 2, (n, h), generator=g, device="cuda",
-                                dtype=torch.int8) * 2 - 1)
-                 for _ in range(2))
+def replica_disagreements(torch, words) -> "torch.Tensor":
+    """(31, 32) int64: entry [d-1, r] counts the sites where replica r
+    and replica (r + d) % 32 differ, summed over the given word planes."""
+    from repro_torch.core import bitplane, lattice
+    out = []
+    for d in range(1, 32):
+        total = 0
+        for w in words:
+            u = lattice.words_to_u32(w)
+            rot = ((u >> d) | (u << (32 - d))) & 0xFFFFFFFF
+            total = total + bitplane.bit_counts(
+                lattice.u32_to_words(u ^ rot))
+            del u, rot
+        out.append(total)
+    return torch.stack(out)
 
 
 def main() -> int:
@@ -158,14 +206,21 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from repro_torch.api import LatticeSpec, RunSpec, Session, SweepSpec
-    from repro_torch.core import metropolis, observables
+    import importlib
+
+    from repro_torch.api import (EngineSpec, LatticeSpec, RunSpec, Session,
+                                 SweepSpec)
+    from repro_torch.core import metropolis, multispin, observables
+    from repro_torch.analysis.tune_resident import random_planes, timed_ms
     from repro_torch.kernels import _build, resident
-    from repro_torch.kernels.stencil import (stencil_sweeps_resident,
-                                             stencil_sweeps_resident_plain,
-                                             stencil_update,
-                                             stencil_update_plain)
-    from repro_torch.kernels.stencil.stencil import library
+
+    t_start = time.perf_counter()
+    phase_s = {}
+    wrappers, plains = {}, {}
+    for name, (family, _, _) in KERNELS.items():
+        pkg = importlib.import_module(f"repro_torch.kernels.{family}")
+        wrappers[name] = getattr(pkg, name)
+        plains[name] = getattr(pkg, f"{name}_plain")
 
     # -- 1. card -------------------------------------------------------------
     card_line = nvidia_smi("name,power.limit")
@@ -175,10 +230,12 @@ def main() -> int:
     print(f"phase 1: card {card_line}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}; "
           f"{props.multi_processor_count} SMs at max {max_sm_mhz:.0f} MHz; "
-          f"bound: {clocks_per_site():.6f} SM clocks per site update "
-          f"(ops per site by pipe {PIPE_OPS_PER_SITE})")
+          "bound: SM clocks per element update " + ", ".join(
+              f"{f} {clocks_per_element(f):.6f} (ops by pipe {PIPE_OPS[f]})"
+              for f in PIPE_OPS))
 
     # -- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
     builds = _build.build()
     for b in builds.values():
         print(f"phase 2: built csrc/{b.name}.cu in {b.seconds:.2f} s")
@@ -186,24 +243,35 @@ def main() -> int:
             print(f"  ptxas {line}")
         for kernel, mix in sass_mix(_build.nvcc(), b.path).items():
             print(f"  SASS {kernel}: {mix}")
-    lib = library()
-    for k in (1, 4, 8):
-        check(lib.stencil_resident_smem_bytes(128, 256, k)
-              == resident.smem_bytes(128, 256, k),
-              "planner and kernel disagree on shared memory")
+    for family in ("stencil", "multispin", "bitplane"):
+        lib = importlib.import_module(
+            f"repro_torch.kernels.{family}.{family}").library()
+        query = getattr(lib, f"{family}_resident_smem_bytes")
+        g = resident.GEOMETRY[family]
+        for tr, tc, k in ((g.tile_rows, g.tile_cols, g.max_k), (128, 256, 1),
+                          (7, 8, 3)):
+            check(query(tr, tc, k) == resident.smem_bytes(tr, tc, k, family),
+                  f"{family} planner and kernel disagree on shared memory")
+    phase_s[2] = time.perf_counter() - t0
 
     # -- 3. kernels against their plain versions -----------------------------
-    h_full = FULL_N // 2
-    table = metropolis.acceptance_table(1.0 / TEMPERATURE)
-    stats = {"stencil_update": [0, 0, 0, 0.0],     # cases, mismatches,
-             "stencil_sweeps_resident": [0, 0, 0, 0.0]}  # max err, plain ms
+    t0 = time.perf_counter()
+    full_plane = {"stencil": (FULL_N, FULL_N // 2),
+                  "multispin": (FULL_N, FULL_N // 16),
+                  "bitplane": (BITPLANE_N, BITPLANE_N // 2)}
+    tables = {"stencil": metropolis.acceptance_table(1.0 / TEMPERATURE),
+              "multispin": multispin.acceptance_thresholds(1.0 / TEMPERATURE),
+              "bitplane": multispin.acceptance_thresholds(
+                  1.0 / BITPLANE_TEMPERATURE)}
+    # cases, mismatches, max abs err, plain ms at the full plane
+    stats = {name: [0, 0, 0, 0.0] for name in KERNELS}
 
     def compare(name, got, want, plain_ms=None):
         s = stats[name]
         for a, b in zip(got, want):
             s[0] += 1
             s[1] += int((a != b).sum())
-            s[2] = max(s[2], int((a.to(torch.int32) - b.to(torch.int32))
+            s[2] = max(s[2], int((a.to(torch.int64) - b.to(torch.int64))
                                  .abs().max()))
         if plain_ms is not None:
             s[3] = plain_ms
@@ -217,74 +285,97 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
 
-    for (n, h), cases in (
-            ((SMALL_N, SMALL_N // 2), [(True, 0, SEED), (False, 7, SEED),
-                                       (True, 2 ** 32 - 1, 12345),
-                                       (False, 2 ** 32 - 2, 2 ** 40 + 11)]),
-            ((FULL_N, h_full), [(True, 2, SEED), (False, 2 ** 32 - 1, SEED)])):
-        for is_black, offset, seed in cases:
-            target, op = random_planes(torch, n, h, offset + n)
-            want, plain_ms = plain_timed(lambda: stencil_update_plain(
-                target, op, table, is_black=is_black, seed=seed,
-                offset=offset))
-            got = stencil_update(target.clone(), op, table,
-                                 is_black=is_black, seed=seed, offset=offset)
+    kernel_ms, plans = {}, {}
+    for family, (fn, fh) in full_plane.items():
+        update = f"{family}_update"
+        sweeps = f"{family}_sweeps_resident"
+        table = tables[family]
+        small_h = SMALL_N * fh // fn
+        ragged_h = 12 if family == "bitplane" else 7
+        for (n, h), cases in (
+                ((SMALL_N, small_h), [(True, 0, SEED), (False, 7, SEED),
+                                      (True, 2 ** 31 - 1, 12345),
+                                      (False, 2 ** 31, 2 ** 40 + 11),
+                                      (True, 2 ** 32 - 1, 2 ** 35 + 1)]),
+                ((30, ragged_h), [(False, 2 ** 32 - 2, SEED)]),
+                ((fn, fh), [(True, 2, SEED), (False, 2 ** 32 - 1, SEED)])):
+            for is_black, offset, seed in cases:
+                target, op = random_planes(family, n, h, offset + n)
+                want, plain_ms = plain_timed(lambda: plains[update](
+                    target, op, table, is_black=is_black, seed=seed,
+                    offset=offset))
+                got = wrappers[update](target.clone(), op, table,
+                                       is_black=is_black, seed=seed,
+                                       offset=offset)
+                torch.cuda.synchronize()
+                compare(update, [got], [want], plain_ms if n == fn else None)
+                del target, op, want, got
+
+        small_plan = resident.plan_resident(family, SMALL_N, SMALL_N)
+        full_plan = plans[family] = resident.plan_resident(family, fn, fn)
+        check(small_plan is not None and full_plan is not None,
+              f"{family}: no k-sweep plan at the default budget")
+        col_unit = resident.GEOMETRY[family].col_align
+        ragged = dataclasses.replace(small_plan, k=2, tile_rows=48,
+                                     tile_cols=10 * col_unit)
+        wide = dataclasses.replace(
+            resident.plan_resident(
+                family, 30, ragged_h * resident.GEOMETRY[family].col_divisor),
+            k=3, tile_rows=7, tile_cols=2 * col_unit)
+        for (n, h, plan, n_sweeps, start, seed) in (
+                (SMALL_N, small_h, dataclasses.replace(small_plan, k=1), 1, 0,
+                 SEED),
+                (SMALL_N, small_h, dataclasses.replace(small_plan, k=3), 3,
+                 2 ** 32 - 3, 2 ** 40 + 11),
+                (SMALL_N, small_h, ragged, 5, 2 ** 31 - 2, SEED),
+                (30, ragged_h, wide, 3, 10, SEED),
+                (fn, fh, full_plan, full_plan.k, 6, SEED)):
+            b, w = random_planes(family, n, h, n_sweeps + n)
+            want, plain_ms = plain_timed(lambda: plains[sweeps](
+                b, w, table, n_sweeps=n_sweeps, seed=seed,
+                start_offset=start))
+            got = wrappers[sweeps](b, w, table, n_sweeps=n_sweeps, seed=seed,
+                                   start_offset=start, plan=plan)
             torch.cuda.synchronize()
-            compare("stencil_update", [got], [want],
-                    plain_ms if n == FULL_N else None)
+            compare(sweeps, got, want, plain_ms if n == fn else None)
+            del b, w, want, got
+        for name in (update, sweeps):
+            cases, bad, err, _ = stats[name]
+            print(f"phase 3: {name}: {cases} plane comparisons with the "
+                  f"plain version, {bad} mismatches, max abs err {err}")
+            check(bad == 0, f"{name} disagrees with its plain version")
 
-    small_plan = resident.plan_resident("stencil", SMALL_N, SMALL_N)
-    full_plan = resident.plan_resident("stencil", FULL_N, FULL_N)
-    check(small_plan is not None and full_plan is not None,
-          "planner gave no k-sweep plan at the default budget")
-    ragged = dataclasses.replace(small_plan, k=2, tile_rows=96,
-                                 tile_cols=80)
-    for (n, plan, n_sweeps, start) in (
-            (SMALL_N, dataclasses.replace(small_plan, k=1), 1, 0),
-            (SMALL_N, dataclasses.replace(small_plan, k=3), 3, 2 ** 32 - 3),
-            (SMALL_N, ragged, 5, 10),
-            (FULL_N, full_plan, full_plan.k, 6)):
-        b, w = random_planes(torch, n, n // 2, n_sweeps + n)
-        want, plain_ms = plain_timed(lambda: stencil_sweeps_resident_plain(
-            b, w, table, n_sweeps=n_sweeps, seed=SEED, start_offset=start))
-        got = stencil_sweeps_resident(b, w, table, n_sweeps=n_sweeps,
-                                      seed=SEED, start_offset=start,
-                                      plan=plan)
-        torch.cuda.synchronize()
-        compare("stencil_sweeps_resident", got, want,
-                plain_ms if n == FULL_N else None)
-    for name, (cases, bad, err, _) in stats.items():
-        print(f"phase 3: {name}: {cases} plane comparisons with the plain "
-              f"version, {bad} mismatches, max abs err {err}")
-        check(bad == 0, f"{name} disagrees with its plain version")
+        b, w = random_planes(family, fn, fh, 1)
+        kernel_ms[update] = timed_ms(lambda: wrappers[update](
+            b, w, table, is_black=True, seed=SEED, offset=0), reps=20)
+        kernel_ms[sweeps] = timed_ms(lambda: wrappers[sweeps](
+            b, w, table, n_sweeps=full_plan.k, seed=SEED, start_offset=0,
+            plan=full_plan), reps=max(2, 16 // full_plan.k))
+        print(f"phase 3: {family}: ms per full sweep of a {fn}^2 lattice: "
+              f"k-sweep tier {kernel_ms[sweeps] / full_plan.k:.4f} (k = "
+              f"{full_plan.k}, tile {full_plan.tile_rows} x "
+              f"{full_plan.tile_cols}, threads {full_plan.threads}), "
+              f"half-sweep tier {2 * kernel_ms[update]:.4f}")
+        del b, w
+    phase_s[3] = time.perf_counter() - t0
 
-    b, w = random_planes(torch, FULL_N, h_full, 1)
-    update_ms = timed_ms(torch, lambda: stencil_update(
-        b, w, table, is_black=True, seed=SEED, offset=0), reps=20)
-    tier_ms = {"half-sweep": 2 * update_ms}
-    resident_ms = {}
-    for k in (1, 2, 4, 8):
-        plan_k = dataclasses.replace(full_plan, k=k)
-        resident_ms[k] = timed_ms(torch, lambda: stencil_sweeps_resident(
-            b, w, table, n_sweeps=k, seed=SEED, start_offset=0,
-            plan=plan_k), reps=max(2, 16 // k))
-        tier_ms[f"k-sweep k={k}"] = resident_ms[k] / k
-    print(f"phase 3: ms per full sweep of {FULL_N}^2 by tier: " + ", ".join(
-        f"{t} {ms:.4f}" for t, ms in tier_ms.items()))
-    del b, w
-
-    sites = FULL_N * h_full
-    update_bound = bound(3 * sites, sites, sm_clocks_per_s)
-    res_bound = bound(4 * sites, 2 * full_plan.k * sites, sm_clocks_per_s)
+    # bounds at the full plane: bytes of each input read once and each
+    # output written once; the k-sweep kernels' useful half-sweeps only
+    bounds = {}
+    for family, (fn, fh) in full_plane.items():
+        elements = fn * fh
+        size = 1 if family == "stencil" else 4
+        bounds[f"{family}_update"] = bound(family, 3 * size * elements,
+                                           elements, sm_clocks_per_s)
+        bounds[f"{family}_sweeps_resident"] = bound(
+            family, 4 * size * elements, 2 * plans[family].k * elements,
+            sm_clocks_per_s)
 
     # -- 4. Session at 512^2, both tiers and the CPU -----------------------
-    wrappers = {"stencil_update": stencil_update,
-                "stencil_sweeps_resident": stencil_sweeps_resident}
-    tier_kernel = {"k-sweep": "stencil_sweeps_resident",
-                   "half-sweep": "stencil_update"}
+    t0 = time.perf_counter()
     launches_by_path = {}
 
-    def drive(path, tier, fn):
+    def drive(path, family, tier, fn):
         """Run one Session path with every launch count set to 0 just
         before it and read just after it; the path must launch the
         kernel of its tier and no other."""
@@ -297,138 +388,171 @@ def main() -> int:
         launches_by_path[path] = counts
         print(f"launches on path {path!r}: {counts}")
         for name, count in counts.items():
-            check((count > 0) == (name == tier_kernel[tier]),
+            check((count > 0) == (KERNELS[name][:2] == (family, tier)),
                   f"path {path!r} launched {name} {count} times")
         return out
 
     def budget(tier):
         return 0 if tier == "half-sweep" else None
 
-    small = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N, init_p_up=0.5),
-                    temperature=2.2, seed=SEED)
-    s = Session.open(small, device="cpu")
-    s.run(50)
-    digests = {"cpu": s.state_digest()}
-    for tier in ("k-sweep", "half-sweep"):
-        def small_run():
-            s = Session.open(small, resident_budget_bytes=budget(tier))
-            check((s.engine.resident_plan is not None) == (tier == "k-sweep"),
-                  f"{SMALL_N}^2 did not plan the {tier} tier")
-            s.run(50)
-            return s
-        digests[tier] = drive(f"{SMALL_N}^2 {tier}", tier,
-                              small_run).state_digest()
-    print(f"phase 4: {SMALL_N}^2, 50 sweeps, digests {digests}")
-    check(len(set(digests.values())) == 1, "tiers disagree")
+    for engine, family in ENGINE_FAMILY.items():
+        small = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N, init_p_up=0.5),
+                        engine=EngineSpec(engine), temperature=2.2,
+                        seed=SEED)
+        s = Session.open(small, device="cpu")
+        s.run(50)
+        digests = {"cpu": s.state_digest()}
+        for tier in ("k-sweep", "half-sweep"):
+            def small_run():
+                s = Session.open(small, resident_budget_bytes=budget(tier))
+                check((s.engine.resident_plan is not None)
+                      == (tier == "k-sweep"),
+                      f"{engine} {SMALL_N}^2 did not plan the {tier} tier")
+                s.run(50)
+                return s
+            digests[tier] = drive(f"{engine} {SMALL_N}^2 {tier}", family,
+                                  tier, small_run).state_digest()
+        print(f"phase 4: {engine} {SMALL_N}^2, 50 sweeps, digests {digests}")
+        check(len(set(digests.values())) == 1, f"{engine}: tiers disagree")
 
-    def restore_continue():
-        s = Session.open(small)
-        s.run(20)
-        with tempfile.TemporaryDirectory() as tmp:
-            ckpt = str(Path(tmp) / "ckpt.npz")
-            s.save(ckpt)
-            r = Session.restore(ckpt)
-        plan = SweepSpec(measure_every=3, n_measure=4).plan()
-        s.run(30)
-        r.run(30)
-        return s, s.measure(plan), r, r.measure(plan)
+        def restore_continue():
+            s = Session.open(small)
+            s.run(20)
+            with tempfile.TemporaryDirectory() as tmp:
+                ckpt = str(Path(tmp) / "ckpt.npz")
+                s.save(ckpt)
+                r = Session.restore(ckpt)
+            plan = SweepSpec(measure_every=3, n_measure=4).plan()
+            s.run(30)
+            r.run(30)
+            return s, s.measure(plan), r, r.measure(plan)
 
-    s, traj, r, traj_r = drive(f"{SMALL_N}^2 save, restore, measure",
-                               "k-sweep", restore_continue)
-    print(f"phase 4: restore-continue digest {r.state_digest()}, "
-          f"uninterrupted {s.state_digest()}")
-    check(r.state_digest() == s.state_digest()
-          and all((traj[k] == traj_r[k]).all() for k in traj),
-          "restore-continue differs from the uninterrupted run")
+        s, traj, r, traj_r = drive(f"{engine} {SMALL_N}^2 save, restore, "
+                                   f"measure", family, "k-sweep",
+                                   restore_continue)
+        print(f"phase 4: {engine} restore-continue digest "
+              f"{r.state_digest()}, uninterrupted {s.state_digest()}")
+        check(r.state_digest() == s.state_digest()
+              and all((traj[k] == traj_r[k]).all() for k in traj),
+              f"{engine}: restore-continue differs from the uninterrupted "
+              f"run")
+    phase_s[4] = time.perf_counter() - t0
 
-    # -- 5. main path at full size, on each tier -----------------------------
-    torch.cuda.reset_peak_memory_stats()
-    spec = RunSpec(lattice=LatticeSpec(FULL_N, FULL_N, init_p_up=1.0),
-                   temperature=TEMPERATURE, seed=SEED,
-                   sweep=SweepSpec(thermalize=0, measure_every=10,
-                                   n_measure=10))
-    main_path = f"{FULL_N}^2 k-sweep"
-    half_path = f"{FULL_N}^2 half-sweep"
+    # -- 5. main paths at full size, on each tier ----------------------------
+    t0 = time.perf_counter()
+    main_paths, half_paths, peaks = {}, {}, {}
+    for engine, family in ENGINE_FAMILY.items():
+        bitplane = family == "bitplane"
+        n = BITPLANE_N if bitplane else FULL_N
+        temperature = BITPLANE_TEMPERATURE if bitplane else TEMPERATURE
+        # 32 replica lattices per word: replicas that start equal stay
+        # equal (shared draws), so the bitplane run starts hot
+        spec = RunSpec(lattice=LatticeSpec(n, n,
+                                           init_p_up=0.5 if bitplane else 1.0),
+                       engine=EngineSpec(engine), temperature=temperature,
+                       seed=SEED,
+                       sweep=SweepSpec(thermalize=0, measure_every=10,
+                                       n_measure=10))
+        main_path = main_paths[family] = f"{engine} {n}^2 k-sweep"
+        half_path = half_paths[family] = f"{engine} {n}^2 half-sweep"
+        spins = n * n * (32 if bitplane else 1)
 
-    def main_run():
-        t0 = time.perf_counter()
-        session = Session.open(spec)
+        def main_run():
+            t1 = time.perf_counter()
+            session = Session.open(spec)
+            torch.cuda.synchronize()
+            open_s = time.perf_counter() - t1
+            run_ms = timed_ms(lambda: session.run(200), reps=1,
+                              warmup=False)
+            t1 = time.perf_counter()
+            traj = session.measure()
+            return session, open_s, run_ms, traj, time.perf_counter() - t1
+
+        torch.cuda.reset_peak_memory_stats()
+        session, open_s, run_ms, traj, measure_s = drive(
+            main_path, family, "k-sweep", main_run)
+        flips_per_ns = 200 * spins / (run_ms * 1e6)
+        plan = session.engine.resident_plan
+        print(f"phase 5: {main_path}: open {open_s:.2f} s; run(200) "
+              f"{run_ms:.1f} ms = {flips_per_ns:.2f} flips/ns (k = {plan.k},"
+              f" tile {plan.tile_rows} x {plan.tile_cols}); measure() "
+              f"{spec.sweep.total_sweeps} sweeps + {spec.sweep.n_measure} "
+              f"samples {measure_s:.3f} s")
+        if bitplane:
+            obs = session.engine.observables(session.state,
+                                             session.engine.cfg.inv_temp)
+            m, e = obs["m"].cpu(), obs["e"].cpu()
+            exact = observables.onsager_energy(temperature)
+            diffs = replica_disagreements(torch, session.state)
+            print(f"phase 5: {main_path}: per-replica e in "
+                  f"[{float(e.min()):.5f}, {float(e.max()):.5f}] (exact "
+                  f"{exact:.5f}), max |m| {float(m.abs().max()):.5f}, "
+                  f"fewest sites where two replicas differ "
+                  f"{int(diffs.min())}; last sample mean e "
+                  f"{float(traj['e'][-1].mean()):.5f}")
+            check(bool(((e - exact).abs() < 2e-3).all()),
+                  "a replica's energy is not within 2e-3 of Onsager's")
+            check(bool((m.abs() < 0.01).all()), "a replica's |m| >= 0.01")
+            check(int(diffs.min()) > 0, "two replicas are equal")
+            del diffs
+        else:
+            m = abs(session.magnetization())
+            onsager = observables.onsager_magnetization(temperature)
+            print(f"phase 5: {main_path}: |m| {m:.5f} (Onsager "
+                  f"{onsager:.5f}), e {session.energy():.5f}, last sample "
+                  f"m {float(traj['m'][-1]):.5f}")
+            check(abs(m - onsager) < 2e-3,
+                  f"{engine}: |m| is not within 2e-3 of Onsager")
+        peaks[main_path] = torch.cuda.max_memory_allocated()
+        del session
+
+        def half_run():
+            session = Session.open(spec, resident_budget_bytes=0)
+            check(session.engine.resident_plan is None,
+                  "budget 0 still planned k-sweeps")
+            ms = timed_ms(lambda: session.run(HALF_SWEEP_CHECK),
+                          reps=1, warmup=False)
+            return session, ms
+
+        half, half_ms = drive(half_path, family, "half-sweep", half_run)
+        ref = Session.open(spec)
+        ref.run(HALF_SWEEP_CHECK)
         torch.cuda.synchronize()
-        open_s = time.perf_counter() - t0
-        run_ms = timed_ms(torch, lambda: session.run(200), reps=1,
-                          warmup=False)
-        t0 = time.perf_counter()
-        traj = session.measure()
-        return session, open_s, run_ms, traj, time.perf_counter() - t0
-
-    session, open_s, run_ms, traj, measure_s = drive(main_path, "k-sweep",
-                                                     main_run)
-    flips_per_ns = 200 * FULL_N * FULL_N / (run_ms * 1e6)
-    m = abs(session.magnetization())
-    e = session.energy()
-    onsager = observables.onsager_magnetization(TEMPERATURE)
-    plan = session.engine.resident_plan
-    print(f"phase 5: {main_path}: open {open_s:.2f} s; run(200) "
-          f"{run_ms:.1f} ms = {flips_per_ns:.2f} flips/ns (k = {plan.k}); "
-          f"measure() {spec.sweep.total_sweeps} sweeps + "
-          f"{spec.sweep.n_measure} samples {measure_s:.3f} s; |m| {m:.5f} "
-          f"(Onsager {onsager:.5f}), e {e:.5f}, last sample m "
-          f"{float(traj['m'][-1]):.5f}")
-    check(abs(m - onsager) < 2e-3, "|m| is not within 2e-3 of Onsager")
-    peak = torch.cuda.max_memory_allocated()
-    del session
-
-    def half_run():
-        session = Session.open(spec, resident_budget_bytes=0)
-        check(session.engine.resident_plan is None,
-              "budget 0 still planned k-sweeps")
-        ms = timed_ms(torch, lambda: session.run(HALF_SWEEP_CHECK), reps=1,
-                      warmup=False)
-        return session, ms
-
-    half, half_ms = drive(half_path, "half-sweep", half_run)
-    ref = Session.open(spec)
-    ref.run(HALF_SWEEP_CHECK)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(half.state, ref.state))
-    print(f"phase 5: {half_path}: run({HALF_SWEEP_CHECK}) {half_ms:.1f} ms "
-          f"= {HALF_SWEEP_CHECK * FULL_N * FULL_N / (half_ms * 1e6):.2f} "
-          f"flips/ns; planes equal to the k-sweep tier's: {same}")
-    check(same, "the tiers' planes differ at full size")
-    del half, ref
+        same = all(torch.equal(a, b) for a, b in zip(half.state, ref.state))
+        print(f"phase 5: {half_path}: run({HALF_SWEEP_CHECK}) {half_ms:.1f} "
+              f"ms = {HALF_SWEEP_CHECK * spins / (half_ms * 1e6):.2f} "
+              f"flips/ns; planes equal to the k-sweep tier's: {same}")
+        check(same, f"{engine}: the tiers' planes differ at full size")
+        del half, ref
+    phase_s[5] = time.perf_counter() - t0
 
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}
 
-    kernels = [
-        {"name": "stencil_update", "route": "cuda",
-         "source": "src/repro_torch/csrc/stencil.cu",
-         "replaces": "src/repro/kernels/stencil/stencil.py:76",
-         "launches": launches_by_path[half_path]["stencil_update"],
-         "launches_path": half_path,
-         "launches_by_path": by_path("stencil_update"),
-         "mismatches": stats["stencil_update"][1],
-         "max_abs_err": float(stats["stencil_update"][2]),
-         "shape": [FULL_N, h_full], "ms": update_ms,
-         "plain_ms": stats["stencil_update"][3],
-         "bound_ms": update_bound[0], "bound_by": update_bound[1],
-         "library_ms": None},
-        {"name": "stencil_sweeps_resident", "route": "cuda",
-         "source": "src/repro_torch/csrc/stencil.cu",
-         "replaces": "src/repro/kernels/stencil/resident.py:91",
-         "launches": launches_by_path[main_path]["stencil_sweeps_resident"],
-         "launches_path": main_path,
-         "launches_by_path": by_path("stencil_sweeps_resident"),
-         "mismatches": stats["stencil_sweeps_resident"][1],
-         "max_abs_err": float(stats["stencil_sweeps_resident"][2]),
-         "shape": [FULL_N, h_full], "n_sweeps": full_plan.k,
-         "ms": resident_ms[full_plan.k],
-         "plain_ms": stats["stencil_sweeps_resident"][3],
-         "bound_ms": res_bound[0], "bound_by": res_bound[1],
-         "library_ms": None},
-    ]
+    kernels = []
+    for name, (family, tier, replaces) in KERNELS.items():
+        path = (main_paths if tier == "k-sweep" else half_paths)[family]
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/csrc/{family}.cu",
+                 "replaces": replaces,
+                 "launches": launches_by_path[path][name],
+                 "launches_path": path,
+                 "launches_by_path": by_path(name),
+                 "mismatches": stats[name][1],
+                 "max_abs_err": float(stats[name][2]),
+                 "shape": list(full_plane[family]),
+                 "ms": kernel_ms[name], "plain_ms": stats[name][3],
+                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                 "library_ms": None}
+        if tier == "k-sweep":
+            entry["n_sweeps"] = plans[family].k
+        kernels.append(entry)
+    print("phase seconds: " + ", ".join(
+        f"{p} {s:.1f}" for p, s in sorted(phase_s.items()))
+        + f"; total {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
-    print(f"peak device memory of the {main_path} path: {peak} B")
+    print("peak device memory by main path: " + ", ".join(
+        f"{p} {b} B" for p, b in peaks.items()))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

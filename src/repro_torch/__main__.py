@@ -4,6 +4,10 @@
     python -m repro_torch run --n 1024 --init-p-up 1.0 --temperature 2.0 \\
         --sweeps 200 --n-measure 10 --measure-every 5 --save ck.npz
 
+    # 32 replicas of 512^2 in bitplane words, hot start at T=3.0
+    python -m repro_torch run --engine bitplane_pallas --n 512 \\
+        --temperature 3.0 --sweeps 200
+
     # resume a checkpoint written by this package or by ``python -m repro``
     python -m repro_torch run --restore ck.npz --sweeps 100
 
@@ -64,7 +68,7 @@ def cmd_run(args) -> int:
         mag = session.magnetization()  # waits for the device
         dt = time.perf_counter() - t0
         print(f"ran {args.sweeps} sweeps in {dt:.2f}s on {session.device}; "
-              f"|m| = {abs(mag):.4f}")
+              f"|m| = {abs(mag):.4f}")  # bitplane: |mean over replicas|
         did = True
     if not did:
         print("nothing to do: no --n-measure and --sweeps is 0",
@@ -88,7 +92,9 @@ def main(argv=None) -> int:
     run.add_argument("--m", type=int, default=0,
                      help="lattice cols (default: --n)")
     run.add_argument("--init-p-up", type=float, default=0.5)
-    run.add_argument("--engine", default="stencil_pallas")
+    from repro_torch.core.engine import ENGINES
+    run.add_argument("--engine", default="stencil_pallas",
+                     choices=sorted(ENGINES))
     run.add_argument("--temperature", type=float, default=2.0)
     run.add_argument("--seed", type=int, default=1234)
     run.add_argument("--thermalize", type=int, default=0)

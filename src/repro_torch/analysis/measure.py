@@ -44,7 +44,9 @@ def measure_scan(engine, state, plan: MeasurementPlan, step_count: int = 0):
     """Run ``plan`` from ``state`` at cumulative sweep ``step_count``.
 
     Returns ``(final_state, {field: (n_measure,) float32 ndarray},
-    new_step_count)``.
+    new_step_count)``; an engine whose observables are per-replica
+    vectors (bitplane) gives ``(n_measure, 32)`` trajectories, as in the
+    JAX package.
     """
     missing = set(plan.fields) - set(engine.observable_fields)
     if missing:

@@ -1,0 +1,139 @@
+"""Time the k-sweep kernels' tile, k and block-size candidates on the card.
+
+    PYTHONPATH=src python -m repro_torch.analysis.tune_resident [--family F]
+
+For each kernel family, at the plane of its full-size main path in
+``chip_smoke.py`` (stencil and multispin 32768^2, bitplane 16384^2),
+prints the milliseconds per full sweep of the per-half-sweep tier and of
+the k-sweep kernel at each candidate (tile rows, tile columns, k,
+threads) that fits one block's shared memory: CUDA events, after one
+untimed call, every kernel built before the first is timed.  These are
+the measurements behind ``repro_torch.kernels.resident.GEOMETRY``.  The
+last two lines are the card's name and power limit and one JSON object
+of every time.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib
+import json
+import subprocess
+import sys
+
+import torch
+
+from repro_torch.core import metropolis, multispin
+from repro_torch.kernels import _build, resident
+
+FAMILIES = ("stencil", "multispin", "bitplane")
+#: the plane of each family's full-size main path in ``chip_smoke.py``
+FULL_PLANE = {"stencil": (32768, 16384), "multispin": (32768, 2048),
+              "bitplane": (16384, 8192)}
+#: the temperature of that path
+TEMPERATURE = {"stencil": 2.0, "multispin": 2.0, "bitplane": 3.0}
+#: a multispin word of 0/1 nibbles
+NIBBLES = 0x11111111
+#: (tile rows, tile columns, k, threads); the stencil kernel fixes its
+#: block
+CANDIDATES = {
+    "stencil": [(128, 256, k, None) for k in (1, 2, 4, 8)],
+    "multispin": [(tr, tc, k, t) for tr, tc in ((64, 128), (96, 128),
+                                                 (128, 64), (64, 64))
+                  for k in (1, 2, 3) for t in (256, 512)],
+    "bitplane": [(tr, tc, k, t) for tr, tc in ((64, 128), (96, 128),
+                                                (32, 256), (32, 128))
+                 for k in (1, 2, 3) for t in (256, 512)],
+}
+
+
+def timed_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls, CUDA events,
+    after one untimed call unless ``warmup`` is false."""
+    if warmup:
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def random_planes(family: str, n: int, h: int, seed: int):
+    """Two random planes of the family's kind on the card: int8 +-1
+    sites, multispin words of 0/1 nibbles, or bitplane words."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if family == "stencil":
+        return tuple((torch.randint(0, 2, (n, h), generator=g, device="cuda",
+                                    dtype=torch.int8) * 2 - 1)
+                     for _ in range(2))
+    mask = NIBBLES if family == "multispin" else -1
+    return tuple(torch.randint(-2 ** 31, 2 ** 31 - 1, (n, h), generator=g,
+                               device="cuda", dtype=torch.int32) & mask
+                 for _ in range(2))
+
+
+def acceptance(family: str) -> torch.Tensor:
+    """The family's acceptance table at its main path's temperature."""
+    inv_temp = 1.0 / TEMPERATURE[family]
+    if family == "stencil":
+        return metropolis.acceptance_table(inv_temp)
+    return multispin.acceptance_thresholds(inv_temp)
+
+
+def tune(family: str, seed: int = 2 ** 33 + 5) -> dict:
+    """``{configuration: ms per full sweep}`` at the family's full plane:
+    the per-half-sweep tier, then each candidate that fits the budget."""
+    pkg = importlib.import_module(f"repro_torch.kernels.{family}")
+    update = getattr(pkg, f"{family}_update")
+    sweeps = getattr(pkg, f"{family}_sweeps_resident")
+    n, h = FULL_PLANE[family]
+    plan = resident.plan_resident(family, n, n)
+    table = acceptance(family)
+    b, w = random_planes(family, n, h, 1)
+    out = {"half-sweep": 2 * timed_ms(lambda: update(
+        b, w, table, is_black=True, seed=seed, offset=0), reps=40)}
+    for tr, tc, k, threads in CANDIDATES[family]:
+        cand = dataclasses.replace(plan, k=k, tile_rows=tr, tile_cols=tc,
+                                   threads=threads)
+        if resident.smem_bytes(tr, tc, k, family) > cand.budget_bytes:
+            continue
+        ms = timed_ms(lambda: sweeps(b, w, table, n_sweeps=k, seed=seed,
+                                     start_offset=0, plan=cand),
+                      reps=max(2, 16 // k))
+        label = f"k={k} {tr}x{tc}" + (f" {threads}t" if threads else "")
+        out[label] = ms / k
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--family", choices=FAMILIES, action="append",
+                        help="a family to time (default: all three)")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("tune_resident: no CUDA device", file=sys.stderr)
+        return 1
+    _build.build()
+    results = {}
+    for family in args.family or FAMILIES:
+        n, _ = FULL_PLANE[family]
+        plan = resident.plan_resident(family, n, n)
+        results[family] = tune(family)
+        print(f"{family} {n}^2, ms per full sweep (planner: k = {plan.k}, "
+              f"tile {plan.tile_rows} x {plan.tile_cols}, threads "
+              f"{plan.threads}): " + ", ".join(
+                  f"{c} {ms:.4f}" for c, ms in results[family].items()))
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0])
+    print(json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

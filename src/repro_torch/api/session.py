@@ -129,7 +129,13 @@ class Session:
 
     @property
     def state(self):
-        """The engine-native state: ``(black, white)`` int8 planes."""
+        """The engine-native state, a pair of (black, white) planes:
+        ``stencil_pallas``: int8 +-1 planes ``(n, m/2)``;
+        ``multispin``/``multispin_pallas``: int32 tensors ``(n, m/16)``
+        holding uint32 words of 8 nibble spins (``black_words``,
+        ``white_words`` in a checkpoint); ``bitplane``/
+        ``bitplane_pallas``: int32 tensors ``(n, m/2)`` holding uint32
+        words whose bit r is replica r (``black_bits``, ``white_bits``)."""
         return self._runner.state
 
     @property
@@ -142,7 +148,8 @@ class Session:
 
     def measure(self, plan=None) -> dict:
         """Run a measurement plan (default: ``spec.sweep``); returns
-        ``{field: (n_measure,) float32 ndarray}``."""
+        ``{field: (n_measure,) float32 ndarray}``, or ``(n_measure, 32)``
+        for the bitplane engines' per-replica observables."""
         if plan is None:
             if self.spec.sweep is None:
                 raise ValueError("no plan: pass one or set RunSpec.sweep")
@@ -151,16 +158,19 @@ class Session:
 
     def trajectory(self, n_measure: int, sweeps_between: int,
                    thermalize: int = 0) -> np.ndarray:
-        """Magnetization samples, shape ``(n_measure,)``."""
+        """Magnetization samples, shape ``(n_measure,)`` (``(n_measure,
+        32)`` for the bitplane engines)."""
         from repro_torch.analysis.measure import MeasurementPlan
         plan = MeasurementPlan(n_measure, sweeps_between, thermalize,
                                fields=("m",))
         return self.measure(plan)["m"]
 
     def magnetization(self) -> float:
+        """Mean spin (for bitplane: the mean over the 32 replicas)."""
         return self._runner.magnetization()
 
     def energy(self) -> float:
+        """Energy per spin (for bitplane: the mean over the replicas)."""
         return self._runner.energy()
 
     def full_lattice(self) -> torch.Tensor:

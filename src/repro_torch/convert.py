@@ -1,40 +1,49 @@
 """Carry a run's state between the JAX package and this one.
 
-The JAX ``stencil_pallas`` engine's ``state_arrays()`` is a dict of two
-numpy int8 planes, ``black`` and ``white``, each ``(n, m/2)``; this
-package holds the same planes as int8 tensors on a device.  Together
-with the shared ``.npz`` layout (``spec_json``, ``step_count``,
-``state_black``, ``state_white``), a run saved by either package
-restores in the other.
+The JAX engines' ``state_arrays()`` are dicts of two numpy planes:
+``black``/``white`` int8 for ``stencil_pallas``, ``black_words``/
+``white_words`` uint32 for the multispin engines, ``black_bits``/
+``white_bits`` uint32 for the bitplane engines.  This package holds the
+int8 planes as int8 tensors and the uint32 planes as int32 tensors with
+the same bits (PyTorch has no uint32 arithmetic on the CPU); the numpy
+side is always uint32, since the digest framing writes the dtype.
+Together with the shared ``.npz`` layout (``spec_json``, ``step_count``,
+``state_<name>``), a run saved by either package restores in the other.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+#: numpy dtype of the reference's planes -> the numpy view of the same
+#: bits that converts to the torch dtype holding them
+_HOLDER = {np.dtype(np.int8): np.int8, np.dtype(np.uint32): np.int32}
 
-def state_from_reference(arrays, device):
-    """``{"black", "white"}`` numpy int8 planes -> ``(black, white)``
-    int8 tensors on ``device`` (always copies: the planes are updated in
-    place later, and must not alias the caller's arrays)."""
+
+def state_from_reference(arrays, device, keys=("black", "white"),
+                         dtype=np.int8):
+    """Two named 2-D numpy planes of ``dtype`` -> two tensors on
+    ``device`` (always copies: the planes are updated in place later, and
+    must not alias the caller's arrays)."""
+    dtype = np.dtype(dtype)
     planes = []
-    for key in ("black", "white"):
+    for key in keys:
         if key not in arrays:
             raise ValueError(f"state arrays lack {key!r}: {sorted(arrays)}")
         a = np.asarray(arrays[key])
-        if a.dtype != np.int8 or a.ndim != 2:
-            raise ValueError(f"state plane {key!r} must be 2-D int8, got "
+        if a.dtype != dtype or a.ndim != 2:
+            raise ValueError(f"state plane {key!r} must be 2-D {dtype}, got "
                              f"{a.dtype} {a.shape}")
-        planes.append(torch.tensor(a, dtype=torch.int8, device=device))
+        host = np.ascontiguousarray(a).view(_HOLDER[dtype])
+        planes.append(torch.tensor(host, device=device))
     if planes[0].shape != planes[1].shape:
-        raise ValueError(f"black {tuple(planes[0].shape)} and white "
+        raise ValueError(f"{keys[0]} {tuple(planes[0].shape)} and {keys[1]} "
                          f"{tuple(planes[1].shape)} planes differ")
     return planes[0], planes[1]
 
 
-def state_to_reference(state) -> dict:
-    """``(black, white)`` tensors -> ``{"black", "white"}`` host numpy
-    int8 copies, the JAX engine's ``state_arrays()`` layout."""
-    black, white = state
-    return {"black": black.detach().cpu().numpy().copy(),
-            "white": white.detach().cpu().numpy().copy()}
+def state_to_reference(state, keys=("black", "white"), dtype=np.int8) -> dict:
+    """Two tensors -> host numpy copies of ``dtype`` under ``keys``, the
+    JAX engine's ``state_arrays()`` layout."""
+    return {k: p.detach().cpu().numpy().view(dtype).copy()
+            for k, p in zip(keys, state)}

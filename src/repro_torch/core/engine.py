@@ -1,10 +1,11 @@
 """Engine registry: one protocol for the update algorithms of the port.
 
-Counterpart of ``repro.core.engine``, as far as this slice of the port
-goes: the registry, the ``Engine`` protocol, the counter-based
-``CounterEngine`` with its two tiers, and the ``stencil_pallas`` engine,
-registered under the JAX package's name so that a JAX checkpoint's spec
-resolves here.  Any other name raises and lists what is ported.
+Counterpart of ``repro.core.engine``, as far as the port goes: the
+registry, the ``Engine`` protocol, the counter-based ``CounterEngine``
+with its two tiers, and the engines ``stencil_pallas``, ``multispin``,
+``multispin_pallas``, ``bitplane`` and ``bitplane_pallas``, registered
+under the JAX package's names so that a JAX checkpoint's spec resolves
+here.  Any other name raises and lists what is ported.
 
 Protocol:
 
@@ -25,12 +26,15 @@ from __future__ import annotations
 
 from typing import ClassVar, Dict, Optional, Type
 
+import numpy as np
 import torch
 
 from repro_torch import convert
 
+from . import bitplane as bp
 from . import lattice as lat
 from . import metropolis as metro
+from . import multispin as ms
 from . import observables as obs
 from . import rng
 
@@ -154,7 +158,9 @@ class CounterEngine(Engine):
         raise NotImplementedError
 
     def sweep_context(self, inv_temp) -> torch.Tensor:
-        """The acceptance table, computed once per call on the host."""
+        """The acceptance table (float32 for the int8 planes, uint32
+        thresholds for word planes), computed once per call on the
+        host."""
         return metro.acceptance_table(inv_temp)
 
     def sweep_fn(self, state, inv_temp, seed, start_offset, n_sweeps: int):
@@ -233,3 +239,169 @@ class StencilPallasEngine(_PlanesEngine, CounterEngine):
         return stencil_sweeps_resident(*state, table, n_sweeps=n_sweeps,
                                        seed=seed, start_offset=start_offset,
                                        plan=self.resident_plan)
+
+
+class _WordPlanesEngine(CounterEngine):
+    """(black, white) uint32 word planes, held as int32 tensors; the
+    accept compares raw draws with 10 uint32 thresholds."""
+
+    #: names of the two planes in ``state_arrays`` (the JAX engine's)
+    plane_keys: ClassVar[tuple]
+    #: lattice columns per plane column
+    col_divisor: ClassVar[int]
+
+    def sweep_context(self, inv_temp) -> torch.Tensor:
+        return ms.acceptance_thresholds(inv_temp)
+
+    def state_arrays(self, state) -> dict:
+        return convert.state_to_reference(state, self.plane_keys, np.uint32)
+
+    def from_arrays(self, arrays: dict):
+        black, white = convert.state_from_reference(
+            arrays, self.device, self.plane_keys, np.uint32)
+        want = (self.cfg.n, self.cfg.m // self.col_divisor)
+        if tuple(black.shape) != want:
+            raise ValueError(f"state planes are {tuple(black.shape)}, the "
+                             f"{self.cfg.n}x{self.cfg.m} lattice needs {want}")
+        return black, white
+
+
+@register
+class MultispinEngine(_WordPlanesEngine):
+    """Multi-spin coding (paper S3.3), 8 spins per uint32 word:
+    ``multispin_update`` per half-sweep, ``multispin_sweeps_resident``
+    for k sweeps per launch.
+
+    In the JAX package ``multispin`` is the plain-jnp oracle and
+    ``multispin_pallas`` the Pallas engine; both give one trajectory, so
+    here both run the CUDA kernels.  State: ``(black_words,
+    white_words)``, ``(n, m/16)`` int32 tensors of nibble words.  A fresh
+    state packs the single-lattice init of the same spec, so its
+    ``full_lattice`` is ``stencil_pallas``'s.  The half-sweep tier
+    updates the planes in place.
+    """
+
+    name = "multispin"
+    resident_family = "multispin"
+    plane_keys = ("black_words", "white_words")
+    col_divisor = 2 * lat.SPINS_PER_WORD
+
+    @classmethod
+    def validate_lattice(cls, n: int, m: int) -> None:
+        super().validate_lattice(n, m)
+        if (m // 2) % lat.SPINS_PER_WORD:
+            raise ValueError(
+                f"engine {cls.name!r} packs {lat.SPINS_PER_WORD} spins per "
+                f"uint32 word: the compact plane width m/2 must be a "
+                f"multiple of {lat.SPINS_PER_WORD}, got m={m}")
+
+    def init_state(self):
+        cfg = self.cfg
+        return ms.pack_lattice(*lat.init_planes(
+            cfg.n, cfg.m, cfg.init_p_up, cfg.seed, self.device))
+
+    def full_lattice(self, state) -> torch.Tensor:
+        return lat.merge_checkerboard(*ms.unpack_lattice(*state))
+
+    def magnetization(self, state) -> torch.Tensor:
+        return obs.magnetization(*ms.unpack_lattice(*state))
+
+    def observables(self, state, inv_temp) -> dict:
+        planes = ms.unpack_lattice(*state)
+        return {"m": obs.magnetization(*planes),
+                "e": obs.energy_per_spin(*planes)}
+
+    def color_update(self, target, op, table, is_black, seed, offset):
+        from repro_torch.kernels.multispin import multispin_update
+        return multispin_update(target, op, table, is_black=is_black,
+                                seed=seed, offset=offset)
+
+    def resident_sweeps(self, state, table, seed, start_offset, n_sweeps):
+        from repro_torch.kernels.multispin import multispin_sweeps_resident
+        return multispin_sweeps_resident(*state, table, n_sweeps=n_sweeps,
+                                         seed=seed, start_offset=start_offset,
+                                         plan=self.resident_plan)
+
+
+@register
+class MultispinPallasEngine(MultispinEngine):
+    """The JAX package's ``multispin_pallas``: the same engine as
+    ``multispin``, so a checkpoint of either restores as either."""
+
+    name = "multispin_pallas"
+
+
+@register
+class BitplaneEngine(_WordPlanesEngine):
+    """Bitplane multi-spin coding, 32 replicas per uint32 word (bit r =
+    replica r): ``bitplane_update`` per half-sweep,
+    ``bitplane_sweeps_resident`` for k sweeps per launch.
+
+    State: ``(black_bits, white_bits)``, ``(n, m/2)`` int32 tensors.
+    ``observables`` returns per-replica ``(32,)`` vectors, so
+    ``measure`` trajectories are ``(n_measure, 32)``; ``magnetization``
+    and ``energy`` are the means over the replicas and ``full_lattice``
+    is replica 0.  A fresh state draws each replica with the port's own
+    Philox init keyed on the replica (``bitplane.init_words``); replica 0
+    is the single-lattice init of the same spec.  ``bitplane`` and
+    ``bitplane_pallas`` are one engine, as in the JAX package.  All 32
+    replicas share their draws: replicas that start equal stay equal,
+    so a run meant to carry 32 lattices starts hot.
+    """
+
+    name = "bitplane"
+    resident_family = "bitplane"
+    plane_keys = ("black_bits", "white_bits")
+    col_divisor = 2
+
+    @classmethod
+    def validate_lattice(cls, n: int, m: int) -> None:
+        super().validate_lattice(n, m)
+        if (m // 2) % 4:
+            raise ValueError(
+                f"engine {cls.name!r} draws one Philox call per 4-site "
+                f"group: the compact plane width m/2 must be a multiple "
+                f"of 4, got m={m}")
+
+    def init_state(self):
+        cfg = self.cfg
+        return bp.init_words(cfg.n, cfg.m, cfg.init_p_up, cfg.seed,
+                             self.device)
+
+    def full_lattice(self, state) -> torch.Tensor:
+        return bp.replica_lattice(*state, r=0)
+
+    def magnetization(self, state) -> torch.Tensor:
+        return _replica_mean(bp.replica_magnetizations(*state))
+
+    def energy(self, state) -> torch.Tensor:
+        return _replica_mean(bp.replica_energies(*state))
+
+    def observables(self, state, inv_temp) -> dict:
+        """Per-replica vectors: ``{"m": (32,), "e": (32,)}``."""
+        return bp.replica_observables(*state)
+
+    def color_update(self, target, op, table, is_black, seed, offset):
+        from repro_torch.kernels.bitplane import bitplane_update
+        return bitplane_update(target, op, table, is_black=is_black,
+                               seed=seed, offset=offset)
+
+    def resident_sweeps(self, state, table, seed, start_offset, n_sweeps):
+        from repro_torch.kernels.bitplane import bitplane_sweeps_resident
+        return bitplane_sweeps_resident(*state, table, n_sweeps=n_sweeps,
+                                        seed=seed, start_offset=start_offset,
+                                        plan=self.resident_plan)
+
+
+@register
+class BitplanePallasEngine(BitplaneEngine):
+    """The JAX package's ``bitplane_pallas``: the same engine as
+    ``bitplane``."""
+
+    name = "bitplane_pallas"
+
+
+def _replica_mean(values: torch.Tensor) -> torch.Tensor:
+    """Mean of per-replica float32 values, taken in float64 and rounded
+    once to float32."""
+    return values.to(torch.float64).mean().to(torch.float32)

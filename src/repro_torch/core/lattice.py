@@ -6,6 +6,12 @@ are those with ``(i + j) % 2 == 0``, each colour compacted along rows.
 For a black target at ``(i, k)`` the four neighbours are the opposite
 plane's ``(i-1, k)``, ``(i, k)``, ``(i+1, k)`` and ``(i, k+1)`` on odd
 rows / ``(i, k-1)`` on even rows; the side parity flips for white.
+
+Word planes (the multispin and bitplane engines) hold uint32 words.  The
+state keeps them in ``torch.int32`` tensors with the same bits, which the
+kernels read as uint32; the plain code widens them to int64 masked to 32
+bits (:func:`words_to_u32`), because PyTorch on the CPU implements no
+uint32 arithmetic, and every right shift of such a value is logical.
 """
 from __future__ import annotations
 
@@ -17,32 +23,49 @@ from . import rng
 #: the init stream never meets a sweep's stream.
 INIT_COUNTER_LANE = 1
 
+SPINS_PER_WORD = 8  # 4 bits per spin in a uint32 word
+NIBBLE_BITS = 4
+
 #: sites per init chunk: bounds the int64 Philox temporaries
 _INIT_CHUNK_SITES = 1 << 22
 
 
-def init_planes(n: int, m: int, p_up: float, seed: int, device):
-    """Fresh ``(black, white)`` int8 planes: site ``(i, j)`` is +1 iff
-    ``(bits >> 8) * 2^-24 < p_up``, with ``bits`` lane 0 of Philox at
-    counter ``(0, 1, i*m + j, 0)`` keyed on ``seed_keys(seed)``.
+def init_row_chunks(n: int, m: int, seed: int, device,
+                    replica_groups: int = 1):
+    """The package's own init draws, a block of rows at a time: yields
+    ``(r0, r1, draws)`` where ``draws[q]`` holds the 4 lanes of Philox at
+    counter ``(0, 1, i*m + j, q)`` keyed on ``seed_keys(seed)``, each an
+    (r1 - r0, m) plane of uint32 values in int64.  Lane ``l`` of group
+    ``q`` draws replica ``4q + l``; replica 0 is the single lattice.
+    :func:`spin_up` turns a lane into spins.
 
     The CPU and the card give the same lattice.  It is not the JAX
     package's init (``jax.random``), which this package cannot reproduce.
-    The 24-bit uniform lies in [0, 1), so ``p_up = 1.0`` is all up.
     """
     k0, k1 = rng.seed_keys(seed)
-    black = torch.empty((n, m // 2), dtype=torch.int8, device=device)
-    white = torch.empty_like(black)
     rows = max(2, (_INIT_CHUNK_SITES // m) & ~1)  # even: keeps row parity
     cols = torch.arange(m, dtype=torch.int64, device=device)
-    threshold = float(p_up) * (1 << 24)
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
         i = torch.arange(r0, r1, dtype=torch.int64, device=device)
         idx = (i[:, None] * m + cols[None, :]) & rng.MASK32
-        bits = rng.philox4x32(0, INIT_COUNTER_LANE, idx, 0, k0, k1)[0]
-        up = (bits >> 8).to(torch.float64) < threshold
-        full = torch.where(up, 1, -1).to(torch.int8)
+        yield r0, r1, [rng.philox4x32(0, INIT_COUNTER_LANE, idx, q, k0, k1)
+                       for q in range(replica_groups)]
+
+
+def spin_up(bits: torch.Tensor, p_up: float) -> torch.Tensor:
+    """A site is up iff ``(bits >> 8) * 2^-24 < p_up``: the 24-bit
+    uniform lies in [0, 1), so ``p_up = 1.0`` is all up."""
+    return (bits >> 8).to(torch.float64) < float(p_up) * (1 << 24)
+
+
+def init_planes(n: int, m: int, p_up: float, seed: int, device):
+    """Fresh ``(black, white)`` int8 planes: replica 0 of
+    :func:`init_row_chunks`."""
+    black = torch.empty((n, m // 2), dtype=torch.int8, device=device)
+    white = torch.empty_like(black)
+    for r0, r1, draws in init_row_chunks(n, m, seed, device):
+        full = torch.where(spin_up(draws[0][0], p_up), 1, -1).to(torch.int8)
         black[r0:r1], white[r0:r1] = split_checkerboard(full)
     return black, white
 
@@ -83,3 +106,83 @@ def side_shift(op_plane: torch.Tensor, is_black: bool) -> torch.Tensor:
     if is_black:
         return torch.where(odd, plus, minus)
     return torch.where(odd, minus, plus)
+
+
+# -- word planes: uint32 values held in int64 (and int32 in the state) ------
+
+def words_to_u32(words: torch.Tensor) -> torch.Tensor:
+    """int32 (or int64) words -> their uint32 values in int64."""
+    return words.to(torch.int64) & rng.MASK32
+
+
+def u32_to_words(values: torch.Tensor) -> torch.Tensor:
+    """uint32 values in int64 -> int32 words with the same bits."""
+    v = values & rng.MASK32
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def to_binary(plane_pm1: torch.Tensor) -> torch.Tensor:
+    """+-1 plane -> 0/1 int64 plane."""
+    return (plane_pm1.to(torch.int64) + 1) // 2
+
+
+def from_binary(plane01: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
+    return (2 * plane01.to(torch.int64) - 1).to(dtype)
+
+
+def _nibble_shifts(device) -> torch.Tensor:
+    return torch.arange(SPINS_PER_WORD, dtype=torch.int64,
+                        device=device) * NIBBLE_BITS
+
+
+def pack_nibbles(plane01: torch.Tensor) -> torch.Tensor:
+    """(N, C) 0/1 plane -> (N, C/8) uint32 values in int64, nibble n of
+    word w = column 8w + n."""
+    n, c = plane01.shape
+    if c % SPINS_PER_WORD:
+        raise ValueError(f"columns must be a multiple of {SPINS_PER_WORD}, "
+                         f"got {c}")
+    grouped = plane01.to(torch.int64).reshape(n, c // SPINS_PER_WORD,
+                                              SPINS_PER_WORD)
+    return (grouped << _nibble_shifts(plane01.device)).sum(-1)
+
+
+def unpack_nibbles(words: torch.Tensor) -> torch.Tensor:
+    """(N, W) uint32 values -> (N, 8W) nibble values (int64)."""
+    n, w = words.shape
+    nib = (words_to_u32(words)[..., None]
+           >> _nibble_shifts(words.device)) & 0xF
+    return nib.reshape(n, w * SPINS_PER_WORD)
+
+
+def align_side_word(center: torch.Tensor, is_black: bool) -> torch.Tensor:
+    """Packed-word counterpart of :func:`side_shift`: 7 of a word's 8
+    same-row neighbours lie in the opposite plane's word at the same
+    place, the 8th in the edge nibble of the word to the right (``k+1``)
+    or the left (``k-1``).  A funnel shift of two words, masked to 32
+    bits, aligns them.  ``center`` holds uint32 values in int64."""
+    nxt = torch.roll(center, -1, dims=1)
+    prv = torch.roll(center, 1, dims=1)
+    # toward k+1: nibble n <- nibble n+1; the next word's nibble 0 enters
+    # at the top
+    plus = (center >> NIBBLE_BITS) | ((nxt << (32 - NIBBLE_BITS))
+                                      & rng.MASK32)
+    # toward k-1
+    minus = ((center << NIBBLE_BITS) & rng.MASK32) | (prv
+                                                      >> (32 - NIBBLE_BITS))
+    odd = (torch.arange(center.shape[0], device=center.device)
+           % 2 == 1)[:, None]
+    if is_black:
+        return torch.where(odd, plus, minus)
+    return torch.where(odd, minus, plus)
+
+
+def packed_neighbor_sums(op_words: torch.Tensor, is_black: bool
+                         ) -> torch.Tensor:
+    """Nibble-parallel four-neighbour sums: three adds per 8 spins.  Each
+    nibble sum is at most 4 < 16, so no carry crosses a nibble.  Takes
+    and returns uint32 values in int64."""
+    op = words_to_u32(op_words)
+    up = torch.roll(op, 1, dims=0)
+    down = torch.roll(op, -1, dims=0)
+    return up + down + op + align_side_word(op, is_black)

@@ -73,3 +73,23 @@ def onsager_magnetization(temperature: float, j: float = 1.0) -> float:
     if t >= T_CRITICAL * j:
         return 0.0
     return (1.0 - math.sinh(2.0 * j / t) ** (-4.0)) ** 0.125
+
+
+def _agm(a: float, b: float) -> float:
+    """Arithmetic-geometric mean of two positive numbers."""
+    while abs(a - b) > 1e-15 * a:
+        a, b = (a + b) / 2.0, math.sqrt(a * b)
+    return a
+
+
+def onsager_energy(temperature: float, j: float = 1.0) -> float:
+    """Exact energy per spin of the infinite lattice (Onsager):
+    ``-J coth(2 beta J) [1 + (2/pi)(2 tanh^2(2 beta J) - 1) K(k)]`` with
+    ``k = 2 sinh(2 beta J) / cosh^2(2 beta J)`` and the complete elliptic
+    integral ``K(k) = pi / (2 AGM(1, sqrt(1 - k^2)))``; undefined at T_c
+    itself, where k = 1."""
+    b2 = 2.0 * j / float(temperature)
+    k = 2.0 * math.sinh(b2) / math.cosh(b2) ** 2
+    big_k = math.pi / (2.0 * _agm(1.0, math.sqrt(1.0 - k * k)))
+    return -j / math.tanh(b2) * (
+        1.0 + 2.0 / math.pi * (2.0 * math.tanh(b2) ** 2 - 1.0) * big_k)

@@ -39,9 +39,12 @@
 #include <cstdint>
 #include <cstring>
 
+#include "common.cuh"
 #include "philox.cuh"
 
 namespace {
+
+using repro_torch::wrap;
 
 constexpr int kTableSize = 10;
 
@@ -67,11 +70,6 @@ __device__ __forceinline__ void load_table(const AcceptTable& tab,
 #pragma unroll
     for (int i = 0; i < kTableSize; ++i) s_table[i] = tab.v[i];
   }
-}
-
-__device__ __forceinline__ int wrap(int x, int size) {
-  const int r = x % size;
-  return r < 0 ? r + size : r;
 }
 
 // grid (n, ceil(h / blockDim.x)): blockIdx.x is the row
@@ -196,10 +194,6 @@ AcceptTable make_table(const float* table) {
 }  // namespace
 
 extern "C" {
-
-const char* cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 int stencil_update_launch(void* target, const void* op, int n, int h,
                           int is_black, const float* table, uint32_t k0,

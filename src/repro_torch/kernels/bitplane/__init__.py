@@ -1,0 +1,7 @@
+"""The bitplane kernel pair: one half-sweep of 32 replicas, and k sweeps
+per launch."""
+from .bitplane import bitplane_update, bitplane_update_plain
+from .resident import bitplane_sweeps_resident, bitplane_sweeps_resident_plain
+
+__all__ = ["bitplane_update", "bitplane_update_plain",
+           "bitplane_sweeps_resident", "bitplane_sweeps_resident_plain"]

@@ -1,0 +1,54 @@
+"""``bitplane_sweeps_resident``: k sweeps of 32 replicas per launch.
+
+Replaces the Pallas kernel ``src/repro/kernels/bitplane/resident.py``
+(``bitplane_sweeps_resident``), which keeps both whole bit planes in TPU
+VMEM for ``n_sweeps`` sweeps.  On the card (``csrc/bitplane.cu``) each
+block loads a tile of both planes plus a halo of 2k rows and of 2k
+columns rounded up to a multiple of 4 into shared memory, so that every
+thread still owns whole 4-site draw groups, runs 2k half-sweeps and
+writes back the tile.  Draws are keyed on the global group index, so the
+result is bit for bit k applications of the half-sweep; the planner
+(``repro_torch.kernels.resident``) picks the tile (columns a multiple of
+4) and k.
+"""
+from __future__ import annotations
+
+from repro_torch.core import bitplane as bp
+from repro_torch.kernels._words import check_resident_args, launch_resident
+
+from .bitplane import check_bit_planes, library
+
+
+def bitplane_sweeps_resident_plain(black, white, thresholds, *,
+                                   n_sweeps: int, seed: int,
+                                   start_offset: int):
+    """The plain PyTorch version: ``n_sweeps`` applications of the
+    half-sweep pair."""
+    return bp.run_sweeps_bitplane(black, white, thresholds, n_sweeps, seed,
+                                  start_offset)
+
+
+def bitplane_sweeps_resident(black, white, thresholds, *, n_sweeps: int,
+                             seed: int, start_offset: int, plan):
+    """``n_sweeps`` full sweeps of all 32 replicas from the cumulative
+    Philox offset ``start_offset``; returns new planes and leaves the
+    inputs as they were.  CPU planes take the plain version; CUDA planes
+    launch the kernel."""
+    check_bit_planes(black, white)
+    check_resident_args(black, n_sweeps, plan)
+    if plan.tile_cols % 4:
+        raise ValueError(f"bitplane tiles need a multiple-of-4 width, got "
+                         f"{plan.tile_cols}")
+    if black.device.type == "cpu":
+        return bitplane_sweeps_resident_plain(
+            black, white, thresholds, n_sweeps=n_sweeps, seed=seed,
+            start_offset=start_offset)
+    lib = library()
+    return launch_resident(
+        lib, lib.bitplane_sweeps_resident_launch, bitplane_sweeps_resident,
+        black, white, thresholds, n_sweeps=n_sweeps, seed=seed,
+        start_offset=start_offset, plan=plan)
+
+
+#: kernel launches since the count was last set to 0
+bitplane_sweeps_resident.launches = 0

@@ -1,0 +1,54 @@
+"""``multispin_sweeps_resident``: k packed sweeps per launch, CUDA and plain.
+
+Replaces the Pallas kernel ``src/repro/kernels/multispin/resident.py``
+(``multispin_sweeps_resident``), which keeps both whole word planes in
+TPU VMEM for ``n_sweeps`` sweeps.  On the card (``csrc/multispin.cu``)
+each block loads a tile of both word planes plus a halo of 2k word rows
+and word columns into shared memory, runs 2k half-sweeps on it and
+writes back the tile.  The draws are keyed on the global word index, so
+the result is bit for bit k applications of the half-sweep.  It is bound
+by Philox arithmetic, the halo's redundant words included; the planner
+(``repro_torch.kernels.resident``) picks the tile and k.
+
+A run longer than the plan's k takes ceil(n_sweeps / k) launches.
+"""
+from __future__ import annotations
+
+from repro_torch.core import multispin as ms
+from repro_torch.kernels._words import (check_resident_args, check_words,
+                                        launch_resident)
+
+from .multispin import library
+
+
+def multispin_sweeps_resident_plain(black, white, thresholds, *,
+                                    n_sweeps: int, seed: int,
+                                    start_offset: int):
+    """The plain PyTorch version: ``n_sweeps`` applications of the
+    packed half-sweep pair."""
+    return ms.run_sweeps_packed(black, white, thresholds, n_sweeps, seed,
+                                start_offset)
+
+
+def multispin_sweeps_resident(black, white, thresholds, *, n_sweeps: int,
+                              seed: int, start_offset: int, plan):
+    """``n_sweeps`` full sweeps of the word planes ``(black, white)``
+    from the cumulative Philox offset ``start_offset``; returns new planes
+    and leaves the inputs as they were.  ``plan`` is the planner's
+    ``ResidentPlan`` for this lattice.  CPU planes take the plain
+    version; CUDA planes launch the kernel."""
+    check_words(black, white)
+    check_resident_args(black, n_sweeps, plan)
+    if black.device.type == "cpu":
+        return multispin_sweeps_resident_plain(
+            black, white, thresholds, n_sweeps=n_sweeps, seed=seed,
+            start_offset=start_offset)
+    lib = library()
+    return launch_resident(
+        lib, lib.multispin_sweeps_resident_launch, multispin_sweeps_resident,
+        black, white, thresholds, n_sweeps=n_sweeps, seed=seed,
+        start_offset=start_offset, plan=plan)
+
+
+#: kernel launches since the count was last set to 0
+multispin_sweeps_resident.launches = 0

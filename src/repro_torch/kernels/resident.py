@@ -2,20 +2,29 @@
 
 The JAX package's planner (``repro/kernels/resident.py``) asks whether
 both whole planes fit a TPU core's VMEM.  A Hopper block has at most
-227 KB of shared memory, far less than a lattice, so the CUDA kernel
-blocks in time on tiles instead (``csrc/stencil.cu``): a block holds a
-tile of both planes plus a halo of width 2k and runs k full sweeps on
-it.  The plan therefore fixes the tile and k, and its budget is the
-shared memory of one block.
+227 KB of shared memory, far less than a lattice, so the CUDA kernels
+block in time on tiles instead (``csrc/stencil.cu``, ``multispin.cu``,
+``bitplane.cu``): a block holds a tile of both planes plus a halo of
+width 2k and runs k full sweeps on it.  The plan therefore fixes the
+tile and k, and its budget is the shared memory of one block.
 
-Rule (measured on the card, ``PERF.md``): a (TILE_ROWS x TILE_COLS)
-tile, shrunk to the plane where the plane is smaller, with the largest
-k <= MAX_SWEEPS_PER_LAUNCH whose extended tile fits the budget; no plan
+Each family has its own geometry (:data:`GEOMETRY`): the element of its
+planes (int8 sites, uint32 words of 8 nibble spins, uint32 words of 32
+replica bits), its tile, its cap on k and its block size, each the
+fastest k-sweep configuration measured on the card
+(``python -m repro_torch.analysis.tune_resident``, ``PERF.md``).  Rule:
+the family's tile, shrunk to the plane where the plane is smaller, with
+the largest k <= the cap whose extended tile fits the budget; no plan
 (the per-half-sweep tier) when not even k = 1 fits.  The budget is the
-one value that moves that boundary: ``Session.open(...,
-resident_budget_bytes=)`` passes it down to :func:`plan_resident`, so
-that tests and ``chip_smoke.py`` can send the same session through
-either tier.
+one value that moves that boundary:
+``Session.open(..., resident_budget_bytes=)`` passes it down to
+:func:`plan_resident`, so that tests and ``chip_smoke.py`` can send the
+same session through either tier.
+
+The rule takes the k-sweep tier wherever a tile fits, also where it is
+not the faster tier: for bitplane at 16384^2 the per-half-sweep tier
+was 6 % faster per sweep (``PERF.md`` section 5).  Choosing the tier by
+measurement is open work (``ROADMAP.md``, "Next").
 """
 from __future__ import annotations
 
@@ -25,23 +34,63 @@ from typing import Optional
 #: dynamic shared memory one block may use on an H100 (227 KB)
 SMEM_BUDGET_BYTES: int = 232448
 
-#: sweeps per launch: the halo (2k) grows with k, and so does the share
-#: of redundant draws in the extended tile; k = 2 took the least time
-#: per sweep at 32768^2 (``PERF.md``)
+#: stencil: sweeps per launch; the halo (2k) grows with k, and so does
+#: the share of redundant draws in the extended tile; k = 2 took the
+#: least time per sweep at 32768^2 (``PERF.md``)
 MAX_SWEEPS_PER_LAUNCH: int = 2
 
-#: tile of the compact plane, rows x columns; 256 columns keep a warp's
-#: loads on consecutive bytes
+#: stencil: tile of the compact plane, rows x columns; 256 columns keep a
+#: warp's loads on consecutive bytes
 TILE_ROWS: int = 128
 TILE_COLS: int = 256
 
-_FAMILIES = ("stencil",)
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How one family's k-sweep kernel tiles its planes."""
+
+    #: plane columns per lattice column: the plane is (n, m // divisor)
+    col_divisor: int
+    #: bytes of one plane element
+    element_bytes: int
+    #: the column halo (and the tile's column origin) are multiples of
+    #: this: the bitplane kernel draws one Philox call per 4-site group
+    col_align: int
+    #: bytes of the acceptance table in shared memory
+    table_bytes: int
+    #: the planes start at a multiple of this many bytes of shared memory
+    plane_align: int
+    tile_rows: int
+    tile_cols: int
+    max_k: int
+    #: threads of a k-sweep block; ``None`` where the kernel fixes its
+    #: own (``csrc/stencil.cu``: 32 x 16)
+    threads: Optional[int]
+
+
+GEOMETRY = {
+    "stencil": Geometry(col_divisor=2, element_bytes=1, col_align=1,
+                        table_bytes=64, plane_align=1, tile_rows=TILE_ROWS,
+                        tile_cols=TILE_COLS, max_k=MAX_SWEEPS_PER_LAUNCH,
+                        threads=None),
+    # uint32 words of 8 spins; two uint32 planes of stencil's 128 x 256
+    # tile would take 256 KiB, over the budget
+    "multispin": Geometry(col_divisor=16, element_bytes=4, col_align=1,
+                          table_bytes=64, plane_align=4, tile_rows=96,
+                          tile_cols=128, max_k=2, threads=512),
+    # uint32 words of 32 replica bits; tile columns in 4-site groups, each
+    # moved as one 16-byte access
+    "bitplane": Geometry(col_divisor=2, element_bytes=4, col_align=4,
+                         table_bytes=0, plane_align=16, tile_rows=96,
+                         tile_cols=128, max_k=2, threads=256),
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class ResidentPlan:
     """A positive decision: this (family, lattice) runs k sweeps per
-    launch on (tile_rows, tile_cols) tiles of the compact planes."""
+    launch on (tile_rows, tile_cols) tiles of its planes (columns in
+    plane elements: sites or words)."""
 
     family: str
     n: int
@@ -51,16 +100,28 @@ class ResidentPlan:
     tile_cols: int
     smem_bytes: int
     budget_bytes: int
+    threads: Optional[int]
 
 
-def smem_bytes(tile_rows: int, tile_cols: int, k: int) -> int:
+def col_halo(k: int, family: str = "stencil") -> int:
+    """Columns of halo on each side of a tile for k sweeps: 2k, rounded
+    up to the family's column alignment."""
+    align = GEOMETRY[family].col_align
+    return -(-2 * k // align) * align
+
+
+def smem_bytes(tile_rows: int, tile_cols: int, k: int,
+               family: str = "stencil") -> int:
     """Shared memory of one block for k sweeps: global row and column
-    indices of the extended tile, the acceptance table (padded to 16
-    floats) and both extended int8 planes (the layout of
-    ``stencil_sweeps_resident_kernel``)."""
+    indices of the extended tile, the acceptance table where the kernel
+    keeps one there, and both extended planes (the layout of the
+    family's ``*_sweeps_resident_kernel``)."""
+    g = GEOMETRY[family]
     er = tile_rows + 4 * k
-    ec = tile_cols + 4 * k
-    return 4 * (er + ec) + 4 * 16 + 2 * er * ec
+    ec = tile_cols + 2 * col_halo(k, family)
+    header = 4 * (er + ec) + g.table_bytes
+    header = -(-header // g.plane_align) * g.plane_align
+    return header + 2 * g.element_bytes * er * ec
 
 
 def plan_resident(family: str, n: int, m: int,
@@ -69,16 +130,18 @@ def plan_resident(family: str, n: int, m: int,
     """The k-sweep plan for one (family, lattice), or ``None`` for the
     per-half-sweep tier.  ``budget_bytes`` is one block's shared memory;
     ``None`` means the card's, :data:`SMEM_BUDGET_BYTES`."""
-    if family not in _FAMILIES:
+    if family not in GEOMETRY:
         raise ValueError(f"unknown resident family {family!r}; "
-                         f"ported: {list(_FAMILIES)}")
+                         f"ported: {sorted(GEOMETRY)}")
+    g = GEOMETRY[family]
     budget = SMEM_BUDGET_BYTES if budget_bytes is None else budget_bytes
-    tile_rows = min(TILE_ROWS, n)
-    tile_cols = min(TILE_COLS, m // 2)
-    for k in range(MAX_SWEEPS_PER_LAUNCH, 0, -1):
-        need = smem_bytes(tile_rows, tile_cols, k)
+    tile_rows = min(g.tile_rows, n)
+    tile_cols = min(g.tile_cols, m // g.col_divisor)
+    for k in range(g.max_k, 0, -1):
+        need = smem_bytes(tile_rows, tile_cols, k, family)
         if need <= budget:
             return ResidentPlan(family=family, n=n, m=m, k=k,
                                 tile_rows=tile_rows, tile_cols=tile_cols,
-                                smem_bytes=need, budget_bytes=budget)
+                                smem_bytes=need, budget_bytes=budget,
+                                threads=g.threads)
     return None

@@ -1,0 +1,341 @@
+"""The bitplane kernel pair's modules on the CPU: replica packing, the
+carry-save neighbour count, the shared site draws, the 10-class accept,
+the half-sweep and the per-replica observables
+(``repro_torch.core.bitplane``) bit for bit against the JAX package; the
+CPU wrappers against its Pallas kernels (interpret mode); the tiled
+k-sweep algorithm of the CUDA kernel, emulated in PyTorch; the bitplane
+planner; and the engines."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bitplane as jbp
+from repro.core import multispin as jms
+from repro.kernels.bitplane.bitplane import bitplane_update as jax_update
+from repro.kernels.bitplane.resident import \
+    bitplane_sweeps_resident as jax_resident
+from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, Session
+from repro_torch.core import bitplane as bp
+from repro_torch.core import multispin as ms
+from repro_torch.core import rng
+from repro_torch.kernels import resident
+from repro_torch.kernels.bitplane import (bitplane_sweeps_resident,
+                                          bitplane_update)
+
+BETA = 1 / 2.2
+SEED = 2 ** 36 + 5
+OFFSETS = (0, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1)
+SHAPES = ((16, 32), (8, 64))
+
+
+def replica_stack(n, m, seed=0):
+    r = np.random.default_rng(seed)
+    return np.where(r.random((bp.N_REPLICAS, n, m)) < 0.5, 1,
+                    -1).astype(np.int8)
+
+
+def jax_words(n, m, seed=0):
+    return jbp.pack_lattices(jnp.asarray(replica_stack(n, m, seed)))
+
+
+def to_port(words):
+    return torch.from_numpy(np.asarray(words).view(np.int32).copy())
+
+
+def as_u32(words: torch.Tensor) -> np.ndarray:
+    return words.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("n,m", SHAPES)
+def test_replica_packing_matches_reference(n, m):
+    fulls = replica_stack(n, m, seed=n)
+    jb, jw = jbp.pack_lattices(jnp.asarray(fulls))
+    tb, tw = bp.pack_lattices(torch.tensor(fulls))
+    assert tb.dtype == torch.int32 and tuple(tb.shape) == (n, m // 2)
+    np.testing.assert_array_equal(as_u32(tb), np.asarray(jb))
+    np.testing.assert_array_equal(as_u32(tw), np.asarray(jw))
+    np.testing.assert_array_equal(bp.unpack_replicas(tb).numpy(),
+                                  np.asarray(jbp.unpack_replicas(jb)))
+    np.testing.assert_array_equal(bp.unpack_lattices(tb, tw).numpy(), fulls)
+    for r in (0, 17, 31):
+        np.testing.assert_array_equal(
+            bp.replica_lattice(tb, tw, r).numpy(),
+            np.asarray(jbp.replica_lattice(jb, jw, r)))
+
+
+def test_bit_count_neighbors_over_all_16_inputs():
+    """Bit b of the four input words spells the combination b of
+    (up, down, center, side); bits 16-31 repeat it."""
+    combos = np.arange(32) % 16
+    words = [np.uint32(sum(int((c >> i) & 1) << b
+                           for b, c in enumerate(combos))) for i in range(4)]
+    want = jbp.bit_count_neighbors(*(jnp.asarray([w]) for w in words))
+    got = bp.bit_count_neighbors(*(to_port(np.array([w], np.uint32))
+                                   for w in words))
+    for a, g in zip(want, got):
+        np.testing.assert_array_equal(as_u32(g), np.asarray(a))
+    n0, n1, n2 = (int(as_u32(g)[0]) for g in got)
+    for b, c in enumerate(combos):
+        count = ((n0 >> b) & 1) + 2 * ((n1 >> b) & 1) + 4 * ((n2 >> b) & 1)
+        assert count == bin(int(c)).count("1")
+
+
+@pytest.mark.parametrize("n,m", SHAPES)
+@pytest.mark.parametrize("is_black", [True, False])
+def test_neighbor_counts_match_reference(n, m, is_black):
+    jb, _ = jax_words(n, m, seed=m)
+    for a, g in zip(jbp.neighbor_counts(jb, is_black),
+                    bp.neighbor_counts(to_port(jb), is_black)):
+        np.testing.assert_array_equal(as_u32(g), np.asarray(a))
+
+
+@pytest.mark.parametrize("offset", OFFSETS)
+def test_site_randoms_match_reference(offset):
+    want = jbp.site_randoms(SEED, 6, 8, jnp.uint32(offset))
+    got = bp.site_randoms(SEED, 6, 8, offset, "cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # rows from the middle of the plane: the same draws
+    np.testing.assert_array_equal(
+        bp.site_randoms(SEED, 2, 8, offset, "cpu", first_row=3).numpy(),
+        np.asarray(want)[3:5])
+
+
+def test_flip_word_from_classes_matches_reference():
+    jb, jw = jax_words(16, 32, seed=9)
+    counts = jbp.neighbor_counts(jw, True)
+    draws = jbp.site_randoms(SEED, 16, 16, jnp.uint32(4))
+    thr = jms.acceptance_thresholds(jnp.float32(BETA))
+    want = jbp.flip_word_from_classes(jb, counts, draws, thr)
+    got = bp.flip_word_from_classes(
+        to_port(jb), tuple(to_port(c) for c in counts),
+        torch.from_numpy(np.asarray(draws).astype(np.int64)),
+        ms.acceptance_thresholds(BETA))
+    np.testing.assert_array_equal(as_u32(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("n,m", SHAPES)
+@pytest.mark.parametrize("is_black", [True, False])
+@pytest.mark.parametrize("offset", OFFSETS)
+def test_update_color_bitplane_matches_reference(n, m, is_black, offset):
+    jb, jw = jax_words(n, m, seed=offset % 83)
+    t, o = (jb, jw) if is_black else (jw, jb)
+    want = jbp.update_color_bitplane(t, o, jnp.float32(BETA), is_black, SEED,
+                                     jnp.uint32(offset))
+    got = bp.update_color_bitplane(to_port(t), to_port(o),
+                                   ms.acceptance_thresholds(BETA), is_black,
+                                   SEED, offset)
+    np.testing.assert_array_equal(as_u32(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("beta,thresholds", [
+    (BETA, "port"), (1 / 2.63, "reference")])
+def test_run_sweeps_bitplane_matches_reference(beta, thresholds):
+    """At T = 2.2 with the port's thresholds; at a temperature where the
+    two tables may differ, with the JAX package's passed in."""
+    jb, jw = jax_words(16, 32, seed=2)
+    thr = (ms.acceptance_thresholds(beta) if thresholds == "port" else
+           torch.from_numpy(np.asarray(jms.acceptance_thresholds(
+               jnp.float32(beta))).astype(np.int64)))
+    got = bp.run_sweeps_bitplane(to_port(jb), to_port(jw), thr, 3, SEED,
+                                 2 ** 32 - 3)
+    # the JAX sweeps donate their inputs: they run after the port's
+    want = jbp.run_sweeps_bitplane(jb, jw, jnp.float32(beta), 3, seed=SEED,
+                                   start_offset=jnp.uint32(2 ** 32 - 3))
+    for a, g in zip(want, got):
+        np.testing.assert_array_equal(as_u32(g), np.asarray(a))
+
+
+@pytest.mark.parametrize("is_black,offset", [(True, 3), (False, 2 ** 31),
+                                             (True, 2 ** 32 - 1)])
+def test_update_wrapper_matches_pallas_kernel(is_black, offset):
+    jb, jw = jax_words(16, 32, seed=4)
+    t, o = (jb, jw) if is_black else (jw, jb)
+    want = jax_update(t, o, jnp.float32(BETA), is_black=is_black, seed=SEED,
+                      offset=jnp.uint32(offset), block_rows=8,
+                      interpret=True)
+    target = to_port(t)
+    before = bitplane_update.launches
+    got = bitplane_update(target, to_port(o), ms.acceptance_thresholds(BETA),
+                          is_black=is_black, seed=SEED, offset=offset)
+    assert got is target  # in place, as on the card
+    assert bitplane_update.launches == before  # the CPU launches nothing
+    np.testing.assert_array_equal(as_u32(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_resident_wrapper_matches_pallas_kernel(k):
+    jb, jw = jax_words(16, 32, seed=5)
+    want = jax_resident(jb, jw, jnp.float32(BETA), n_sweeps=k, seed=SEED,
+                        start_offset=6, interpret=True)
+    plan = resident.plan_resident("bitplane", 16, 32)
+    tb, tw = to_port(jb), to_port(jw)
+    before = bitplane_sweeps_resident.launches
+    got = bitplane_sweeps_resident(tb, tw, ms.acceptance_thresholds(BETA),
+                                   n_sweeps=k, seed=SEED, start_offset=6,
+                                   plan=plan)
+    assert bitplane_sweeps_resident.launches == before
+    np.testing.assert_array_equal(as_u32(tb), np.asarray(jb))  # untouched
+    for a, g in zip(want, got):
+        np.testing.assert_array_equal(as_u32(g), np.asarray(a))
+
+
+@pytest.mark.parametrize("n,m", SHAPES)
+def test_replica_observables_match_reference(n, m):
+    jb, jw = jax_words(n, m, seed=n + m)
+    want = jbp.replica_observables(jb, jw)
+    got = bp.replica_observables(to_port(jb), to_port(jw))
+    for k in ("m", "e"):
+        assert got[k].dtype == torch.float32 and got[k].shape == (32,)
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+def tiled_sweeps(black, white, thr, k, seed, start, tile_r, tile_c):
+    """PyTorch emulation of ``bitplane_sweeps_resident_kernel``: every
+    tile plus a halo of 2k rows and of 2k columns rounded up to a whole
+    4-site group (wrapped modulo the plane) runs 2k half-sweeps on its
+    own, the side tap by global row parity and wrapped within the
+    extended tile at its edge, one draw per global group and lane;
+    half-sweep h (from 0) updates the rows at distance >= h + 1 from the
+    extended tile's edge and the 4-site groups that hold a column at that
+    distance; only the tile is written back."""
+    n, h = black.shape
+    halo_r, halo_c = 2 * k, resident.col_halo(k, "bitplane")
+    k0, k1 = rng.seed_keys(seed)
+    out_b, out_w = torch.empty_like(black), torch.empty_like(white)
+    for r0 in range(0, n, tile_r):
+        for c0 in range(0, h, tile_c):
+            rows = torch.arange(r0 - halo_r, r0 + tile_r + halo_r) % n
+            cols = torch.arange(c0 - halo_c, c0 + tile_c + halo_c) % h
+            ext = [black[rows][:, cols].clone(), white[rows][:, cols].clone()]
+            group = (rows[:, None] * (h // 4) + cols[None, :] // 4)
+            lane = (cols % 4)[None, :].expand_as(group)
+            er, ec = len(rows), len(cols)
+            for s in range(k):
+                for color in (0, 1):
+                    margin = 2 * s + color + 1
+                    region = torch.zeros((er, ec), dtype=torch.bool)
+                    region[margin:er - margin,
+                           margin // 4 * 4:-(-(ec - margin) // 4) * 4] = True
+                    tgt, op = ext[color], ext[1 - color]
+                    plus = ((rows % 2 == 1) == (color == 0))[:, None]
+                    side = torch.where(plus, torch.roll(op, -1, 1),
+                                       torch.roll(op, 1, 1))
+                    counts = bp.bit_count_neighbors(
+                        torch.roll(op, 1, 0), torch.roll(op, -1, 0), op, side)
+                    lanes = torch.stack(rng.philox4x32(
+                        rng.half_sweep_offset(start, s, color), 0, group, 0,
+                        k0, k1), dim=-1)
+                    draws = lanes.gather(-1, lane[..., None])[..., 0]
+                    ext[color] = torch.where(
+                        region,
+                        tgt ^ bp.flip_word_from_classes(tgt, counts, draws,
+                                                        thr), tgt)
+            rr = slice(halo_r, halo_r + min(tile_r, n - r0))
+            cc = slice(halo_c, halo_c + min(tile_c, h - c0))
+            out_b[r0:r0 + tile_r, c0:c0 + tile_c] = ext[0][rr, cc]
+            out_w[r0:r0 + tile_r, c0:c0 + tile_c] = ext[1][rr, cc]
+    return out_b, out_w
+
+
+@pytest.mark.parametrize("n,m,tile_r,tile_c,k", [
+    (16, 64, 8, 16, 1),     # tiles divide the plane
+    (12, 40, 5, 8, 2),      # ragged tiles, odd tile rows, 4-aligned groups
+    (8, 16, 8, 4, 3),       # halo wider than the plane: multiple wraps
+])
+def test_tiled_k_sweeps_equal_whole_plane_sweeps(n, m, tile_r, tile_c, k):
+    """The halo argument the CUDA k-sweep kernel rests on."""
+    b, w = bp.pack_lattices(torch.tensor(replica_stack(n, m, seed=n + k)))
+    thr = ms.acceptance_thresholds(BETA)
+    want = bp.run_sweeps_bitplane(b, w, thr, k, SEED, 2)
+    got = tiled_sweeps(b, w, thr, k, SEED, 2, tile_r, tile_c)
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+
+
+def test_planner_bitplane_geometry_and_boundary():
+    g = resident.GEOMETRY["bitplane"]
+    assert g.tile_cols % 4 == 0
+    assert [resident.col_halo(k, "bitplane") for k in (1, 2, 3)] == [4, 4, 8]
+    assert [resident.col_halo(k) for k in (1, 2, 3)] == [2, 4, 6]
+    plan = resident.plan_resident("bitplane", 16384, 16384)
+    assert (plan.tile_rows, plan.tile_cols, plan.k) == (g.tile_rows,
+                                                        g.tile_cols, g.max_k)
+    assert plan.smem_bytes <= resident.SMEM_BUDGET_BYTES
+    small = resident.plan_resident("bitplane", 16, 24)
+    assert (small.tile_rows, small.tile_cols) == (16, 12)
+    need1 = resident.smem_bytes(16, 12, 1, "bitplane")
+    # indices rounded up to 16 bytes, then two (20 x 20) uint32 planes
+    assert need1 == 160 + 8 * 20 * 20
+    assert resident.plan_resident("bitplane", 16, 24, need1).k == 1
+    assert resident.plan_resident("bitplane", 16, 24, need1 - 1) is None
+
+
+def test_engine_validates_width_and_reports_state():
+    with pytest.raises(ValueError, match="multiple of 4"):
+        RunSpec(lattice=LatticeSpec(16, 12), engine=EngineSpec("bitplane"))
+    spec = RunSpec(lattice=LatticeSpec(16, 24),
+                   engine=EngineSpec("bitplane_pallas"), seed=SEED)
+    s = Session.open(spec, device="cpu")
+    b, w = s.state
+    assert b.dtype == torch.int32 and tuple(b.shape) == (16, 12)
+    arrays = s.engine.state_arrays(s.state)
+    assert sorted(arrays) == ["black_bits", "white_bits"]
+    assert arrays["white_bits"].dtype == np.uint32
+    obs = s.engine.observables(s.state, s.engine.cfg.inv_temp)
+    assert obs["m"].shape == (32,) and obs["e"].shape == (32,)
+    assert s.magnetization() == float(obs["m"].double().mean().float())
+    assert s.energy() == float(obs["e"].double().mean().float())
+
+
+@pytest.mark.parametrize("engine", ["bitplane", "bitplane_pallas"])
+def test_hot_start_gives_32_distinct_replicas(engine):
+    word = Session.open(RunSpec(lattice=LatticeSpec(16, 32, init_p_up=0.5),
+                                engine=EngineSpec(engine), seed=SEED),
+                        device="cpu")
+    fulls = bp.unpack_lattices(*word.state).reshape(32, -1)
+    assert len({tuple(f.tolist()) for f in fulls}) == 32
+
+
+def test_ordered_start_replicas_stay_equal():
+    """Shared draws: replicas that start equal never separate."""
+    spec = RunSpec(lattice=LatticeSpec(8, 16, init_p_up=1.0),
+                   engine=EngineSpec("bitplane"), temperature=3.0, seed=SEED)
+    s = Session.open(spec, device="cpu")
+    s.run(3)
+    b, w = s.state
+    assert set(as_u32(b).ravel()) <= {0, 0xFFFFFFFF}
+    assert set(as_u32(w).ravel()) <= {0, 0xFFFFFFFF}
+
+
+def test_wrappers_validate_planes():
+    b, w = bp.pack_lattices(torch.tensor(replica_stack(8, 16)))
+    thr = ms.acceptance_thresholds(BETA)
+    with pytest.raises(ValueError, match="multiple-of-4 width"):
+        bitplane_update(b[:, :6].contiguous(), w[:, :6].contiguous(), thr,
+                        is_black=True, seed=1, offset=0)
+    plan = resident.plan_resident("bitplane", 8, 16)
+    with pytest.raises(ValueError, match="multiple-of-4 width"):
+        bitplane_sweeps_resident(b, w, thr, n_sweeps=1, seed=1,
+                                 start_offset=0,
+                                 plan=dataclasses.replace(plan, tile_cols=3))
+    with pytest.raises(ValueError, match="plan is for"):
+        bitplane_sweeps_resident(b, w, thr, n_sweeps=1, seed=1,
+                                 start_offset=0,
+                                 plan=dataclasses.replace(plan, n=16))
+
+
+
+@pytest.mark.parametrize("temperature", [1.0, 2.0, 3.0, 5.0])
+def test_onsager_energy_matches_elliptic_integral(temperature):
+    """The exact energy the bitplane smoke run is held to: the AGM form of
+    K against scipy's ``ellipk`` (parameter m = k^2)."""
+    from scipy.special import ellipk
+    from repro_torch.core.observables import onsager_energy
+    b2 = 2.0 / temperature
+    k = 2.0 * np.sinh(b2) / np.cosh(b2) ** 2
+    want = -1 / np.tanh(b2) * (1 + 2 / np.pi * (2 * np.tanh(b2) ** 2 - 1)
+                               * ellipk(k * k))
+    assert onsager_energy(temperature) == pytest.approx(want, rel=1e-12)
+    assert -2.0 < onsager_energy(temperature) < 0.0

@@ -9,9 +9,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import LatticeSpec, RunSpec, Session
-from repro_torch.core import metropolis
+from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, Session
+from repro_torch.core import metropolis, multispin
 from repro_torch.kernels import resident
+from repro_torch.kernels.bitplane import (bitplane_sweeps_resident,
+                                          bitplane_sweeps_resident_plain,
+                                          bitplane_update,
+                                          bitplane_update_plain)
+from repro_torch.kernels.multispin import (multispin_sweeps_resident,
+                                           multispin_sweeps_resident_plain,
+                                           multispin_update,
+                                           multispin_update_plain)
 from repro_torch.kernels.stencil import (stencil_sweeps_resident,
                                          stencil_sweeps_resident_plain,
                                          stencil_update,
@@ -94,6 +102,98 @@ def test_oversized_tile_raises(cuda):
 @pytest.mark.parametrize("tier", ["k-sweep", "half-sweep"])
 def test_session_on_card_equals_cpu(cuda, tier):
     spec = RunSpec(lattice=LatticeSpec(64, 96), temperature=2.1, seed=SEED)
+    cpu = Session.open(spec, device="cpu")
+    cpu.run(7)
+    card = Session.open(
+        spec, resident_budget_bytes=0 if tier == "half-sweep" else None)
+    assert card.device.type == "cuda"
+    assert (card.engine.resident_plan is not None) == (tier == "k-sweep")
+    card.run(7)
+    assert card.state_digest() == cpu.state_digest()
+
+
+def word_planes(n, w, seed, device, mask=0xFFFFFFFF):
+    """Two random int32 word planes; ``mask`` 0x11111111 keeps multispin
+    words to 0/1 nibbles."""
+    r = np.random.default_rng(seed)
+    return tuple(torch.tensor((r.integers(0, 2 ** 32, (n, w), dtype=np.uint64)
+                               & mask).astype(np.uint32).view(np.int32),
+                              device=device)
+                 for _ in range(2))
+
+
+NIBBLES = 0x11111111
+WORD_KERNELS = {
+    "multispin": (multispin_update, multispin_update_plain,
+                  multispin_sweeps_resident, multispin_sweeps_resident_plain,
+                  NIBBLES, 16),
+    "bitplane": (bitplane_update, bitplane_update_plain,
+                 bitplane_sweeps_resident, bitplane_sweeps_resident_plain,
+                 0xFFFFFFFF, 2),
+}
+
+
+@pytest.mark.parametrize("family,n,w", [
+    ("multispin", 64, 32), ("multispin", 30, 7), ("multispin", 2, 1),
+    ("bitplane", 64, 128), ("bitplane", 30, 12), ("bitplane", 2, 4)])
+@pytest.mark.parametrize("is_black,offset", [
+    (True, 0), (False, 2 ** 31 - 1), (True, 2 ** 31), (False, 2 ** 32 - 1)])
+def test_word_update_kernel_matches_plain(cuda, family, n, w, is_black,
+                                          offset):
+    kernel, plain, _, _, mask, _ = WORD_KERNELS[family]
+    target, op = word_planes(n, w, n + w, cuda, mask)
+    thr = multispin.acceptance_thresholds(1 / 2.2)
+    want = plain(target, op, thr, is_black=is_black, seed=SEED,
+                 offset=offset)
+    before = kernel.launches
+    got = kernel(target, op, thr, is_black=is_black, seed=SEED,
+                 offset=offset)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("family,n,w,tile_r,tile_c,k,n_sweeps", [
+    ("multispin", 64, 16, 64, 64, 2, 2),
+    ("multispin", 64, 32, 16, 8, 2, 5),    # several tiles, three launches
+    ("multispin", 30, 3, 7, 2, 3, 3),      # ragged, halo wider than plane
+    ("bitplane", 64, 64, 64, 128, 2, 2),
+    ("bitplane", 64, 64, 16, 16, 2, 5),
+    ("bitplane", 30, 12, 7, 8, 3, 3),      # ragged, halo wider than plane
+])
+def test_word_resident_kernel_matches_plain(cuda, family, n, w, tile_r,
+                                            tile_c, k, n_sweeps):
+    _, _, kernel, plain, mask, divisor = WORD_KERNELS[family]
+    b, wp = word_planes(n, w, n + k, cuda, mask)
+    thr = multispin.acceptance_thresholds(1 / 2.4)
+    plan = dataclasses.replace(
+        resident.plan_resident(family, n, w * divisor), k=k,
+        tile_rows=tile_r, tile_cols=tile_c)
+    want = plain(b, wp, thr, n_sweeps=n_sweeps, seed=SEED,
+                 start_offset=2 ** 32 - 3)
+    before = kernel.launches
+    got = kernel(b, wp, thr, n_sweeps=n_sweeps, seed=SEED,
+                 start_offset=2 ** 32 - 3, plan=plan)
+    torch.cuda.synchronize()
+    assert kernel.launches == before - (-n_sweeps // k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("family", ["multispin", "bitplane"])
+def test_word_planner_and_kernel_agree_on_shared_memory(cuda, family):
+    import importlib
+    lib = importlib.import_module(
+        f"repro_torch.kernels.{family}.{family}").library()
+    query = getattr(lib, f"{family}_resident_smem_bytes")
+    for tr, tc, k in ((64, 128, 2), (7, 8, 1), (64, 64, 3)):
+        assert query(tr, tc, k) == resident.smem_bytes(tr, tc, k, family)
+
+
+@pytest.mark.parametrize("engine", ["multispin_pallas", "bitplane_pallas"])
+@pytest.mark.parametrize("tier", ["k-sweep", "half-sweep"])
+def test_word_session_on_card_equals_cpu(cuda, engine, tier):
+    spec = RunSpec(lattice=LatticeSpec(64, 96), engine=EngineSpec(engine),
+                   temperature=2.1, seed=SEED)
     cpu = Session.open(spec, device="cpu")
     cpu.run(7)
     card = Session.open(

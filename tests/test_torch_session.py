@@ -1,9 +1,10 @@
-"""The slice as a whole: a ``stencil_pallas`` run saved by the JAX
-package resumes in repro_torch (CPU) with the same ``state_digest`` and
-samples after the same sweeps, through either tier of either package;
-a run saved by repro_torch resumes in the JAX package; the entry points
-raise where no GPU exists and none was asked for; the package imports
-neither ``jax`` nor ``repro``."""
+"""The port as a whole: a ``stencil_pallas``, ``multispin_pallas`` or
+``bitplane_pallas`` run saved by the JAX package resumes in repro_torch
+(CPU) with the same ``state_digest`` and samples after the same sweeps,
+through either tier; a run saved by repro_torch resumes in the JAX
+package; a fresh word-plane session packs the single-lattice init; the
+entry points raise where no GPU exists and none was asked for; the
+package imports neither ``jax`` nor ``repro``."""
 import contextlib
 import os
 import re
@@ -21,7 +22,7 @@ from repro.analysis.measure import MeasurementPlan as JaxPlan
 from repro.core import observables as jobs  # noqa: F401  (JAX on the CPU)
 from repro_torch import __main__ as cli
 from repro_torch.analysis import MeasurementPlan
-from repro_torch.api import LatticeSpec, RunSpec, Session
+from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, Session
 from repro_torch.core import metropolis
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -198,12 +199,92 @@ def test_fresh_session_is_a_function_of_the_seed():
     assert a.state_digest() != japi.Session.open(jax_spec()).state_digest()
 
 
+WORD_ENGINES = ("multispin_pallas", "bitplane_pallas")
+
+
+def jax_word_spec(engine):
+    return japi.RunSpec(lattice=japi.LatticeSpec(N, M),
+                        engine=japi.EngineSpec(engine),
+                        temperature=TEMPERATURE, seed=SEED)
+
+
+@pytest.fixture(scope="module", params=WORD_ENGINES)
+def word_reference(request, tmp_path_factory):
+    """A JAX checkpoint of a word-plane engine at step PRE, and what the
+    JAX package computes from it."""
+    engine = request.param
+    path = str(tmp_path_factory.mktemp(engine) / "jax.npz")
+    s = japi.Session.open(jax_word_spec(engine))
+    s.run(PRE)
+    s.save(path)
+    out = {"engine": engine, "path": path, "digest": s.state_digest()}
+    r = japi.Session.restore(path)
+    r.run(RUN)
+    out["run"] = r.state_digest()
+    r = japi.Session.restore(path)
+    out["measure"] = (r.measure(JaxPlan(**PLAN)), r.state_digest())
+    return out
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_word_engine_resume_run_matches_reference(word_reference, tier):
+    s = Session.restore(word_reference["path"], device="cpu",
+                        resident_budget_bytes=port_budget(tier))
+    assert s.engine.name == word_reference["engine"]
+    assert (s.engine.resident_plan is not None) == (tier == "k-sweep")
+    assert s.state_digest() == word_reference["digest"]
+    s.run(RUN)
+    assert s.state_digest() == word_reference["run"]
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_word_engine_resume_measure_matches_reference(word_reference, tier):
+    s = Session.restore(word_reference["path"], device="cpu",
+                        resident_budget_bytes=port_budget(tier))
+    traj = s.measure(MeasurementPlan(**PLAN))
+    want, digest = word_reference["measure"]
+    shape = (3, 32) if word_reference["engine"] == "bitplane_pallas" else (3,)
+    assert sorted(traj) == sorted(want)
+    for k in want:
+        assert traj[k].dtype == np.float32 and traj[k].shape == shape
+        np.testing.assert_array_equal(traj[k], want[k])
+    assert s.state_digest() == digest
+
+
+def test_word_engine_port_checkpoint_resumes_in_reference(word_reference,
+                                                          tmp_path):
+    path = str(tmp_path / "port.npz")
+    spec = jax_word_spec(word_reference["engine"])
+    s = Session.open(RunSpec.from_json(spec.to_json()), device="cpu")
+    s.run(PRE)
+    s.save(path)
+    j = japi.Session.restore(path)
+    assert j.state_digest() == s.state_digest()
+    j.run(2)
+    s.run(2)
+    assert j.state_digest() == s.state_digest()
+
+
+@pytest.mark.parametrize("engine", ["multispin", "multispin_pallas",
+                                    "bitplane", "bitplane_pallas"])
+def test_fresh_word_session_holds_the_single_lattice_init(engine):
+    """The cross-engine init contract: a fresh session's ``full_lattice``
+    (replica 0 for bitplane) is ``stencil_pallas``'s from the same spec."""
+    lattice = LatticeSpec(N, M, init_p_up=0.4)
+    word = Session.open(RunSpec(lattice=lattice, engine=EngineSpec(engine),
+                                seed=SEED), device="cpu")
+    plain = Session.open(RunSpec(lattice=lattice, seed=SEED), device="cpu")
+    assert torch.equal(word.full_lattice(), plain.full_lattice())
+
+
 def test_unported_engine_checkpoint_raises(tmp_path):
     spec = jax_spec().to_dict()
-    spec["engine"]["name"] = "multispin"
-    path = str(tmp_path / "multispin.npz")
+    spec["engine"]["name"] = "tensorcore"
+    path = str(tmp_path / "tensorcore.npz")
     np.savez(path, spec_json=japi.RunSpec.from_dict(spec).to_json(),
-             step_count=0, state_black_words=np.zeros((N, M // 16), np.uint32))
+             step_count=0, **{f"state_plane_{k}": np.ones((N // 2, M // 2),
+                                                           np.float32)
+                              for k in ("00", "01", "10", "11")})
     with pytest.raises(ValueError, match="not ported"):
         Session.restore(path, device="cpu")
 
@@ -242,7 +323,7 @@ sys.modules["repro"] = None
 import repro_torch
 for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(info.name)
-from repro_torch.api import LatticeSpec, RunSpec, Session
+from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, Session
 s = Session.open(RunSpec(lattice=LatticeSpec(8, 8), seed=2 ** 40),
                  device="cpu")
 s.run(2)

@@ -216,7 +216,7 @@ def test_planner_reads_budget_at_call_time():
 
 def test_planner_rejects_unported_family():
     with pytest.raises(ValueError, match="ported"):
-        resident.plan_resident("multispin", 16, 16)
+        resident.plan_resident("tensorcore", 16, 16)
 
 
 def test_wrappers_validate_planes():
