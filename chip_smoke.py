@@ -5,23 +5,31 @@
 
 Three kernel families, each a per-half-sweep kernel and a k-sweep
 kernel: stencil (int8 planes), multispin (8 nibble spins per uint32
-word) and bitplane (32 replicas per uint32 word).  Phases, each of which
-raises (and so exits non-zero) when it fails:
+word) and bitplane (32 replicas per uint32 word); and the fused
+tensor-core kernel ``tensorcore_update`` (four int8 sublattice planes,
+banded products on the tensor cores).  Phases, each of which raises (and
+so exits non-zero) when it fails:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA source of ``src/repro_torch/csrc`` with nvcc (one
    nvcc per source, started together), read each kernel's SASS
-   instruction mix with cuobjdump, and check each family's planner
-   shared memory against its library's own query;
+   instruction mix with cuobjdump (the tensor-core kernel must hold
+   ``HMMA``), and check each family's planner shared memory against its
+   library's own query;
 3. each kernel against its plain PyTorch version on the card, 0
    mismatches required, at small shapes, ragged tiles, a halo wider than
    the plane, seeds of at least 2^32, offsets near 2^31 and 2^32, and
    the main path's full plane; each kernel's time and its plain
    version's at the full plane, and both sweep tiers' times;
+   ``tensorcore_update`` at every block it takes on small ragged planes
+   (also at T = 0.05 from all-up planes, where no spin may flip), at
+   planes of 512^2 with blocks 16 and 64 (int8 and bf16) and at the main
+   path's 16384^2 planes with block 128, both colours; a block of 8 must
+   raise;
 4. the Session at 512^2 for each engine: the card's k-sweep tier, its
    per-half-sweep tier (``resident_budget_bytes=0``) and the CPU plain
    versions give one ``state_digest``, and restore-continue equals the
-   uninterrupted run;
+   uninterrupted run; the same for ``tensorcore`` (block 64, one tier);
 5. the main paths: ``stencil_pallas`` and ``multispin_pallas`` at
    32768^2 (2^30 spins) from an ordered start at T = 2.0, ``run(200)``
    and ``measure()``, |m| within 2e-3 of Onsager's value;
@@ -30,10 +38,12 @@ raises (and so exits non-zero) when it fails:
    replica's energy within 2e-3 of Onsager's exact value, each |m| below
    0.01, no two replicas equal; flips/ns of each; then each spec on the
    per-half-sweep tier, whose planes must equal the k-sweep tier's after
-   the same sweeps.
+   the same sweeps; ``tensorcore`` at 32768^2, block 128, from an ordered
+   start at T = 2.0: ``run(200)`` and ``measure()``, |m| within 2e-3 of
+   Onsager's value, exactly 600 launches of ``tensorcore_update``.
 
-Every Session path is driven with all six kernels' launch counts set to
-0 just before it and read just after it: each path must launch the
+Every Session path is driven with all seven kernels' launch counts set
+to 0 just before it and read just after it: each path must launch the
 kernel of its tier and no other.  The last lines are the ``kernels``
 JSON (``launches`` from the full-size path of the kernel's tier, and
 every path's count), the peak device memory, the ``nvidia-smi`` line and
@@ -62,6 +72,9 @@ TEMPERATURE = 2.0
 BITPLANE_TEMPERATURE = 3.0
 SEED = 2 ** 33 + 5          # both Philox key lanes non-zero
 HALF_SWEEP_CHECK = 10       # sweeps of the full-size half-sweep-tier paths
+TC_BLOCK = 128              # tensorcore main path's block (the default)
+TC_SMALL_PLANE = 512        # plane side of the small tensorcore checks
+TC_COLD_T = 0.05            # a temperature whose table holds exact zeros
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 #: instructions per element update that no implementation of the
 #: kernels' algorithm avoids, by the SM pipe that executes them (the
@@ -91,16 +104,27 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 #:   count's bit 0, bit 1 and bit 2 (4 muxes; count 4 has bits 0 and 1
 #:   clear), then the new word as t ? ~a1 : a0, the flip's XOR folded
 #:   into the last mux.
+#: * tensorcore, per plane position (a site of each of the two target
+#:   planes): lanes 0 and 1 of one Philox4x32-10 call at counter
+#:   (offset, 0, position, 0): 18 multiplies (the first round's offset
+#:   product is the same everywhere, the last round's second product
+#:   unused) and 18 XORs; per site 1 add that turns the f32 sum into the
+#:   bound's index, 1 compare of the draw with the bound, 1 merge of the
+#:   flip; on the tensor pipe the banded products' FLOP
+#:   (``tensorcore_flop_per_position``).
 PIPE_OPS = {
     "stencil": {"fma": 17, "alu": 21, "xu": 1},
     "multispin": {"fma": 2 * 18 - 1, "alu": 2 * 19 - 1 + 3 + 8 * 3 + 1,
                   "xu": 0},
     "bitplane": {"fma": 18 / 4, "alu": 19 / 4 + 5 + 10 * 2 + 9, "xu": 0},
+    "tensorcore": {"fma": 18 + 2, "alu": 18 + 2 * 2, "xu": 0},
 }
 #: results per clock per SM on compute capability 9.0 (CUDA C++
 #: Programming Guide, arithmetic instruction throughput): 32-bit integer
-#: multiply 64, add, logic and compare 64, type conversions 16
-PIPE_PER_CLOCK_PER_SM = {"fma": 64, "alu": 64, "xu": 16}
+#: multiply 64, add, logic and compare 64, type conversions 16; dense bf16
+#: FLOP on the tensor cores 4096 (989 TFLOP/s on the H100 SXM data sheet
+#: is 4096 per clock on each of 132 SMs at its 1830 MHz boost clock)
+PIPE_PER_CLOCK_PER_SM = {"fma": 64, "alu": 64, "xu": 16, "tensor": 4096}
 #: four schedulers per SM, each dispatching one warp instruction per
 #: clock
 DISPATCH_PER_CLOCK_PER_SM = 4 * 32
@@ -112,8 +136,9 @@ SASS_PIPES = {
             "PRMT", "IMNMX", "PLOP3"),
     "xu": ("I2F", "F2I", "F2F", "MUFU"),
     "lsu": ("LDG", "STG", "LDS", "STS", "LD", "ST", "LDL", "STL"),
+    "tensor": ("HMMA",),
 }
-#: the six kernels: family, tier, TPU kernel replaced
+#: the seven kernels: family, tier, TPU kernel replaced
 KERNELS = {
     "stencil_update": ("stencil", "half-sweep",
                        "src/repro/kernels/stencil/stencil.py:76"),
@@ -127,6 +152,8 @@ KERNELS = {
                         "src/repro/kernels/bitplane/bitplane.py:72"),
     "bitplane_sweeps_resident": (
         "bitplane", "k-sweep", "src/repro/kernels/bitplane/resident.py:91"),
+    "tensorcore_update": ("tensorcore", "half-sweep",
+                          "src/repro/kernels/tensorcore/tensorcore.py:97"),
 }
 ENGINE_FAMILY = {"stencil_pallas": "stencil",
                  "multispin_pallas": "multispin",
@@ -145,12 +172,32 @@ def nvidia_smi(query: str) -> str:
     return out.strip().splitlines()[0]
 
 
+def tensorcore_flop_per_position(block: int) -> float:
+    """Tensor-core FLOP per plane position of ``csrc/tensorcore.cu``: for
+    each 16 x 8 output tile, the mma.sync k-steps of its four banded
+    products whose K tile is not all zero (the only ones the kernel
+    runs), 2 * 16 * 8 * 16 FLOP each."""
+    steps = 0
+    for r0 in range(0, block, 16):
+        for c0 in range(0, block, 8):
+            for lo, hi in ((c0 - 1, c0 + 7), (c0, c0 + 8), (r0, r0 + 16),
+                           (r0 - 1, r0 + 15)):
+                steps += sum(1 for k0 in range(0, block, 16)
+                             if lo <= k0 + 15 and hi >= k0)
+    return steps * 2 * 16 * 8 * 16 / block ** 2
+
+
+PIPE_OPS["tensorcore"]["tensor"] = tensorcore_flop_per_position(TC_BLOCK)
+
+
 def clocks_per_element(family: str) -> float:
     """SM clocks per element update at the busiest pipe, or at the
-    dispatch rate where that is lower."""
+    dispatch rate (of the pipes other than the tensor cores' FLOP) where
+    that is lower."""
     ops = PIPE_OPS[family]
     pipes = max(ops[p] / PIPE_PER_CLOCK_PER_SM[p] for p in ops)
-    return max(pipes, sum(ops.values()) / DISPATCH_PER_CLOCK_PER_SM)
+    issued = sum(v for p, v in ops.items() if p != "tensor")
+    return max(pipes, issued / DISPATCH_PER_CLOCK_PER_SM)
 
 
 def bound(family: str, bytes_moved: float, updates: float,
@@ -170,13 +217,27 @@ def sass_mix(compiler: str, library_path) -> dict:
     pipe_of = {op: pipe for pipe, ops in SASS_PIPES.items() for op in ops}
     mix = {}
     for chunk in out.split("Function : ")[1:]:
-        name = re.search(r"([a-z][a-z_]*_kernel)E", chunk).group(1)
+        # a template instance's name carries its arguments:
+        # kernelIaLi128EE -> <a,128> (a: int8, t: 16-bit bf16 pattern)
+        found = re.search(r"([a-z][a-z_]*_kernel)(?:E|I(\w)(?:Li(\d+)E)?E)",
+                          chunk)
+        args = [a for a in found.group(2, 3) if a]
+        name = found.group(1) + (f"<{','.join(args)}>" if args else "")
         counts = collections.Counter()
         for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                              r"([A-Z][A-Z0-9]*)", chunk):
             counts[pipe_of.get(op, "other")] += 1
         mix[name] = dict(sorted(counts.items()))
     return mix
+
+
+def tc_random_planes(torch, h: int, dtype, seed: int, w=None) -> dict:
+    """Four random (h, w or h) +-1 sublattice planes of ``dtype`` on the
+    card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: (torch.randint(0, 2, (h, w or h), generator=g, device="cuda",
+                              dtype=torch.int8) * 2 - 1).to(dtype)
+            for k in ("00", "01", "10", "11")}
 
 
 def replica_disagreements(torch, words) -> "torch.Tensor":
@@ -243,6 +304,10 @@ def main() -> int:
             print(f"  ptxas {line}")
         for kernel, mix in sass_mix(_build.nvcc(), b.path).items():
             print(f"  SASS {kernel}: {mix}")
+            if kernel.startswith("tensorcore_update_kernel"):
+                check(mix.get("tensor", 0) > 0,
+                      f"{kernel} holds no HMMA: its products are not on "
+                      f"the tensor cores")
     for family in ("stencil", "multispin", "bitplane"):
         lib = importlib.import_module(
             f"repro_torch.kernels.{family}.{family}").library()
@@ -357,6 +422,80 @@ def main() -> int:
               f"{full_plan.tile_cols}, threads {full_plan.threads}), "
               f"half-sweep tier {2 * kernel_ms[update]:.4f}")
         del b, w
+
+    # the fused tensor-core kernel: small planes at blocks 16 and 64 in
+    # both plane types, then the main path's planes at its block
+    tc_update = "tensorcore_update"
+    tc_plane = (FULL_N // 2, FULL_N // 2)
+    tc_beta = 1.0 / TEMPERATURE
+    from repro_torch.kernels.tensorcore.tensorcore import CUDA_BLOCKS
+    # every block the kernel takes, on (2B, 3B) planes, both types and
+    # colours: at TEMPERATURE from random planes, and at TC_COLD_T from
+    # all-up planes, where the table's -8 beta entries underflow to 0
+    for block in CUDA_BLOCKS:
+        for dtype in (torch.int8, torch.bfloat16):
+            for color in ("black", "white"):
+                for temp, up in ((TEMPERATURE, False), (TC_COLD_T, True)):
+                    planes = tc_random_planes(torch, 2 * block, dtype,
+                                              block, 3 * block)
+                    if up:
+                        planes = {k: v.abs() for k, v in planes.items()}
+                    want = plains[tc_update](planes, color, 1.0 / temp,
+                                             seed=SEED, offset=block,
+                                             block=block)
+                    got = wrappers[tc_update](
+                        {k: v.clone() for k, v in planes.items()}, color,
+                        1.0 / temp, seed=SEED, offset=block, block=block)
+                    torch.cuda.synchronize()
+                    compare(tc_update, [got[k] for k in sorted(got)],
+                            [want[k] for k in sorted(want)])
+    for (h, block, dtype, cases) in (
+            (TC_SMALL_PLANE, 16, torch.int8,
+             [("black", 0, SEED), ("white", 2 ** 32 - 1, 2 ** 40 + 11)]),
+            (TC_SMALL_PLANE, 64, torch.int8,
+             [("black", 2 ** 31, 12345), ("white", 7, SEED)]),
+            (TC_SMALL_PLANE, 16, torch.bfloat16,
+             [("black", 3, SEED), ("white", 2 ** 31 - 1, SEED)]),
+            (TC_SMALL_PLANE, 64, torch.bfloat16,
+             [("black", 2 ** 32 - 2, 2 ** 35 + 1), ("white", 5, SEED)]),
+            (tc_plane[0], TC_BLOCK, torch.int8,
+             [("black", 2, SEED), ("white", 2 ** 32 - 1, SEED)])):
+        for color, offset, seed in cases:
+            planes = tc_random_planes(torch, h, dtype, offset + h + block)
+            want, plain_ms = plain_timed(lambda: plains[tc_update](
+                planes, color, tc_beta, seed=seed, offset=offset,
+                block=block))
+            got = wrappers[tc_update](
+                {k: v.clone() for k, v in planes.items()}, color, tc_beta,
+                seed=seed, offset=offset, block=block)
+            torch.cuda.synchronize()
+            compare(tc_update, [got[k] for k in sorted(got)],
+                    [want[k] for k in sorted(want)],
+                    plain_ms if h == tc_plane[0] else None)
+            del planes, want, got
+    planes = tc_random_planes(torch, 64, torch.int8, 1)
+    before = wrappers[tc_update].launches
+    try:
+        wrappers[tc_update](planes, "black", tc_beta, block=8)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and wrappers[tc_update].launches == before,
+          "tensorcore_update took a block of 8 on the card")
+    cases, bad, err, _ = stats[tc_update]
+    print(f"phase 3: {tc_update}: {cases} plane comparisons with the plain "
+          f"version, {bad} mismatches, max abs err {err}; block 8 raises")
+    check(bad == 0, f"{tc_update} disagrees with its plain version")
+    planes = tc_random_planes(torch, tc_plane[0], torch.int8, 2)
+    kernel_ms[tc_update] = timed_ms(lambda: wrappers[tc_update](
+        planes, "black", tc_beta, seed=SEED, offset=0, block=TC_BLOCK),
+        reps=20)
+    print(f"phase 3: tensorcore: ms per full sweep of a {FULL_N}^2 lattice "
+          f"(planes {tc_plane[0]}^2, block {TC_BLOCK}): "
+          f"{2 * kernel_ms[tc_update]:.4f}; plain version "
+          f"{stats[tc_update][3]:.1f} ms per half-sweep")
+    del planes
+    full_plane["tensorcore"] = tc_plane
     phase_s[3] = time.perf_counter() - t0
 
     # bounds at the full plane: bytes of each input read once and each
@@ -364,6 +503,11 @@ def main() -> int:
     bounds = {}
     for family, (fn, fh) in full_plane.items():
         elements = fn * fh
+        if family == "tensorcore":
+            # a and b read once, the two targets read and written
+            bounds[tc_update] = bound(family, 6 * elements, elements,
+                                      sm_clocks_per_s)
+            continue
         size = 1 if family == "stencil" else 4
         bounds[f"{family}_update"] = bound(family, 3 * size * elements,
                                            elements, sm_clocks_per_s)
@@ -395,6 +539,28 @@ def main() -> int:
     def budget(tier):
         return 0 if tier == "half-sweep" else None
 
+    def restore_continue(spec):
+        """20 sweeps, save and restore, then 30 sweeps and a measure plan
+        on both: the uninterrupted and the restored session."""
+        s = Session.open(spec)
+        s.run(20)
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = str(Path(tmp) / "ckpt.npz")
+            s.save(ckpt)
+            r = Session.restore(ckpt)
+        plan = SweepSpec(measure_every=3, n_measure=4).plan()
+        s.run(30)
+        r.run(30)
+        return s, s.measure(plan), r, r.measure(plan)
+
+    def check_restore_continue(engine, s, traj, r, traj_r):
+        print(f"phase 4: {engine} restore-continue digest "
+              f"{r.state_digest()}, uninterrupted {s.state_digest()}")
+        check(r.state_digest() == s.state_digest()
+              and all((traj[k] == traj_r[k]).all() for k in traj),
+              f"{engine}: restore-continue differs from the uninterrupted "
+              f"run")
+
     for engine, family in ENGINE_FAMILY.items():
         small = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N, init_p_up=0.5),
                         engine=EngineSpec(engine), temperature=2.2,
@@ -415,27 +581,32 @@ def main() -> int:
         print(f"phase 4: {engine} {SMALL_N}^2, 50 sweeps, digests {digests}")
         check(len(set(digests.values())) == 1, f"{engine}: tiers disagree")
 
-        def restore_continue():
-            s = Session.open(small)
-            s.run(20)
-            with tempfile.TemporaryDirectory() as tmp:
-                ckpt = str(Path(tmp) / "ckpt.npz")
-                s.save(ckpt)
-                r = Session.restore(ckpt)
-            plan = SweepSpec(measure_every=3, n_measure=4).plan()
-            s.run(30)
-            r.run(30)
-            return s, s.measure(plan), r, r.measure(plan)
+        check_restore_continue(engine, *drive(
+            f"{engine} {SMALL_N}^2 save, restore, measure", family,
+            "k-sweep", lambda: restore_continue(small)))
 
-        s, traj, r, traj_r = drive(f"{engine} {SMALL_N}^2 save, restore, "
-                                   f"measure", family, "k-sweep",
-                                   restore_continue)
-        print(f"phase 4: {engine} restore-continue digest "
-              f"{r.state_digest()}, uninterrupted {s.state_digest()}")
-        check(r.state_digest() == s.state_digest()
-              and all((traj[k] == traj_r[k]).all() for k in traj),
-              f"{engine}: restore-continue differs from the uninterrupted "
-              f"run")
+    # tensorcore: one tier (two launches a sweep), block 64
+    small = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N, init_p_up=0.5),
+                    engine=EngineSpec("tensorcore", {"tc_block": 64}),
+                    temperature=2.2, seed=SEED)
+    s = Session.open(small, device="cpu")
+    s.run(50)
+    digests = {"cpu": s.state_digest()}
+
+    def small_tc_run():
+        s = Session.open(small)
+        s.run(50)
+        return s
+
+    digests["card"] = drive(f"tensorcore {SMALL_N}^2", "tensorcore",
+                            "half-sweep", small_tc_run).state_digest()
+    print(f"phase 4: tensorcore {SMALL_N}^2 block 64, 50 sweeps, digests "
+          f"{digests}")
+    check(len(set(digests.values())) == 1,
+          "tensorcore: the card and the CPU disagree")
+    check_restore_continue("tensorcore", *drive(
+        f"tensorcore {SMALL_N}^2 save, restore, measure", "tensorcore",
+        "half-sweep", lambda: restore_continue(small)))
     phase_s[4] = time.perf_counter() - t0
 
     # -- 5. main paths at full size, on each tier ----------------------------
@@ -524,6 +695,45 @@ def main() -> int:
               f"flips/ns; planes equal to the k-sweep tier's: {same}")
         check(same, f"{engine}: the tiers' planes differ at full size")
         del half, ref
+
+    # tensorcore: the fused kernel, two launches a sweep
+    spec = RunSpec(lattice=LatticeSpec(FULL_N, FULL_N, init_p_up=1.0),
+                   engine=EngineSpec("tensorcore", {"tc_block": TC_BLOCK}),
+                   temperature=TEMPERATURE, seed=SEED,
+                   sweep=SweepSpec(thermalize=0, measure_every=10,
+                                   n_measure=10))
+    main_path = f"tensorcore {FULL_N}^2 block {TC_BLOCK}"
+    main_paths["tensorcore"] = half_paths["tensorcore"] = main_path
+
+    def tc_main_run():
+        t1 = time.perf_counter()
+        session = Session.open(spec)
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t1
+        run_ms = timed_ms(lambda: session.run(200), reps=1, warmup=False)
+        t1 = time.perf_counter()
+        traj = session.measure()
+        return session, open_s, run_ms, traj, time.perf_counter() - t1
+
+    torch.cuda.reset_peak_memory_stats()
+    session, open_s, run_ms, traj, measure_s = drive(
+        main_path, "tensorcore", "half-sweep", tc_main_run)
+    launched = launches_by_path[main_path][tc_update]
+    m = abs(session.magnetization())
+    onsager = observables.onsager_magnetization(TEMPERATURE)
+    print(f"phase 5: {main_path}: open {open_s:.2f} s; run(200) "
+          f"{run_ms:.1f} ms = {200 * FULL_N ** 2 / (run_ms * 1e6):.2f} "
+          f"flips/ns; measure() {spec.sweep.total_sweeps} sweeps + "
+          f"{spec.sweep.n_measure} samples {measure_s:.3f} s; "
+          f"{launched} launches; |m| {m:.5f} (Onsager {onsager:.5f}), "
+          f"e {session.energy():.5f}, last sample m "
+          f"{float(traj['m'][-1]):.5f}")
+    check(launched == 2 * (200 + spec.sweep.total_sweeps),
+          f"tensorcore: {launched} launches, not one per half-sweep")
+    check(abs(m - onsager) < 2e-3,
+          "tensorcore: |m| is not within 2e-3 of Onsager")
+    peaks[main_path] = torch.cuda.max_memory_allocated()
+    del session
     phase_s[5] = time.perf_counter() - t0
 
     def by_path(name):

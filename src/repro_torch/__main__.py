@@ -8,6 +8,10 @@
     python -m repro_torch run --engine bitplane_pallas --n 512 \\
         --temperature 3.0 --sweeps 200
 
+    # the tensor-core engine (paper S3.2) on 64 x 64 blocks of its planes
+    python -m repro_torch run --engine tensorcore --tc-block 64 --n 1024 \\
+        --init-p-up 1.0 --temperature 2.0 --sweeps 200
+
     # resume a checkpoint written by this package or by ``python -m repro``
     python -m repro_torch run --restore ck.npz --sweeps 100
 
@@ -25,6 +29,9 @@ import torch
 
 def _build_spec(args):
     from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, SweepSpec
+    params = {}
+    if args.tc_block is not None:
+        params["tc_block"] = args.tc_block
     sweep = None
     if args.n_measure:
         sweep = SweepSpec(thermalize=args.thermalize,
@@ -32,7 +39,7 @@ def _build_spec(args):
                           n_measure=args.n_measure)
     return RunSpec(lattice=LatticeSpec(n=args.n, m=args.m or args.n,
                                        init_p_up=args.init_p_up),
-                   engine=EngineSpec(name=args.engine),
+                   engine=EngineSpec(name=args.engine, params=params),
                    temperature=args.temperature, seed=args.seed,
                    sweep=sweep)
 
@@ -95,6 +102,9 @@ def main(argv=None) -> int:
     from repro_torch.core.engine import ENGINES
     run.add_argument("--engine", default="stencil_pallas",
                      choices=sorted(ENGINES))
+    run.add_argument("--tc-block", type=int, default=None,
+                     help="tensorcore: block of the banded products "
+                          "(default 128)")
     run.add_argument("--temperature", type=float, default=2.0)
     run.add_argument("--seed", type=int, default=1234)
     run.add_argument("--thermalize", type=int, default=0)

@@ -135,7 +135,9 @@ class Session:
         holding uint32 words of 8 nibble spins (``black_words``,
         ``white_words`` in a checkpoint); ``bitplane``/
         ``bitplane_pallas``: int32 tensors ``(n, m/2)`` holding uint32
-        words whose bit r is replica r (``black_bits``, ``white_bits``)."""
+        words whose bit r is replica r (``black_bits``, ``white_bits``);
+        ``tensorcore``: a dict of four int8 sublattice planes ``'00'``,
+        ``'01'``, ``'10'``, ``'11'`` of ``(n/2, m/2)`` (``plane_XX``)."""
         return self._runner.state
 
     @property

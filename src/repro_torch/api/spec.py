@@ -20,6 +20,19 @@ SPEC_VERSION = 1
 MAX_BATCH_SEED = 2 ** 32
 
 
+def _positive_int(v, name: str) -> int:
+    if isinstance(v, bool) or not isinstance(v, int) or v <= 0:
+        raise ValueError(f"{name} must be a positive int, got {v!r}")
+    return v
+
+
+#: validators of the engine params declared by ``Engine.param_fields``:
+#: each maps a JSON value to the normalized value or raises ValueError
+_PARAM_VALIDATORS = {
+    "tc_block": lambda v: _positive_int(v, "tc_block"),
+}
+
+
 def _engine_cls(name: str):
     from repro_torch.core.engine import engine_class
     return engine_class(name)
@@ -81,7 +94,9 @@ class EngineSpec:
             raise ValueError(
                 f"engine {self.name!r} takes no params {unknown}; "
                 f"declared param_fields: {list(cls.param_fields)}")
-        object.__setattr__(self, "params", tuple(sorted(raw.items())))
+        norm = {k: _PARAM_VALIDATORS[k](v) if k in _PARAM_VALIDATORS
+                else v for k, v in raw.items()}
+        object.__setattr__(self, "params", tuple(sorted(norm.items())))
 
     @property
     def param_dict(self) -> Dict[str, Any]:
@@ -249,7 +264,8 @@ class RunSpec:
         if self.mesh is not None:
             raise NotImplementedError(
                 "sharded specs (mesh) are not ported to repro_torch yet")
-        cls.validate_lattice(self.lattice.n, self.lattice.m)
+        cls.validate_lattice(self.lattice.n, self.lattice.m,
+                             **self.engine.param_dict)
 
     def sim_config(self):
         """The equivalent :class:`repro_torch.core.sim.SimConfig`."""

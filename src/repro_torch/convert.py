@@ -3,10 +3,12 @@
 The JAX engines' ``state_arrays()`` are dicts of two numpy planes:
 ``black``/``white`` int8 for ``stencil_pallas``, ``black_words``/
 ``white_words`` uint32 for the multispin engines, ``black_bits``/
-``white_bits`` uint32 for the bitplane engines.  This package holds the
-int8 planes as int8 tensors and the uint32 planes as int32 tensors with
-the same bits (PyTorch has no uint32 arithmetic on the CPU); the numpy
-side is always uint32, since the digest framing writes the dtype.
+``white_bits`` uint32 for the bitplane engines; the ``tensorcore``
+engine's are four int8 planes ``plane_00`` ... ``plane_11``.  This
+package holds the int8 planes as int8 tensors and the uint32 planes as
+int32 tensors with the same bits (PyTorch has no uint32 arithmetic on
+the CPU); the numpy side is always uint32, since the digest framing
+writes the dtype.
 Together with the shared ``.npz`` layout (``spec_json``, ``step_count``,
 ``state_<name>``), a run saved by either package restores in the other.
 """
@@ -14,6 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.tensorcore import PLANE_KEYS
 
 #: numpy dtype of the reference's planes -> the numpy view of the same
 #: bits that converts to the torch dtype holding them
@@ -47,3 +51,26 @@ def state_to_reference(state, keys=("black", "white"), dtype=np.int8) -> dict:
     JAX engine's ``state_arrays()`` layout."""
     return {k: p.detach().cpu().numpy().view(dtype).copy()
             for k, p in zip(keys, state)}
+
+
+def planes_to_reference(planes: dict) -> dict:
+    """The tensor-core engine's four planes -> host int8 numpy copies
+    under ``plane_XX``, whatever the device dtype."""
+    return {f"plane_{k}": planes[k].detach().to(torch.int8).cpu().numpy()
+            for k in PLANE_KEYS}
+
+
+def planes_from_reference(arrays, device, shape) -> dict:
+    """``plane_XX`` arrays of ``shape`` -> four int8 tensors on
+    ``device`` (copies: the planes are updated in place later)."""
+    planes = {}
+    for k in PLANE_KEYS:
+        key = f"plane_{k}"
+        if key not in arrays:
+            raise ValueError(f"state arrays lack {key!r}: {sorted(arrays)}")
+        a = np.asarray(arrays[key])
+        if a.dtype != np.int8 or a.shape != tuple(shape):
+            raise ValueError(f"state plane {key!r} must be int8 of shape "
+                             f"{tuple(shape)}, got {a.dtype} {a.shape}")
+        planes[k] = torch.tensor(np.ascontiguousarray(a), device=device)
+    return planes

@@ -3,9 +3,10 @@
 Counterpart of ``repro.core.engine``, as far as the port goes: the
 registry, the ``Engine`` protocol, the counter-based ``CounterEngine``
 with its two tiers, and the engines ``stencil_pallas``, ``multispin``,
-``multispin_pallas``, ``bitplane`` and ``bitplane_pallas``, registered
-under the JAX package's names so that a JAX checkpoint's spec resolves
-here.  Any other name raises and lists what is ported.
+``multispin_pallas``, ``bitplane``, ``bitplane_pallas`` and
+``tensorcore``, registered under the JAX package's names so that a JAX
+checkpoint's spec resolves here.  Any other name raises and lists what
+is ported.
 
 Protocol:
 
@@ -37,6 +38,7 @@ from . import metropolis as metro
 from . import multispin as ms
 from . import observables as obs
 from . import rng
+from . import tensorcore as tc
 
 ENGINES: Dict[str, Type["Engine"]] = {}
 
@@ -81,7 +83,9 @@ class Engine:
     observable_fields: ClassVar[tuple] = ("m", "e")
 
     @classmethod
-    def validate_lattice(cls, n: int, m: int) -> None:
+    def validate_lattice(cls, n: int, m: int, **params) -> None:
+        """Raise ``ValueError`` where the lattice (with the engine's
+        ``params``) does not fit the engine's layout."""
         if n % 2 or m % 2:
             raise ValueError(
                 f"engine {cls.name!r} needs even lattice dims for the "
@@ -287,8 +291,8 @@ class MultispinEngine(_WordPlanesEngine):
     col_divisor = 2 * lat.SPINS_PER_WORD
 
     @classmethod
-    def validate_lattice(cls, n: int, m: int) -> None:
-        super().validate_lattice(n, m)
+    def validate_lattice(cls, n: int, m: int, **params) -> None:
+        super().validate_lattice(n, m, **params)
         if (m // 2) % lat.SPINS_PER_WORD:
             raise ValueError(
                 f"engine {cls.name!r} packs {lat.SPINS_PER_WORD} spins per "
@@ -355,8 +359,8 @@ class BitplaneEngine(_WordPlanesEngine):
     col_divisor = 2
 
     @classmethod
-    def validate_lattice(cls, n: int, m: int) -> None:
-        super().validate_lattice(n, m)
+    def validate_lattice(cls, n: int, m: int, **params) -> None:
+        super().validate_lattice(n, m, **params)
         if (m // 2) % 4:
             raise ValueError(
                 f"engine {cls.name!r} draws one Philox call per 4-site "
@@ -399,6 +403,75 @@ class BitplanePallasEngine(BitplaneEngine):
     ``bitplane``."""
 
     name = "bitplane_pallas"
+
+
+@register
+class TensorCoreEngine(CounterEngine):
+    """Paper S3.2: neighbour sums as banded products on the tensor cores,
+    through the fused kernel ``tensorcore_update``, two launches per
+    sweep (there is no k-sweep tier).
+
+    State: the four int8 sublattice planes ``{'00', '01', '10', '11'}``
+    of shape ``(n/2, m/2)`` (``plane_XX`` in a checkpoint, int8 as in the
+    JAX package).  A fresh state decomposes the single-lattice init of
+    the same spec, so its ``full_lattice`` is ``stencil_pallas``'s.
+
+    The JAX engine of this name draws from ``jax.random``; this one
+    draws what the fused kernel draws (Philox lanes 0/1, key ``(seed mod
+    2^32, 0)``, offsets ``half_sweep_offset(2 step_count, i, colour)``),
+    so it is counter-based here: its trajectory from a state is the JAX
+    package's ``run_sweeps_tensorcore`` from that state and its step
+    count.  The half-sweeps update the planes in place.
+    """
+
+    name = "tensorcore"
+    param_fields = ("tc_block",)
+
+    @classmethod
+    def validate_lattice(cls, n: int, m: int, **params) -> None:
+        super().validate_lattice(n, m, **params)
+        block = params.get("tc_block", tc.BLOCK)
+        if (n // 2) % block or (m // 2) % block:
+            raise ValueError(
+                f"engine {cls.name!r}: tc_block {block} must divide the "
+                f"sublattice planes ({n // 2}, {m // 2}) of a {n}x{m} "
+                f"lattice")
+
+    def __init__(self, config, device: torch.device,
+                 resident_budget_bytes: Optional[int] = None):
+        super().__init__(config, device, resident_budget_bytes)
+        self.block = config.tc_block
+        if device.type == "cuda":
+            from repro_torch.kernels.tensorcore.tensorcore import check_block
+            check_block(self.block)
+
+    def init_state(self):
+        cfg = self.cfg
+        return tc.init_planes(cfg.n, cfg.m, cfg.init_p_up, cfg.seed,
+                              self.device)
+
+    def full_lattice(self, state) -> torch.Tensor:
+        return tc.recompose(state)
+
+    def magnetization(self, state) -> torch.Tensor:
+        return obs.magnetization_planes(state)
+
+    def observables(self, state, inv_temp) -> dict:
+        return {"m": obs.magnetization_planes(state),
+                "e": obs.energy_per_spin_planes(state)}
+
+    def sweep_fn(self, state, inv_temp, seed, start_offset, n_sweeps: int):
+        from repro_torch.kernels.tensorcore import run_sweeps_tensorcore
+        return run_sweeps_tensorcore(state, inv_temp, n_sweeps, seed=seed,
+                                     start_offset=start_offset,
+                                     block=self.block)
+
+    def state_arrays(self, state) -> dict:
+        return convert.planes_to_reference(state)
+
+    def from_arrays(self, arrays: dict):
+        return convert.planes_from_reference(
+            arrays, self.device, (self.cfg.n // 2, self.cfg.m // 2))
 
 
 def _replica_mean(values: torch.Tensor) -> torch.Tensor:

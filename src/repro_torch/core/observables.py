@@ -67,6 +67,31 @@ def energy_per_spin(black: torch.Tensor, white: torch.Tensor) -> torch.Tensor:
     return _mean(-_int_sum(black * nn), black.numel() + white.numel())
 
 
+def magnetization_planes(planes: dict) -> torch.Tensor:
+    """Mean spin of the tensor-core engine's four sublattice planes
+    ``'00'``, ``'01'``, ``'10'``, ``'11'``."""
+    total = sum(_int_sum(planes[k]) for k in ("00", "01", "10", "11"))
+    return _mean(total, 4 * planes["00"].numel())
+
+
+def energy_per_spin_planes(planes: dict) -> torch.Tensor:
+    """Energy per spin without recomposing the lattice: every bond joins
+    a black site (00 or 11) and a white one, so the bond sum is the sum
+    over black sites of the spin times its four neighbours (the
+    elementwise form of ``repro_torch.core.tensorcore``'s ``00`` and
+    ``11`` sums, wrapped over the whole plane).  Products stay int8 and
+    only the sums widen."""
+    p = planes
+    nn00 = (p["01"] + torch.roll(p["01"], 1, dims=1)
+            + p["10"] + torch.roll(p["10"], 1, dims=0))
+    bonds = _int_sum(p["00"] * nn00)
+    del nn00
+    nn11 = (p["10"] + torch.roll(p["10"], -1, dims=1)
+            + p["01"] + torch.roll(p["01"], -1, dims=0))
+    bonds = bonds + _int_sum(p["11"] * nn11)
+    return _mean(-bonds, 4 * p["00"].numel())
+
+
 def onsager_magnetization(temperature: float, j: float = 1.0) -> float:
     """Exact spontaneous magnetization (Onsager); 0 above T_c."""
     t = float(temperature)

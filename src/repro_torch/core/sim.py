@@ -11,6 +11,7 @@ class SimConfig:
     temperature: float = 2.0
     seed: int = 1234
     engine: str = "stencil_pallas"
+    tc_block: int = 128
     # 0.5 = random (hot) start; 1.0 = ordered start, for steady-state
     # runs below Tc (cold random starts can stripe-lock)
     init_p_up: float = 0.5

@@ -1,0 +1,163 @@
+"""``tensorcore_update``: the fused tensor-core half-sweep, CUDA and plain.
+
+Replaces the Pallas kernel ``src/repro/kernels/tensorcore/tensorcore.py``
+(``tensorcore_update``), which stages a block pair of the target planes
+and six neighbour blocks into TPU VMEM and runs the banded products on
+the MXU.  On the card (``csrc/tensorcore.cu``) one block of 8 warps takes
+one B x B block position: the spin operands staged in shared memory as
+bf16, the banded products on the tensor cores (``mma.sync`` m16n8k16,
+bf16 in, f32 sums, only the k-steps where K is not zero), then the edge
+terms, one Philox call per plane position (lane 0 for the first target
+plane, lane 1 for the second, key ``(seed mod 2^32, 0)``) and the accept
+in registers.  It is bound by bytes.  The target planes are updated in
+place, by the kernel and, on the CPU, by the wrapper.
+
+Planes are int8 (the engine's state) or bf16 (the TPU kernel's
+contract), all four of one type and shape, and hold spins +-1.  The
+kernel compares the raw draw with integer bounds (:func:`draw_bounds`),
+the same decisions as the plain version's float compare.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import metropolis, rng
+from repro_torch.core import tensorcore as tc
+from repro_torch.kernels import _build
+from repro_torch.kernels.stencil.stencil import raise_on_error
+
+DEFAULT_BLOCK = tc.BLOCK
+#: block sizes the CUDA kernel takes: multiples of the 16-deep mma step
+#: up to 128 (the shared memory of one block)
+CUDA_BLOCKS = tuple(range(16, 129, 16))
+_DTYPES = {torch.int8: 1, torch.bfloat16: 2}
+
+
+def tensorcore_update_plain(planes: dict, color: str, inv_temp, *,
+                            seed: int = 0, offset: int = 0,
+                            block: int = DEFAULT_BLOCK) -> dict:
+    """The plain PyTorch version, the paper's three passes: batched
+    products, boundary corrections, then the accept with the fused
+    kernel's Philox lanes.  Returns a new dict."""
+    h, w = planes["00"].shape
+    u = tc.philox_uniform_pair(h, w, seed, offset, planes["00"].device)
+    return tc.update_color_tc(planes, color, u,
+                              metropolis.acceptance_table(inv_temp), block)
+
+
+def check_block(block: int) -> None:
+    """Raise ``ValueError`` unless the CUDA kernel takes ``block``."""
+    if block not in CUDA_BLOCKS:
+        raise ValueError(f"the CUDA tensorcore kernel takes a block of "
+                         f"{CUDA_BLOCKS[0]} to {CUDA_BLOCKS[-1]} in steps "
+                         f"of 16, got {block}")
+
+
+def check_planes(planes: dict, block: int) -> None:
+    """Raise unless ``planes`` holds four contiguous 2-D int8 or bf16
+    tensors of one shape, type and device, tiled by ``block``."""
+    missing = [k for k in tc.PLANE_KEYS if k not in planes]
+    if missing:
+        raise ValueError(f"planes lack {missing}")
+    first = planes["00"]
+    for k in tc.PLANE_KEYS:
+        p = planes[k]
+        if p.dtype not in _DTYPES or p.dim() != 2 or not p.is_contiguous():
+            raise ValueError(f"plane {k!r} must be a contiguous 2-D int8 or "
+                             f"bf16 tensor, got {p.dtype} {tuple(p.shape)}")
+        if p.shape != first.shape or p.dtype != first.dtype \
+                or p.device != first.device:
+            raise ValueError(f"planes differ: {k!r} is {p.dtype} "
+                             f"{tuple(p.shape)} on {p.device}")
+        if p.device.type == "cuda" and p.data_ptr() % 16:
+            raise ValueError("planes must start at a multiple of 16 bytes")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {first.device}")
+    h, w = first.shape
+    if block <= 0 or h % block or w % block:
+        raise ValueError(f"block {block} does not tile planes of "
+                         f"{tuple(first.shape)}")
+
+
+def draw_bounds(table) -> np.ndarray:
+    """The accept ``u < p`` of each float32 entry ``p`` of ``table`` as an
+    exclusive bound on the raw uint32 draw: ``u < p`` iff ``draw < bound``,
+    where ``u = float32(draw) * 2^-32`` rounds to nearest
+    (``rng.u32_to_uniform``).  Rounding is monotone, so the bound is the
+    least draw whose float32 reaches ``p * 2^32``: 0 where no draw flips
+    (``p`` = 0, as the table underflows to at low temperature), 2^32 where
+    every draw flips (``p`` > 1).  Returned as uint64."""
+    target = np.asarray(table, np.float32).astype(np.float64) * 2.0 ** 32
+    lo = np.zeros(target.shape, np.float64)
+    hi = np.full(target.shape, 2.0 ** 32)      # float32(2^32) = 2^32
+    for _ in range(33):                        # least x with f32(x) >= P
+        mid = np.floor((lo + hi) / 2)
+        reach = mid.astype(np.float32).astype(np.float64) >= target
+        hi = np.where(reach, mid, hi)
+        lo = np.where(reach, lo, mid + 1)
+    return hi.astype(np.uint64)
+
+
+@functools.lru_cache(maxsize=16)
+def _bounds_arg(inv_temp: float):
+    values = draw_bounds(metropolis.acceptance_table(inv_temp).numpy())
+    return (ctypes.c_uint64 * metropolis.TABLE_SIZE)(*values.tolist())
+
+
+def library():
+    """The compiled ``csrc/tensorcore.cu`` with its C signatures declared."""
+    lib = _build.load("tensorcore")
+    if lib.tensorcore_update_launch.argtypes is None:
+        u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
+        lib.cuda_error_string.argtypes = [i32]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        lib.tensorcore_update_launch.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            ctypes.POINTER(ctypes.c_uint64), u32, u32, ptr]
+        lib.tensorcore_update_launch.restype = i32
+    return lib
+
+
+def tensorcore_update(planes: dict, color: str, inv_temp, *, seed: int = 0,
+                      offset: int = 0, block: int = DEFAULT_BLOCK) -> dict:
+    """Fused half-sweep of ``color``'s two planes (black: '00', '11';
+    white: '10', '01'), in place; returns ``planes``.
+
+    ``seed`` keys Philox on its low 32 bits only, as the TPU kernel does;
+    ``offset`` is the uint32 Philox offset of this half-sweep.  CPU
+    planes take the plain version; CUDA planes launch the kernel, whose
+    ``block`` must be in :data:`CUDA_BLOCKS`.
+    """
+    if color not in tc.COLOR_PLANES:
+        raise ValueError(f"color must be 'black' or 'white', got {color!r}")
+    check_planes(planes, block)
+    t1k, t2k = tc.COLOR_PLANES[color]
+    if planes["00"].device.type == "cpu":
+        new = tensorcore_update_plain(planes, color, inv_temp, seed=seed,
+                                      offset=offset, block=block)
+        planes[t1k].copy_(new[t1k])
+        planes[t2k].copy_(new[t2k])
+        return planes
+    check_block(block)
+    lib = library()
+    is_black = color == "black"
+    ak, bk = ("01", "10") if is_black else ("11", "00")
+    h, w = planes["00"].shape
+    rc = lib.tensorcore_update_launch(
+        planes[t1k].data_ptr(), planes[t2k].data_ptr(),
+        planes[ak].data_ptr(), planes[bk].data_ptr(), h, w, block,
+        int(is_black), _DTYPES[planes["00"].dtype],
+        _bounds_arg(float(inv_temp)), int(seed) & rng.MASK32,
+        int(offset) & rng.MASK32,
+        torch.cuda.current_stream(planes["00"].device).cuda_stream)
+    raise_on_error(lib, rc, "tensorcore_update")
+    tensorcore_update.launches += 1
+    return planes
+
+
+#: kernel launches since the count was last set to 0
+tensorcore_update.launches = 0

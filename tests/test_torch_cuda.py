@@ -24,6 +24,7 @@ from repro_torch.kernels.stencil import (stencil_sweeps_resident,
                                          stencil_sweeps_resident_plain,
                                          stencil_update,
                                          stencil_update_plain)
+from repro_torch.kernels.tensorcore.tensorcore import CUDA_BLOCKS
 
 pytestmark = pytest.mark.cuda
 
@@ -202,3 +203,95 @@ def test_word_session_on_card_equals_cpu(cuda, engine, tier):
     assert (card.engine.resident_plan is not None) == (tier == "k-sweep")
     card.run(7)
     assert card.state_digest() == cpu.state_digest()
+
+
+def tc_planes(n, dtype, seed, device, w=None, p_up=0.5):
+    """The four (n, w or n) sublattice planes of a random lattice whose
+    spins are up with probability ``p_up``."""
+    from repro_torch.core import tensorcore as tc
+    r = np.random.default_rng(seed)
+    full = torch.tensor(np.where(r.random((2 * n, 2 * (w or n))) < p_up,
+                                 1, -1).astype(np.int8))
+    return {k: v.to(dtype).to(device) for k, v in tc.decompose(full).items()}
+
+
+def tc_kernel_matches_plain(planes, color, inv_temp, block):
+    from repro_torch.kernels.tensorcore import (tensorcore_update,
+                                                tensorcore_update_plain)
+    want = tensorcore_update_plain(planes, color, inv_temp, seed=SEED,
+                                   offset=2 ** 32 - 1, block=block)
+    before = tensorcore_update.launches
+    got = tensorcore_update(planes, color, inv_temp, seed=SEED,
+                            offset=2 ** 32 - 1, block=block)
+    torch.cuda.synchronize()
+    assert tensorcore_update.launches == before + 1
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert torch.equal(got[k], want[k]), k
+    return want
+
+
+@pytest.mark.parametrize("n,w,block", [(64, None, 16), (128, None, 64),
+                                       (256, None, 128), (384, None, 128)]
+                         + [(2 * b, 3 * b, b) for b in CUDA_BLOCKS])
+@pytest.mark.parametrize("color", ["black", "white"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_tensorcore_kernel_matches_plain(cuda, n, w, block, color, dtype):
+    tc_kernel_matches_plain(tc_planes(n, dtype, n + block, cuda, w), color,
+                            1 / 2.0, block)
+
+
+@pytest.mark.parametrize("temperature", [0.05, 0.02])
+@pytest.mark.parametrize("block", CUDA_BLOCKS)
+@pytest.mark.parametrize("color", ["black", "white"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_tensorcore_kernel_matches_plain_where_the_table_is_zero(
+        cuda, temperature, block, color, dtype):
+    """At these temperatures the -8 beta entries of the float32 table
+    are exactly 0: from a nearly all-up start almost no spin may flip,
+    and a spin with four aligned neighbours never does."""
+    assert (metropolis.acceptance_table(1 / temperature) == 0).any()
+    planes = tc_planes(2 * block, dtype, block, cuda, 3 * block, p_up=0.99)
+    before = {k: v.clone() for k, v in planes.items()}
+    after = tc_kernel_matches_plain(planes, color, 1 / temperature, block)
+    flipped = sum(int((after[k] != before[k]).sum()) for k in after)
+    assert flipped < 0.05 * sum(v.numel() for v in after.values())
+
+
+def test_tensorcore_kernel_rejects_block_8(cuda):
+    from repro_torch.kernels.tensorcore import tensorcore_update
+    planes = tc_planes(32, torch.int8, 0, cuda)
+    before = tensorcore_update.launches
+    with pytest.raises(ValueError, match="block"):
+        tensorcore_update(planes, "black", 0.5, block=8)
+    assert tensorcore_update.launches == before
+    spec = RunSpec(lattice=LatticeSpec(64, 64),
+                   engine=EngineSpec("tensorcore", {"tc_block": 8}))
+    with pytest.raises(ValueError, match="block"):
+        Session.open(spec)
+
+
+def test_tensorcore_session_on_card_equals_cpu(cuda):
+    spec = RunSpec(lattice=LatticeSpec(128, 256),
+                   engine=EngineSpec("tensorcore", {"tc_block": 32}),
+                   temperature=2.1, seed=SEED)
+    cpu = Session.open(spec, device="cpu")
+    cpu.run(7)
+    card = Session.open(spec)
+    assert card.device.type == "cuda"
+    card.run(7)
+    assert card.state_digest() == cpu.state_digest()
+
+
+def test_tensorcore_cold_ordered_session_on_card_equals_cpu(cuda):
+    """From an ordered start at T = 0.05 (a table with exact zeros) the
+    card and the CPU give one trajectory, and it stays ordered."""
+    spec = RunSpec(lattice=LatticeSpec(128, 192, init_p_up=1.0),
+                   engine=EngineSpec("tensorcore", {"tc_block": 32}),
+                   temperature=0.05, seed=SEED)
+    cpu = Session.open(spec, device="cpu")
+    cpu.run(5)
+    card = Session.open(spec)
+    card.run(5)
+    assert card.state_digest() == cpu.state_digest()
+    assert abs(card.magnetization()) > 0.99

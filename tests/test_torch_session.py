@@ -266,12 +266,16 @@ def test_word_engine_port_checkpoint_resumes_in_reference(word_reference,
 
 
 @pytest.mark.parametrize("engine", ["multispin", "multispin_pallas",
-                                    "bitplane", "bitplane_pallas"])
+                                    "bitplane", "bitplane_pallas",
+                                    "tensorcore"])
 def test_fresh_word_session_holds_the_single_lattice_init(engine):
     """The cross-engine init contract: a fresh session's ``full_lattice``
     (replica 0 for bitplane) is ``stencil_pallas``'s from the same spec."""
     lattice = LatticeSpec(N, M, init_p_up=0.4)
-    word = Session.open(RunSpec(lattice=lattice, engine=EngineSpec(engine),
+    # tensorcore's planes are (N/2, M/2): a block of 8 tiles them
+    params = {"tc_block": 8} if engine == "tensorcore" else {}
+    word = Session.open(RunSpec(lattice=lattice,
+                                engine=EngineSpec(engine, params),
                                 seed=SEED), device="cpu")
     plain = Session.open(RunSpec(lattice=lattice, seed=SEED), device="cpu")
     assert torch.equal(word.full_lattice(), plain.full_lattice())
@@ -279,12 +283,10 @@ def test_fresh_word_session_holds_the_single_lattice_init(engine):
 
 def test_unported_engine_checkpoint_raises(tmp_path):
     spec = jax_spec().to_dict()
-    spec["engine"]["name"] = "tensorcore"
-    path = str(tmp_path / "tensorcore.npz")
+    spec["engine"]["name"] = "wolff"
+    path = str(tmp_path / "wolff.npz")
     np.savez(path, spec_json=japi.RunSpec.from_dict(spec).to_json(),
-             step_count=0, **{f"state_plane_{k}": np.ones((N // 2, M // 2),
-                                                           np.float32)
-                              for k in ("00", "01", "10", "11")})
+             step_count=0, state_lattice=np.ones((N, M), np.int8))
     with pytest.raises(ValueError, match="not ported"):
         Session.restore(path, device="cpu")
 
