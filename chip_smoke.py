@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Three kernel families, each a per-half-sweep kernel and a k-sweep
-kernel: stencil (int8 planes), multispin (8 nibble spins per uint32
-word) and bitplane (32 replicas per uint32 word); and the fused
-tensor-core kernel ``tensorcore_update`` (four int8 sublattice planes,
-banded products on the tensor cores).  Phases, each of which raises (and
-so exits non-zero) when it fails:
+Three kernel families, each a per-half-sweep kernel, a k-sweep kernel
+and a shard kernel of the sharded resident tier (k sweeps of one
+halo-extended shard, keyed on index planes): stencil (int8 planes),
+multispin (8 nibble spins per uint32 word) and bitplane (32 replicas per
+uint32 word); and the fused tensor-core kernel ``tensorcore_update``
+(four int8 sublattice planes, banded products on the tensor cores).
+Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA source of ``src/repro_torch/csrc`` with nvcc (one
@@ -25,11 +26,21 @@ so exits non-zero) when it fails:
    (also at T = 0.05 from all-up planes, where no spin may flip), at
    planes of 512^2 with blocks 16 and 64 (int8 and bf16) and at the main
    path's 16384^2 planes with block 128, both colours; a block of 8 must
-   raise;
+   raise; each shard kernel on whole extended planes, with random planes
+   and random index planes and with the driver's own wrapped index
+   planes (at 512^2 and at the main path's shard), ``n_sweeps`` 1, 2
+   and 3, and its time at the main path's shard;
 4. the Session at 512^2 for each engine: the card's k-sweep tier, its
    per-half-sweep tier (``resident_budget_bytes=0``) and the CPU plain
    versions give one ``state_digest``, and restore-continue equals the
    uninterrupted run; the same for ``tensorcore`` (block 64, one tier);
+   sharded sessions: each ``_pallas`` engine on meshes (1, 1), (2, 2),
+   (4, 1) and (2, 1, 2) (the sharded resident tier), ``multispin`` and
+   ``bitplane`` on (2, 2) (the per-half-sweep distributed tier, plain
+   PyTorch, no kernel), ``stencil_pallas`` on (2, 2) with no shard plan
+   (``resident_budget_bytes=0``): each the single-mode digest; saved on
+   (2, 2) and restored on (4, 1) and in single mode, and a single-mode
+   checkpoint restored on (2, 2): the same digest;
 5. the main paths: ``stencil_pallas`` and ``multispin_pallas`` at
    32768^2 (2^30 spins) from an ordered start at T = 2.0, ``run(200)``
    and ``measure()``, |m| within 2e-3 of Onsager's value;
@@ -40,21 +51,30 @@ so exits non-zero) when it fails:
    per-half-sweep tier, whose planes must equal the k-sweep tier's after
    the same sweeps; ``tensorcore`` at 32768^2, block 128, from an ordered
    start at T = 2.0: ``run(200)`` and ``measure()``, |m| within 2e-3 of
-   Onsager's value, exactly 600 launches of ``tensorcore_update``.
+   Onsager's value, exactly 600 launches of ``tensorcore_update``;
+6. the main paths of the sharded tier, on a 2 x 2 mesh of shards on the
+   one card: ``stencil_pallas`` and ``multispin_pallas`` at 32768^2
+   (T = 2.0, ordered start) and ``bitplane_pallas`` at 16384^2 x 32
+   (T = 3.0, hot start), ``run(200)`` then ``measure()``, the gates of
+   phase 5; ``halo_exchanges`` = ceil(200 / k) and 4 ceil(200 / k)
+   launches of the family's shard kernel in ``run(200)``.
 
-Every Session path is driven with all seven kernels' launch counts set
-to 0 just before it and read just after it: each path must launch the
-kernel of its tier and no other.  The last lines are the ``kernels``
-JSON (``launches`` from the full-size path of the kernel's tier, and
-every path's count), the peak device memory, the ``nvidia-smi`` line and
-the device JSON.  Without a CUDA device, or without the package beside
-this script, it exits non-zero and prints no result.
+Every Session path is driven with all ten kernels' launch counts set to
+0 just before it and read just after it: each path must launch the
+kernel of its tier and no other (a per-half-sweep distributed path
+none).  The last lines are the ``kernels`` JSON (``launches`` from the
+full-size path of the kernel's tier, for the shard kernels its
+``run(200)``, and every path's count), the peak device memory, the
+``nvidia-smi`` line and the device JSON.  Without a CUDA device, or
+without the package beside this script, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -104,6 +124,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 #:   count's bit 0, bit 1 and bit 2 (4 muxes; count 4 has bits 0 and 1
 #:   clear), then the new word as t ? ~a1 : a0, the flip's XOR folded
 #:   into the last mux.
+#: * bitplane_shard, per word of 32 replicas: one whole Philox call per
+#:   site (18 multiplies, 19 XORs: an extended shard's columns need not
+#:   start on a group), a 4-way select of the site's lane (3 two-way
+#:   selects), then bitplane's accept; the stencil and multispin shard
+#:   kernels count as their families.
 #: * tensorcore, per plane position (a site of each of the two target
 #:   planes): lanes 0 and 1 of one Philox4x32-10 call at counter
 #:   (offset, 0, position, 0): 18 multiplies (the first round's offset
@@ -117,6 +142,7 @@ PIPE_OPS = {
     "multispin": {"fma": 2 * 18 - 1, "alu": 2 * 19 - 1 + 3 + 8 * 3 + 1,
                   "xu": 0},
     "bitplane": {"fma": 18 / 4, "alu": 19 / 4 + 5 + 10 * 2 + 9, "xu": 0},
+    "bitplane_shard": {"fma": 18, "alu": 19 + 3 + 5 + 10 * 2 + 9, "xu": 0},
     "tensorcore": {"fma": 18 + 2, "alu": 18 + 2 * 2, "xu": 0},
 }
 #: results per clock per SM on compute capability 9.0 (CUDA C++
@@ -154,10 +180,21 @@ KERNELS = {
         "bitplane", "k-sweep", "src/repro/kernels/bitplane/resident.py:91"),
     "tensorcore_update": ("tensorcore", "half-sweep",
                           "src/repro/kernels/tensorcore/tensorcore.py:97"),
+    "stencil_shard_sweeps": ("stencil", "shard",
+                             "src/repro/dist/kernels.py:69"),
+    "multispin_shard_sweeps": ("multispin", "shard",
+                               "src/repro/dist/kernels.py:101"),
+    "bitplane_shard_sweeps": ("bitplane", "shard",
+                              "src/repro/dist/kernels.py:132"),
 }
 ENGINE_FAMILY = {"stencil_pallas": "stencil",
                  "multispin_pallas": "multispin",
                  "bitplane_pallas": "bitplane"}
+#: bytes per extended cell of a shard kernel's index planes in device
+#: memory (uint32 site or word index; bitplane: group index and lane)
+SHARD_INDEX_BYTES = {"stencil": 4, "multispin": 4, "bitplane": 8}
+MESH = (2, 2)               # the sharded main paths' mesh
+SMALL_MESHES = ((1, 1), (2, 2), (4, 1), (2, 1, 2))
 
 
 def check(ok: bool, what: str) -> None:
@@ -269,17 +306,23 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import importlib
 
-    from repro_torch.api import (EngineSpec, LatticeSpec, RunSpec, Session,
-                                 SweepSpec)
-    from repro_torch.core import metropolis, multispin, observables
+    from repro_torch.api import (EngineSpec, LatticeSpec, MeshSpec, RunSpec,
+                                 Session, SweepSpec)
+    from repro_torch.core import distributed, metropolis, multispin
+    from repro_torch.core import observables
     from repro_torch.analysis.tune_resident import random_planes, timed_ms
+    from repro_torch.dist import driver as shard_driver
+    from repro_torch.dist import planner as shard_planner
     from repro_torch.kernels import _build, resident
+    from repro_torch.launch.mesh import make_mesh
 
     t_start = time.perf_counter()
     phase_s = {}
     wrappers, plains = {}, {}
-    for name, (family, _, _) in KERNELS.items():
-        pkg = importlib.import_module(f"repro_torch.kernels.{family}")
+    for name, (family, tier, _) in KERNELS.items():
+        pkg = importlib.import_module(
+            "repro_torch.dist.kernels" if tier == "shard"
+            else f"repro_torch.kernels.{family}")
         wrappers[name] = getattr(pkg, name)
         plains[name] = getattr(pkg, f"{name}_plain")
 
@@ -308,6 +351,7 @@ def main() -> int:
                 check(mix.get("tensor", 0) > 0,
                       f"{kernel} holds no HMMA: its products are not on "
                       f"the tensor cores")
+    from repro_torch.dist import kernels as shard_kernels
     for family in ("stencil", "multispin", "bitplane"):
         lib = importlib.import_module(
             f"repro_torch.kernels.{family}.{family}").library()
@@ -317,6 +361,14 @@ def main() -> int:
                           (7, 8, 3)):
             check(query(tr, tc, k) == resident.smem_bytes(tr, tc, k, family),
                   f"{family} planner and kernel disagree on shared memory")
+        shard_query = getattr(shard_kernels.library(family),
+                              f"{family}_shard_smem_bytes")
+        for (tr, tc), k in ((shard_planner.SHARD_TILES[family], 2),
+                            ((7, 8), 3)):
+            check(shard_query(tr, tc, k)
+                  == shard_planner.shard_smem_bytes(family, tr, tc, k),
+                  f"{family} shard planner and kernel disagree on shared "
+                  f"memory")
     phase_s[2] = time.perf_counter() - t0
 
     # -- 3. kernels against their plain versions -----------------------------
@@ -496,6 +548,81 @@ def main() -> int:
           f"{stats[tc_update][3]:.1f} ms per half-sweep")
     del planes
     full_plane["tensorcore"] = tc_plane
+
+    # the shard kernels on whole extended planes: random planes with
+    # random index planes (lanes 0..5: 4 and 5 take lane 3), then the
+    # driver's own wrapped index planes of 2 x 2 shards at 512^2 (k = 1,
+    # 2, 3) and at the main path's full size; the time of each kernel at
+    # the main path's shard
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shard_plans, shard_shape = {}, {}
+    for family in ("stencil", "multispin", "bitplane"):
+        fn = full_plane[family][0]
+        name = f"{family}_shard_sweeps"
+        table = tables[family]
+        divisor = resident.GEOMETRY[family].col_divisor
+
+        def random_index(shape):
+            index = [torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                                   device="cuda", dtype=torch.int32)]
+            if family == "bitplane":
+                index.append(torch.randint(0, 6, shape, generator=gen,
+                                           device="cuda", dtype=torch.int32))
+            return index
+
+        def driver_index(n, k, i):
+            """The plan of ``MESH`` at ``n``^2 (k pinned unless None) and
+            shard ``i``'s index planes."""
+            pin = {} if k is None else {"k_cap": k, "max_overlap": 100.0}
+            plan = shard_planner.plan_shard_resident(family, n, n, *MESH,
+                                                     **pin)
+            check(plan is not None and k in (None, plan.k),
+                  f"{family}: no {MESH} shard plan at {n}^2, k = {k}")
+            grid = distributed.ShardGrid.of(
+                make_mesh(MESH, ("data", "model")), n, n // divisor)
+            return plan, shard_driver.index_planes(plan, grid, i)
+
+        cases = [((14, 10), 1, random_index((14, 10)), None),
+                 ((14, 10), 3, random_index((14, 10)), None),
+                 ((40, 36), 2, random_index((40, 36)), (16, 8, 128))]
+        for k, i in ((1, 0), (2, 3), (3, 1)):
+            plan, index = driver_index(SMALL_N, k, i)
+            ext = (plan.n_loc + 2 * plan.halo, plan.w_loc + 2 * plan.halo)
+            cases.append((ext, k, index,
+                          (plan.tile_rows, plan.tile_cols, plan.threads)))
+        plan, index = driver_index(fn, None, 3)
+        shard_plans[family] = plan
+        ext = shard_shape[family] = (plan.n_loc + 2 * plan.halo,
+                                     plan.w_loc + 2 * plan.halo)
+        tile = (plan.tile_rows, plan.tile_cols, plan.threads)
+        cases.append((ext, plan.k, index, tile))
+        for shape, n_sweeps, index, case_tile in cases:
+            b, w = random_planes(family, *shape, shape[0] + n_sweeps)
+            want, plain_ms = plain_timed(lambda: plains[name](
+                b, w, table, *index, n_sweeps=n_sweeps, seed=SEED,
+                start_offset=2 ** 32 - 3))
+            got = wrappers[name](b, w, table, *index, n_sweeps=n_sweeps,
+                                 seed=SEED, start_offset=2 ** 32 - 3,
+                                 tile=case_tile)
+            torch.cuda.synchronize()
+            compare(name, got, want, plain_ms if shape == ext else None)
+            del b, w, want, got
+        cases, bad, err, _ = stats[name]
+        print(f"phase 3: {name}: {cases} plane comparisons with the plain "
+              f"version, {bad} mismatches, max abs err {err}")
+        check(bad == 0, f"{name} disagrees with its plain version")
+        b, w = random_planes(family, *ext, 1)
+        kernel_ms[name] = timed_ms(lambda: wrappers[name](
+            b, w, table, *index, n_sweeps=plan.k, seed=SEED, start_offset=0,
+            tile=tile), reps=8)
+        print(f"phase 3: {name}: {kernel_ms[name]:.4f} ms per launch "
+              f"({plan.k} sweeps) at the {ext[0]} x {ext[1]} extended shard "
+              f"of a {MESH[0]} x {MESH[1]} mesh of {fn}^2 (tile {tile[0]} x "
+              f"{tile[1]}, {tile[2]} threads, {plan.smem_bytes} B shared); "
+              f"x {MESH[0] * MESH[1]} shards per {plan.k} sweeps: "
+              f"{MESH[0] * MESH[1] * kernel_ms[name] / plan.k:.4f} ms per "
+              f"sweep; plain version {stats[name][3]:.1f} ms")
+        del b, w, index
     phase_s[3] = time.perf_counter() - t0
 
     # bounds at the full plane: bytes of each input read once and each
@@ -514,6 +641,13 @@ def main() -> int:
         bounds[f"{family}_sweeps_resident"] = bound(
             family, 4 * size * elements, 2 * plans[family].k * elements,
             sm_clocks_per_s)
+        # a shard kernel updates its whole extended plane 2k times and
+        # reads its index planes once
+        en, ew = shard_shape[family]
+        bounds[f"{family}_shard_sweeps"] = bound(
+            "bitplane_shard" if family == "bitplane" else family,
+            (4 * size + SHARD_INDEX_BYTES[family]) * en * ew,
+            2 * shard_plans[family].k * en * ew, sm_clocks_per_s)
 
     # -- 4. Session at 512^2, both tiers and the CPU -----------------------
     t0 = time.perf_counter()
@@ -522,7 +656,7 @@ def main() -> int:
     def drive(path, family, tier, fn):
         """Run one Session path with every launch count set to 0 just
         before it and read just after it; the path must launch the
-        kernel of its tier and no other."""
+        kernel of its tier and no other (``family=None``: no kernel)."""
         for wrapper in wrappers.values():
             wrapper.launches = 0
         out = fn()
@@ -561,6 +695,7 @@ def main() -> int:
               f"{engine}: restore-continue differs from the uninterrupted "
               f"run")
 
+    small_digests = {}
     for engine, family in ENGINE_FAMILY.items():
         small = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N, init_p_up=0.5),
                         engine=EngineSpec(engine), temperature=2.2,
@@ -568,6 +703,7 @@ def main() -> int:
         s = Session.open(small, device="cpu")
         s.run(50)
         digests = {"cpu": s.state_digest()}
+        small_digests[engine] = digests["cpu"]
         for tier in ("k-sweep", "half-sweep"):
             def small_run():
                 s = Session.open(small, resident_budget_bytes=budget(tier))
@@ -607,6 +743,88 @@ def main() -> int:
     check_restore_continue("tensorcore", *drive(
         f"tensorcore {SMALL_N}^2 save, restore, measure", "tensorcore",
         "half-sweep", lambda: restore_continue(small)))
+
+    # sharded sessions at 512^2: every one must give the single-mode
+    # digest after 50 sweeps
+    def mesh_spec(shape):
+        return MeshSpec(shape, tuple(f"ax{i}" for i in range(len(shape))))
+
+    def sharded(spec, shape, resident, sweeps=50, **kw):
+        """A fresh session of ``spec`` on a ``shape`` mesh, ``sweeps``
+        sweeps; ``resident``: it must plan the sharded resident tier."""
+        s = Session.open(dataclasses.replace(spec, mesh=mesh_spec(shape)),
+                         **kw)
+        check((s.shard_plan is not None) == resident,
+              f"{spec.engine.name} on {shape}: shard plan {s.shard_plan}")
+        s.run(sweeps)
+        return s
+
+    def check_digest(path, got, want):
+        print(f"phase 4: {path}: digest {got} (single mode {want})")
+        check(got == want, f"{path}: not the single-mode digest")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for engine, family in ENGINE_FAMILY.items():
+            small = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N,
+                                                init_p_up=0.5),
+                            engine=EngineSpec(engine), temperature=2.2,
+                            seed=SEED)
+            want = small_digests[engine]
+            for shape in SMALL_MESHES:
+                path = f"{engine} {SMALL_N}^2 mesh {shape}"
+                s = drive(path, family, "shard",
+                          lambda: sharded(small, shape, True))
+                check_digest(path, s.state_digest(), want)
+            # save on (2, 2); restore on (4, 1) and in single mode
+            ckpt = str(Path(tmp) / f"{engine}-mesh.npz")
+            path = f"{engine} {SMALL_N}^2 mesh (2, 2) save, (4, 1) restore"
+
+            def save_restore():
+                sharded(small, (2, 2), True, sweeps=20).save(ckpt)
+                r = Session.restore(ckpt, mesh=mesh_spec((4, 1)))
+                r.run(30)
+                return r
+            check_digest(path, drive(path, family, "shard", save_restore)
+                         .state_digest(), want)
+            path = f"{engine} {SMALL_N}^2 mesh (2, 2) checkpoint, single mode"
+
+            def restore_single():
+                r = Session.restore(ckpt, mesh=None)
+                r.run(30)
+                return r
+            check_digest(path, drive(path, family, "k-sweep", restore_single)
+                         .state_digest(), want)
+            # a single-mode checkpoint (the JAX package's layout) on a mesh
+            single_ckpt = str(Path(tmp) / f"{engine}-single.npz")
+
+            def single_save():
+                s = Session.open(small)
+                s.run(20)
+                s.save(single_ckpt)
+            drive(f"{engine} {SMALL_N}^2 single mode save", family,
+                  "k-sweep", single_save)
+            path = f"{engine} {SMALL_N}^2 single-mode checkpoint, mesh (2, 2)"
+
+            def restore_mesh():
+                r = Session.restore(single_ckpt, mesh=mesh_spec((2, 2)))
+                r.run(30)
+                return r
+            check_digest(path, drive(path, family, "shard", restore_mesh)
+                         .state_digest(), want)
+    # the per-half-sweep distributed tier: plain PyTorch, no kernel
+    for engine, budget_bytes in (("multispin", None), ("bitplane", None),
+                                 ("stencil_pallas", 0)):
+        small = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N, init_p_up=0.5),
+                        engine=EngineSpec(engine), temperature=2.2, seed=SEED)
+        path = (f"{engine} {SMALL_N}^2 mesh (2, 2) per-half-sweep"
+                + (" (no shard plan)" if budget_bytes == 0 else ""))
+        s = drive(path, None, None, lambda: sharded(
+            small, (2, 2), False, resident_budget_bytes=budget_bytes))
+        check(s.halo_exchanges == 100, f"{path}: {s.halo_exchanges} "
+              f"halo exchanges in 50 sweeps, not 100")
+        check_digest(path, s.state_digest(),
+                     small_digests[engine + ("" if "pallas" in engine
+                                             else "_pallas")])
     phase_s[4] = time.perf_counter() - t0
 
     # -- 5. main paths at full size, on each tier ----------------------------
@@ -736,12 +954,95 @@ def main() -> int:
     del session
     phase_s[5] = time.perf_counter() - t0
 
+    # -- 6. the sharded tier's main paths: a 2 x 2 mesh on the one card ----
+    t0 = time.perf_counter()
+    shard_paths = {}
+    for engine, family in ENGINE_FAMILY.items():
+        bitplane = family == "bitplane"
+        n = BITPLANE_N if bitplane else FULL_N
+        temperature = BITPLANE_TEMPERATURE if bitplane else TEMPERATURE
+        spec = RunSpec(lattice=LatticeSpec(n, n,
+                                           init_p_up=0.5 if bitplane else 1.0),
+                       engine=EngineSpec(engine), temperature=temperature,
+                       seed=SEED, mesh=mesh_spec(MESH),
+                       sweep=SweepSpec(thermalize=0, measure_every=10,
+                                       n_measure=10))
+        name = f"{family}_shard_sweeps"
+        run_path = shard_paths[family] = \
+            f"{engine} {n}^2 mesh {MESH} run(200)"
+        spins = n * n * (32 if bitplane else 1)
+
+        def open_run():
+            t1 = time.perf_counter()
+            session = Session.open(spec)
+            torch.cuda.synchronize()
+            open_s = time.perf_counter() - t1
+            run_ms = timed_ms(lambda: session.run(200), reps=1,
+                              warmup=False)
+            return session, open_s, run_ms
+
+        torch.cuda.reset_peak_memory_stats()
+        session, open_s, run_ms = drive(run_path, family, "shard", open_run)
+        plan = session.shard_plan
+        check(plan is not None, f"{run_path}: no shard plan")
+        blocks = math.ceil(200 / plan.k)
+        launched = launches_by_path[run_path][name]
+        print(f"phase 6: {run_path}: open {open_s:.2f} s (index planes "
+              f"included); run(200) {run_ms:.1f} ms = "
+              f"{200 * spins / (run_ms * 1e6):.2f} flips/ns (k = {plan.k}, "
+              f"tile {plan.tile_rows} x {plan.tile_cols}, {plan.threads} "
+              f"threads); halo_exchanges {session.halo_exchanges}; "
+              f"{launched} launches of {name}")
+        check(session.halo_exchanges == blocks,
+              f"{run_path}: {session.halo_exchanges} halo exchanges, not "
+              f"ceil(200 / k) = {blocks}")
+        check(launched == MESH[0] * MESH[1] * blocks,
+              f"{run_path}: {launched} launches, not one per shard and block")
+
+        def measure():
+            t1 = time.perf_counter()
+            return session.measure(), time.perf_counter() - t1
+
+        traj, measure_s = drive(f"{engine} {n}^2 mesh {MESH} measure()",
+                                family, "shard", measure)
+        print(f"phase 6: {engine} {n}^2 mesh {MESH}: measure() "
+              f"{spec.sweep.total_sweeps} sweeps + {spec.sweep.n_measure} "
+              f"samples {measure_s:.3f} s")
+        if bitplane:
+            m, e = traj["m"][-1], traj["e"][-1]   # after 300 sweeps
+            exact = observables.onsager_energy(temperature)
+            diffs = replica_disagreements(torch, session.state[0]
+                                          + session.state[1])
+            print(f"phase 6: {run_path}: per-replica e in [{e.min():.5f}, "
+                  f"{e.max():.5f}] (exact {exact:.5f}), max |m| "
+                  f"{abs(m).max():.5f}, fewest sites where two replicas "
+                  f"differ {int(diffs.min())}")
+            check(bool((abs(e - exact) < 2e-3).all()),
+                  "sharded: a replica's energy is not within 2e-3 of "
+                  "Onsager's")
+            check(bool((abs(m) < 0.01).all()), "sharded: a replica's |m| "
+                  ">= 0.01")
+            check(int(diffs.min()) > 0, "sharded: two replicas are equal")
+            del diffs
+        else:
+            m = abs(session.magnetization())
+            onsager = observables.onsager_magnetization(temperature)
+            print(f"phase 6: {run_path}: |m| {m:.5f} (Onsager "
+                  f"{onsager:.5f}), e {session.energy():.5f}, last sample "
+                  f"m {float(traj['m'][-1]):.5f}")
+            check(abs(m - onsager) < 2e-3,
+                  f"sharded {engine}: |m| is not within 2e-3 of Onsager")
+        peaks[run_path] = torch.cuda.max_memory_allocated()
+        del session
+    phase_s[6] = time.perf_counter() - t0
+
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}
 
     kernels = []
     for name, (family, tier, replaces) in KERNELS.items():
-        path = (main_paths if tier == "k-sweep" else half_paths)[family]
+        path = {"k-sweep": main_paths, "half-sweep": half_paths,
+                "shard": shard_paths}[tier][family]
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/csrc/{family}.cu",
                  "replaces": replaces,
@@ -750,12 +1051,15 @@ def main() -> int:
                  "launches_by_path": by_path(name),
                  "mismatches": stats[name][1],
                  "max_abs_err": float(stats[name][2]),
-                 "shape": list(full_plane[family]),
+                 "shape": list(shard_shape[family] if tier == "shard"
+                               else full_plane[family]),
                  "ms": kernel_ms[name], "plain_ms": stats[name][3],
                  "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                  "library_ms": None}
         if tier == "k-sweep":
             entry["n_sweeps"] = plans[family].k
+        if tier == "shard":
+            entry["n_sweeps"] = shard_plans[family].k
         kernels.append(entry)
     print("phase seconds: " + ", ".join(
         f"{p} {s:.1f}" for p, s in sorted(phase_s.items()))

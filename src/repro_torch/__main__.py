@@ -1,4 +1,4 @@
-"""``python -m repro_torch run`` -- single-mode runs from flags.
+"""``python -m repro_torch run`` -- single and sharded runs from flags.
 
     # 1024^2 ordered start at T=2.0: 200 sweeps, then 10 samples
     python -m repro_torch run --n 1024 --init-p-up 1.0 --temperature 2.0 \\
@@ -12,7 +12,13 @@
     python -m repro_torch run --engine tensorcore --tc-block 64 --n 1024 \\
         --init-p-up 1.0 --temperature 2.0 --sweeps 200
 
+    # sharded: a 2 x 2 mesh of shards (rows over "data", columns over
+    # "model"), several shards to a card where there are fewer cards
+    python -m repro_torch run --n 1024 --init-p-up 1.0 --temperature 2.0 \
+        --sweeps 200 --mesh 2x2 --mesh-axes data,model --save ck.npz
+
     # resume a checkpoint written by this package or by ``python -m repro``
+    # (on the mesh it was saved on)
     python -m repro_torch run --restore ck.npz --sweeps 100
 
 Runs on the CUDA card unless ``--device cpu`` is given.
@@ -28,7 +34,8 @@ import torch
 
 
 def _build_spec(args):
-    from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, SweepSpec
+    from repro_torch.api import (EngineSpec, LatticeSpec, MeshSpec, RunSpec,
+                                 SweepSpec)
     params = {}
     if args.tc_block is not None:
         params["tc_block"] = args.tc_block
@@ -37,11 +44,17 @@ def _build_spec(args):
         sweep = SweepSpec(thermalize=args.thermalize,
                           measure_every=args.measure_every,
                           n_measure=args.n_measure)
+    mesh = None
+    if args.mesh:
+        shape = tuple(int(d) for d in args.mesh.split("x"))
+        names = tuple(args.mesh_axes.split(",")) if args.mesh_axes \
+            else tuple(f"ax{i}" for i in range(len(shape)))
+        mesh = MeshSpec(shape=shape, axis_names=names)
     return RunSpec(lattice=LatticeSpec(n=args.n, m=args.m or args.n,
                                        init_p_up=args.init_p_up),
                    engine=EngineSpec(name=args.engine, params=params),
                    temperature=args.temperature, seed=args.seed,
-                   sweep=sweep)
+                   sweep=sweep, mesh=mesh)
 
 
 def _sync(session) -> None:
@@ -74,7 +87,9 @@ def cmd_run(args) -> int:
         session.run(args.sweeps)
         mag = session.magnetization()  # waits for the device
         dt = time.perf_counter() - t0
-        print(f"ran {args.sweeps} sweeps in {dt:.2f}s on {session.device}; "
+        where = session.device if spec.mesh is None else \
+            f"a {'x'.join(map(str, spec.mesh.shape))} mesh"
+        print(f"ran {args.sweeps} sweeps in {dt:.2f}s on {where}; "
               f"|m| = {abs(mag):.4f}")  # bitplane: |mean over replicas|
         did = True
     if not did:
@@ -90,10 +105,10 @@ def cmd_run(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch",
-        description="Single-mode RunSpec launcher of the PyTorch port")
+        description="RunSpec launcher of the PyTorch port")
     sub = ap.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser(
-        "run", help="execute a single-mode RunSpec",
+        "run", help="execute a single or sharded RunSpec",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     run.add_argument("--n", type=int, default=64)
     run.add_argument("--m", type=int, default=0,
@@ -113,6 +128,11 @@ def main(argv=None) -> int:
                      help="samples to record (0: plain --sweeps run)")
     run.add_argument("--sweeps", type=int, default=0,
                      help="plain sweeps to run (after any sweep plan)")
+    run.add_argument("--mesh", default="",
+                     help="mesh shape of a sharded run, e.g. 2x2")
+    run.add_argument("--mesh-axes", default="",
+                     help="comma list of mesh axis names (default "
+                          "ax0,ax1,...)")
     run.add_argument("--save", default="", help="checkpoint path to write")
     run.add_argument("--restore", default="",
                      help="checkpoint to resume (overrides the flags)")

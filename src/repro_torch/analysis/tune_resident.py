@@ -1,6 +1,7 @@
 """Time the k-sweep kernels' tile, k and block-size candidates on the card.
 
     PYTHONPATH=src python -m repro_torch.analysis.tune_resident [--family F]
+    PYTHONPATH=src python -m repro_torch.analysis.tune_resident --shard
 
 For each kernel family, at the plane of its full-size main path in
 ``chip_smoke.py`` (stencil and multispin 32768^2, bitplane 16384^2),
@@ -8,9 +9,13 @@ prints the milliseconds per full sweep of the per-half-sweep tier and of
 the k-sweep kernel at each candidate (tile rows, tile columns, k,
 threads) that fits one block's shared memory: CUDA events, after one
 untimed call, every kernel built before the first is timed.  These are
-the measurements behind ``repro_torch.kernels.resident.GEOMETRY``.  The
-last two lines are the card's name and power limit and one JSON object
-of every time.
+the measurements behind ``repro_torch.kernels.resident.GEOMETRY``.
+With ``--shard`` it times the shard kernels of the sharded resident tier
+instead (``repro_torch.dist.kernels``), on the extended plane of one
+shard of the 2 x 2 main path at the planner's k with random index
+planes, times the 4 shards: the measurements behind
+``repro_torch.dist.planner.SHARD_TILES``.  The last two lines are the
+card's name and power limit and one JSON object of every time.
 """
 from __future__ import annotations
 
@@ -45,6 +50,13 @@ CANDIDATES = {
                                                 (32, 256), (32, 128))
                  for k in (1, 2, 3) for t in (256, 512)],
 }
+
+#: (tile rows, tile columns, threads) of the shard kernels
+SHARD_CANDIDATES = [(tr, tc, t) for tr, tc in ((128, 256), (128, 128),
+                                                (96, 128), (64, 256),
+                                                (64, 128), (48, 128),
+                                                (32, 256))
+                    for t in (256, 512, 1024)]
 
 
 def timed_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -109,10 +121,43 @@ def tune(family: str, seed: int = 2 ** 33 + 5) -> dict:
     return out
 
 
+def tune_shard(family: str, seed: int = 2 ** 33 + 5) -> dict:
+    """``{configuration: ms per full sweep of the whole lattice}`` of the
+    family's shard kernel on the extended plane of one shard of the
+    2 x 2 main path, at the planner's k, times the 4 shards."""
+    from repro_torch.dist import kernels as dk
+    from repro_torch.dist import planner
+    n, _ = FULL_PLANE[family]
+    plan = planner.plan_shard_resident(family, n, n, 2, 2)
+    shape = (plan.n_loc + 2 * plan.halo, plan.w_loc + 2 * plan.halo)
+    kernel = getattr(dk, f"{family}_shard_sweeps")
+    table = acceptance(family)
+    b, w = random_planes(family, *shape, 2)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    index = [torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                           device="cuda", dtype=torch.int32)]
+    if family == "bitplane":
+        index.append(torch.randint(0, 4, shape, generator=g, device="cuda",
+                                   dtype=torch.int32))
+    out = {}
+    for tr, tc, threads in SHARD_CANDIDATES:
+        if planner.shard_smem_bytes(family, tr, tc, plan.k) \
+                > plan.budget_bytes:
+            continue
+        ms = timed_ms(lambda: kernel(b, w, table, *index, n_sweeps=plan.k,
+                                     seed=seed, start_offset=0,
+                                     tile=(tr, tc, threads)), reps=4)
+        out[f"{tr}x{tc} {threads}t"] = 4 * ms / plan.k
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--family", choices=FAMILIES, action="append",
                         help="a family to time (default: all three)")
+    parser.add_argument("--shard", action="store_true",
+                        help="time the shard kernels of the sharded "
+                             "resident tier")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_resident: no CUDA device", file=sys.stderr)
@@ -121,11 +166,18 @@ def main(argv=None) -> int:
     results = {}
     for family in args.family or FAMILIES:
         n, _ = FULL_PLANE[family]
-        plan = resident.plan_resident(family, n, n)
-        results[family] = tune(family)
-        print(f"{family} {n}^2, ms per full sweep (planner: k = {plan.k}, "
-              f"tile {plan.tile_rows} x {plan.tile_cols}, threads "
-              f"{plan.threads}): " + ", ".join(
+        if args.shard:
+            from repro_torch.dist.planner import plan_shard_resident
+            plan = plan_shard_resident(family, n, n, 2, 2)
+            results[family] = tune_shard(family)
+            where = f"2 x 2 shards of {n}^2 at k = {plan.k}"
+        else:
+            plan = resident.plan_resident(family, n, n)
+            results[family] = tune(family)
+            where = f"{n}^2"
+        print(f"{family} {where}, ms per full sweep (planner: k = "
+              f"{plan.k}, tile {plan.tile_rows} x {plan.tile_cols}, "
+              f"threads {plan.threads}): " + ", ".join(
                   f"{c} {ms:.4f}" for c, ms in results[family].items()))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

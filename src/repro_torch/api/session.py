@@ -1,11 +1,21 @@
-"""Session: open, run, measure, save, restore and digest a single run.
+"""Session: open, run, measure, save, restore and digest a run.
 
-Counterpart of ``repro.api.session`` for single mode.  The checkpoint is
-the JAX package's layout -- an atomically renamed ``.npz`` with
-``spec_json``, ``step_count`` and ``state_<name>`` arrays -- and
-``state_digest`` frames the state as the JAX package does, so a run
-saved by either package restores in the other and the digests of equal
-states are equal.
+Counterpart of ``repro.api.session`` for single and sharded mode.
+``Session.open(spec)`` builds the runner the spec's shape asks for:
+
+* single  -- the registry engine advanced in place;
+* sharded -- a ``MeshSpec`` mesh of shards (``_ShardedRunner``): the
+             sharded resident tier (``repro_torch.dist``) where the
+             shard planner fits the engine's ``shard_family``, else the
+             per-half-sweep step named by its ``dist_factory``
+             (``repro_torch.core.distributed``).
+
+The checkpoint is the JAX package's layout -- an atomically renamed
+``.npz`` with ``spec_json``, ``step_count`` and ``state_<name>`` arrays
+(the whole planes, in either mode) -- and ``state_digest`` frames the
+state as the JAX package does, so a run saved by either package restores
+in the other, on any mesh or none, and the digests of equal states are
+equal.
 
 The entry points run on CUDA unless the caller passes ``device="cpu"``;
 with no device named and no GPU present they raise.  They never move to
@@ -13,16 +23,23 @@ the CPU on their own.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import tempfile
 
 import numpy as np
 import torch
 
+from repro_torch import convert
+from repro_torch.core import distributed as dist
+from repro_torch.core import rng
 from repro_torch.core.engine import make_engine
 from repro_torch.resilience import integrity
 
 from .spec import RunSpec
+
+#: default of ``Session.restore(mesh=...)``: keep the checkpoint's mesh
+_KEEP = object()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -102,22 +119,188 @@ class _SingleRunner:
         self.state = self.engine.from_arrays(arrays)
 
 
-class Session:
-    """Open a spec, run it, measure it, checkpoint it (single mode)."""
+#: ``Engine.dist_factory`` -> the ``repro_torch.core.distributed``
+#: factory of the per-half-sweep tier
+_DIST_FACTORIES = {
+    "basic": dist.make_ising_step,
+    "packed": dist.make_packed_ising_step,
+    "bitplane": dist.make_bitplane_ising_step,
+}
 
-    def __init__(self, spec: RunSpec, runner: _SingleRunner):
+
+class _ShardedRunner:
+    """A ``MeshSpec`` run: the sharded resident tier
+    (``repro_torch.dist``) where the shard planner fits the engine's
+    ``shard_family``, else the per-half-sweep step of its
+    ``dist_factory``.
+
+    The state is a pair of lists of shards, shard ``i`` (row-major over
+    the mesh) on ``mesh.device_of(i)``; each shard makes its own part of
+    a fresh lattice.  The draws are keyed on global positions on both
+    tiers, so the trajectory is the single-device engine's on any mesh.
+    ``halo_exchanges`` counts exchange events as the JAX package's
+    telemetry does: one per block of k sweeps on the resident tier, one
+    per half-sweep on the other.
+    """
+
+    def __init__(self, spec: RunSpec, device=None, state=None,
+                 step_count: int = 0, resident_budget_bytes=None):
+        from repro_torch.dist import make_resident_step, plan_shard_resident
+        from repro_torch.launch.mesh import make_mesh
+        self.spec = spec
+        self.cfg = spec.sim_config()
+        self.mesh = make_mesh(spec.mesh.shape, spec.mesh.axis_names, device)
+        self.engine = make_engine(self.cfg, self.mesh.devices[0])
+        eng, cfg = self.engine, self.cfg
+        self.grid = dist.ShardGrid.of(self.mesh, cfg.n,
+                                      cfg.m // eng.col_divisor)
+        self.plan = None
+        if eng.shard_family is not None:
+            self.plan = plan_shard_resident(
+                eng.shard_family, cfg.n, cfg.m, self.grid.rows_devs,
+                self.grid.cols_devs, budget_bytes=resident_budget_bytes)
+        if self.plan is not None:
+            self._step = make_resident_step(self.mesh, self.plan,
+                                            seed=cfg.seed)
+            self._offset_scale = 2
+        else:
+            self._step = _DIST_FACTORIES[eng.dist_factory](
+                self.mesh, n=cfg.n, m=cfg.m, seed=cfg.seed)
+            # the basic step takes its start in sweep units, the others
+            # in half-sweep units (as in the JAX package)
+            self._offset_scale = 1 if eng.dist_factory == "basic" else 2
+        self.halo_exchanges = 0
+        self.step_count = step_count
+        self.state = self._fresh_state() if state is None else state
+
+    def _fresh_state(self):
+        grid, d = self.grid, self.engine.col_divisor
+        black, white = [], []
+        for i in range(self.mesh.size):
+            r0, c0 = grid.origin(i)
+            b, w = self.engine.init_block(
+                (r0, r0 + grid.n_loc), (c0 * d, (c0 + grid.w_loc) * d),
+                self.mesh.device_of(i))
+            black.append(b)
+            white.append(w)
+        return black, white
+
+    def run(self, n_sweeps: int) -> None:
+        if n_sweeps <= 0:
+            return
+        table = self.engine.sweep_context(self.cfg.inv_temp)
+        start = (self._offset_scale * self.step_count) & rng.MASK32
+        self.state = self._step(*self.state, table, start, n_sweeps)
+        self.halo_exchanges += self.plan.exchanges(n_sweeps) \
+            if self.plan is not None else 2 * n_sweeps
+        self.step_count += n_sweeps
+
+    def observables(self, fields=("m", "e")) -> dict:
+        return dist.shard_observables(self.engine.dist_factory, self.grid,
+                                      *self.state, fields)
+
+    def measure(self, plan) -> dict:
+        """Per-sample, as in the JAX package: thermalize, then
+        ``n_measure`` rounds of (run; observe)."""
+        missing = set(plan.fields) - set(self.engine.observable_fields)
+        if missing:
+            raise ValueError(f"plan fields {sorted(missing)} not in engine "
+                             f"{self.engine.name!r} observables")
+        self.run(plan.thermalize)
+        samples = []
+        for _ in range(plan.n_measure):
+            self.run(plan.sweeps_between)
+            samples.append(self.observables(plan.fields))
+        return {k: torch.stack([s[k] for s in samples]).cpu().numpy()
+                .astype(np.float32) for k in plan.fields}
+
+    def magnetization(self) -> float:
+        return _replica_mean(dist.magnetization_dist(
+            self.engine.dist_factory, *self.state))
+
+    def energy(self) -> float:
+        return _replica_mean(self.observables(("e",))["e"])
+
+    def full_lattice(self) -> torch.Tensor:
+        """The whole state gathered on shard 0's device, as the engine's
+        ``full_lattice``."""
+        return self.engine.full_lattice(
+            tuple(self.grid.gather(p) for p in self.state))
+
+    def state_arrays(self) -> dict:
+        """The whole planes as host numpy arrays (the single-mode
+        layout), gathered a shard at a time."""
+        grid, eng = self.grid, self.engine
+        out = {k: np.empty((grid.n, grid.width), eng.plane_dtype)
+               for k in eng.plane_keys}
+        for i, (b, w) in enumerate(zip(*self.state)):
+            r0, c0 = grid.origin(i)
+            for k, a in eng.state_arrays((b, w)).items():
+                out[k][r0:r0 + grid.n_loc, c0:c0 + grid.w_loc] = a
+        return out
+
+    def load_arrays(self, arrays: dict) -> None:
+        grid, eng = self.grid, self.engine
+        for k in eng.plane_keys:
+            shape = np.shape(arrays.get(k))
+            if shape != (grid.n, grid.width):
+                raise ValueError(f"state plane {k!r} is {shape}, the "
+                                 f"{self.cfg.n}x{self.cfg.m} lattice needs "
+                                 f"{(grid.n, grid.width)}")
+        black, white = [], []
+        for i in range(self.mesh.size):
+            r0, c0 = grid.origin(i)
+            block = {k: np.asarray(arrays[k])[r0:r0 + grid.n_loc,
+                                              c0:c0 + grid.w_loc]
+                     for k in eng.plane_keys}
+            b, w = convert.state_from_reference(
+                block, self.mesh.device_of(i), eng.plane_keys,
+                eng.plane_dtype)
+            black.append(b)
+            white.append(w)
+        self.state = (black, white)
+
+
+def _replica_mean(value: torch.Tensor) -> float:
+    """A 0-d value, or the mean of per-replica values as the bitplane
+    engines take it (float64, rounded once to float32)."""
+    return float(value.to(torch.float64).mean().to(torch.float32)
+                 if value.numel() > 1 else value)
+
+
+def _runner(spec: RunSpec, device, *, state=None, step_count: int = 0,
+            resident_budget_bytes=None):
+    """The runner of ``spec``'s mode."""
+    if spec.mode == "sharded":
+        return _ShardedRunner(spec, device, state, step_count,
+                              resident_budget_bytes)
+    return _SingleRunner(spec, resolve_device(device), state, step_count,
+                         resident_budget_bytes)
+
+
+class Session:
+    """Open a spec, run it, measure it, checkpoint it (single or sharded
+    mode)."""
+
+    def __init__(self, spec: RunSpec, runner):
         self.spec = spec
         self._runner = runner
 
     @classmethod
     def open(cls, spec: RunSpec, device=None, *,
              resident_budget_bytes=None) -> "Session":
-        """A fresh run of ``spec`` on ``device`` (default: the CUDA card).
-        ``resident_budget_bytes`` overrides the k-sweep planner's shared
-        memory budget per block (0: the per-half-sweep tier)."""
-        return cls(spec, _SingleRunner(
-            spec, resolve_device(device),
-            resident_budget_bytes=resident_budget_bytes))
+        """A fresh run of ``spec`` on ``device`` (default: the CUDA card;
+        a sharded spec spreads its shards over every card).
+        ``resident_budget_bytes`` overrides the k-sweep planner's (or, in
+        sharded mode, the shard planner's) shared memory budget per block
+        (0: the per-half-sweep tier)."""
+        return cls(spec, _runner(spec, device,
+                                 resident_budget_bytes=resident_budget_bytes))
+
+    @property
+    def mode(self) -> str:
+        """"single" or "sharded"."""
+        return self.spec.mode
 
     @property
     def engine(self):
@@ -125,7 +308,20 @@ class Session:
 
     @property
     def device(self) -> torch.device:
+        """The device of the state (sharded mode: of shard 0)."""
         return self._runner.engine.device
+
+    @property
+    def shard_plan(self):
+        """The sharded resident tier's ``ShardPlan``, or ``None`` (single
+        mode, or the per-half-sweep distributed tier)."""
+        return getattr(self._runner, "plan", None)
+
+    @property
+    def halo_exchanges(self) -> int:
+        """Halo exchange events of a sharded session so far (0 in single
+        mode)."""
+        return getattr(self._runner, "halo_exchanges", 0)
 
     @property
     def state(self):
@@ -137,7 +333,9 @@ class Session:
         ``bitplane_pallas``: int32 tensors ``(n, m/2)`` holding uint32
         words whose bit r is replica r (``black_bits``, ``white_bits``);
         ``tensorcore``: a dict of four int8 sublattice planes ``'00'``,
-        ``'01'``, ``'10'``, ``'11'`` of ``(n/2, m/2)`` (``plane_XX``)."""
+        ``'01'``, ``'10'``, ``'11'`` of ``(n/2, m/2)`` (``plane_XX``).
+        In sharded mode each plane is a list of its shards, shard ``i``
+        at position ``i`` of the mesh in row-major order."""
         return self._runner.state
 
     @property
@@ -199,15 +397,20 @@ class Session:
                       step_count=self._runner.step_count, **arrays)
 
     @classmethod
-    def restore(cls, path: str, device=None, *,
+    def restore(cls, path: str, device=None, *, mesh=_KEEP,
                 resident_budget_bytes=None) -> "Session":
         """Rebuild a session from a checkpoint of either package; a
-        counter-based engine continues the exact Philox stream.
-        ``resident_budget_bytes`` as for :meth:`open`."""
+        counter-based engine continues the exact Philox stream.  ``mesh``
+        overrides the checkpoint's ``MeshSpec`` (a ``MeshSpec`` to
+        reshard, ``None`` to continue in single mode): the draws are
+        keyed on global positions, so the run continues bit for bit on
+        any mesh.  ``resident_budget_bytes`` as for :meth:`open`."""
         spec, step_count, arrays = _load_checkpoint(path)
-        runner = _SingleRunner(spec, resolve_device(device),
-                               state=_SENTINEL, step_count=step_count,
-                               resident_budget_bytes=resident_budget_bytes)
+        if mesh is not _KEEP and mesh != spec.mesh:
+            spec = dataclasses.replace(spec, mesh=mesh)
+        runner = _runner(spec, device, state=_SENTINEL,
+                         step_count=step_count,
+                         resident_budget_bytes=resident_budget_bytes)
         runner.load_arrays(arrays)
         return cls(spec, runner)
 

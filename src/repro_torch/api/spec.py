@@ -4,9 +4,8 @@ The same frozen dataclass tree and the same JSON document as the JAX
 package: ``version``, ``lattice``, ``engine``, ``temperature``, ``seed``,
 ``sweep``, ``batch``, ``mesh``, serialized with ``sort_keys=True``, so a
 spec written by either package reads in the other.  Engine names resolve
-against this package's registry.  Ensemble (``batch``) and sharded
-(``mesh``) specs parse and validate, then raise: only single mode is
-ported.
+against this package's registry.  Single and sharded (``mesh``) specs
+run; ensemble (``batch``) specs parse and validate, then raise.
 """
 from __future__ import annotations
 
@@ -206,8 +205,10 @@ class BatchSpec:
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """A device mesh for sharded runs: parsed and validated as in the
-    JAX package; running one is not ported yet."""
+    """The mesh of a sharded run: plane rows are cut over every axis but
+    the last, plane columns over the last.  Shard ``i`` (row-major over
+    the mesh) lives on the ``i % count``-th device, so several shards may
+    share one (``repro_torch.launch.mesh``)."""
 
     shape: Tuple[int, ...] = (1, 1)
     axis_names: Tuple[str, ...] = ("data", "model")
@@ -258,14 +259,27 @@ class RunSpec:
         if not 0 <= int(self.seed) < 2 ** 64:
             raise ValueError(f"seed must be a uint64, got {self.seed!r}")
         object.__setattr__(self, "seed", int(self.seed))
+        if self.batch is not None and self.mesh is not None:
+            raise ValueError(
+                "batch + mesh in one RunSpec is not supported yet: "
+                "run the ensemble per mesh shard or drop one of them")
         if self.batch is not None:
             raise NotImplementedError(
                 "ensemble specs (batch) are not ported to repro_torch yet")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "sharded specs (mesh) are not ported to repro_torch yet")
+        if self.mesh is not None and cls.dist_factory is None:
+            from repro_torch.core.engine import ENGINES
+            have = sorted(n for n, c in ENGINES.items()
+                          if c.dist_factory is not None)
+            raise ValueError(
+                f"engine {self.engine.name!r} has no distributed step "
+                f"(dist_factory is None); mesh-capable engines: {have}")
         cls.validate_lattice(self.lattice.n, self.lattice.m,
                              **self.engine.param_dict)
+
+    @property
+    def mode(self) -> str:
+        """"sharded" with a mesh, else "single"."""
+        return "single" if self.mesh is None else "sharded"
 
     def sim_config(self):
         """The equivalent :class:`repro_torch.core.sim.SimConfig`."""

@@ -79,21 +79,30 @@ def replica_lattice(black_words, white_words, r: int, dtype=torch.int8):
     return lat.merge_checkerboard(black, white)
 
 
-def init_words(n: int, m: int, p_up: float, seed: int, device):
+def init_words(n: int, m: int, p_up: float, seed: int, device, rows=None,
+               cols=None):
     """Fresh ``(black_words, white_words)``: replica r is lane ``r % 4``
     of the init draws at counter lane c3 = ``r // 4``
     (``lattice.init_row_chunks``), so replica 0 is the single-lattice
-    init of the same seed, and the replicas differ from one another."""
-    black = torch.empty((n, m // 2), dtype=torch.int32, device=device)
+    init of the same seed, and the replicas differ from one another.
+    ``rows`` and ``cols`` select a block of the lattice, as in
+    ``lattice.init_planes``."""
+    i0, i1 = rows if rows is not None else (0, n)
+    j0, j1 = cols if cols is not None else (0, m)
+    black = torch.empty((i1 - i0, (j1 - j0) // 2), dtype=torch.int32,
+                        device=device)
     white = torch.empty_like(black)
     for r0, r1, draws in lat.init_row_chunks(n, m, seed, device,
-                                             replica_groups=N_REPLICAS // 4):
-        words = torch.zeros((r1 - r0, m), dtype=torch.int64, device=device)
+                                             replica_groups=N_REPLICAS // 4,
+                                             rows=rows, cols=cols):
+        words = torch.zeros((r1 - r0, j1 - j0), dtype=torch.int64,
+                            device=device)
         for r in range(N_REPLICAS):
             words |= lat.spin_up(draws[r // 4][r % 4], p_up).to(
                 torch.int64) << r
         b, w = lat.split_checkerboard(words)
-        black[r0:r1], white[r0:r1] = lat.u32_to_words(b), lat.u32_to_words(w)
+        black[r0 - i0:r1 - i0] = lat.u32_to_words(b)
+        white[r0 - i0:r1 - i0] = lat.u32_to_words(w)
     return black, white
 
 
@@ -159,22 +168,55 @@ def flip_word_from_classes(target, counts, draws, thresholds):
     return flip
 
 
-def update_color_bitplane(target_words, op_words, thresholds,
-                          is_black: bool, seed: int, offset: int):
-    """One bitplane half-sweep of all 32 replicas: the new int32 target
-    plane."""
+def lane_draws(seed: int, gidx: torch.Tensor, lane: torch.Tensor,
+               offset: int) -> torch.Tensor:
+    """One uint32 draw (int64) per site from planes of uint32 group
+    indices and lanes (int32 or int64): lane ``lane`` (0, 1, 2, else 3)
+    of Philox at counter ``(offset, 0, gidx, 0)`` -- the per-site form of
+    :func:`site_randoms`, for planes whose sites are not numbered row by
+    row."""
+    k0, k1 = rng.seed_keys(seed)
+    l0, l1, l2, l3 = rng.philox4x32(int(offset) & rng.MASK32, 0,
+                                    gidx.to(torch.int64) & rng.MASK32, 0,
+                                    k0, k1)
+    return torch.where(lane == 0, l0, torch.where(
+        lane == 1, l1, torch.where(lane == 2, l2, l3)))
+
+
+def update_bits(target_words, counts, thresholds, draws_of):
+    """The new int32 target plane from its neighbour counts ``(n0, n1,
+    n2)`` and ``draws_of(r0, r1)``, the draws of rows ``r0:r1``, a block
+    of rows at a time."""
     n, w = target_words.shape
-    n0, n1, n2 = neighbor_counts(op_words, is_black)
+    n0, n1, n2 = counts
     out = torch.empty_like(target_words)
     rows = max(1, 4 * _CHUNK_GROUPS // w)
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
-        draws = site_randoms(seed, r1 - r0, w, offset, target_words.device,
-                             first_row=r0)
         t = target_words[r0:r1]
         out[r0:r1] = t ^ flip_word_from_classes(
-            t, (n0[r0:r1], n1[r0:r1], n2[r0:r1]), draws, thresholds)
+            t, (n0[r0:r1], n1[r0:r1], n2[r0:r1]), draws_of(r0, r1),
+            thresholds)
     return out
+
+
+def update_color_bitplane(target_words, op_words, thresholds,
+                          is_black: bool, seed: int, offset: int,
+                          gidx=None, lane=None):
+    """One bitplane half-sweep of all 32 replicas: the new int32 target
+    plane.  Sites draw as :func:`site_randoms` numbers them or, where
+    ``gidx`` and ``lane`` are given, as :func:`lane_draws` of those
+    planes (a halo-extended shard's)."""
+    n, w = target_words.shape
+    if gidx is None:
+        def draws_of(r0, r1):
+            return site_randoms(seed, r1 - r0, w, offset,
+                                target_words.device, first_row=r0)
+    else:
+        def draws_of(r0, r1):
+            return lane_draws(seed, gidx[r0:r1], lane[r0:r1], offset)
+    return update_bits(target_words, neighbor_counts(op_words, is_black),
+                       thresholds, draws_of)
 
 
 def run_sweeps_bitplane(black_words, white_words, thresholds, n_sweeps: int,

@@ -21,7 +21,10 @@ Protocol:
 
 Counter-based engines draw from Philox addressed by (seed, half-sweep
 offset, site), so a run continues its stream bit for bit from any
-``step_count``, and both tiers of ``sweep_fn`` draw the same stream.
+``step_count``, and both tiers of ``sweep_fn`` draw the same stream.  On
+a mesh (``api.session._ShardedRunner``) an engine's ``dist_factory`` and
+``shard_family`` name its two sharded tiers, and ``init_block`` makes a
+shard's part of a fresh lattice.
 """
 from __future__ import annotations
 
@@ -81,6 +84,16 @@ class Engine:
     param_fields: ClassVar[tuple] = ()
     #: keys of :meth:`observables`
     observable_fields: ClassVar[tuple] = ("m", "e")
+    #: the per-half-sweep distributed step that runs this engine on a
+    #: mesh (``repro_torch.core.distributed``: "basic", "packed" or
+    #: "bitplane"); ``None``: the engine takes no mesh
+    dist_factory: ClassVar[Optional[str]] = None
+    #: planner family of the sharded resident tier (``repro_torch.dist``)
+    #: on a mesh; ``None``: the per-half-sweep distributed step only.  As
+    #: in the JAX package only the ``_pallas`` engines have one, though
+    #: the port's ``multispin`` and ``bitplane`` have a single-device
+    #: k-sweep tier too
+    shard_family: ClassVar[Optional[str]] = None
 
     @classmethod
     def validate_lattice(cls, n: int, m: int, **params) -> None:
@@ -188,30 +201,35 @@ class CounterEngine(Engine):
                              (2 * int(step_count)) & rng.MASK32, n_sweeps)
 
 
-class _PlanesEngine(Engine):
-    """(black, white) int8 compact-plane state."""
+class _TwoPlaneEngine(CounterEngine):
+    """(black, white) plane state: two ``(n, m / col_divisor)`` planes,
+    named ``plane_keys`` of ``plane_dtype`` in ``state_arrays`` (the JAX
+    engine's layout)."""
+
+    plane_keys: ClassVar[tuple] = ("black", "white")
+    plane_dtype: ClassVar[type] = np.int8
+    #: lattice columns per plane column
+    col_divisor: ClassVar[int] = 2
 
     def init_state(self):
         cfg = self.cfg
-        return lat.init_planes(cfg.n, cfg.m, cfg.init_p_up, cfg.seed,
-                               self.device)
+        return self.init_block((0, cfg.n), (0, cfg.m), self.device)
 
-    def full_lattice(self, state) -> torch.Tensor:
-        return lat.merge_checkerboard(*state)
-
-    def magnetization(self, state) -> torch.Tensor:
-        return obs.magnetization(*state)
-
-    def observables(self, state, inv_temp) -> dict:
-        return {"m": obs.magnetization(*state),
-                "e": obs.energy_per_spin(*state)}
+    def init_block(self, rows, cols, device):
+        """The fresh planes of the lattice block ``rows`` x ``cols``
+        (``(start, stop)`` lattice ranges, the start even) on ``device``:
+        what :meth:`init_state` holds there, so that each shard of a
+        sharded run makes its own part."""
+        raise NotImplementedError
 
     def state_arrays(self, state) -> dict:
-        return convert.state_to_reference(state)
+        return convert.state_to_reference(state, self.plane_keys,
+                                          self.plane_dtype)
 
     def from_arrays(self, arrays: dict):
-        black, white = convert.state_from_reference(arrays, self.device)
-        want = (self.cfg.n, self.cfg.m // 2)
+        black, white = convert.state_from_reference(
+            arrays, self.device, self.plane_keys, self.plane_dtype)
+        want = (self.cfg.n, self.cfg.m // self.col_divisor)
         if tuple(black.shape) != want:
             raise ValueError(f"state planes are {tuple(black.shape)}, the "
                              f"{self.cfg.n}x{self.cfg.m} lattice needs {want}")
@@ -219,9 +237,10 @@ class _PlanesEngine(Engine):
 
 
 @register
-class StencilPallasEngine(_PlanesEngine, CounterEngine):
+class StencilPallasEngine(_TwoPlaneEngine):
     """The stencil kernel pair (paper S3.1): ``stencil_update`` per
-    half-sweep, ``stencil_sweeps_resident`` for k sweeps per launch.
+    half-sweep, ``stencil_sweeps_resident`` for k sweeps per launch; on
+    a mesh ``stencil_shard_sweeps`` (``repro_torch.dist``).
 
     Keeps the JAX package's engine name.  Philox is keyed on the global
     (row, col) index, so both tiers give one trajectory, and it is the
@@ -232,6 +251,23 @@ class StencilPallasEngine(_PlanesEngine, CounterEngine):
 
     name = "stencil_pallas"
     resident_family = "stencil"
+    dist_factory = "basic"
+    shard_family = "stencil"
+
+    def init_block(self, rows, cols, device):
+        cfg = self.cfg
+        return lat.init_planes(cfg.n, cfg.m, cfg.init_p_up, cfg.seed,
+                               device, rows, cols)
+
+    def full_lattice(self, state) -> torch.Tensor:
+        return lat.merge_checkerboard(*state)
+
+    def magnetization(self, state) -> torch.Tensor:
+        return obs.magnetization(*state)
+
+    def observables(self, state, inv_temp) -> dict:
+        return {"m": obs.magnetization(*state),
+                "e": obs.energy_per_spin(*state)}
 
     def color_update(self, target, op, table, is_black, seed, offset):
         from repro_torch.kernels.stencil import stencil_update
@@ -245,29 +281,14 @@ class StencilPallasEngine(_PlanesEngine, CounterEngine):
                                        plan=self.resident_plan)
 
 
-class _WordPlanesEngine(CounterEngine):
+class _WordPlanesEngine(_TwoPlaneEngine):
     """(black, white) uint32 word planes, held as int32 tensors; the
     accept compares raw draws with 10 uint32 thresholds."""
 
-    #: names of the two planes in ``state_arrays`` (the JAX engine's)
-    plane_keys: ClassVar[tuple]
-    #: lattice columns per plane column
-    col_divisor: ClassVar[int]
+    plane_dtype = np.uint32
 
     def sweep_context(self, inv_temp) -> torch.Tensor:
         return ms.acceptance_thresholds(inv_temp)
-
-    def state_arrays(self, state) -> dict:
-        return convert.state_to_reference(state, self.plane_keys, np.uint32)
-
-    def from_arrays(self, arrays: dict):
-        black, white = convert.state_from_reference(
-            arrays, self.device, self.plane_keys, np.uint32)
-        want = (self.cfg.n, self.cfg.m // self.col_divisor)
-        if tuple(black.shape) != want:
-            raise ValueError(f"state planes are {tuple(black.shape)}, the "
-                             f"{self.cfg.n}x{self.cfg.m} lattice needs {want}")
-        return black, white
 
 
 @register
@@ -287,6 +308,7 @@ class MultispinEngine(_WordPlanesEngine):
 
     name = "multispin"
     resident_family = "multispin"
+    dist_factory = "packed"
     plane_keys = ("black_words", "white_words")
     col_divisor = 2 * lat.SPINS_PER_WORD
 
@@ -299,10 +321,10 @@ class MultispinEngine(_WordPlanesEngine):
                 f"uint32 word: the compact plane width m/2 must be a "
                 f"multiple of {lat.SPINS_PER_WORD}, got m={m}")
 
-    def init_state(self):
+    def init_block(self, rows, cols, device):
         cfg = self.cfg
         return ms.pack_lattice(*lat.init_planes(
-            cfg.n, cfg.m, cfg.init_p_up, cfg.seed, self.device))
+            cfg.n, cfg.m, cfg.init_p_up, cfg.seed, device, rows, cols))
 
     def full_lattice(self, state) -> torch.Tensor:
         return lat.merge_checkerboard(*ms.unpack_lattice(*state))
@@ -330,9 +352,12 @@ class MultispinEngine(_WordPlanesEngine):
 @register
 class MultispinPallasEngine(MultispinEngine):
     """The JAX package's ``multispin_pallas``: the same engine as
-    ``multispin``, so a checkpoint of either restores as either."""
+    ``multispin``, so a checkpoint of either restores as either; on a
+    mesh it takes the sharded resident tier (``multispin_shard_sweeps``),
+    where ``multispin`` takes the per-half-sweep distributed step."""
 
     name = "multispin_pallas"
+    shard_family = "multispin"
 
 
 @register
@@ -355,8 +380,8 @@ class BitplaneEngine(_WordPlanesEngine):
 
     name = "bitplane"
     resident_family = "bitplane"
+    dist_factory = "bitplane"
     plane_keys = ("black_bits", "white_bits")
-    col_divisor = 2
 
     @classmethod
     def validate_lattice(cls, n: int, m: int, **params) -> None:
@@ -367,10 +392,10 @@ class BitplaneEngine(_WordPlanesEngine):
                 f"group: the compact plane width m/2 must be a multiple "
                 f"of 4, got m={m}")
 
-    def init_state(self):
+    def init_block(self, rows, cols, device):
         cfg = self.cfg
-        return bp.init_words(cfg.n, cfg.m, cfg.init_p_up, cfg.seed,
-                             self.device)
+        return bp.init_words(cfg.n, cfg.m, cfg.init_p_up, cfg.seed, device,
+                             rows, cols)
 
     def full_lattice(self, state) -> torch.Tensor:
         return bp.replica_lattice(*state, r=0)
@@ -400,9 +425,12 @@ class BitplaneEngine(_WordPlanesEngine):
 @register
 class BitplanePallasEngine(BitplaneEngine):
     """The JAX package's ``bitplane_pallas``: the same engine as
-    ``bitplane``."""
+    ``bitplane``; on a mesh it takes the sharded resident tier
+    (``bitplane_shard_sweeps``), where ``bitplane`` takes the
+    per-half-sweep distributed step."""
 
     name = "bitplane_pallas"
+    shard_family = "bitplane"
 
 
 @register

@@ -31,24 +31,30 @@ _INIT_CHUNK_SITES = 1 << 22
 
 
 def init_row_chunks(n: int, m: int, seed: int, device,
-                    replica_groups: int = 1):
+                    replica_groups: int = 1, rows=None, cols=None):
     """The package's own init draws, a block of rows at a time: yields
     ``(r0, r1, draws)`` where ``draws[q]`` holds the 4 lanes of Philox at
     counter ``(0, 1, i*m + j, q)`` keyed on ``seed_keys(seed)``, each an
-    (r1 - r0, m) plane of uint32 values in int64.  Lane ``l`` of group
-    ``q`` draws replica ``4q + l``; replica 0 is the single lattice.
-    :func:`spin_up` turns a lane into spins.
+    (r1 - r0, j1 - j0) plane of uint32 values in int64.  Lane ``l`` of
+    group ``q`` draws replica ``4q + l``; replica 0 is the single lattice.
+    :func:`spin_up` turns a lane into spins.  ``rows`` and ``cols`` are
+    ``(start, stop)`` ranges of lattice rows and columns (default: all
+    of them): a block draws what the whole lattice draws there, so that
+    a shard of a sharded run makes its own part of the lattice.
 
     The CPU and the card give the same lattice.  It is not the JAX
     package's init (``jax.random``), which this package cannot reproduce.
     """
     k0, k1 = rng.seed_keys(seed)
-    rows = max(2, (_INIT_CHUNK_SITES // m) & ~1)  # even: keeps row parity
-    cols = torch.arange(m, dtype=torch.int64, device=device)
-    for r0 in range(0, n, rows):
-        r1 = min(n, r0 + rows)
+    i0, i1 = rows if rows is not None else (0, n)
+    j0, j1 = cols if cols is not None else (0, m)
+    # even: a chunk starting at an even row keeps the row parity
+    step = max(2, (_INIT_CHUNK_SITES // (j1 - j0)) & ~1)
+    cols_ = torch.arange(j0, j1, dtype=torch.int64, device=device)
+    for r0 in range(i0, i1, step):
+        r1 = min(i1, r0 + step)
         i = torch.arange(r0, r1, dtype=torch.int64, device=device)
-        idx = (i[:, None] * m + cols[None, :]) & rng.MASK32
+        idx = (i[:, None] * m + cols_[None, :]) & rng.MASK32
         yield r0, r1, [rng.philox4x32(0, INIT_COUNTER_LANE, idx, q, k0, k1)
                        for q in range(replica_groups)]
 
@@ -59,14 +65,22 @@ def spin_up(bits: torch.Tensor, p_up: float) -> torch.Tensor:
     return (bits >> 8).to(torch.float64) < float(p_up) * (1 << 24)
 
 
-def init_planes(n: int, m: int, p_up: float, seed: int, device):
+def init_planes(n: int, m: int, p_up: float, seed: int, device,
+                rows=None, cols=None):
     """Fresh ``(black, white)`` int8 planes: replica 0 of
-    :func:`init_row_chunks`."""
-    black = torch.empty((n, m // 2), dtype=torch.int8, device=device)
+    :func:`init_row_chunks`, for the whole lattice or for the block of
+    ``rows`` x ``cols`` (lattice ranges; the first row even, the columns
+    an even range) of it."""
+    i0, i1 = rows if rows is not None else (0, n)
+    j0, j1 = cols if cols is not None else (0, m)
+    black = torch.empty((i1 - i0, (j1 - j0) // 2), dtype=torch.int8,
+                        device=device)
     white = torch.empty_like(black)
-    for r0, r1, draws in init_row_chunks(n, m, seed, device):
+    for r0, r1, draws in init_row_chunks(n, m, seed, device, rows=rows,
+                                         cols=cols):
         full = torch.where(spin_up(draws[0][0], p_up), 1, -1).to(torch.int8)
-        black[r0:r1], white[r0:r1] = split_checkerboard(full)
+        black[r0 - i0:r1 - i0], white[r0 - i0:r1 - i0] = \
+            split_checkerboard(full)
     return black, white
 
 

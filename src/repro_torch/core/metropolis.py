@@ -61,12 +61,18 @@ def neighbor_sums(op_plane: torch.Tensor, is_black: bool) -> torch.Tensor:
     return up + down + op + lat.side_shift(op, is_black)
 
 
-def update_color(target, op_plane, uniforms, table, is_black: bool):
-    """One half-sweep with given uniforms: flip iff ``u < table[s, nn]``."""
-    nn = neighbor_sums(op_plane, is_black).to(torch.int64)
-    index = (target > 0).to(torch.int64) * 5 + (nn + 4) // 2
+def accept_flips(target, nn, uniforms, table):
+    """The new target plane from its neighbour sums: flip iff
+    ``u < table[s, nn]``."""
+    index = (target > 0).to(torch.int64) * 5 + (nn.to(torch.int64) + 4) // 2
     accept = table.to(uniforms.device)[index]
     return torch.where(uniforms < accept, -target, target).to(target.dtype)
+
+
+def update_color(target, op_plane, uniforms, table, is_black: bool):
+    """One half-sweep with given uniforms: flip iff ``u < table[s, nn]``."""
+    return accept_flips(target, neighbor_sums(op_plane, is_black), uniforms,
+                        table)
 
 
 def philox_uniforms(n: int, h: int, seed: int, offset: int, device):
@@ -80,6 +86,21 @@ def philox_uniforms(n: int, h: int, seed: int, offset: int, device):
         bits = rng.philox4x32(offset, 0, idx & rng.MASK32, 0, k0, k1)[0]
         out[s0:s1] = rng.u32_to_uniform(bits)
     return out.reshape(n, h)
+
+
+def index_uniforms(index: torch.Tensor, seed: int, offset: int):
+    """The float32 uniforms of lane 0 of Philox at counter ``(offset, 0,
+    index, 0)`` for a plane of uint32 site indices (held in int32 or
+    int64), a chunk at a time: the draws of a plane whose sites are not
+    numbered row by row, as a halo-extended shard's are."""
+    k0, k1 = rng.seed_keys(seed)
+    flat = index.reshape(-1)
+    out = torch.empty(flat.shape, dtype=torch.float32, device=index.device)
+    for s0 in range(0, flat.numel(), _CHUNK_SITES):
+        idx = flat[s0:s0 + _CHUNK_SITES].to(torch.int64) & rng.MASK32
+        bits = rng.philox4x32(offset, 0, idx, 0, k0, k1)[0]
+        out[s0:s0 + _CHUNK_SITES] = rng.u32_to_uniform(bits)
+    return out.reshape(index.shape)
 
 
 def update_color_philox(target, op_plane, table, is_black: bool, seed: int,

@@ -69,23 +69,37 @@ def flip_words(target: torch.Tensor, nn_words: torch.Tensor, draws,
     return flip
 
 
-def update_color_packed(target_words, op_words, thresholds, is_black: bool,
-                        seed: int, offset: int) -> torch.Tensor:
-    """One packed half-sweep: the new target word plane (int32)."""
+def update_words(target_words, nn_words, thresholds, seed: int,
+                 offset: int, widx=None) -> torch.Tensor:
+    """The new target word plane (int32) from its packed neighbour sums
+    (uint32 values in int64).  Words are keyed on ``row * W + col`` or,
+    where ``widx`` is given, on that plane of uint32 word indices (a
+    shard's)."""
     n, w = target_words.shape
     target = lat.words_to_u32(target_words)
-    nn_words = lat.packed_neighbor_sums(op_words, is_black)
     thr = thresholds.to(device=target.device, dtype=torch.int64)
     out = torch.empty_like(target_words, dtype=torch.int32)
     rows = max(1, _CHUNK_WORDS // w)
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
-        widx = torch.arange(r0 * w, r1 * w, dtype=torch.int64,
-                            device=target.device).reshape(r1 - r0, w)
-        draws = word_randoms(seed, widx & rng.MASK32, offset)
+        if widx is None:
+            index = torch.arange(r0 * w, r1 * w, dtype=torch.int64,
+                                 device=target.device).reshape(r1 - r0, w)
+        else:
+            index = widx[r0:r1].to(torch.int64)
+        draws = word_randoms(seed, index & rng.MASK32, offset)
         flip = flip_words(target[r0:r1], nn_words[r0:r1], draws, thr)
         out[r0:r1] = lat.u32_to_words(target[r0:r1] ^ flip)
     return out
+
+
+def update_color_packed(target_words, op_words, thresholds, is_black: bool,
+                        seed: int, offset: int, widx=None) -> torch.Tensor:
+    """One packed half-sweep: the new target word plane (int32), keyed as
+    :func:`update_words`."""
+    return update_words(target_words,
+                        lat.packed_neighbor_sums(op_words, is_black),
+                        thresholds, seed, offset, widx)
 
 
 def run_sweeps_packed(black_words, white_words, thresholds, n_sweeps: int,

@@ -1,8 +1,8 @@
 // Bitplane multi-spin coded Metropolis (32 replicas per uint32 word,
 // bit r = replica r), for Hopper (sm_90a).
 //
-// Two kernels with a plain C interface (loaded with ctypes by
-// repro_torch.kernels.bitplane):
+// Three kernels with a plain C interface (loaded with ctypes by
+// repro_torch.kernels.bitplane and repro_torch.dist.kernels):
 //
 // * bitplane_update: one colour half-sweep of all 32 replicas.  Replaces
 //   the Pallas kernel src/repro/kernels/bitplane/bitplane.py:
@@ -27,6 +27,22 @@
 //   column origin and every thread's group stay 4-aligned and one
 //   Philox call still serves one group.  Draws are keyed on the global
 //   group index; input and output planes must differ.
+//
+// * bitplane_shard_sweeps: n_sweeps full sweeps of one halo-extended bit
+//   shard of a sharded run.  Replaces src/repro/dist/kernels.py:
+//   bitplane_shard_sweeps, which updates the whole extended shard in TPU
+//   VMEM with wrap taps and draws once per site: lane lane[r, c] (0, 1,
+//   2, else 3) of Philox at counter (off, 0, gidx[r, c], 0), since an
+//   extended shard's columns need not start on a 4-site group.  Here one
+//   thread per word runs the temporal blocking of the other shard
+//   kernels on the extended plane (tiles wrapping over its own dims,
+//   a halo of 2 * n_sweeps words, one ring less per half-sweep), with
+//   each block's extended tile of gidx and of the lane (as one byte,
+//   min(lane, 3)) staged in shared memory beside the planes (13 bytes
+//   per word).  The result equals the TPU kernel's on the whole extended
+//   plane.  Input and output planes must differ.
+//   Bound: one whole Philox call per word, 4 times the Philox work per
+//   word of bitplane_sweeps_resident, as in the TPU kernel.
 //
 // The accept compares the raw uint32 draw with 10 uint32 thresholds
 // passed by value (repro_torch.core.multispin.acceptance_thresholds).
@@ -240,6 +256,95 @@ __global__ void bitplane_sweeps_resident_kernel(
   }
 }
 
+// Shared memory of one shard-kernel block: row and column indices of the
+// extended tile, the tile's group indices, both extended word planes,
+// then the tile's lanes as bytes.
+__host__ __device__ inline size_t shard_smem_bytes(int tile_r, int tile_c,
+                                                   int n_sweeps) {
+  const size_t er = tile_r + 4 * n_sweeps;
+  const size_t ec = tile_c + 4 * n_sweeps;
+  return 4 * (er + ec) + (3 * 4 + 1) * er * ec;
+}
+
+// grid (ceil(w / tile_c), ceil(n / tile_r)), 1-D blocks; n x w is the
+// extended shard
+__global__ void bitplane_shard_sweeps_kernel(
+    const uint32_t* __restrict__ b_in, const uint32_t* __restrict__ w_in,
+    const uint32_t* __restrict__ gidx, const uint32_t* __restrict__ lane,
+    uint32_t* __restrict__ b_out, uint32_t* __restrict__ w_out, int n, int w,
+    Thresholds thr, uint32_t k0, uint32_t k1, uint32_t start, int n_sweeps,
+    int tile_r, int tile_c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int halo = 2 * n_sweeps;
+  const int er = tile_r + 2 * halo;
+  const int ec = tile_c + 2 * halo;
+  const size_t cells_ext = static_cast<size_t>(er) * ec;
+  int* s_row = reinterpret_cast<int*>(smem);
+  int* s_col = s_row + er;
+  uint32_t* s_g = reinterpret_cast<uint32_t*>(s_col + ec);
+  uint32_t* s_b = s_g + cells_ext;
+  uint32_t* s_w = s_b + cells_ext;
+  uint8_t* s_lane = reinterpret_cast<uint8_t*>(s_w + cells_ext);
+
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int r0 = blockIdx.y * tile_r - halo;
+  const int c0 = blockIdx.x * tile_c - halo;
+  for (int i = tid; i < er; i += nthreads) s_row[i] = wrap(r0 + i, n);
+  for (int j = tid; j < ec; j += nthreads) s_col[j] = wrap(c0 + j, w);
+  __syncthreads();
+
+  for (int c = tid; c < er * ec; c += nthreads) {
+    const size_t g = static_cast<size_t>(s_row[c / ec]) * w + s_col[c % ec];
+    s_b[c] = b_in[g];
+    s_w[c] = w_in[g];
+    s_g[c] = gidx[g];
+    s_lane[c] = static_cast<uint8_t>(min(lane[g], 3u));
+  }
+  __syncthreads();
+
+  // half-sweep q (from 0) updates the words at distance >= q + 1 from the
+  // edge of the extended tile, the last one the tile alone
+  for (int s = 0; s < n_sweeps; ++s) {
+    for (int color = 0; color < 2; ++color) {
+      uint32_t* tgt = color ? s_w : s_b;
+      const uint32_t* op = color ? s_b : s_w;
+      // half_sweep_offset(start, s, color), uint32 wrap
+      const uint32_t offset = start + 2u * static_cast<uint32_t>(s) +
+                              static_cast<uint32_t>(color);
+      const int margin = 2 * s + color + 1;
+      const int iw = ec - 2 * margin;
+      const int cells = (er - 2 * margin) * iw;
+      for (int x = tid; x < cells; x += nthreads) {
+        const int i = margin + x / iw;
+        const int j = margin + x % iw;
+        // the extended plane's own row parity
+        const bool plus = ((s_row[i] & 1) != 0) == (color == 0);
+        const int c = i * ec + j;
+        const uint4 r = repro_torch::philox4x32_10(
+            make_uint4(offset, 0u, s_g[c], 0u), k0, k1);
+        const uint8_t l = s_lane[c];
+        const uint32_t draw = l == 0 ? r.x : l == 1 ? r.y : l == 2 ? r.z : r.w;
+        tgt[c] = update_word(tgt[c], op[c - ec], op[c + ec], op[c],
+                             op[plus ? c + 1 : c - 1], draw, thr);
+      }
+      __syncthreads();
+    }
+  }
+
+  const int rows = min(tile_r, n - static_cast<int>(blockIdx.y) * tile_r);
+  const int cols = min(tile_c, w - static_cast<int>(blockIdx.x) * tile_c);
+  for (int x = tid; x < rows * cols; x += nthreads) {
+    const int i = x / cols;
+    const int j = x % cols;
+    const int c = (i + halo) * ec + j + halo;
+    const size_t g = static_cast<size_t>(blockIdx.y * tile_r + i) * w +
+                     blockIdx.x * tile_c + j;
+    b_out[g] = s_b[c];
+    w_out[g] = s_w[c];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -280,6 +385,35 @@ int bitplane_sweeps_resident_launch(const void* b_in, const void* w_in,
                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(b_in), static_cast<const uint32_t*>(w_in),
       static_cast<uint32_t*>(b_out), static_cast<uint32_t*>(w_out), n, h,
+      make_thresholds(thr), k0, k1, start, n_sweeps, tile_r, tile_c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+long long bitplane_shard_smem_bytes(int tile_r, int tile_c, int n_sweeps) {
+  return static_cast<long long>(shard_smem_bytes(tile_r, tile_c, n_sweeps));
+}
+
+int bitplane_shard_sweeps_launch(const void* b_in, const void* w_in,
+                                 const void* gidx, const void* lane,
+                                 void* b_out, void* w_out, int n, int w,
+                                 const uint32_t* thr, uint32_t k0,
+                                 uint32_t k1, uint32_t start, int n_sweeps,
+                                 int tile_r, int tile_c, int threads,
+                                 void* stream) {
+  const size_t smem = shard_smem_bytes(tile_r, tile_c, n_sweeps);
+  cudaError_t err = cudaFuncSetAttribute(
+      bitplane_shard_sweeps_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, or the next launch would report it
+    return static_cast<int>(err);
+  }
+  const dim3 grid((w + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r);
+  bitplane_shard_sweeps_kernel<<<grid, threads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(b_in), static_cast<const uint32_t*>(w_in),
+      static_cast<const uint32_t*>(gidx), static_cast<const uint32_t*>(lane),
+      static_cast<uint32_t*>(b_out), static_cast<uint32_t*>(w_out), n, w,
       make_thresholds(thr), k0, k1, start, n_sweeps, tile_r, tile_c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // Checkerboard Metropolis on int8 compact colour planes, for Hopper (sm_90a).
 //
-// Two kernels with a plain C interface (loaded with ctypes by
-// repro_torch.kernels.stencil):
+// Three kernels with a plain C interface (loaded with ctypes by
+// repro_torch.kernels.stencil and repro_torch.dist.kernels):
 //
 // * stencil_update: one colour half-sweep.  Replaces the Pallas kernel
 //   src/repro/kernels/stencil/stencil.py:stencil_update.  One thread per
@@ -29,6 +29,22 @@
 //   planes must differ: neighbouring blocks read each other's tiles.
 //   Bound: Philox arithmetic as above, plus the halo's redundant draws;
 //   global memory is touched once per launch.
+//
+// * stencil_shard_sweeps: n_sweeps full sweeps of one halo-extended shard
+//   of a sharded run.  Replaces src/repro/dist/kernels.py:
+//   stencil_shard_sweeps, which holds the whole extended shard in TPU
+//   VMEM and updates all of it with wrap taps, keying each site's draw on
+//   a plane of uint32 global site indices (gidx) and taking the row
+//   parity from the extended plane's own row index.  Here the temporal
+//   blocking of stencil_sweeps_resident runs on the extended plane as if
+//   it were a lattice (tiles wrap over its own dims), with the key read
+//   from gidx: each block stages its extended tile of gidx in shared
+//   memory with the planes (6 bytes per cell), and each half-sweep
+//   updates one ring less of the extended tile than the last.  The
+//   result equals the TPU kernel's on the whole extended plane, its edge
+//   rings included.  Input and output planes must differ.
+//   Bound: Philox arithmetic as above; the gidx plane adds 4 bytes per
+//   cell to the bytes read once per launch.
 //
 // The accept is a lookup in a 10-entry float32 table passed by value
 // (index (s > 0) * 5 + (nn + 4) / 2), never expf: the table is built
@@ -185,6 +201,90 @@ __global__ void stencil_sweeps_resident_kernel(
   }
 }
 
+// Shared memory of one shard-kernel block: row and column indices of the
+// extended tile, the table, the tile's site indices, then both planes.
+__host__ __device__ inline size_t shard_smem_bytes(int tile_r, int tile_c,
+                                                   int n_sweeps) {
+  const size_t er = tile_r + 4 * n_sweeps;
+  const size_t ec = tile_c + 4 * n_sweeps;
+  return 4 * (er + ec) + 4 * 16 + 6 * er * ec;
+}
+
+// grid (ceil(w / tile_c), ceil(n / tile_r)), 1-D blocks; n x w is the
+// extended shard
+__global__ void stencil_shard_sweeps_kernel(
+    const int8_t* __restrict__ b_in, const int8_t* __restrict__ w_in,
+    const uint32_t* __restrict__ gidx, int8_t* __restrict__ b_out,
+    int8_t* __restrict__ w_out, int n, int w, AcceptTable tab, uint32_t k0,
+    uint32_t k1, uint32_t start, int n_sweeps, int tile_r, int tile_c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int halo = 2 * n_sweeps;
+  const int er = tile_r + 2 * halo;
+  const int ec = tile_c + 2 * halo;
+  int* s_row = reinterpret_cast<int*>(smem);
+  int* s_col = s_row + er;
+  float* s_table = reinterpret_cast<float*>(s_col + ec);
+  uint32_t* s_g = reinterpret_cast<uint32_t*>(s_table + 16);
+  int8_t* s_b = reinterpret_cast<int8_t*>(s_g + static_cast<size_t>(er) * ec);
+  int8_t* s_w = s_b + static_cast<size_t>(er) * ec;
+
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int r0 = blockIdx.y * tile_r - halo;
+  const int c0 = blockIdx.x * tile_c - halo;
+  for (int i = tid; i < er; i += nthreads) s_row[i] = wrap(r0 + i, n);
+  for (int j = tid; j < ec; j += nthreads) s_col[j] = wrap(c0 + j, w);
+  load_table(tab, s_table, tid);
+  __syncthreads();
+
+  for (int c = tid; c < er * ec; c += nthreads) {
+    const size_t g = static_cast<size_t>(s_row[c / ec]) * w + s_col[c % ec];
+    s_b[c] = b_in[g];
+    s_w[c] = w_in[g];
+    s_g[c] = gidx[g];
+  }
+  __syncthreads();
+
+  // half-sweep q (from 0) updates the cells at distance >= q + 1 from the
+  // edge of the extended tile, the last one the tile alone (as in
+  // multispin_sweeps_resident_kernel)
+  for (int s = 0; s < n_sweeps; ++s) {
+    for (int color = 0; color < 2; ++color) {
+      int8_t* tgt = color ? s_w : s_b;
+      const int8_t* op = color ? s_b : s_w;
+      // half_sweep_offset(start, s, color), uint32 wrap
+      const uint32_t offset = start + 2u * static_cast<uint32_t>(s) +
+                              static_cast<uint32_t>(color);
+      const int margin = 2 * s + color + 1;
+      const int iw = ec - 2 * margin;
+      const int cells = (er - 2 * margin) * iw;
+      for (int x = tid; x < cells; x += nthreads) {
+        const int i = margin + x / iw;
+        const int j = margin + x % iw;
+        // the extended plane's own row parity
+        const bool plus = ((s_row[i] & 1) != 0) == (color == 0);
+        const int c = i * ec + j;
+        const int nn =
+            op[c - ec] + op[c + ec] + op[c] + op[plus ? c + 1 : c - 1];
+        tgt[c] = metropolis_site(tgt[c], nn, s_g[c], offset, k0, k1, s_table);
+      }
+      __syncthreads();
+    }
+  }
+
+  const int rows = min(tile_r, n - static_cast<int>(blockIdx.y) * tile_r);
+  const int cols = min(tile_c, w - static_cast<int>(blockIdx.x) * tile_c);
+  for (int x = tid; x < rows * cols; x += nthreads) {
+    const int i = x / cols;
+    const int j = x % cols;
+    const int c = (i + halo) * ec + j + halo;
+    const size_t g = static_cast<size_t>(blockIdx.y * tile_r + i) * w +
+                     blockIdx.x * tile_c + j;
+    b_out[g] = s_b[c];
+    w_out[g] = s_w[c];
+  }
+}
+
 AcceptTable make_table(const float* table) {
   AcceptTable tab;
   std::memcpy(tab.v, table, sizeof(tab.v));
@@ -231,6 +331,34 @@ int stencil_sweeps_resident_launch(const void* b_in, const void* w_in,
       static_cast<const int8_t*>(b_in), static_cast<const int8_t*>(w_in),
       static_cast<int8_t*>(b_out), static_cast<int8_t*>(w_out), n, h,
       make_table(table), k0, k1, start, n_sweeps, tile_r, tile_c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+long long stencil_shard_smem_bytes(int tile_r, int tile_c, int n_sweeps) {
+  return static_cast<long long>(shard_smem_bytes(tile_r, tile_c, n_sweeps));
+}
+
+int stencil_shard_sweeps_launch(const void* b_in, const void* w_in,
+                                const void* gidx, void* b_out, void* w_out,
+                                int n, int w, const float* table, uint32_t k0,
+                                uint32_t k1, uint32_t start, int n_sweeps,
+                                int tile_r, int tile_c, int threads,
+                                void* stream) {
+  const size_t smem = shard_smem_bytes(tile_r, tile_c, n_sweeps);
+  cudaError_t err = cudaFuncSetAttribute(
+      stencil_shard_sweeps_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, or the next launch would report it
+    return static_cast<int>(err);
+  }
+  const dim3 grid((w + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r);
+  stencil_shard_sweeps_kernel<<<grid, threads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(b_in), static_cast<const int8_t*>(w_in),
+      static_cast<const uint32_t*>(gidx), static_cast<int8_t*>(b_out),
+      static_cast<int8_t*>(w_out), n, w, make_table(table), k0, k1, start,
+      n_sweeps, tile_r, tile_c);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card, and
+sessions on the card against the CPU.
 
 These need an NVIDIA GPU and nvcc, and skip without one.  Run them on
 the card with ``PYTHONPATH=src python -m pytest -m cuda
@@ -9,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, Session
+from repro_torch.api import EngineSpec, LatticeSpec, MeshSpec, RunSpec, Session
 from repro_torch.core import metropolis, multispin
+from repro_torch.dist import kernels as dk
+from repro_torch.dist import planner as shard_planner
 from repro_torch.kernels import resident
 from repro_torch.kernels.bitplane import (bitplane_sweeps_resident,
                                           bitplane_sweeps_resident_plain,
@@ -295,3 +298,87 @@ def test_tensorcore_cold_ordered_session_on_card_equals_cpu(cuda):
     card.run(5)
     assert card.state_digest() == cpu.state_digest()
     assert abs(card.magnetization()) > 0.99
+
+
+# -- the sharded tier -------------------------------------------------------
+
+SHARD_KERNELS = {"stencil": (dk.stencil_shard_sweeps,
+                             dk.stencil_shard_sweeps_plain),
+                 "multispin": (dk.multispin_shard_sweeps,
+                               dk.multispin_shard_sweeps_plain),
+                 "bitplane": (dk.bitplane_shard_sweeps,
+                              dk.bitplane_shard_sweeps_plain)}
+
+
+def shard_inputs(family, n, w, seed, device):
+    """Random extended planes, their table, and random index planes
+    (lanes 0..5: 4 and 5 take lane 3)."""
+    r = np.random.default_rng(seed)
+    if family == "stencil":
+        b, w_ = planes(n, w, seed, device)
+        table = metropolis.acceptance_table(1 / 2.3)
+    else:
+        b, w_ = word_planes(n, w, seed, device,
+                            NIBBLES if family == "multispin" else 0xFFFFFFFF)
+        table = multispin.acceptance_thresholds(1 / 2.3)
+    index = [torch.tensor(r.integers(0, 2 ** 32, (n, w), dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32), device=device)]
+    if family == "bitplane":
+        index.append(torch.tensor(r.integers(0, 6, (n, w)).astype(np.int32),
+                                  device=device))
+    return b, w_, table, index
+
+
+@pytest.mark.parametrize("family", sorted(SHARD_KERNELS))
+@pytest.mark.parametrize("n,w,n_sweeps,tile", [
+    (14, 10, 1, None),
+    (14, 10, 3, None),            # the halo wraps over the whole plane
+    (40, 36, 2, (16, 8, 128)),    # several ragged tiles
+    (70, 200, 3, (24, 40, 512)),
+])
+def test_shard_kernel_matches_plain(cuda, family, n, w, n_sweeps, tile):
+    """The whole extended plane, edge rings included, with random index
+    planes."""
+    kernel, plain = SHARD_KERNELS[family]
+    b, w_, table, index = shard_inputs(family, n, w, n + w + n_sweeps, cuda)
+    want = plain(b, w_, table, *index, n_sweeps=n_sweeps, seed=SEED,
+                 start_offset=2 ** 32 - 3)
+    before = kernel.launches
+    got = kernel(b, w_, table, *index, n_sweeps=n_sweeps, seed=SEED,
+                 start_offset=2 ** 32 - 3, tile=tile)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("family", sorted(SHARD_KERNELS))
+def test_shard_planner_and_kernel_agree_on_shared_memory(cuda, family):
+    lib = dk.library(family)
+    query = getattr(lib, f"{family}_shard_smem_bytes")
+    for tr, tc, k in ((128, 256, 2), (96, 128, 2), (7, 8, 3)):
+        assert query(tr, tc, k) == shard_planner.shard_smem_bytes(
+            family, tr, tc, k)
+
+
+@pytest.mark.parametrize("engine", ["stencil_pallas", "multispin_pallas",
+                                    "bitplane_pallas", "multispin",
+                                    "bitplane"])
+def test_sharded_session_on_card_equals_cpu(cuda, engine):
+    """2 x 2 shards on the card (the resident tier for the ``_pallas``
+    engines, the per-half-sweep step for the others): the CPU's digest,
+    and the single-mode card digest."""
+    m = 1024 if engine.startswith("multispin") else 128
+    spec = RunSpec(lattice=LatticeSpec(64, m), engine=EngineSpec(engine),
+                   temperature=2.1, seed=SEED,
+                   mesh=MeshSpec((2, 2), ("data", "model")))
+    cpu = Session.open(spec, device="cpu")
+    cpu.run(5)
+    card = Session.open(spec)
+    assert card.device.type == "cuda"
+    assert (card.shard_plan is not None) == engine.endswith("_pallas")
+    card.run(5)
+    assert card.state_digest() == cpu.state_digest()
+    single = Session.open(dataclasses.replace(spec, mesh=None))
+    single.run(5)
+    assert single.state_digest() == cpu.state_digest()

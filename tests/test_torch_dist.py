@@ -1,0 +1,489 @@
+"""The port's sharded tier against the JAX package, on the CPU.
+
+* the plain per-shard kernels equal ``repro.dist.kernels`` in Pallas
+  interpret mode, bit for bit, on whole halo-extended planes with random
+  planes and random index planes;
+* the shard planner, re-derived for Hopper shared memory, keeps the JAX
+  planner's rules (``tests/test_dist.py``);
+* the halo gather equals a modular slice of the whole plane on several
+  grids;
+* sharded sessions on both tiers give the single-mode digest and the
+  JAX package's, count halo exchanges in the JAX package's units, and
+  restore across meshes and across packages;
+* the spec checks and the ``--mesh`` flag.
+"""
+import functools
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import repro.api as japi
+import repro_torch.dist
+from repro.core import multispin as jms
+from repro.dist import kernels as jdk
+from repro_torch import __main__ as cli
+from repro_torch.api import (BatchSpec, EngineSpec, LatticeSpec, MeshSpec,
+                             RunSpec, Session)
+from repro_torch.core import distributed as dist
+from repro_torch.core import metropolis
+from repro_torch.dist import kernels as dk
+from repro_torch.dist import planner
+from repro_torch.dist.driver import extend
+from repro_torch.dist.planner import (K_CAP, SHARD_THREADS,
+                                      plan_shard_resident,
+                                      shard_decision_attrs, shard_smem_bytes)
+from repro_torch.kernels.resident import GEOMETRY, SMEM_BUDGET_BYTES
+from repro_torch.launch.mesh import Mesh, make_mesh
+
+TEMPERATURE = 2.2
+SEED = 2 ** 33 + 5
+
+
+def words(a: np.ndarray) -> torch.Tensor:
+    """A uint32 numpy plane as the port's int32 tensor of the same bits."""
+    return torch.tensor(np.ascontiguousarray(a).view(np.int32))
+
+
+def jax_table(beta):
+    """The JAX package's accept values: jnp.exp of the same float32
+    arguments (what its stencil shard kernel computes per site)."""
+    import jax.numpy as jnp
+    return torch.tensor(np.asarray(jnp.exp(jnp.asarray(
+        metropolis.acceptance_arguments(beta)))))
+
+
+# -- the plain shard kernels against the Pallas kernels ---------------------
+
+@pytest.mark.parametrize("family", ["stencil", "multispin", "bitplane"])
+@pytest.mark.parametrize("n_sweeps", [1, 3])
+def test_plain_shard_kernel_equals_jax(family, n_sweeps):
+    """Whole extended planes, edge rings included, with index planes of
+    random uint32 values (lanes too, so that every lane and 'else 3'
+    occurs) and a start offset that wraps."""
+    r = np.random.default_rng(n_sweeps * 7 + len(family))
+    shape, start = (14, 10), 2 ** 32 - 3
+    beta = np.float32(1.0 / TEMPERATURE)
+    idx = [r.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+           for _ in range(2)]
+    if family == "stencil":
+        b, w = (np.where(r.random(shape) < 0.5, 1, -1).astype(np.int8)
+                for _ in range(2))
+        want = jdk.stencil_shard_sweeps(
+            b, w, beta, idx[0], n_sweeps=n_sweeps, seed=SEED,
+            start_offset=start, interpret=True)
+        got = dk.stencil_shard_sweeps(
+            torch.tensor(b), torch.tensor(w), jax_table(beta),
+            words(idx[0]), n_sweeps=n_sweeps, seed=SEED, start_offset=start)
+    else:
+        b, w = (r.integers(0, 2 ** 32, shape, dtype=np.uint64)
+                .astype(np.uint32) for _ in range(2))
+        thr = np.asarray(jms.acceptance_thresholds(beta))
+        if family == "multispin":
+            # one spin bit per 4-bit nibble
+            b, w = b & np.uint32(0x11111111), w & np.uint32(0x11111111)
+            want = jdk.multispin_shard_sweeps(
+                b, w, thr, idx[0], n_sweeps=n_sweeps, seed=SEED,
+                start_offset=start, interpret=True)
+            got = dk.multispin_shard_sweeps(
+                words(b), words(w), torch.tensor(thr.astype(np.int64)),
+                words(idx[0]), n_sweeps=n_sweeps, seed=SEED,
+                start_offset=start)
+        else:
+            lane = idx[1] % np.uint32(6)   # 4 and 5 take lane 3
+            want = jdk.bitplane_shard_sweeps(
+                b, w, thr, idx[0], lane, n_sweeps=n_sweeps, seed=SEED,
+                start_offset=start, interpret=True)
+            got = dk.bitplane_shard_sweeps(
+                words(b), words(w), torch.tensor(thr.astype(np.int64)),
+                words(idx[0]), words(lane), n_sweeps=n_sweeps, seed=SEED,
+                start_offset=start)
+    for g, x in zip(got, want):
+        x = np.asarray(x)
+        np.testing.assert_array_equal(
+            g.numpy(), x.view(np.int32) if x.dtype == np.uint32 else x)
+
+
+def test_shard_kernel_rejects_bad_index_planes():
+    b = torch.ones((6, 4), dtype=torch.int8)
+    table = metropolis.acceptance_table(0.5)
+    with pytest.raises(ValueError, match="do not match"):
+        dk.stencil_shard_sweeps(b, b, table,
+                                torch.zeros((6, 5), dtype=torch.int32),
+                                n_sweeps=1, seed=1, start_offset=0)
+    with pytest.raises(ValueError, match="n_sweeps"):
+        dk.stencil_shard_sweeps(b, b, table,
+                                torch.zeros((6, 4), dtype=torch.int32),
+                                n_sweeps=0, seed=1, start_offset=0)
+
+
+# -- the shard planner (tests/test_dist.py's rules) -------------------------
+
+def test_plan_picks_largest_feasible_k():
+    """Default cap: the smaller of K_CAP and the family's measured
+    max_k."""
+    plan = plan_shard_resident("stencil", 64, 128, 2, 1)
+    assert plan is not None
+    assert plan.k == min(K_CAP, GEOMETRY["stencil"].max_k) == 2
+    assert plan.halo == 2 * plan.k
+    assert plan.n_loc == 32 and plan.w_loc == 64
+    assert plan_shard_resident("stencil", 64, 128, 2, 1, k_cap=K_CAP).k \
+        == K_CAP
+
+
+def test_plan_halo_always_even():
+    for k_cap in range(1, K_CAP + 1):
+        plan = plan_shard_resident("stencil", 64, 128, 2, 1, k_cap=k_cap,
+                                   max_overlap=100.0)
+        assert plan is not None and plan.k == k_cap
+        assert plan.halo == 2 * plan.k and plan.halo % 2 == 0
+
+
+def test_plan_rejects_non_divisible_grid():
+    assert plan_shard_resident("stencil", 64, 128, 3, 1) is None
+    assert plan_shard_resident("stencil", 64, 128, 1, 5) is None
+    # odd rows per shard break the uniform checkerboard parity
+    assert plan_shard_resident("stencil", 34, 128, 2, 1) is None
+
+
+def test_plan_overlap_cap_demotes_small_shards():
+    assert plan_shard_resident("stencil", 32, 64, 4, 4) is None
+    assert plan_shard_resident("stencil", 32, 64, 4, 4,
+                               max_overlap=100.0) is not None
+
+
+def test_plan_halo_fit():
+    # 4-row shards fit h = 2 and 4, not 6
+    assert plan_shard_resident("stencil", 16, 256, 4, 1, k_cap=3,
+                               max_overlap=100.0).k == 2
+
+
+def test_plan_shared_memory_budget_demotes():
+    assert plan_shard_resident("stencil", 64, 128, 2, 1,
+                               budget_bytes=64) is None
+    assert plan_shard_resident("stencil", 64, 128, 2, 1,
+                               budget_bytes=0) is None
+
+
+@pytest.mark.parametrize("family,index_bytes", [("stencil", 4),
+                                                ("multispin", 4),
+                                                ("bitplane", 5)])
+def test_plan_shared_memory_counts_index_planes(family, index_bytes):
+    g = GEOMETRY[family]
+    er, ec = 8 + 4, 10 + 4
+    assert shard_smem_bytes(family, 8, 10, 1) == (
+        4 * (er + ec) + g.table_bytes
+        + (index_bytes + 2 * g.element_bytes) * er * ec)
+
+
+@pytest.mark.parametrize("family,n,tile", [("stencil", 32768, (128, 128)),
+                                           ("multispin", 32768, (48, 128)),
+                                           ("bitplane", 16384, (48, 128))])
+def test_plan_of_the_main_paths(family, n, tile):
+    """2 x 2 shards of the full-size lattices take the family's shard
+    tile at k = 2 within one block's shared memory."""
+    plan = plan_shard_resident(family, n, n, 2, 2)
+    assert plan.k == 2 and (plan.tile_rows, plan.tile_cols) == tile
+    assert plan.threads == SHARD_THREADS
+    assert plan.smem_bytes == shard_smem_bytes(family, *tile, 2) \
+        <= SMEM_BUDGET_BYTES
+    assert plan.n_loc == n // 2
+
+
+def test_plan_shrinks_the_tile_to_the_extended_plane():
+    plan = plan_shard_resident("multispin", 64, 1024, 2, 2, k_cap=3,
+                               max_overlap=100.0)
+    assert (plan.tile_rows, plan.tile_cols) == (32 + 12, 32 + 12)
+
+
+def test_plan_exchanges_ceil_semantics():
+    plan = plan_shard_resident("stencil", 64, 128, 2, 1, k_cap=3,
+                               max_overlap=100.0)
+    assert plan.k == 3
+    assert plan.exchanges(6) == 2
+    assert plan.exchanges(7) == 3
+    assert plan.exchanges(1) == 1
+
+
+def test_plan_halo_bytes_formula():
+    plan = plan_shard_resident("stencil", 64, 128, 2, 2, k_cap=1,
+                               max_overlap=100.0)
+    h, nl, wl = plan.halo, plan.n_loc, plan.w_loc
+    per_plane = 2 * nl * h + 2 * h * (wl + 2 * h)
+    assert plan.halo_bytes_per_exchange == 2 * per_plane * 1 * 4
+    word = plan_shard_resident("bitplane", 64, 128, 2, 2, k_cap=1,
+                               max_overlap=100.0)
+    assert word.cell_bytes == 4 and word.width == 64
+
+
+def test_decision_attrs_positive_and_demoted():
+    attrs = shard_decision_attrs("stencil", 64, 128, 2, 1)
+    assert attrs["sharded_resident"] is True and attrs["grid"] == "2x1"
+    assert attrs["halo_width"] == 2 * attrs["halo_k"]
+    assert attrs["smem_bytes"] <= attrs["budget_bytes"]
+    attrs = shard_decision_attrs("stencil", 64, 128, 3, 1)
+    assert attrs["sharded_resident"] is False
+    assert "tile the device grid" in attrs["reason"]
+    attrs = shard_decision_attrs("stencil", 64, 128, 2, 1, budget_bytes=0)
+    assert "shared-memory" in attrs["reason"]
+
+
+def test_unknown_family_raises():
+    with pytest.raises(ValueError, match="unknown resident family"):
+        plan_shard_resident("nope", 64, 64, 2, 1)
+
+
+# -- mesh, halo gather ------------------------------------------------------
+
+def test_mesh_places_shard_i_on_device_i_mod_count():
+    devices = tuple(torch.device("cuda", i) for i in range(3))
+    mesh = Mesh((2, 4), ("data", "model"), devices)
+    assert [mesh.device_of(i).index for i in range(8)] == \
+        [0, 1, 2, 0, 1, 2, 0, 1]
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    assert {mesh.device_of(i).type for i in range(4)} == {"cpu"}
+
+
+def test_mesh_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh((2, 2), ("data", "model"))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (2, 1, 2)])
+def test_extend_equals_a_modular_slice(shape):
+    """Every shard's extended plane is the whole plane's cells at its
+    rows and columns modulo the plane, corners included, on grids whose
+    rows run over one axis or a product of two."""
+    mesh = make_mesh(shape, tuple(f"a{i}" for i in range(len(shape))),
+                     "cpu")
+    n, width = 16, 12
+    plane = torch.arange(n * width, dtype=torch.int32).reshape(n, width)
+    grid = dist.ShardGrid.of(mesh, n, width)
+    shards = []
+    for i in range(mesh.size):
+        r0, c0 = grid.origin(i)
+        shards.append(plane[r0:r0 + grid.n_loc, c0:c0 + grid.w_loc]
+                      .contiguous())
+    assert torch.equal(grid.gather(shards), plane)
+    for h in (1, 2):
+        for i, e in enumerate(extend(shards, grid, h)):
+            r0, c0 = grid.origin(i)
+            rows = np.arange(r0 - h, r0 + grid.n_loc + h) % n
+            cols = np.arange(c0 - h, c0 + grid.w_loc + h) % width
+            np.testing.assert_array_equal(e.numpy(),
+                                          plane.numpy()[np.ix_(rows, cols)])
+
+
+def test_extend_refuses_a_halo_wider_than_a_shard():
+    mesh = make_mesh((4, 1), ("a", "b"), "cpu")
+    grid = dist.ShardGrid.of(mesh, 8, 8)
+    with pytest.raises(ValueError, match="wider"):
+        extend([torch.zeros((2, 8))] * 4, grid, 3)
+
+
+# -- sharded sessions -------------------------------------------------------
+
+#: lattices whose 2 x 2 shards fit k = 3 under the default overlap cap
+LATTICES = {"stencil_pallas": (64, 128), "multispin_pallas": (64, 1024),
+            "bitplane_pallas": (64, 128), "multispin": (64, 1024),
+            "bitplane": (64, 128)}
+PRE, RUN = 2, 5   # sweeps before the checkpoint, and after it
+
+
+def spec(engine, mesh_shape=None, lattice=None):
+    n, m = lattice or LATTICES[engine]
+    mesh = None if mesh_shape is None else MeshSpec(
+        mesh_shape, tuple(f"a{i}" for i in range(len(mesh_shape))))
+    return RunSpec(lattice=LatticeSpec(n, m), engine=EngineSpec(engine),
+                   temperature=TEMPERATURE, seed=SEED, mesh=mesh)
+
+
+def pin_k(monkeypatch, k):
+    """Pin the shard planner's k in the sessions of a test (``None``:
+    its default), as the JAX package's tests pin its planner's budget:
+    the driver is exact at any feasible k."""
+    if k is not None:
+        monkeypatch.setattr(
+            repro_torch.dist, "plan_shard_resident",
+            functools.partial(planner.plan_shard_resident, k_cap=k))
+
+
+@pytest.fixture(scope="module")
+def jax_digests():
+    """engine -> the JAX package's digest after RUN sweeps from a
+    checkpoint (computed once per engine: it does not depend on k)."""
+    return {}
+
+
+@pytest.mark.parametrize("engine,k", [
+    ("stencil_pallas", 1), ("stencil_pallas", 3),
+    ("multispin_pallas", 1), ("multispin_pallas", 3),
+    ("bitplane_pallas", 1), ("bitplane_pallas", 3),
+    ("multispin", None), ("bitplane", None)])
+def test_sharded_session_equals_single_mode_and_jax(engine, k, tmp_path,
+                                                    jax_digests, monkeypatch):
+    """A 2 x 2 session, PRE sweeps, a checkpoint, RUN more sweeps (k = 3:
+    one block and a remainder of 2): the same digest as the port's
+    single-mode run from the same spec and as the JAX package's single
+    mode restored from the checkpoint."""
+    pin_k(monkeypatch, k)
+    s = Session.open(spec(engine, (2, 2)), device="cpu")
+    assert s.mode == "sharded"
+    if engine.endswith("_pallas"):
+        assert s.shard_plan is not None and s.shard_plan.k == k
+    else:
+        assert s.shard_plan is None     # the JAX package's routing
+    s.run(PRE)
+    path = str(tmp_path / "sharded.npz")
+    s.save(path)
+    s.run(RUN)
+    if k is None:
+        assert s.halo_exchanges == 2 * (PRE + RUN)
+    else:
+        assert s.halo_exchanges == math.ceil(PRE / k) + math.ceil(RUN / k)
+    single = Session.open(spec(engine), device="cpu")
+    single.run(PRE + RUN)
+    assert s.state_digest() == single.state_digest()
+    if engine not in jax_digests:
+        j = japi.Session.restore(path, mesh=None)
+        assert j.step_count == PRE
+        j.run(RUN)
+        jax_digests[engine] = j.state_digest()
+    assert s.state_digest() == jax_digests[engine]
+    # observables from per-shard sums: the single-mode values bit for bit
+    want = single.engine.observables(single.state, single.engine.cfg.inv_temp)
+    got = s._runner.observables()
+    for f in ("m", "e"):
+        assert torch.equal(got[f], want[f])
+    assert s.magnetization() == single.magnetization()
+    assert s.energy() == single.energy()
+
+
+@pytest.mark.parametrize("engine", ["stencil_pallas", "bitplane_pallas"])
+def test_plan_none_takes_the_per_half_sweep_tier(engine):
+    s = Session.open(spec(engine, (2, 2)), device="cpu",
+                     resident_budget_bytes=0)
+    assert s.shard_plan is None
+    s.run(3)
+    assert s.halo_exchanges == 6
+    single = Session.open(spec(engine), device="cpu")
+    single.run(3)
+    assert s.state_digest() == single.state_digest()
+
+
+def test_bitplane_step_with_unaligned_shard_columns():
+    """Shards 6 words wide: their columns do not start on 4-site groups,
+    so each site draws its lane of its group's call."""
+    s = Session.open(spec("bitplane", (2, 2), (8, 24)), device="cpu")
+    assert s._runner.grid.w_loc % 4
+    s.run(4)
+    single = Session.open(spec("bitplane", None, (8, 24)), device="cpu")
+    single.run(4)
+    assert s.state_digest() == single.state_digest()
+
+
+def test_measure_is_per_sample_and_equals_single_mode():
+    from repro_torch.analysis import MeasurementPlan
+    plan = MeasurementPlan(3, 2, thermalize=1)
+    s = Session.open(spec("bitplane_pallas", (2, 2)), device="cpu")
+    single = Session.open(spec("bitplane_pallas"), device="cpu")
+    got, want = s.measure(plan), single.measure(plan)
+    for f in want:
+        assert got[f].shape == (3, 32) and got[f].dtype == np.float32
+        np.testing.assert_array_equal(got[f], want[f])
+    assert s.step_count == single.step_count == 7
+    with pytest.raises(ValueError, match="not in engine"):
+        s.measure(MeasurementPlan(1, 1, fields=("chi",)))
+
+
+def test_cross_mesh_restore_chain(tmp_path):
+    """Saved on 2 x 2, resumed on 4 x 1, on (2, 1, 2) and in single
+    mode: the uninterrupted single-mode digest; the JAX package resumes
+    the sharded checkpoint."""
+    engine = "stencil_pallas"
+    ref = Session.open(spec(engine), device="cpu")
+    ref.run(8)
+    s = Session.open(spec(engine, (2, 2)), device="cpu")
+    s.run(2)
+    for i, mesh in enumerate([MeshSpec((4, 1), ("a", "b")),
+                              MeshSpec((2, 1, 2), ("a", "b", "c")), None]):
+        path = str(tmp_path / f"ck{i}.npz")
+        s.save(path)
+        s = Session.restore(path, device="cpu", mesh=mesh)
+        assert s.mode == ("single" if mesh is None else "sharded")
+        s.run(2)
+    assert s.step_count == 8
+    assert s.state_digest() == ref.state_digest()
+    j = japi.Session.restore(str(tmp_path / "ck0.npz"), mesh=None)
+    j.run(6)
+    assert j.state_digest() == ref.state_digest()
+
+
+def test_single_mode_checkpoint_resumes_on_a_mesh(tmp_path):
+    path = str(tmp_path / "single.npz")
+    s = Session.open(spec("multispin_pallas"), device="cpu")
+    s.run(2)
+    s.save(path)
+    s.run(3)
+    r = Session.restore(path, device="cpu",
+                        mesh=MeshSpec((2, 2), ("data", "model")))
+    assert r.spec.mesh.shape == (2, 2) and r.halo_exchanges == 0
+    r.run(3)
+    assert r.state_digest() == s.state_digest()
+    assert r.full_lattice().shape == (64, 1024)
+    assert torch.equal(r.full_lattice(), s.full_lattice())
+
+
+def test_restore_rejects_a_lattice_of_another_size(tmp_path):
+    path = str(tmp_path / "small.npz")
+    Session.open(spec("stencil_pallas", None, (32, 64)), device="cpu") \
+        .save(path)
+    import json
+    with np.load(path) as z:
+        arrays = dict(z)
+    doc = json.loads(str(arrays["spec_json"]))
+    doc["lattice"]["n"] = 64
+    arrays["spec_json"] = json.dumps(doc)
+    np.savez(path, **arrays)
+    with pytest.raises(ValueError, match="lattice needs"):
+        Session.restore(path, device="cpu",
+                        mesh=MeshSpec((2, 2), ("a", "b")))
+
+
+def test_lattice_that_does_not_tile_the_mesh_raises():
+    # 9 rows a shard: the shards would not share the checkerboard parity
+    with pytest.raises(ValueError, match="does not tile"):
+        Session.open(spec("stencil_pallas", (2, 1), (18, 8)), device="cpu")
+
+
+# -- spec and CLI -----------------------------------------------------------
+
+def test_spec_errors_as_in_the_jax_package():
+    mesh = MeshSpec((2, 2), ("data", "model"))
+    with pytest.raises(ValueError, match="no distributed step"):
+        RunSpec(lattice=LatticeSpec(64, 64),
+                engine=EngineSpec("tensorcore", {"tc_block": 16}), mesh=mesh)
+    with pytest.raises(ValueError, match="batch \\+ mesh"):
+        RunSpec(batch=BatchSpec(temperatures=(2.0,)), mesh=mesh)
+    doc = spec("bitplane", (2, 2)).to_json()
+    assert japi.RunSpec.from_json(doc).to_json() == doc
+    assert RunSpec.from_json(doc).mode == "sharded"
+
+
+def test_cli_mesh_prints_the_single_mode_magnetization(capsys, tmp_path):
+    flags = ["run", "--device", "cpu", "--n", "32", "--init-p-up", "1.0",
+             "--temperature", "2.0", "--seed", "7", "--sweeps", "6"]
+    assert cli.main(flags) == 0
+    single = capsys.readouterr().out
+    path = str(tmp_path / "mesh.npz")
+    assert cli.main(flags + ["--mesh", "2x2", "--mesh-axes", "data,model",
+                             "--save", path]) == 0
+    sharded = capsys.readouterr().out
+    assert "2x2 mesh" in sharded
+    assert single.split("|m| = ")[1] == sharded.split("|m| = ")[1] \
+        .split("\n")[0] + "\n"
+    r = Session.restore(path, device="cpu")
+    assert r.spec.mesh.axis_names == ("data", "model")
+    assert r.step_count == 6

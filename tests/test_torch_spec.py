@@ -48,10 +48,23 @@ def test_port_defaults_to_stencil_pallas():
     {"mesh": {"shape": [2, 1], "axis_names": ["data", "model"]}},
 ])
 def test_batch_and_mesh_parse_then_raise(extra):
+    """A batch spec parses, then raises: ensembles are not ported.  A
+    mesh spec is ported: it reads as sharded, and raises beside a batch,
+    as in the JAX package."""
     doc = json.dumps(dict(FULL, **extra))
     japi.RunSpec.from_json(doc)  # a valid reference spec
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tspec.RunSpec.from_json(doc)
+    if "batch" in extra:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tspec.RunSpec.from_json(doc)
+        return
+    port = tspec.RunSpec.from_json(doc)
+    assert port.mode == "sharded"
+    assert port.to_json() == japi.RunSpec.from_json(doc).to_json()
+    both = json.dumps(dict(FULL, **extra, batch={
+        "temperatures": [2.0], "seeds": None, "grid": False}))
+    for package in (japi, tspec):
+        with pytest.raises(ValueError, match="batch \\+ mesh"):
+            package.RunSpec.from_json(both)
 
 
 def test_bad_batch_is_rejected_while_parsing():
