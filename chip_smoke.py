@@ -15,13 +15,19 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 2. build every CUDA source of ``src/repro_torch/csrc`` with nvcc (one
    nvcc per source, started together), read each kernel's SASS
    instruction mix with cuobjdump (the tensor-core kernel must hold
-   ``HMMA``), and check each family's planner shared memory against its
+   ``HMMA``) and the stencil k-sweep and shard kernels' site loops per
+   site update (``repro_torch.analysis.sass``: no float accept in
+   them), and check each family's planner shared memory against its
    library's own query;
 3. each kernel against its plain PyTorch version on the card, 0
    mismatches required, at small shapes, ragged tiles, a halo wider than
    the plane, seeds of at least 2^32, offsets near 2^31 and 2^32, and
-   the main path's full plane; each kernel's time and its plain
-   version's at the full plane, and both sweep tiers' times;
+   the main path's full plane; for the stencil k-sweep and shard
+   kernels also plane widths 3, 5, 127, 129 and 130, tiles whose width
+   is not a multiple of their 4-cell words, ``n_sweeps`` 1 to 3, and
+   T = 0.05 from all-up planes, where no spin may flip; each kernel's
+   time and its plain version's at the full plane, and both sweep
+   tiers' times;
    ``tensorcore_update`` at every block it takes on small ragged planes
    (also at T = 0.05 from all-up planes, where no spin may flip), at
    planes of 512^2 with blocks 16 and 64 (int8 and bf16) and at the main
@@ -71,11 +77,9 @@ result.
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
 import json
 import math
-import re
 import subprocess
 import sys
 import tempfile
@@ -154,16 +158,6 @@ PIPE_PER_CLOCK_PER_SM = {"fma": 64, "alu": 64, "xu": 16, "tensor": 4096}
 #: four schedulers per SM, each dispatching one warp instruction per
 #: clock
 DISPATCH_PER_CLOCK_PER_SM = 4 * 32
-#: SASS opcodes (before the first '.') of each pipe, for the reading of
-#: the compiled kernels; what is not listed counts as "other"
-SASS_PIPES = {
-    "fma": ("IMAD", "IMUL", "FFMA", "FMUL", "FADD"),
-    "alu": ("LOP3", "IADD3", "ISETP", "FSETP", "SEL", "FSEL", "SHF", "LEA",
-            "PRMT", "IMNMX", "PLOP3"),
-    "xu": ("I2F", "F2I", "F2F", "MUFU"),
-    "lsu": ("LDG", "STG", "LDS", "STS", "LD", "ST", "LDL", "STL"),
-    "tensor": ("HMMA",),
-}
 #: the seven kernels: family, tier, TPU kernel replaced
 KERNELS = {
     "stencil_update": ("stencil", "half-sweep",
@@ -193,6 +187,19 @@ ENGINE_FAMILY = {"stencil_pallas": "stencil",
 #: bytes per extended cell of a shard kernel's index planes in device
 #: memory (uint32 site or word index; bitplane: group index and lane)
 SHARD_INDEX_BYTES = {"stencil": 4, "multispin": 4, "bitplane": 8}
+#: stencil k-sweep cases at the kernel's 4-cell words and 32-word rows:
+#: (rows, plane width, tile rows, tile columns, k, n_sweeps)
+STENCIL_EDGE_CASES = ((12, 3, 5, 3, 1, 2), (20, 5, 8, 5, 2, 3),
+                      (16, 127, 8, 120, 2, 2), (10, 129, 5, 120, 1, 1),
+                      (16, 130, 8, 13, 3, 3), (48, 256, 16, 248, 2, 3))
+#: the same for the stencil shard kernel: (extended plane, n_sweeps,
+#: tile)
+STENCIL_SHARD_EDGE_CASES = (((12, 3), 1, (6, 3, 64)),
+                            ((14, 5), 2, (6, 5, 64)),
+                            ((10, 127), 2, (8, 120, 256)),
+                            ((10, 129), 1, (5, 120, 64)),
+                            ((16, 130), 3, (8, 13, 96)),
+                            ((40, 512), 2, (16, 248, 256)))
 MESH = (2, 2)               # the sharded main paths' mesh
 SMALL_MESHES = ((1, 1), (2, 2), (4, 1), (2, 1, 2))
 
@@ -245,29 +252,6 @@ def bound(family: str, bytes_moved: float, updates: float,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def sass_mix(compiler: str, library_path) -> dict:
-    """``{kernel: {pipe: count}}`` of the SASS instructions in each
-    kernel of a built library (static counts, whole function)."""
-    cuobjdump = str(Path(compiler).with_name("cuobjdump"))
-    out = subprocess.run([cuobjdump, "-sass", str(library_path)],
-                         check=True, capture_output=True, text=True).stdout
-    pipe_of = {op: pipe for pipe, ops in SASS_PIPES.items() for op in ops}
-    mix = {}
-    for chunk in out.split("Function : ")[1:]:
-        # a template instance's name carries its arguments:
-        # kernelIaLi128EE -> <a,128> (a: int8, t: 16-bit bf16 pattern)
-        found = re.search(r"([a-z][a-z_]*_kernel)(?:E|I(\w)(?:Li(\d+)E)?E)",
-                          chunk)
-        args = [a for a in found.group(2, 3) if a]
-        name = found.group(1) + (f"<{','.join(args)}>" if args else "")
-        counts = collections.Counter()
-        for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                             r"([A-Z][A-Z0-9]*)", chunk):
-            counts[pipe_of.get(op, "other")] += 1
-        mix[name] = dict(sorted(counts.items()))
-    return mix
-
-
 def tc_random_planes(torch, h: int, dtype, seed: int, w=None) -> dict:
     """Four random (h, w or h) +-1 sublattice planes of ``dtype`` on the
     card."""
@@ -310,6 +294,7 @@ def main() -> int:
                                  Session, SweepSpec)
     from repro_torch.core import distributed, metropolis, multispin
     from repro_torch.core import observables
+    from repro_torch.analysis import sass
     from repro_torch.analysis.tune_resident import random_planes, timed_ms
     from repro_torch.dist import driver as shard_driver
     from repro_torch.dist import planner as shard_planner
@@ -345,12 +330,26 @@ def main() -> int:
         print(f"phase 2: built csrc/{b.name}.cu in {b.seconds:.2f} s")
         for line in b.ptxas_summary():
             print(f"  ptxas {line}")
-        for kernel, mix in sass_mix(_build.nvcc(), b.path).items():
+        code = sass.disassemble(b.path, _build.nvcc())
+        for kernel, mix in sass.sass_mix(code).items():
             print(f"  SASS {kernel}: {mix}")
             if kernel.startswith("tensorcore_update_kernel"):
                 check(mix.get("tensor", 0) > 0,
                       f"{kernel} holds no HMMA: its products are not on "
                       f"the tensor cores")
+        if b.name == "stencil":
+            # the two k-sweep kernels' site loops, per site update
+            loops = sass.site_loops(code, "stencil_sweeps_kernel")
+            check(bool(loops), "no site loop found in stencil_sweeps_kernel")
+            for loop in loops:
+                pipes = {p: round(v, 2) for p, v in loop["per_site"].items()}
+                print(f"  SASS site loop {loop['kernel']} {loop['range']}: "
+                      f"{loop['sites']} sites a pass, per site "
+                      f"{loop['per_site_total']:.2f} instructions {pipes}")
+                check(not any(op.split(".")[0] in ("I2F", "I2FP", "FMUL",
+                                                   "FSETP")
+                              for op in loop["opcodes_per_site"]),
+                      f"{loop['kernel']}: a float accept in the site loop")
     from repro_torch.dist import kernels as shard_kernels
     for family in ("stencil", "multispin", "bitplane"):
         lib = importlib.import_module(
@@ -439,14 +438,22 @@ def main() -> int:
             resident.plan_resident(
                 family, 30, ragged_h * resident.GEOMETRY[family].col_divisor),
             k=3, tile_rows=7, tile_cols=2 * col_unit)
-        for (n, h, plan, n_sweeps, start, seed) in (
-                (SMALL_N, small_h, dataclasses.replace(small_plan, k=1), 1, 0,
-                 SEED),
-                (SMALL_N, small_h, dataclasses.replace(small_plan, k=3), 3,
-                 2 ** 32 - 3, 2 ** 40 + 11),
-                (SMALL_N, small_h, ragged, 5, 2 ** 31 - 2, SEED),
-                (30, ragged_h, wide, 3, 10, SEED),
-                (fn, fh, full_plan, full_plan.k, 6, SEED)):
+        sweep_cases = [
+            (SMALL_N, small_h, dataclasses.replace(small_plan, k=1), 1, 0,
+             SEED),
+            (SMALL_N, small_h, dataclasses.replace(small_plan, k=3), 3,
+             2 ** 32 - 3, 2 ** 40 + 11),
+            (SMALL_N, small_h, ragged, 5, 2 ** 31 - 2, SEED),
+            (30, ragged_h, wide, 3, 10, SEED),
+            (fn, fh, full_plan, full_plan.k, 6, SEED)]
+        if family == "stencil":
+            # the kernel's 4-cell words and 32-word rows: plane widths 3,
+            # 5, 127, 129, 130, tiles whose width is not a multiple of 4
+            for n, h, tr, tc, k, n_sweeps in STENCIL_EDGE_CASES:
+                sweep_cases.append((n, h, dataclasses.replace(
+                    small_plan, n=n, m=2 * h, k=k, tile_rows=tr,
+                    tile_cols=tc), n_sweeps, 2 ** 32 - 3, SEED))
+        for (n, h, plan, n_sweeps, start, seed) in sweep_cases:
             b, w = random_planes(family, n, h, n_sweeps + n)
             want, plain_ms = plain_timed(lambda: plains[sweeps](
                 b, w, table, n_sweeps=n_sweeps, seed=seed,
@@ -456,6 +463,17 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(sweeps, got, want, plain_ms if n == fn else None)
             del b, w, want, got
+        if family == "stencil":
+            # T = TC_COLD_T from all-up planes: bound 0, no spin may flip
+            up = torch.ones((40, 132), dtype=torch.int8, device="cuda")
+            cold = metropolis.acceptance_table(1.0 / TC_COLD_T)
+            plan = dataclasses.replace(small_plan, n=40, m=264, k=3,
+                                       tile_rows=16, tile_cols=120)
+            got = wrappers[sweeps](up, up.clone(), cold, n_sweeps=3,
+                                   seed=SEED, start_offset=2 ** 32 - 3,
+                                   plan=plan)
+            torch.cuda.synchronize()
+            compare(sweeps, got, (up, up))
         for name in (update, sweeps):
             cases, bad, err, _ = stats[name]
             print(f"phase 3: {name}: {cases} plane comparisons with the "
@@ -590,6 +608,10 @@ def main() -> int:
             ext = (plan.n_loc + 2 * plan.halo, plan.w_loc + 2 * plan.halo)
             cases.append((ext, k, index,
                           (plan.tile_rows, plan.tile_cols, plan.threads)))
+        if family == "stencil":
+            for shape, n_sweeps, case_tile in STENCIL_SHARD_EDGE_CASES:
+                cases.append((shape, n_sweeps, random_index(shape),
+                              case_tile))
         plan, index = driver_index(fn, None, 3)
         shard_plans[family] = plan
         ext = shard_shape[family] = (plan.n_loc + 2 * plan.halo,
@@ -607,6 +629,14 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(name, got, want, plain_ms if shape == ext else None)
             del b, w, want, got
+        if family == "stencil":
+            up = torch.ones((40, 132), dtype=torch.int8, device="cuda")
+            got = wrappers[name](
+                up, up.clone(), metropolis.acceptance_table(1.0 / TC_COLD_T),
+                *random_index((40, 132)), n_sweeps=3, seed=SEED,
+                start_offset=2 ** 32 - 3, tile=(16, 120, 256))
+            torch.cuda.synchronize()
+            compare(name, got, (up, up))
         cases, bad, err, _ = stats[name]
         print(f"phase 3: {name}: {cases} plane comparisons with the plain "
               f"version, {bad} mismatches, max abs err {err}")

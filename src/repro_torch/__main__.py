@@ -115,7 +115,7 @@ def main(argv=None) -> int:
                      help="lattice cols (default: --n)")
     run.add_argument("--init-p-up", type=float, default=0.5)
     from repro_torch.core.engine import ENGINES
-    run.add_argument("--engine", default="stencil_pallas",
+    run.add_argument("--engine", default="multispin",
                      choices=sorted(ENGINES))
     run.add_argument("--tc-block", type=int, default=None,
                      help="tensorcore: block of the banded products "

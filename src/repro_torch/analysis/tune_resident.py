@@ -39,10 +39,15 @@ FULL_PLANE = {"stencil": (32768, 16384), "multispin": (32768, 2048),
 TEMPERATURE = {"stencil": 2.0, "multispin": 2.0, "bitplane": 3.0}
 #: a multispin word of 0/1 nibbles
 NIBBLES = 0x11111111
-#: (tile rows, tile columns, k, threads); the stencil kernel fixes its
-#: block
+#: (tile rows, tile columns, k, threads).  Stencil: a lane takes a word
+#: of 4 cells and a warp a row, so the columns are those that with the
+#: halo make rows of 32, 64 or 128 words (k = 1, 2: a halo of 4 a side;
+#: k = 3, 4: 8), and 128 x 256 (rows of 66 words) for comparison
 CANDIDATES = {
-    "stencil": [(128, 256, k, None) for k in (1, 2, 4, 8)],
+    "stencil": [(tr, tc - (8 if k > 2 else 0), k, t)
+                for k in (1, 2, 3, 4) for tr in (64, 128, 192)
+                for tc in (120, 248, 504) for t in (256, 512)]
+    + [(128, 256, 2, 256)],
     "multispin": [(tr, tc, k, t) for tr, tc in ((64, 128), (96, 128),
                                                  (128, 64), (64, 64))
                   for k in (1, 2, 3) for t in (256, 512)],
@@ -51,11 +56,16 @@ CANDIDATES = {
                  for k in (1, 2, 3) for t in (256, 512)],
 }
 
-#: (tile rows, tile columns, threads) of the shard kernels
+#: (tile rows, tile columns, threads) of the shard kernels; the
+#: stencil kernel's rows of whole warps of 4-cell words as above
 SHARD_CANDIDATES = [(tr, tc, t) for tr, tc in ((128, 256), (128, 128),
                                                 (96, 128), (64, 256),
                                                 (64, 128), (48, 128),
-                                                (32, 256))
+                                                (32, 256), (32, 248),
+                                                (64, 248), (96, 248),
+                                                (128, 248), (64, 120),
+                                                (96, 120), (128, 120),
+                                                (192, 120))
                     for t in (256, 512, 1024)]
 
 
@@ -116,7 +126,7 @@ def tune(family: str, seed: int = 2 ** 33 + 5) -> dict:
         ms = timed_ms(lambda: sweeps(b, w, table, n_sweeps=k, seed=seed,
                                      start_offset=0, plan=cand),
                       reps=max(2, 16 // k))
-        label = f"k={k} {tr}x{tc}" + (f" {threads}t" if threads else "")
+        label = f"k={k} {tr}x{tc} {threads}t"
         out[label] = ms / k
     return out
 

@@ -82,7 +82,7 @@ class EngineSpec:
     """Registry engine name + engine-specific params (normalized to a
     sorted tuple of pairs and checked against ``param_fields``)."""
 
-    name: str = "stencil_pallas"
+    name: str = "multispin"
     params: Union[Mapping[str, Any], Tuple[Tuple[str, Any], ...]] = ()
 
     def __post_init__(self):

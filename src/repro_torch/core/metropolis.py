@@ -52,6 +52,25 @@ def acceptance_table(inv_temp) -> torch.Tensor:
     return torch.exp(args).to(torch.float32)
 
 
+def draw_bounds(table) -> np.ndarray:
+    """The accept ``u < p`` of each float32 entry ``p`` of ``table`` as an
+    exclusive bound on the raw uint32 draw: ``u < p`` iff ``draw < bound``,
+    where ``u = float32(draw) * 2^-32`` rounds to nearest
+    (``rng.u32_to_uniform``).  Rounding is monotone, so the bound is the
+    least draw whose float32 reaches ``p * 2^32``: 0 where no draw flips
+    (``p`` = 0, as the table underflows to at low temperature), 2^32 where
+    every draw flips (``p`` > 1).  Returned as uint64."""
+    target = np.asarray(table, np.float32).astype(np.float64) * 2.0 ** 32
+    lo = np.zeros(target.shape, np.float64)
+    hi = np.full(target.shape, 2.0 ** 32)      # float32(2^32) = 2^32
+    for _ in range(33):                        # least x with f32(x) >= P
+        mid = np.floor((lo + hi) / 2)
+        reach = mid.astype(np.float32).astype(np.float64) >= target
+        hi = np.where(reach, mid, hi)
+        lo = np.where(reach, lo, mid + 1)
+    return hi.astype(np.uint64)
+
+
 def neighbor_sums(op_plane: torch.Tensor, is_black: bool) -> torch.Tensor:
     """Four-neighbour spin sums for every target cell, in int8
     (|sum| <= 4, so the narrow type is exact)."""

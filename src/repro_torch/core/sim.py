@@ -10,7 +10,7 @@ class SimConfig:
     m: int = 512
     temperature: float = 2.0
     seed: int = 1234
-    engine: str = "stencil_pallas"
+    engine: str = "multispin"
     tc_block: int = 128
     # 0.5 = random (hot) start; 1.0 = ordered start, for steady-state
     # runs below Tc (cold random starts can stripe-lock)

@@ -19,16 +19,15 @@
 //   Replaces src/repro/kernels/stencil/resident.py:stencil_sweeps_resident,
 //   which holds both whole planes in TPU VMEM.  A block has at most
 //   227 KB of shared memory, so this kernel blocks in time on tiles
-//   instead: each block loads a tile of both planes plus a halo of
-//   width 2 * n_sweeps (rows and compact columns, wrapped modulo n and
+//   instead: each block loads a tile of both planes plus a halo of at
+//   least 2 * n_sweeps (rows and compact columns, wrapped modulo n and
 //   h), runs 2 * n_sweeps half-sweeps on the extended tile with a
-//   barrier between them, and writes back only the tile.  A cell at
-//   distance d from the extended tile's edge is exact for d half-sweeps,
-//   and every draw is keyed on the site's global (row, col), so the tile
-//   is bit for bit what whole-lattice sweeps give.  Input and output
-//   planes must differ: neighbouring blocks read each other's tiles.
-//   Bound: Philox arithmetic as above, plus the halo's redundant draws;
-//   global memory is touched once per launch.
+//   barrier between them, and writes back only the tile.  Half-sweep q
+//   updates the cells at distance >= q + 1 from the extended tile's
+//   edge, which are exact, and every draw is keyed on the site's global
+//   (row, col), so the tile is bit for bit what whole-lattice sweeps
+//   give.  Input and output planes must differ: neighbouring blocks
+//   read each other's tiles.
 //
 // * stencil_shard_sweeps: n_sweeps full sweeps of one halo-extended shard
 //   of a sharded run.  Replaces src/repro/dist/kernels.py:
@@ -36,19 +35,41 @@
 //   VMEM and updates all of it with wrap taps, keying each site's draw on
 //   a plane of uint32 global site indices (gidx) and taking the row
 //   parity from the extended plane's own row index.  Here the temporal
-//   blocking of stencil_sweeps_resident runs on the extended plane as if
-//   it were a lattice (tiles wrap over its own dims), with the key read
-//   from gidx: each block stages its extended tile of gidx in shared
-//   memory with the planes (6 bytes per cell), and each half-sweep
-//   updates one ring less of the extended tile than the last.  The
-//   result equals the TPU kernel's on the whole extended plane, its edge
-//   rings included.  Input and output planes must differ.
-//   Bound: Philox arithmetic as above; the gidx plane adds 4 bytes per
-//   cell to the bytes read once per launch.
+//   blocking above runs on the extended plane as if it were a lattice
+//   (tiles wrap over its own dims), with the key read from gidx, whose
+//   extended tile each block stages in shared memory beside the planes
+//   (6 bytes a cell; reading gidx from device memory in the loop
+//   instead, with the smaller blocks that allows, was slower on the
+//   card).  The result equals the TPU kernel's on the whole extended
+//   plane, its edge rings included.  Input and output planes must
+//   differ.
 //
-// The accept is a lookup in a 10-entry float32 table passed by value
-// (index (s > 0) * 5 + (nn + 4) / 2), never expf: the table is built
-// once on the host so that the card, the CPU and the reference agree.
+//   Both run one site loop (stencil_sweeps_kernel<shard>).  Bound:
+//   instruction issue, not bytes (a site moves 2 bytes a launch but
+//   needs 17 32x32 products): the Philox wide multiplies saturate the
+//   FMA pipe, which issues IMAD.WIDE.U32 at about 32 a clock per SM,
+//   half the rate of a 32-bit IMAD (repro_torch.analysis.issue_rate).
+//   What the design does about it: lane 0 of Philox alone, with what
+//   depends on the offset and key computed once a half-sweep
+//   (philox_lane0.cuh: 15 wide multiplies, 2 half multiplies and 18
+//   XORs a site); 4 cells a thread as one 32-bit shared word, its
+//   neighbours read as words (the side word by a byte permute) and
+//   counted per byte without carries; the accept an integer compare of
+//   the raw draw with 64-bit bounds (draw_bounds, in shared memory)
+//   instead of a float conversion; no division in any loop (rows and
+//   columns from the loop counters, the wrap by subtraction, the
+//   lattice-edge tiles' column wrap in a loop of its own); the region
+//   one ring smaller each half-sweep; a warp a row and a lane a word, so
+//   lanes idle only in a row's last pass; tiles loaded and stored as
+//   4-byte words where they lie inside the plane and line up (gidx as
+//   16 bytes), cell by cell elsewhere.  No tensor cores, TMA or wgmma:
+//   the work is integer issue, neither a product of matrices nor a
+//   stream of bytes.
+//
+// stencil_update's accept is a lookup in a 10-entry float32 table passed
+// by value (index (s > 0) * 5 + (nn + 4) / 2), never expf: the table is
+// built once on the host so that the card, the CPU and the reference
+// agree.  The k-sweep kernels take the same table as its draw bounds.
 
 #include <cuda_runtime.h>
 
@@ -57,10 +78,9 @@
 
 #include "common.cuh"
 #include "philox.cuh"
+#include "philox_lane0.cuh"
 
 namespace {
-
-using repro_torch::wrap;
 
 constexpr int kTableSize = 10;
 
@@ -118,171 +138,351 @@ __global__ void stencil_update_kernel(int8_t* __restrict__ target,
       metropolis_site(target[base + col], nn, site, offset, k0, k1, s_table);
 }
 
-// Shared memory of one block: global row and column indices of the
-// extended tile, the table, then both extended planes.
+// -- the k-sweep and shard kernels: one site loop --------------------------
+//
+// An extended tile of both planes sits in shared memory as rows of whole
+// 32-bit words, 4 int8 cells each: tile_r + 4k rows (a halo of 2k above
+// and below) by ext_cols() cells (a halo of at least 2k on each side, the
+// left one rounded up to a word so that a tile's words line up with the
+// plane's).  Rows go to warps; a lane takes one word of 4 consecutive
+// cells of its row, and the lanes of a warp take consecutive words.  A
+// word's four neighbour words in the opposite plane are read whole: up,
+// down and centre, and the side word built from the centre and the word
+// beside it with a byte permute.  The count of -1 neighbours of each byte
+// is a sum of masked words without carries between the bytes, and turns
+// into each cell's byte offset in the table of draw bounds (8 B entries
+// at the start of shared memory, so one load with no bank conflicts).
+// The cell flips iff its Philox draw is below the bound (integer compare,
+// draw_bounds: the decisions of u < p of the float table).
+
+// 10 exclusive bounds on the raw uint32 draw (repro_torch.core.
+// metropolis.draw_bounds): 0 never flips, 2^32 always does
+struct DrawBounds {
+  unsigned long long v[kTableSize];
+};
+
+// the bounds at the start of a block's shared memory, padded
+constexpr int kBoundsBytes = 128;
+
+// x modulo size for x a few sizes out of [0, size): no division
+__device__ __forceinline__ int wrap_near(int x, int size) {
+  while (x < 0) x += size;
+  while (x >= size) x -= size;
+  return x;
+}
+
+// cells of halo left of a tile: 2k, rounded up to a word
+__host__ __device__ inline int left_halo(int n_sweeps) {
+  return (2 * n_sweeps + 3) & ~3;
+}
+
+// cells of an extended tile row: the tile, the left halo on each side,
+// rounded up to a word (the right halo is at least the left one)
+__host__ __device__ inline int ext_cols(int tile_c, int n_sweeps) {
+  return (tile_c + 2 * left_halo(n_sweeps) + 3) & ~3;
+}
+
+// Shared memory of one k-sweep block: the bounds, then both extended
+// planes.
 __host__ __device__ inline size_t resident_smem_bytes(int tile_r, int tile_c,
                                                       int n_sweeps) {
   const size_t er = tile_r + 4 * n_sweeps;
-  const size_t ec = tile_c + 4 * n_sweeps;
-  return 4 * (er + ec) + 4 * 16 + 2 * er * ec;
+  return kBoundsBytes + 2 * er * ext_cols(tile_c, n_sweeps);
 }
 
-// grid (ceil(h / tile_c), ceil(n / tile_r)), block (32, 16)
-__global__ void stencil_sweeps_resident_kernel(
-    const int8_t* __restrict__ b_in, const int8_t* __restrict__ w_in,
-    int8_t* __restrict__ b_out, int8_t* __restrict__ w_out, int n, int h,
-    AcceptTable tab, uint32_t k0, uint32_t k1, uint32_t start, int n_sweeps,
-    int tile_r, int tile_c) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int halo = 2 * n_sweeps;
-  const int er = tile_r + 2 * halo;
-  const int ec = tile_c + 2 * halo;
-  int* s_row = reinterpret_cast<int*>(smem);
-  int* s_col = s_row + er;
-  float* s_table = reinterpret_cast<float*>(s_col + ec);
-  int8_t* s_b = reinterpret_cast<int8_t*>(s_table + 16);
-  int8_t* s_w = s_b + static_cast<size_t>(er) * ec;
-
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  const int r0 = blockIdx.y * tile_r - halo;
-  const int c0 = blockIdx.x * tile_c - halo;
-  for (int i = tid; i < er; i += nthreads) s_row[i] = wrap(r0 + i, n);
-  for (int j = tid; j < ec; j += nthreads) s_col[j] = wrap(c0 + j, h);
-  load_table(tab, s_table, tid);
-  __syncthreads();
-
-  for (int i = threadIdx.y; i < er; i += blockDim.y) {
-    const size_t g = static_cast<size_t>(s_row[i]) * h;
-    for (int j = threadIdx.x; j < ec; j += blockDim.x) {
-      s_b[i * ec + j] = b_in[g + s_col[j]];
-      s_w[i * ec + j] = w_in[g + s_col[j]];
-    }
-  }
-  __syncthreads();
-
-  for (int s = 0; s < n_sweeps; ++s) {
-    for (int color = 0; color < 2; ++color) {
-      int8_t* tgt = color ? s_w : s_b;
-      const int8_t* op = color ? s_b : s_w;
-      // half_sweep_offset(start, s, color), uint32 wrap
-      const uint32_t offset = start + 2u * static_cast<uint32_t>(s) +
-                              static_cast<uint32_t>(color);
-      // the outermost ring lacks neighbours: it stays stale, which the
-      // halo absorbs
-      for (int i = 1 + threadIdx.y; i < er - 1; i += blockDim.y) {
-        const bool plus = ((s_row[i] & 1) != 0) == (color == 0);
-        const int dj = plus ? 1 : -1;
-        const uint32_t row_base =
-            static_cast<uint32_t>(s_row[i]) * static_cast<uint32_t>(h);
-        for (int j = 1 + threadIdx.x; j < ec - 1; j += blockDim.x) {
-          const int c = i * ec + j;
-          const int nn = op[c - ec] + op[c + ec] + op[c] + op[c + dj];
-          tgt[c] = metropolis_site(tgt[c], nn,
-                                   row_base + static_cast<uint32_t>(s_col[j]),
-                                   offset, k0, k1, s_table);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int i = threadIdx.y; i < tile_r; i += blockDim.y) {
-    const int gr = blockIdx.y * tile_r + i;
-    if (gr >= n) break;
-    for (int j = threadIdx.x; j < tile_c; j += blockDim.x) {
-      const int gc = blockIdx.x * tile_c + j;
-      if (gc >= h) break;
-      const int c = (i + halo) * ec + j + halo;
-      const size_t g = static_cast<size_t>(gr) * h + gc;
-      b_out[g] = s_b[c];
-      w_out[g] = s_w[c];
-    }
-  }
-}
-
-// Shared memory of one shard-kernel block: row and column indices of the
-// extended tile, the table, the tile's site indices, then both planes.
+// Shared memory of one shard block: the bounds, the extended tile's site
+// indices, then both extended planes.
 __host__ __device__ inline size_t shard_smem_bytes(int tile_r, int tile_c,
                                                    int n_sweeps) {
   const size_t er = tile_r + 4 * n_sweeps;
-  const size_t ec = tile_c + 4 * n_sweeps;
-  return 4 * (er + ec) + 4 * 16 + 6 * er * ec;
+  return kBoundsBytes + 6 * er * ext_cols(tile_c, n_sweeps);
 }
 
-// grid (ceil(w / tile_c), ceil(n / tile_r)), 1-D blocks; n x w is the
-// extended shard
-__global__ void stencil_shard_sweeps_kernel(
+// The new target word of 4 cells at shared word c of a row whose side
+// neighbour is at column +1 (kPlus) or -1; site[e] keys cell e's draw.
+template <bool kPlus>
+__device__ __forceinline__ uint32_t update_word(
+    uint32_t t, const uint32_t* __restrict__ op, int c, int pitch,
+    const uint32_t (&site)[4], const repro_torch::Lane0Philox& philox,
+    const unsigned char* s_bounds) {
+  // bit 1 of a cell: clear for +1 (0x01), set for -1 (0xFF)
+  constexpr uint32_t kDown = 0x02020202u;
+  const uint32_t centre = op[c];
+  const uint32_t side = kPlus ? __byte_perm(centre, op[c + 1], 0x4321)
+                              : __byte_perm(op[c - 1], centre, 0x6543);
+  // per byte: twice the number of -1 neighbours, at most 8
+  const uint32_t down2 = (op[c - pitch] & kDown) + (op[c + pitch] & kDown) +
+                         (centre & kDown) + (side & kDown);
+  // per byte: 8 x the table index 5 (t > 0) + (nn + 4) / 2, which is
+  // 9 - down - 5 (t < 0): at most 72, so no byte carries into the next
+  const uint32_t offset8 = (0x12121212u - down2 - 5u * (t & kDown)) << 2;
+  uint32_t flip = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t draw = philox(site[e]);
+    const unsigned long long bound =
+        *reinterpret_cast<const unsigned long long*>(
+            s_bounds + ((offset8 >> (8 * e)) & 0xFFu));
+    // 0x01 ^ 0xFE = 0xFF and back
+    if (draw < bound) flip |= 0xFEu << (8 * e);
+  }
+  return t ^ flip;
+}
+
+// Where a block's extended tile sits: rows r0.., cells c0.. of an n x h
+// plane (both may lie off the plane and wrap), er rows of pitch words.
+struct Tile {
+  int n, h, r0, c0, er, pitch;
+  // the tile's cells lie in the plane's columns without a wrap
+  bool cols_inside;
+};
+
+// One row of half-sweep cells: words [w_lo, w_hi) of extended row i, the
+// lanes of a warp on consecutive words.  kWrap: a k-sweep tile at the
+// lattice's edge, whose columns wrap (each loop stays free of the other
+// path's branches).
+template <bool kShard, bool kPlus, bool kWrap>
+__device__ __forceinline__ void sweep_row(
+    uint32_t* __restrict__ tgt, const uint32_t* __restrict__ op,
+    const uint4* __restrict__ s_g, const Tile& tile, int i, int gr,
+    int w_lo, int w_hi, int lane, const repro_torch::Lane0Philox& philox,
+    const unsigned char* s_bounds) {
+  const uint32_t row_base =
+      static_cast<uint32_t>(gr) * static_cast<uint32_t>(tile.h);
+#pragma unroll 1
+  for (int wc = w_lo + lane; wc < w_hi; wc += 32) {
+    const int c = i * tile.pitch + wc;
+    uint32_t site[4];
+    if (kShard) {
+      const uint4 g = s_g[c];
+      site[0] = g.x;
+      site[1] = g.y;
+      site[2] = g.z;
+      site[3] = g.w;
+    } else if (!kWrap) {
+      const uint32_t base = row_base + static_cast<uint32_t>(tile.c0 + 4 * wc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) site[e] = base + e;
+    } else {
+      int gc = wrap_near(tile.c0 + 4 * wc, tile.h);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        site[e] = row_base + static_cast<uint32_t>(gc);
+        gc = gc + 1 == tile.h ? 0 : gc + 1;
+      }
+    }
+    tgt[c] = update_word<kPlus>(tgt[c], op, c, tile.pitch, site, philox,
+                                s_bounds);
+  }
+}
+
+// Half-sweep q of colour `color`: the cells at distance >= m = q + 1 from
+// the extended tile's edge, in whole words (the cells of a word nearer
+// the edge are updated too; they are stale by then and never stored).
+// Row parity from the wrapped row: the lattice's (k-sweep) or the
+// extended plane's own (shard).
+template <bool kShard, bool kWrap>
+__device__ __forceinline__ void half_sweep(
+    uint32_t* __restrict__ tgt, const uint32_t* __restrict__ op,
+    const uint4* __restrict__ s_g, const Tile& tile, int m, int color,
+    const repro_torch::Lane0Philox& philox, const unsigned char* s_bounds) {
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int w_lo = m >> 2;
+  const int w_hi = (4 * tile.pitch - m + 3) >> 2;
+  for (int i = m + (threadIdx.x >> 5); i < tile.er - m; i += nwarps) {
+    const int gr = wrap_near(tile.r0 + i, tile.n);
+    // black targets take (i, k+1) on odd rows, (i, k-1) on even; white
+    // the reverse
+    if (((gr & 1) != 0) == (color == 0)) {
+      sweep_row<kShard, true, kWrap>(tgt, op, s_g, tile, i, gr, w_lo, w_hi,
+                                     lane, philox, s_bounds);
+    } else {
+      sweep_row<kShard, false, kWrap>(tgt, op, s_g, tile, i, gr, w_lo, w_hi,
+                                      lane, philox, s_bounds);
+    }
+  }
+}
+
+// Stage the extended tile of both planes (and, for a shard, of gidx):
+// whole words (16 B of gidx) where the tile's columns lie in the plane
+// and line up with words, else cell by cell with wrapped columns.
+template <bool kShard>
+__device__ __forceinline__ void load_tile(
     const int8_t* __restrict__ b_in, const int8_t* __restrict__ w_in,
-    const uint32_t* __restrict__ gidx, int8_t* __restrict__ b_out,
-    int8_t* __restrict__ w_out, int n, int w, AcceptTable tab, uint32_t k0,
-    uint32_t k1, uint32_t start, int n_sweeps, int tile_r, int tile_c) {
+    const uint32_t* __restrict__ gidx, uint32_t* s_b, uint32_t* s_w,
+    uint32_t* s_g, const Tile& tile, bool words) {
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int ecp = 4 * tile.pitch;
+  for (int i = threadIdx.x >> 5; i < tile.er; i += nwarps) {
+    const size_t g = static_cast<size_t>(wrap_near(tile.r0 + i, tile.n)) *
+                     tile.h;
+    if (words) {
+      const size_t at = g + tile.c0;
+      const uint32_t* b = reinterpret_cast<const uint32_t*>(b_in + at);
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(w_in + at);
+      for (int wc = lane; wc < tile.pitch; wc += 32) {
+        s_b[i * tile.pitch + wc] = b[wc];
+        s_w[i * tile.pitch + wc] = w[wc];
+        if (kShard) {
+          reinterpret_cast<uint4*>(s_g)[i * tile.pitch + wc] =
+              reinterpret_cast<const uint4*>(gidx + at)[wc];
+        }
+      }
+    } else {
+      int8_t* sb = reinterpret_cast<int8_t*>(s_b) + i * ecp;
+      int8_t* sw = reinterpret_cast<int8_t*>(s_w) + i * ecp;
+      int gc = wrap_near(tile.c0 + lane, tile.h);
+      for (int j = lane; j < ecp; j += 32) {
+        sb[j] = b_in[g + gc];
+        sw[j] = w_in[g + gc];
+        if (kShard) s_g[i * ecp + j] = gidx[g + gc];
+        gc = wrap_near(gc + 32, tile.h);
+      }
+    }
+  }
+}
+
+// n_sweeps sweeps of one extended tile; the k-sweep kernel (kShard
+// false) keys each draw on the lattice site row * h + col, the shard
+// kernel on the site index staged from gidx.  grid (ceil(h / tile_c),
+// ceil(n / tile_r)), 1-D blocks of whole warps.  `words`: h and tile_c
+// are multiples of 4 and every plane pointer is 4-byte aligned (gidx 16).
+template <bool kShard>
+__global__ void stencil_sweeps_kernel(const int8_t* __restrict__ b_in,
+                              const int8_t* __restrict__ w_in,
+                              const uint32_t* __restrict__ gidx,
+                              int8_t* __restrict__ b_out,
+                              int8_t* __restrict__ w_out, int n, int h,
+                              DrawBounds bounds, uint32_t k0, uint32_t k1,
+                              uint32_t start, int n_sweeps, int tile_r,
+                              int tile_c, int words) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int halo = 2 * n_sweeps;
-  const int er = tile_r + 2 * halo;
-  const int ec = tile_c + 2 * halo;
-  int* s_row = reinterpret_cast<int*>(smem);
-  int* s_col = s_row + er;
-  float* s_table = reinterpret_cast<float*>(s_col + ec);
-  uint32_t* s_g = reinterpret_cast<uint32_t*>(s_table + 16);
-  int8_t* s_b = reinterpret_cast<int8_t*>(s_g + static_cast<size_t>(er) * ec);
-  int8_t* s_w = s_b + static_cast<size_t>(er) * ec;
-
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int r0 = blockIdx.y * tile_r - halo;
-  const int c0 = blockIdx.x * tile_c - halo;
-  for (int i = tid; i < er; i += nthreads) s_row[i] = wrap(r0 + i, n);
-  for (int j = tid; j < ec; j += nthreads) s_col[j] = wrap(c0 + j, w);
-  load_table(tab, s_table, tid);
-  __syncthreads();
-
-  for (int c = tid; c < er * ec; c += nthreads) {
-    const size_t g = static_cast<size_t>(s_row[c / ec]) * w + s_col[c % ec];
-    s_b[c] = b_in[g];
-    s_w[c] = w_in[g];
-    s_g[c] = gidx[g];
+  const int hl = left_halo(n_sweeps);
+  Tile tile;
+  tile.n = n;
+  tile.h = h;
+  tile.r0 = static_cast<int>(blockIdx.y) * tile_r - halo;
+  tile.c0 = static_cast<int>(blockIdx.x) * tile_c - hl;
+  tile.er = tile_r + 2 * halo;
+  tile.pitch = ext_cols(tile_c, n_sweeps) >> 2;
+  tile.cols_inside = tile.c0 >= 0 && tile.c0 + 4 * tile.pitch <= h;
+  const size_t plane_words = static_cast<size_t>(tile.er) * tile.pitch;
+  uint32_t* s_g = reinterpret_cast<uint32_t*>(smem + kBoundsBytes);
+  uint32_t* s_b = s_g + (kShard ? 4 * plane_words : 0);
+  uint32_t* s_w = s_b + plane_words;
+  // constant indices: the bounds stay in the parameter space
+#pragma unroll
+  for (int e = 0; e < kTableSize; ++e) {
+    if (threadIdx.x == e) {
+      reinterpret_cast<unsigned long long*>(smem)[e] = bounds.v[e];
+    }
   }
+  load_tile<kShard>(b_in, w_in, gidx, s_b, s_w, s_g, tile,
+                    words && tile.cols_inside);
   __syncthreads();
 
-  // half-sweep q (from 0) updates the cells at distance >= q + 1 from the
-  // edge of the extended tile, the last one the tile alone (as in
-  // multispin_sweeps_resident_kernel)
   for (int s = 0; s < n_sweeps; ++s) {
     for (int color = 0; color < 2; ++color) {
-      int8_t* tgt = color ? s_w : s_b;
-      const int8_t* op = color ? s_b : s_w;
       // half_sweep_offset(start, s, color), uint32 wrap
-      const uint32_t offset = start + 2u * static_cast<uint32_t>(s) +
-                              static_cast<uint32_t>(color);
-      const int margin = 2 * s + color + 1;
-      const int iw = ec - 2 * margin;
-      const int cells = (er - 2 * margin) * iw;
-      for (int x = tid; x < cells; x += nthreads) {
-        const int i = margin + x / iw;
-        const int j = margin + x % iw;
-        // the extended plane's own row parity
-        const bool plus = ((s_row[i] & 1) != 0) == (color == 0);
-        const int c = i * ec + j;
-        const int nn =
-            op[c - ec] + op[c + ec] + op[c] + op[plus ? c + 1 : c - 1];
-        tgt[c] = metropolis_site(tgt[c], nn, s_g[c], offset, k0, k1, s_table);
+      const repro_torch::Lane0Philox philox(
+          start + 2u * static_cast<uint32_t>(s) + static_cast<uint32_t>(color),
+          k0, k1);
+      uint32_t* tgt = color ? s_w : s_b;
+      const uint32_t* op = color ? s_b : s_w;
+      const uint4* g4 = reinterpret_cast<const uint4*>(s_g);
+      const int m = 2 * s + color + 1;
+      if (kShard || tile.cols_inside) {
+        half_sweep<kShard, false>(tgt, op, g4, tile, m, color, philox, smem);
+      } else {
+        half_sweep<kShard, true>(tgt, op, g4, tile, m, color, philox, smem);
       }
       __syncthreads();
     }
   }
 
+  // the tile's cells that lie in the plane
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
   const int rows = min(tile_r, n - static_cast<int>(blockIdx.y) * tile_r);
-  const int cols = min(tile_c, w - static_cast<int>(blockIdx.x) * tile_c);
-  for (int x = tid; x < rows * cols; x += nthreads) {
-    const int i = x / cols;
-    const int j = x % cols;
-    const int c = (i + halo) * ec + j + halo;
-    const size_t g = static_cast<size_t>(blockIdx.y * tile_r + i) * w +
-                     blockIdx.x * tile_c + j;
-    b_out[g] = s_b[c];
-    w_out[g] = s_w[c];
+  const int cols = min(tile_c, h - static_cast<int>(blockIdx.x) * tile_c);
+  for (int i = threadIdx.x >> 5; i < rows; i += nwarps) {
+    const size_t g = static_cast<size_t>(blockIdx.y * tile_r + i) * h +
+                     static_cast<size_t>(blockIdx.x) * tile_c;
+    const int li = (i + halo) * tile.pitch;
+    if (words) {
+      uint32_t* b = reinterpret_cast<uint32_t*>(b_out + g);
+      uint32_t* w = reinterpret_cast<uint32_t*>(w_out + g);
+      for (int wc = lane; wc < (cols >> 2); wc += 32) {
+        b[wc] = s_b[li + (hl >> 2) + wc];
+        w[wc] = s_w[li + (hl >> 2) + wc];
+      }
+    } else {
+      const int8_t* sb = reinterpret_cast<const int8_t*>(s_b + li) + hl;
+      const int8_t* sw = reinterpret_cast<const int8_t*>(s_w + li) + hl;
+      for (int j = lane; j < cols; j += 32) {
+        b_out[g + j] = sb[j];
+        w_out[g + j] = sw[j];
+      }
+    }
   }
+}
+
+DrawBounds make_bounds(const unsigned long long* bounds) {
+  DrawBounds b;
+  std::memcpy(b.v, bounds, sizeof(b.v));
+  return b;
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// Launch one of the two; returns the CUDA error (0: launched).
+int launch_sweeps(bool shard, const void* b_in, const void* w_in,
+                  const void* gidx, void* b_out, void* w_out, int n, int h,
+                  const unsigned long long* bounds, uint32_t k0, uint32_t k1,
+                  uint32_t start, int n_sweeps, int tile_r, int tile_c,
+                  int threads, void* stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 || n_sweeps < 1 ||
+      tile_r < 1 || tile_c < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = shard ? shard_smem_bytes(tile_r, tile_c, n_sweeps)
+                            : resident_smem_bytes(tile_r, tile_c, n_sweeps);
+  const void* kernel = shard ? reinterpret_cast<const void*>(
+                                   stencil_sweeps_kernel<true>)
+                             : reinterpret_cast<const void*>(
+                                   stencil_sweeps_kernel<false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, or the next launch would report it
+    return static_cast<int>(err);
+  }
+  const int words = h % 4 == 0 && tile_c % 4 == 0 && aligned(b_in, 4) &&
+                    aligned(w_in, 4) && aligned(b_out, 4) &&
+                    aligned(w_out, 4) && (!shard || aligned(gidx, 16));
+  const dim3 grid((h + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* bi = static_cast<const int8_t*>(b_in);
+  const int8_t* wi = static_cast<const int8_t*>(w_in);
+  const uint32_t* gi = static_cast<const uint32_t*>(gidx);
+  int8_t* bo = static_cast<int8_t*>(b_out);
+  int8_t* wo = static_cast<int8_t*>(w_out);
+  if (shard) {
+    stencil_sweeps_kernel<true><<<grid, threads, smem, s>>>(
+        bi, wi, gi, bo, wo, n, h, make_bounds(bounds), k0, k1, start,
+        n_sweeps, tile_r, tile_c, words);
+  } else {
+    stencil_sweeps_kernel<false><<<grid, threads, smem, s>>>(
+        bi, wi, gi, bo, wo, n, h, make_bounds(bounds), k0, k1, start,
+        n_sweeps, tile_r, tile_c, words);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 AcceptTable make_table(const float* table) {
@@ -313,25 +513,13 @@ long long stencil_resident_smem_bytes(int tile_r, int tile_c, int n_sweeps) {
 
 int stencil_sweeps_resident_launch(const void* b_in, const void* w_in,
                                    void* b_out, void* w_out, int n, int h,
-                                   const float* table, uint32_t k0,
-                                   uint32_t k1, uint32_t start, int n_sweeps,
-                                   int tile_r, int tile_c, void* stream) {
-  const size_t smem = resident_smem_bytes(tile_r, tile_c, n_sweeps);
-  cudaError_t err = cudaFuncSetAttribute(
-      stencil_sweeps_resident_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, or the next launch would report it
-    return static_cast<int>(err);
-  }
-  const dim3 block(32, 16);
-  const dim3 grid((h + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r);
-  stencil_sweeps_resident_kernel<<<grid, block, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(b_in), static_cast<const int8_t*>(w_in),
-      static_cast<int8_t*>(b_out), static_cast<int8_t*>(w_out), n, h,
-      make_table(table), k0, k1, start, n_sweeps, tile_r, tile_c);
-  return static_cast<int>(cudaGetLastError());
+                                   const unsigned long long* bounds,
+                                   uint32_t k0, uint32_t k1, uint32_t start,
+                                   int n_sweeps, int tile_r, int tile_c,
+                                   int threads, void* stream) {
+  return launch_sweeps(false, b_in, w_in, nullptr, b_out, w_out, n, h,
+                       bounds, k0, k1, start, n_sweeps, tile_r, tile_c,
+                       threads, stream);
 }
 
 long long stencil_shard_smem_bytes(int tile_r, int tile_c, int n_sweeps) {
@@ -340,26 +528,13 @@ long long stencil_shard_smem_bytes(int tile_r, int tile_c, int n_sweeps) {
 
 int stencil_shard_sweeps_launch(const void* b_in, const void* w_in,
                                 const void* gidx, void* b_out, void* w_out,
-                                int n, int w, const float* table, uint32_t k0,
-                                uint32_t k1, uint32_t start, int n_sweeps,
-                                int tile_r, int tile_c, int threads,
-                                void* stream) {
-  const size_t smem = shard_smem_bytes(tile_r, tile_c, n_sweeps);
-  cudaError_t err = cudaFuncSetAttribute(
-      stencil_shard_sweeps_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, or the next launch would report it
-    return static_cast<int>(err);
-  }
-  const dim3 grid((w + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r);
-  stencil_shard_sweeps_kernel<<<grid, threads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(b_in), static_cast<const int8_t*>(w_in),
-      static_cast<const uint32_t*>(gidx), static_cast<int8_t*>(b_out),
-      static_cast<int8_t*>(w_out), n, w, make_table(table), k0, k1, start,
-      n_sweeps, tile_r, tile_c);
-  return static_cast<int>(cudaGetLastError());
+                                int n, int w, const unsigned long long* bounds,
+                                uint32_t k0, uint32_t k1, uint32_t start,
+                                int n_sweeps, int tile_r, int tile_c,
+                                int threads, void* stream) {
+  return launch_sweeps(true, b_in, w_in, gidx, b_out, w_out, n, w, bounds,
+                       k0, k1, start, n_sweeps, tile_r, tile_c, threads,
+                       stream);
 }
 
 }  // extern "C"

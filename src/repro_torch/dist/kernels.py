@@ -30,8 +30,11 @@ planes (``core.metropolis.index_uniforms``, ``core.multispin.
 update_color_packed(widx=)``, ``core.bitplane.update_color_bitplane(
 gidx=, lane=)``).  A wrapper takes its plain version for CPU tensors and
 launches its kernel for CUDA tensors; it returns new planes.  Stencil
-takes the 10-entry float32 acceptance table, the word families the 10
-uint32 thresholds, as their single-device kernels do.
+takes the 10-entry float32 acceptance table (its kernel compares the raw
+draw with the table's ``metropolis.draw_bounds``), the word families the
+10 uint32 thresholds, as their single-device kernels do.  The stencil
+kernel shares the site loop of ``stencil_sweeps_resident`` (4 cells a
+thread, lane-0 Philox, integer accept), keyed on the staged ``gidx``.
 """
 from __future__ import annotations
 
@@ -44,8 +47,8 @@ from repro_torch.core import metropolis, rng
 from repro_torch.core import multispin as ms
 from repro_torch.kernels import _build
 from repro_torch.kernels._words import check_words, thresholds_arg
-from repro_torch.kernels.stencil.stencil import (check_planes,
-                                                 raise_on_error, table_arg)
+from repro_torch.kernels.stencil.stencil import (bounds_arg, check_planes,
+                                                 raise_on_error)
 
 from .planner import shard_tile
 
@@ -97,7 +100,7 @@ def library(family: str):
     launch = getattr(lib, f"{family}_shard_sweeps_launch")
     if launch.argtypes is None:
         u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
-        table = ctypes.POINTER(ctypes.c_float if family == "stencil"
+        table = ctypes.POINTER(ctypes.c_uint64 if family == "stencil"
                                else ctypes.c_uint32)
         planes = [ptr] * (6 if family == "bitplane" else 5)
         lib.cuda_error_string.argtypes = [i32]
@@ -159,7 +162,7 @@ def stencil_shard_sweeps(black, white, table, gidx, *, n_sweeps: int,
             black, white, table, gidx, n_sweeps=n_sweeps, seed=seed,
             start_offset=start_offset)
     return _launch("stencil", stencil_shard_sweeps, (black, white, gidx),
-                   black, white, table_arg(table), n_sweeps=n_sweeps,
+                   black, white, bounds_arg(table), n_sweeps=n_sweeps,
                    seed=seed, start_offset=start_offset, tile=tile)
 
 

@@ -35,7 +35,8 @@ import dataclasses
 import math
 from typing import Optional
 
-from repro_torch.kernels.resident import GEOMETRY, SMEM_BUDGET_BYTES
+from repro_torch.kernels.resident import (GEOMETRY, SMEM_BUDGET_BYTES,
+                                         extended_tile)
 
 #: cap on sweeps per halo exchange: past it the redundant halo sweeps
 #: cost more than the exchanges they save
@@ -55,11 +56,10 @@ INDEX_BYTES = {"stencil": 4, "multispin": 4, "bitplane": 5}
 #: repro_torch.analysis.tune_resident --shard`` at the 2 x 2 main paths
 #: (``PERF.md``).  Staging the index planes too, the single-device tiles
 #: (``GEOMETRY``) leave one block an SM
-SHARD_TILES = {"stencil": (128, 128), "multispin": (48, 128),
+SHARD_TILES = {"stencil": (64, 248), "multispin": (48, 128),
                "bitplane": (48, 128)}
 
-#: threads of a shard-kernel block: one cell (site or word) per thread
-#: and step of the block's loops, in all three families
+#: threads of a shard-kernel block, in all three families
 SHARD_THREADS: int = 512
 
 
@@ -113,12 +113,17 @@ class ShardPlan:
 def shard_smem_bytes(family: str, tile_rows: int, tile_cols: int,
                      k: int) -> int:
     """Shared memory of one shard-kernel block for k sweeps: the row and
-    column indices of the extended tile, the acceptance table where the
-    kernel keeps one there, the tile's index planes and both extended
-    planes (the layout of the family's ``*_shard_sweeps_kernel``)."""
+    column indices of the extended tile where the kernel keeps them, the
+    acceptance table where the kernel keeps one there (stencil: its draw
+    bounds), the tile's index planes and both extended planes (the layout
+    of the family's shard kernel)."""
     g = GEOMETRY[family]
-    er, ec = tile_rows + 4 * k, tile_cols + 4 * k
     cell = INDEX_BYTES[family] + 2 * g.element_bytes
+    if not g.index_tables:
+        # stencil: rows of whole words, as its k-sweep kernel's
+        er, ec = extended_tile(tile_rows, tile_cols, k, family)
+        return g.table_bytes + cell * er * ec
+    er, ec = tile_rows + 4 * k, tile_cols + 4 * k
     return 4 * (er + ec) + g.table_bytes + cell * er * ec
 
 

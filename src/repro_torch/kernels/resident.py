@@ -39,10 +39,16 @@ SMEM_BUDGET_BYTES: int = 232448
 #: least time per sweep at 32768^2 (``PERF.md``)
 MAX_SWEEPS_PER_LAUNCH: int = 2
 
-#: stencil: tile of the compact plane, rows x columns; 256 columns keep a
-#: warp's loads on consecutive bytes
-TILE_ROWS: int = 128
-TILE_COLS: int = 256
+#: stencil: tile of the compact plane, rows x columns.  A lane takes a
+#: word of 4 cells and a warp a row, so 504 columns and a halo of 4 on
+#: each side make rows of 128 words, four whole passes of a warp; 64
+#: rows leave three 74 KB blocks an SM (the fastest k = 2 candidate of
+#: ``tune_resident`` at 32768^2, ``PERF.md``)
+TILE_ROWS: int = 64
+TILE_COLS: int = 504
+
+#: stencil: threads of a k-sweep block
+THREADS: int = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +62,13 @@ class Geometry:
     #: the column halo (and the tile's column origin) are multiples of
     #: this: the bitplane kernel draws one Philox call per 4-site group
     col_align: int
+    #: plane elements per shared-memory word of a thread: the left halo
+    #: and each extended row are rounded up to whole words (stencil: 4
+    #: int8 cells)
+    row_word: int
+    #: the kernel keeps the extended tile's global row and column
+    #: indices in shared memory
+    index_tables: bool
     #: bytes of the acceptance table in shared memory
     table_bytes: int
     #: the planes start at a multiple of this many bytes of shared memory
@@ -63,26 +76,29 @@ class Geometry:
     tile_rows: int
     tile_cols: int
     max_k: int
-    #: threads of a k-sweep block; ``None`` where the kernel fixes its
-    #: own (``csrc/stencil.cu``: 32 x 16)
-    threads: Optional[int]
+    #: threads of a k-sweep block
+    threads: int
 
 
 GEOMETRY = {
+    # int8 cells in 32-bit words, the 10 uint64 draw bounds in 128 bytes
     "stencil": Geometry(col_divisor=2, element_bytes=1, col_align=1,
-                        table_bytes=64, plane_align=1, tile_rows=TILE_ROWS,
+                        row_word=4, index_tables=False, table_bytes=128,
+                        plane_align=16, tile_rows=TILE_ROWS,
                         tile_cols=TILE_COLS, max_k=MAX_SWEEPS_PER_LAUNCH,
-                        threads=None),
-    # uint32 words of 8 spins; two uint32 planes of stencil's 128 x 256
-    # tile would take 256 KiB, over the budget
+                        threads=THREADS),
+    # uint32 words of 8 spins; two uint32 planes of stencil's 64 x 504
+    # tile would take 270 KiB, over the budget
     "multispin": Geometry(col_divisor=16, element_bytes=4, col_align=1,
-                          table_bytes=64, plane_align=4, tile_rows=96,
-                          tile_cols=128, max_k=2, threads=512),
+                          row_word=1, index_tables=True, table_bytes=64,
+                          plane_align=4, tile_rows=96, tile_cols=128,
+                          max_k=2, threads=512),
     # uint32 words of 32 replica bits; tile columns in 4-site groups, each
     # moved as one 16-byte access
     "bitplane": Geometry(col_divisor=2, element_bytes=4, col_align=4,
-                         table_bytes=0, plane_align=16, tile_rows=96,
-                         tile_cols=128, max_k=2, threads=256),
+                         row_word=1, index_tables=True, table_bytes=0,
+                         plane_align=16, tile_rows=96, tile_cols=128,
+                         max_k=2, threads=256),
 }
 
 
@@ -100,7 +116,7 @@ class ResidentPlan:
     tile_cols: int
     smem_bytes: int
     budget_bytes: int
-    threads: Optional[int]
+    threads: int
 
 
 def col_halo(k: int, family: str = "stencil") -> int:
@@ -110,16 +126,27 @@ def col_halo(k: int, family: str = "stencil") -> int:
     return -(-2 * k // align) * align
 
 
+def extended_tile(tile_rows: int, tile_cols: int, k: int,
+                  family: str = "stencil"):
+    """``(rows, columns)`` of a tile with its halo for k sweeps, as the
+    family's kernels hold it in shared memory: 2k rows above and below,
+    :func:`col_halo` columns on each side, rounded up to whole words of
+    ``row_word`` elements (the left halo, then the row)."""
+    g = GEOMETRY[family]
+    halo = -(-col_halo(k, family) // g.row_word) * g.row_word
+    ec = -(-(tile_cols + 2 * halo) // g.row_word) * g.row_word
+    return tile_rows + 4 * k, ec
+
+
 def smem_bytes(tile_rows: int, tile_cols: int, k: int,
                family: str = "stencil") -> int:
     """Shared memory of one block for k sweeps: global row and column
-    indices of the extended tile, the acceptance table where the kernel
-    keeps one there, and both extended planes (the layout of the
-    family's ``*_sweeps_resident_kernel``)."""
+    indices of the extended tile where the kernel keeps them, the
+    acceptance table (stencil: its draw bounds), and both extended planes
+    (the layout of the family's k-sweep kernel)."""
     g = GEOMETRY[family]
-    er = tile_rows + 4 * k
-    ec = tile_cols + 2 * col_halo(k, family)
-    header = 4 * (er + ec) + g.table_bytes
+    er, ec = extended_tile(tile_rows, tile_cols, k, family)
+    header = (4 * (er + ec) if g.index_tables else 0) + g.table_bytes
     header = -(-header // g.plane_align) * g.plane_align
     return header + 2 * g.element_bytes * er * ec
 

@@ -14,7 +14,9 @@ in place, and so does the wrapper on every device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import metropolis, rng
@@ -43,13 +45,29 @@ def check_planes(*planes: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {first.device}")
 
 
-def table_arg(table: torch.Tensor):
-    """The 10-entry float32 table as a ctypes array (passed by value)."""
+def _table_values(table: torch.Tensor) -> tuple:
     if table.numel() != metropolis.TABLE_SIZE:
         raise ValueError(f"acceptance table needs {metropolis.TABLE_SIZE} "
                          f"entries, got {table.numel()}")
-    values = table.to(torch.float32).flatten().tolist()
-    return (ctypes.c_float * metropolis.TABLE_SIZE)(*values)
+    return tuple(table.to(torch.float32).flatten().tolist())
+
+
+def table_arg(table: torch.Tensor):
+    """The 10-entry float32 table as a ctypes array (passed by value)."""
+    return (ctypes.c_float * metropolis.TABLE_SIZE)(*_table_values(table))
+
+
+def bounds_arg(table: torch.Tensor):
+    """The float32 table's 10 exclusive uint64 draw bounds
+    (``metropolis.draw_bounds``) as a ctypes array, for the kernels that
+    compare the raw draw: derived once per table."""
+    return _bounds_arg(_table_values(table))
+
+
+@functools.lru_cache(maxsize=64)
+def _bounds_arg(values: tuple):
+    bounds = metropolis.draw_bounds(np.array(values, np.float32))
+    return (ctypes.c_uint64 * metropolis.TABLE_SIZE)(*bounds.tolist())
 
 
 def raise_on_error(lib, rc: int, what: str) -> None:
@@ -72,8 +90,8 @@ def library():
         lib.stencil_resident_smem_bytes.argtypes = [i32, i32, i32]
         lib.stencil_resident_smem_bytes.restype = ctypes.c_longlong
         lib.stencil_sweeps_resident_launch.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, table, u32, u32, u32, i32, i32,
-            i32, ptr]
+            ptr, ptr, ptr, ptr, i32, i32, ctypes.POINTER(ctypes.c_uint64),
+            u32, u32, u32, i32, i32, i32, i32, ptr]
         lib.stencil_sweeps_resident_launch.restype = i32
     return lib
 

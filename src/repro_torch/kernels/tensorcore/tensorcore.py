@@ -14,15 +14,15 @@ place, by the kernel and, on the CPU, by the wrapper.
 
 Planes are int8 (the engine's state) or bf16 (the TPU kernel's
 contract), all four of one type and shape, and hold spins +-1.  The
-kernel compares the raw draw with integer bounds (:func:`draw_bounds`),
-the same decisions as the plain version's float compare.
+kernel compares the raw draw with integer bounds
+(:func:`repro_torch.core.metropolis.draw_bounds`), the same decisions
+as the plain version's float compare.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from repro_torch.core import metropolis, rng
@@ -83,28 +83,10 @@ def check_planes(planes: dict, block: int) -> None:
                          f"{tuple(first.shape)}")
 
 
-def draw_bounds(table) -> np.ndarray:
-    """The accept ``u < p`` of each float32 entry ``p`` of ``table`` as an
-    exclusive bound on the raw uint32 draw: ``u < p`` iff ``draw < bound``,
-    where ``u = float32(draw) * 2^-32`` rounds to nearest
-    (``rng.u32_to_uniform``).  Rounding is monotone, so the bound is the
-    least draw whose float32 reaches ``p * 2^32``: 0 where no draw flips
-    (``p`` = 0, as the table underflows to at low temperature), 2^32 where
-    every draw flips (``p`` > 1).  Returned as uint64."""
-    target = np.asarray(table, np.float32).astype(np.float64) * 2.0 ** 32
-    lo = np.zeros(target.shape, np.float64)
-    hi = np.full(target.shape, 2.0 ** 32)      # float32(2^32) = 2^32
-    for _ in range(33):                        # least x with f32(x) >= P
-        mid = np.floor((lo + hi) / 2)
-        reach = mid.astype(np.float32).astype(np.float64) >= target
-        hi = np.where(reach, mid, hi)
-        lo = np.where(reach, lo, mid + 1)
-    return hi.astype(np.uint64)
-
-
 @functools.lru_cache(maxsize=16)
 def _bounds_arg(inv_temp: float):
-    values = draw_bounds(metropolis.acceptance_table(inv_temp).numpy())
+    values = metropolis.draw_bounds(
+        metropolis.acceptance_table(inv_temp).numpy())
     return (ctypes.c_uint64 * metropolis.TABLE_SIZE)(*values.tolist())
 
 

@@ -68,6 +68,16 @@ def test_stencil_update_kernel_matches_plain(cuda, n, h, is_black, offset):
     (64, 128, 128, 256, 4, 4),
     (64, 128, 16, 32, 2, 5),     # several tiles, two launches and a third
     (30, 14, 7, 3, 3, 3),        # ragged tiles, halo wider than the plane
+    # plane widths around the kernel's 4-cell words and 32-word rows:
+    # cell by cell (3, 5, 127, 129, 130), tiles whose width is not a
+    # multiple of 4 and extended rows that are not (13 + 2 x 4)
+    (12, 6, 5, 3, 1, 2),
+    (20, 10, 8, 5, 2, 3),
+    (16, 254, 8, 120, 2, 2),
+    (10, 258, 5, 120, 1, 1),
+    (16, 260, 8, 13, 3, 3),
+    (16, 260, 6, 248, 2, 1),
+    (48, 512, 16, 248, 2, 3),    # word loads, inner and edge tiles
 ])
 def test_resident_kernel_matches_plain(cuda, n, m, tile_r, tile_c, k,
                                        n_sweeps):
@@ -83,6 +93,33 @@ def test_resident_kernel_matches_plain(cuda, n, m, tile_r, tile_c, k,
     torch.cuda.synchronize()
     assert stencil_sweeps_resident.launches == before - (-n_sweeps // k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("shard", [False, True])
+def test_stencil_kernels_cold_all_up_never_flip(cuda, shard):
+    """At T = 0.05 the table's -8 beta entries underflow to 0, and from
+    all-up planes no draw may flip a spin (draw bound 0)."""
+    n, h = 40, 132
+    up = torch.ones((n, h), dtype=torch.int8, device=cuda)
+    table = metropolis.acceptance_table(1 / 0.05)
+    assert float(table.min()) == 0.0
+    if shard:
+        r = np.random.default_rng(3)
+        gidx = torch.tensor(r.integers(0, 2 ** 32, (n, h), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32), device=cuda)
+        got = dk.stencil_shard_sweeps(up, up.clone(), table, gidx,
+                                      n_sweeps=3, seed=SEED,
+                                      start_offset=2 ** 32 - 3,
+                                      tile=(16, 120, 256))
+    else:
+        plan = dataclasses.replace(
+            resident.plan_resident("stencil", n, 2 * h), k=3, tile_rows=16,
+            tile_cols=120)
+        got = stencil_sweeps_resident(up, up.clone(), table, n_sweeps=3,
+                                      seed=SEED, start_offset=2 ** 32 - 3,
+                                      plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], up) and torch.equal(got[1], up)
 
 
 def test_planner_and_kernel_agree_on_shared_memory(cuda):
@@ -105,7 +142,9 @@ def test_oversized_tile_raises(cuda):
 
 @pytest.mark.parametrize("tier", ["k-sweep", "half-sweep"])
 def test_session_on_card_equals_cpu(cuda, tier):
-    spec = RunSpec(lattice=LatticeSpec(64, 96), temperature=2.1, seed=SEED)
+    spec = RunSpec(lattice=LatticeSpec(64, 96),
+                   engine=EngineSpec("stencil_pallas"), temperature=2.1,
+                   seed=SEED)
     cpu = Session.open(spec, device="cpu")
     cpu.run(7)
     card = Session.open(
@@ -329,13 +368,28 @@ def shard_inputs(family, n, w, seed, device):
     return b, w_, table, index
 
 
-@pytest.mark.parametrize("family", sorted(SHARD_KERNELS))
-@pytest.mark.parametrize("n,w,n_sweeps,tile", [
+SHARD_CASES = [
     (14, 10, 1, None),
     (14, 10, 3, None),            # the halo wraps over the whole plane
     (40, 36, 2, (16, 8, 128)),    # several ragged tiles
     (70, 200, 3, (24, 40, 512)),
-])
+]
+#: the stencil kernel's 4-cell words: extended widths 3, 5, 127, 129 and
+#: 130, tiles whose width is not a multiple of 4, word loads
+STENCIL_SHARD_CASES = [
+    (12, 3, 1, (6, 3, 64)),
+    (14, 5, 2, (6, 5, 64)),
+    (10, 127, 2, (8, 120, 256)),
+    (10, 129, 1, (5, 120, 64)),
+    (16, 130, 3, (8, 13, 96)),
+    (40, 512, 2, (16, 248, 256)),
+]
+
+
+@pytest.mark.parametrize("family,n,w,n_sweeps,tile", [
+    (family, *case) for case in SHARD_CASES
+    for family in sorted(SHARD_KERNELS)] + [
+    ("stencil", *case) for case in STENCIL_SHARD_CASES])
 def test_shard_kernel_matches_plain(cuda, family, n, w, n_sweeps, tile):
     """The whole extended plane, edge rings included, with random index
     planes."""

@@ -105,6 +105,35 @@ def test_plain_shard_kernel_equals_jax(family, n_sweeps):
             g.numpy(), x.view(np.int32) if x.dtype == np.uint32 else x)
 
 
+@pytest.mark.parametrize("n,w,n_sweeps,tile_r,tile_c", [
+    (14, 10, 1, 8, 8),
+    (12, 3, 1, 6, 3),         # extended widths 3 and 5: under a word
+    (14, 5, 2, 6, 5),
+    (10, 129, 1, 5, 120),     # past a row of 32 words
+    (16, 130, 3, 8, 13),      # tiles whose width is not a multiple of 4
+])
+def test_stencil_shard_kernel_schedule_equals_plain(n, w, n_sweeps, tile_r,
+                                                    tile_c):
+    """The CUDA stencil shard kernel's schedule (the tile emulation of
+    ``test_torch_stencil``, keyed on gidx: a region one ring smaller
+    each half-sweep in whole 4-cell words, the accept on integer draw
+    bounds) gives the plain version's whole extended planes with random
+    index planes and a start offset that wraps."""
+    from test_torch_stencil import tiled_sweeps
+    r = np.random.default_rng(n * w + n_sweeps)
+    b, w_ = (torch.tensor(np.where(r.random((n, w)) < 0.5, 1, -1)
+                          .astype(np.int8)) for _ in range(2))
+    gidx = words(r.integers(0, 2 ** 32, (n, w), dtype=np.uint64)
+                 .astype(np.uint32))
+    table = metropolis.acceptance_table(1.0 / TEMPERATURE)
+    want = dk.stencil_shard_sweeps_plain(b, w_, table, gidx,
+                                         n_sweeps=n_sweeps, seed=SEED,
+                                         start_offset=2 ** 32 - 3)
+    got = tiled_sweeps(b, w_, table, n_sweeps, SEED, 2 ** 32 - 3, tile_r,
+                       tile_c, gidx=gidx)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_shard_kernel_rejects_bad_index_planes():
     b = torch.ones((6, 4), dtype=torch.int8)
     table = metropolis.acceptance_table(0.5)
@@ -170,14 +199,23 @@ def test_plan_shared_memory_budget_demotes():
                                                 ("multispin", 4),
                                                 ("bitplane", 5)])
 def test_plan_shared_memory_counts_index_planes(family, index_bytes):
+    """The word families keep row and column index tables; the stencil
+    kernel keeps none, and its rows are whole 4-cell words: a left halo
+    of 2k rounded up to 4, and the row rounded up to 4 (10 + 2 x 4 = 18
+    -> 20 cells)."""
     g = GEOMETRY[family]
-    er, ec = 8 + 4, 10 + 4
+    if family == "stencil":
+        er, ec = 8 + 4, 20
+        tables = 0
+    else:
+        er, ec = 8 + 4, 10 + 4
+        tables = 4 * (er + ec)
     assert shard_smem_bytes(family, 8, 10, 1) == (
-        4 * (er + ec) + g.table_bytes
+        tables + g.table_bytes
         + (index_bytes + 2 * g.element_bytes) * er * ec)
 
 
-@pytest.mark.parametrize("family,n,tile", [("stencil", 32768, (128, 128)),
+@pytest.mark.parametrize("family,n,tile", [("stencil", 32768, (64, 248)),
                                            ("multispin", 32768, (48, 128)),
                                            ("bitplane", 16384, (48, 128))])
 def test_plan_of_the_main_paths(family, n, tile):

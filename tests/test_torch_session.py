@@ -172,7 +172,8 @@ def test_port_checkpoint_resumes_in_reference(reference, tmp_path):
 
 
 def test_restore_continue_equals_uninterrupted(tmp_path):
-    spec = RunSpec(lattice=LatticeSpec(12, 20), temperature=1.9,
+    spec = RunSpec(lattice=LatticeSpec(12, 20),
+                   engine=EngineSpec("stencil_pallas"), temperature=1.9,
                    seed=2 ** 50 + 1)
     a = Session.open(spec, device="cpu")
     a.run(3)
@@ -277,7 +278,9 @@ def test_fresh_word_session_holds_the_single_lattice_init(engine):
     word = Session.open(RunSpec(lattice=lattice,
                                 engine=EngineSpec(engine, params),
                                 seed=SEED), device="cpu")
-    plain = Session.open(RunSpec(lattice=lattice, seed=SEED), device="cpu")
+    plain = Session.open(RunSpec(lattice=lattice,
+                                 engine=EngineSpec("stencil_pallas"),
+                                 seed=SEED), device="cpu")
     assert torch.equal(word.full_lattice(), plain.full_lattice())
 
 
@@ -293,19 +296,22 @@ def test_unported_engine_checkpoint_raises(tmp_path):
 
 def test_entry_points_raise_without_gpu(monkeypatch, reference):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    spec = RunSpec(lattice=LatticeSpec(8, 8))
+    spec = RunSpec(lattice=LatticeSpec(8, 8),
+                   engine=EngineSpec("stencil_pallas"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Session.open(spec)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Session.restore(reference["path"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["run", "--n", "8", "--sweeps", "1"])
+        cli.main(["run", "--n", "8", "--engine", "stencil_pallas",
+                  "--sweeps", "1"])
 
 
 def test_cli_runs_saves_and_restores_on_cpu(tmp_path, capsys):
     path = str(tmp_path / "cli.npz")
     assert cli.main(["run", "--device", "cpu", "--n", "16", "--m", "8",
-                     "--init-p-up", "1.0", "--temperature", "1.5",
+                     "--engine", "stencil_pallas", "--init-p-up", "1.0",
+                     "--temperature", "1.5",
                      "--seed", str(2 ** 33), "--n-measure", "2",
                      "--measure-every", "2", "--sweeps", "3",
                      "--save", path]) == 0
@@ -315,7 +321,7 @@ def test_cli_runs_saves_and_restores_on_cpu(tmp_path, capsys):
     assert s.step_count == 7 and s.spec.lattice.m == 8
     assert cli.main(["run", "--device", "cpu", "--restore", path,
                      "--sweeps", "1"]) == 0
-    assert cli.main(["run", "--device", "cpu", "--n", "8"]) == 2
+    assert cli.main(["run", "--device", "cpu", "--n", "16"]) == 2
 
 
 _ISOLATED = r"""
@@ -326,7 +332,8 @@ import repro_torch
 for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(info.name)
 from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, Session
-s = Session.open(RunSpec(lattice=LatticeSpec(8, 8), seed=2 ** 40),
+s = Session.open(RunSpec(lattice=LatticeSpec(8, 8),
+                         engine=EngineSpec("stencil_pallas"), seed=2 ** 40),
                  device="cpu")
 s.run(2)
 print(s.state_digest())

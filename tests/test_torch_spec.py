@@ -30,6 +30,7 @@ def test_reference_json_reads_in_port_and_back(sweep):
 
 def test_port_json_reads_in_reference():
     port = tspec.RunSpec(lattice=tspec.LatticeSpec(16, 8, init_p_up=0.25),
+                         engine=tspec.EngineSpec("stencil_pallas"),
                          temperature=1.5, seed=2 ** 63,
                          sweep=tspec.SweepSpec(thermalize=1, n_measure=3))
     ref = japi.RunSpec.from_json(port.to_json())
@@ -38,9 +39,46 @@ def test_port_json_reads_in_reference():
 
 
 def test_port_defaults_to_stencil_pallas():
-    spec = tspec.RunSpec.from_dict({"lattice": {"n": 8, "m": 8}})
-    assert spec.engine.name == "stencil_pallas"
+    """Named for the port's first default engine; the default is now the
+    JAX package's, ``multispin``, and ``stencil_pallas`` is asked for by
+    name."""
+    spec = tspec.RunSpec.from_dict({"lattice": {"n": 16, "m": 16}})
+    assert spec.engine.name == "multispin"
     assert spec.sim_config().inv_temp == 1.0 / spec.temperature
+    named = tspec.RunSpec.from_dict({"lattice": {"n": 8, "m": 8},
+                                     "engine": {"name": "stencil_pallas"}})
+    assert named.engine.name == "stencil_pallas"
+
+
+@pytest.mark.parametrize("package", [japi, tspec], ids=["jax", "port"])
+def test_spec_without_engine_opens_multispin(package):
+    """A spec JSON without an ``engine`` key names one engine in both
+    packages: the reference's default, ``multispin``."""
+    doc = json.dumps({"lattice": {"n": 16, "m": 32}})
+    spec = package.RunSpec.from_json(doc)
+    assert spec.engine.name == "multispin"
+    assert spec.sim_config().engine == "multispin"
+    assert tspec.RunSpec.from_json(spec.to_json()).engine.name == \
+        japi.RunSpec.from_json(spec.to_json()).engine.name
+
+
+def test_sim_config_defaults_agree():
+    from repro.core.sim import SimConfig as JaxSimConfig
+    from repro_torch.core.sim import SimConfig
+    assert SimConfig().engine == JaxSimConfig().engine == "multispin"
+
+
+@pytest.mark.parametrize("cli", ["repro.__main__", "repro_torch.__main__"])
+def test_cli_engine_default_is_multispin(cli, monkeypatch):
+    """``run`` without ``--engine`` builds a ``multispin`` spec in both
+    command lines."""
+    import importlib
+    mod = importlib.import_module(cli)
+    built = []
+    monkeypatch.setattr(mod, "cmd_run",
+                        lambda args: built.append(mod._build_spec(args)) or 0)
+    assert mod.main(["run", "--n", "16", "--sweeps", "1"]) == 0
+    assert built[0].engine.name == "multispin"
 
 
 @pytest.mark.parametrize("extra", [

@@ -14,11 +14,12 @@ from repro.core import metropolis as jmetro
 from repro.kernels.stencil.resident import \
     stencil_sweeps_resident as jax_resident
 from repro.kernels.stencil.stencil import stencil_update as jax_update
-from repro_torch.api import LatticeSpec, RunSpec, Session
+from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, Session
 from repro_torch.core import metropolis, rng
 from repro_torch.kernels import resident
 from repro_torch.kernels.stencil import (stencil_sweeps_resident,
                                          stencil_update)
+from repro_torch.kernels.stencil.stencil import bounds_arg
 
 BETA = 1 / 1.7
 SEED = 2 ** 40 + 7
@@ -136,24 +137,39 @@ def test_resident_equals_half_sweeps_both_sides_of_planner(budget_k,
     assert torch.equal(got[0], rb) and torch.equal(got[1], rw)
 
 
-def tiled_sweeps(black, white, table, k, seed, start, tile_r, tile_c):
-    """PyTorch emulation of ``stencil_sweeps_resident_kernel``: every tile
-    plus a halo of 2k (indices wrapped modulo n and h) runs 2k
-    half-sweeps on its own, keyed on global (row, col); only the tile is
-    written back.  The extended tile's outer ring sees wrong neighbours,
-    as in the kernel."""
+def tiled_sweeps(black, white, table, k, seed, start, tile_r, tile_c,
+                 gidx=None):
+    """PyTorch emulation of ``stencil_sweeps_kernel`` (``csrc/
+    stencil.cu``): every tile plus a halo (2k rows above and below; 2k
+    columns rounded up to a 4-cell word on the left, and the row rounded
+    up to whole words), indices wrapped modulo n and h, runs 2k
+    half-sweeps on its own; half-sweep q updates the rows at distance >=
+    q + 1 from the extended tile's edge and the whole words holding the
+    columns at that distance; a cell flips iff its raw draw is below its
+    entry of ``draw_bounds``; only the tile is written back.  Draws are
+    keyed on global (row, col), or on ``gidx`` (the shard kernel, whose
+    extended plane is the lattice here).  The extended tile's edge cells
+    see wrong neighbours, as in the kernel."""
     n, h = black.shape
     halo = 2 * k
+    left = -(-halo // 4) * 4
+    er, ec = tile_r + 2 * halo, -(-(tile_c + 2 * left) // 4) * 4
     k0, k1 = rng.seed_keys(seed)
+    bounds = torch.from_numpy(
+        metropolis.draw_bounds(table.numpy()).astype(np.int64))
     out_b, out_w = torch.empty_like(black), torch.empty_like(white)
     for r0 in range(0, n, tile_r):
         for c0 in range(0, h, tile_c):
-            rows = torch.arange(r0 - halo, r0 + tile_r + halo) % n
-            cols = torch.arange(c0 - halo, c0 + tile_c + halo) % h
+            rows = torch.arange(r0 - halo, r0 - halo + er) % n
+            cols = torch.arange(c0 - left, c0 - left + ec) % h
             ext = [black[rows][:, cols].clone(), white[rows][:, cols].clone()]
-            site = rows[:, None] * h + cols[None, :]
+            site = (rows[:, None] * h + cols[None, :] if gidx is None
+                    else gidx.to(torch.int64)[rows][:, cols] & rng.MASK32)
             for s in range(k):
                 for color in (0, 1):
+                    m = 2 * s + color + 1
+                    region = torch.zeros((er, ec), dtype=torch.bool)
+                    region[m:er - m, 4 * (m // 4):4 * ((ec - m + 3) // 4)] = 1
                     tgt, op = ext[color], ext[1 - color]
                     plus = ((rows % 2 == 1) == (color == 0))[:, None]
                     side = torch.where(plus, torch.roll(op, -1, 1),
@@ -163,12 +179,12 @@ def tiled_sweeps(black, white, table, k, seed, start, tile_r, tile_c):
                     bits = rng.philox4x32(
                         rng.half_sweep_offset(start, s, color), 0, site, 0,
                         k0, k1)[0]
-                    u = rng.u32_to_uniform(bits)
-                    accept = table[(tgt > 0).to(torch.int64) * 5
+                    bound = bounds[(tgt > 0).to(torch.int64) * 5
                                    + (nn + 4) // 2]
-                    ext[color] = torch.where(u < accept, -tgt, tgt)
+                    ext[color] = torch.where(region & (bits < bound), -tgt,
+                                             tgt)
             rr = slice(halo, halo + min(tile_r, n - r0))
-            cc = slice(halo, halo + min(tile_c, h - c0))
+            cc = slice(left, left + min(tile_c, h - c0))
             out_b[r0:r0 + tile_r, c0:c0 + tile_c] = ext[0][rr, cc]
             out_w[r0:r0 + tile_r, c0:c0 + tile_c] = ext[1][rr, cc]
     return out_b, out_w
@@ -178,14 +194,51 @@ def tiled_sweeps(black, white, table, k, seed, start, tile_r, tile_c):
     (16, 32, 8, 16, 1),     # tiles divide the plane
     (12, 20, 5, 3, 2),      # ragged tiles, odd tile rows
     (8, 8, 8, 4, 3),        # halo wider than the plane: multiple wraps
+    (12, 26, 5, 6, 2),      # plane width 13, not a multiple of 4
+    (10, 6, 4, 3, 1),       # plane width 3, narrower than a word
+    (8, 260, 4, 13, 3),     # width 130; a tile row of 13 + 2 x 8 cells
 ])
 def test_tiled_k_sweeps_equal_whole_lattice_sweeps(n, m, tile_r, tile_c, k):
-    """The halo argument the CUDA k-sweep kernel rests on."""
+    """The halo argument the CUDA k-sweep kernel rests on, with its
+    schedule: a region one ring smaller each half-sweep, in whole words,
+    and the accept on integer draw bounds."""
     b, w = planes(n, m, seed=n + k)
     table = metropolis.acceptance_table(BETA)
     want = metropolis.run_sweeps_philox(t(b), t(w), table, k, SEED, 2)
     got = tiled_sweeps(t(b), t(w), table, k, SEED, 2, tile_r, tile_c)
     assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+
+
+@pytest.mark.parametrize("temperature", [0.05, 1.0, 2.0, 2.2, 3.0, 5.0])
+def test_stencil_draw_bounds_decide_as_the_float_compare(temperature):
+    """The bounds the stencil k-sweep wrappers hand their kernels
+    (``bounds_arg``, ``metropolis.draw_bounds``): for each entry, the
+    draw just below its bound flips and the bound itself does not under
+    ``u32_to_uniform(draw) < p``, where those draws exist; random draws
+    decide alike; p = 0, 1 and > 1 give 0, 2^32 - 128 and 2^32."""
+    table = metropolis.acceptance_table(1.0 / temperature)
+    p = table.numpy()
+    bounds = np.array(list(bounds_arg(table)), dtype=np.int64)
+    np.testing.assert_array_equal(bounds, metropolis.draw_bounds(p))
+
+    def accepts(draws, entry):
+        u = rng.u32_to_uniform(torch.tensor(draws, dtype=torch.int64))
+        return (u < float(p[entry])).numpy()
+
+    for entry, bound in enumerate(bounds):
+        if bound >= 1:
+            assert accepts([bound - 1], entry).all()
+        if bound < 2 ** 32:
+            assert not accepts([bound], entry).any()
+    draws = np.random.default_rng(int(temperature * 100)).integers(
+        0, 2 ** 32, 10 ** 5)
+    for entry, bound in enumerate(bounds):
+        np.testing.assert_array_equal(draws < bound, accepts(draws, entry))
+    np.testing.assert_array_equal(bounds[p == 0], 0)
+    np.testing.assert_array_equal(bounds[p == 1], 2 ** 32 - 128)
+    np.testing.assert_array_equal(bounds[p > 1], 2 ** 32)
+    assert (p == 0).any() == (temperature < 0.077)
+    assert (p == 1).any() and (p > 1).any()
 
 
 def test_planner_default_and_boundary():
@@ -206,7 +259,8 @@ def test_planner_default_and_boundary():
 def test_planner_reads_budget_at_call_time():
     """The budget given when an engine is built decides its tier; the
     default is the card's."""
-    spec = RunSpec(lattice=LatticeSpec(64, 64), seed=3)
+    spec = RunSpec(lattice=LatticeSpec(64, 64),
+                   engine=EngineSpec("stencil_pallas"), seed=3)
     assert Session.open(spec, device="cpu").engine.resident_plan.k == \
         resident.MAX_SWEEPS_PER_LAUNCH
     s = Session.open(spec, device="cpu", resident_budget_bytes=0)

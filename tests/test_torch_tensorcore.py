@@ -31,7 +31,6 @@ from repro_torch.core import tensorcore as tc
 from repro_torch.kernels.tensorcore import (run_sweeps_tensorcore,
                                             tensorcore_update,
                                             tensorcore_update_plain)
-from repro_torch.kernels.tensorcore.tensorcore import draw_bounds
 
 TEMPERATURE = 2.2
 BETA = 1.0 / TEMPERATURE
@@ -210,7 +209,7 @@ def test_draw_bounds_decide_as_the_float_compare(temperature):
     draws that round to 1.0, and random draws decide alike; at 0.02 and
     0.05 the table holds exact zeros, which no draw is below."""
     table = metropolis.acceptance_table(1.0 / temperature).numpy()
-    bounds = draw_bounds(table).astype(np.int64)
+    bounds = metropolis.draw_bounds(table).astype(np.int64)
     near = np.concatenate([bounds + d for d in (-2, -1, 0, 1, 2)]
                           + [[0, 1, 2 ** 32 - 129, 2 ** 32 - 128,
                               2 ** 32 - 1]])
