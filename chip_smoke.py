@@ -15,10 +15,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 2. build every CUDA source of ``src/repro_torch/csrc`` with nvcc (one
    nvcc per source, started together), read each kernel's SASS
    instruction mix with cuobjdump (the tensor-core kernel must hold
-   ``HMMA``) and the stencil k-sweep and shard kernels' site loops per
+   ``HMMA``), the stencil k-sweep and shard kernels' site loops per
    site update (``repro_torch.analysis.sass``: no float accept in
-   them), and check each family's planner shared memory against its
-   library's own query;
+   them), ``tensorcore_update``'s loop per plane position at the main
+   path's tile and the bitplane shard kernel's per word, by pipe, and
+   check each family's planner shared memory against its library's own
+   query;
 3. each kernel against its plain PyTorch version on the card, 0
    mismatches required, at small shapes, ragged tiles, a halo wider than
    the plane, seeds of at least 2^32, offsets near 2^31 and 2^32, and
@@ -31,11 +33,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``tensorcore_update`` at every block it takes on small ragged planes
    (also at T = 0.05 from all-up planes, where no spin may flip), at
    planes of 512^2 with blocks 16 and 64 (int8 and bf16) and at the main
-   path's 16384^2 planes with block 128, both colours; a block of 8 must
-   raise; each shard kernel on whole extended planes, with random planes
-   and random index planes and with the driver's own wrapped index
-   planes (at 512^2 and at the main path's shard), ``n_sweeps`` 1, 2
-   and 3, and its time at the main path's shard;
+   path's 16384^2 planes with block 128, both colours; on planes of one
+   tile more than a multiple of its persistent grid; at block 128 on a
+   512^2 lattice, both colours and types, with a hot table (every entry
+   1) and the cold one from all-up planes; at every tile it takes; a
+   block of 8 must raise; each shard kernel on whole extended planes,
+   with random planes and random index planes and with the driver's own
+   wrapped index planes (at 512^2 and at the main path's shard),
+   ``n_sweeps`` 1, 2 and 3, and its time at the main path's shard; the
+   bitplane one also at extended widths that are not whole groups and
+   on planes of which some 4-word groups are one Philox group and some
+   not;
 4. the Session at 512^2 for each engine: the card's k-sweep tier, its
    per-half-sweep tier (``resident_budget_bytes=0``) and the CPU plain
    versions give one ``state_digest``, and restore-continue equals the
@@ -99,56 +107,74 @@ HALF_SWEEP_CHECK = 10       # sweeps of the full-size half-sweep-tier paths
 TC_BLOCK = 128              # tensorcore main path's block (the default)
 TC_SMALL_PLANE = 512        # plane side of the small tensorcore checks
 TC_COLD_T = 0.05            # a temperature whose table holds exact zeros
+#: tensorcore planes of 5 x 53 tiles of the kernel's 64 x 128: one more
+#: than a grid of 2 x 132 blocks (or 132), so a block takes one tile more
+TC_RAGGED = (320, 6784)
+#: tensorcore planes whose largest dividing tile (64, 32, 16 rows; 128,
+#: 64, 32, 16 columns) is each tile the kernel takes: (tile, planes)
+TC_TILE_PLANES = tuple(((r, c), (h, w))
+                       for r, h in ((64, 128), (32, 96), (16, 80))
+                       for c, w in ((128, 256), (64, 192), (32, 160),
+                                    (16, 144)))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 #: instructions per element update that no implementation of the
 #: kernels' algorithm avoids, by the SM pipe that executes them (the
-#: pipes run concurrently).  Integer multiplies run on the FMA pipe
-#: (a wide multiply counted once), logic, adds, shifts and compares on
-#: the ALU pipe, conversions on the XU pipe.
+#: pipes run concurrently).  Integer multiplies run on the FMA pipe: a
+#: wide multiply (both halves, IMAD.WIDE.U32, or the high half alone,
+#: IMAD.HI) under "wide", at FMA_WIDE_SLOTS slots of the pipe, a low-half
+#: multiply and a float add under "fma", one slot; logic, adds, shifts
+#: and compares on the ALU pipe, conversions on the XU pipe.
 #: * stencil, per site: lane 0 of Philox4x32-10 at counter
 #:   (offset, 0, site, 0), key and offset the same for every site: 17
-#:   multiplies and 17 three-input XORs once the rounds' lanes that
-#:   depend on the offset alone and the last rounds' unused lanes are
-#:   taken out; 2 three-input adds (neighbour sum, table index), 1
-#:   compare, 1 select; 1 uint32 -> float conversion.
+#:   products, 16 wide and one low half (round 8's product of lane z,
+#:   whose high half only lanes 2 and 3 need), and 17 three-input XORs
+#:   once the rounds' lanes that depend on the offset alone and the last
+#:   rounds' unused lanes are taken out; 2 three-input adds
+#:   (neighbour sum, table index), 1 compare, 1 select; 1 uint32 -> float
+#:   conversion.
 #: * multispin, per word of 8 spins: two full Philox4x32-10 calls at
-#:   counters (2 off, 0, w, 0) and (2 off + 1, 0, w, 0): 18 multiplies
-#:   and 19 XORs each (the first round's offset product and the second
-#:   round's third lane are the same for every word), less the first
-#:   round's product of w and its XOR, which the two calls share: 35
-#:   multiplies, 37 XORs; 1 funnel shift and 2 three-input adds for the
-#:   neighbour sums; per nibble 1 index, 1 compare and 1 merge into the
-#:   flip word; 1 final XOR.
+#:   counters (2 off, 0, w, 0) and (2 off + 1, 0, w, 0): 18 wide
+#:   multiplies and 19 XORs each (the first round's offset product and
+#:   the second round's third lane are the same for every word), less the
+#:   first round's product of w and its XOR, which the two calls share:
+#:   35 wide multiplies, 37 XORs; 1 funnel shift and 2 three-input adds
+#:   for the neighbour sums; per nibble 1 index, 1 compare and 1 merge
+#:   into the flip word; 1 final XOR.
 #: * bitplane, per word of 32 replicas: a quarter of one full Philox
-#:   call (18 multiplies, 19 XORs per 4-site group); 5 three-input logic
-#:   operations of the carry-save count (sum and carry of up, down and
-#:   centre, then the count's three bits with the side word); per class
-#:   (10) 1 compare and 1 select to a 0 / ~0 accept mask; a tree of 9
-#:   three-input muxes: for each spin, the 5 masks of its classes by the
+#:   call (18 wide multiplies, 19 XORs per 4-site group); 5 three-input
+#:   logic operations of the carry-save count (sum and carry of up, down
+#:   and centre, then the count's three bits with the side word); per
+#:   class (10) 1 compare and 1 select to a 0 / ~0 accept mask; a tree of
+#:   9 three-input muxes: for each spin, the 5 masks of its classes by the
 #:   count's bit 0, bit 1 and bit 2 (4 muxes; count 4 has bits 0 and 1
 #:   clear), then the new word as t ? ~a1 : a0, the flip's XOR folded
 #:   into the last mux.
-#: * bitplane_shard, per word of 32 replicas: one whole Philox call per
-#:   site (18 multiplies, 19 XORs: an extended shard's columns need not
-#:   start on a group), a 4-way select of the site's lane (3 two-way
-#:   selects), then bitplane's accept; the stencil and multispin shard
-#:   kernels count as their families.
+#:   The shard kernels count as their families: the bitplane one draws
+#:   once per 4-word group too on the main path's index planes (the
+#:   driver's at k = 2 make every group one Philox group, lanes 0 to 3).
 #: * tensorcore, per plane position (a site of each of the two target
 #:   planes): lanes 0 and 1 of one Philox4x32-10 call at counter
-#:   (offset, 0, position, 0): 18 multiplies (the first round's offset
-#:   product is the same everywhere, the last round's second product
-#:   unused) and 18 XORs; per site 1 add that turns the f32 sum into the
-#:   bound's index, 1 compare of the draw with the bound, 1 merge of the
-#:   flip; on the tensor pipe the banded products' FLOP
-#:   (``tensorcore_flop_per_position``).
+#:   (offset, 0, position, 0): lane 0's 16 wide multiplies, one low half
+#:   and 17 XORs, as for stencil, since round 9's one wide multiply
+#:   gives both lanes; per site 1 compare of the draw with the bound and
+#:   1 merge of the flip (the sums come out of the products as the
+#:   bound's index: they start at 2^23 + 2^22 + 4 inside the mma, so no
+#:   float add); on the tensor pipe the banded products' FLOP at the
+#:   kernel's own tile (``tensorcore_flop_per_position``).
 PIPE_OPS = {
-    "stencil": {"fma": 17, "alu": 21, "xu": 1},
-    "multispin": {"fma": 2 * 18 - 1, "alu": 2 * 19 - 1 + 3 + 8 * 3 + 1,
-                  "xu": 0},
-    "bitplane": {"fma": 18 / 4, "alu": 19 / 4 + 5 + 10 * 2 + 9, "xu": 0},
-    "bitplane_shard": {"fma": 18, "alu": 19 + 3 + 5 + 10 * 2 + 9, "xu": 0},
-    "tensorcore": {"fma": 18 + 2, "alu": 18 + 2 * 2, "xu": 0},
+    "stencil": {"wide": 16, "fma": 1, "alu": 21, "xu": 1},
+    "multispin": {"wide": 2 * 18 - 1, "fma": 0,
+                  "alu": 2 * 19 - 1 + 3 + 8 * 3 + 1, "xu": 0},
+    "bitplane": {"wide": 18 / 4, "fma": 0, "alu": 19 / 4 + 5 + 10 * 2 + 9,
+                 "xu": 0},
+    "tensorcore": {"wide": 16, "fma": 1, "alu": 17 + 2 * 2, "xu": 0},
 }
+#: FMA-pipe slots of one wide multiply: ``python -m
+#: repro_torch.analysis.issue_rate`` times lane-0 Philox (16 wide
+#: multiplies and 1 low half a site) at about 0.56 SM clocks a site on an
+#: H100 SXM at 700 W (PERF.md), near what two of the pipe's 64 slots a
+#: clock a wide multiply predict (33 / 64 = 0.516), far from one (0.27)
+FMA_WIDE_SLOTS = 2
 #: results per clock per SM on compute capability 9.0 (CUDA C++
 #: Programming Guide, arithmetic instruction throughput): 32-bit integer
 #: multiply 64, add, logic and compare 64, type conversions 16; dense bf16
@@ -200,6 +226,16 @@ STENCIL_SHARD_EDGE_CASES = (((12, 3), 1, (6, 3, 64)),
                             ((10, 129), 1, (5, 120, 64)),
                             ((16, 130), 3, (8, 13, 96)),
                             ((40, 512), 2, (16, 248, 256)))
+#: the redesigned kernels' inner loops in phase 2's SASS: (kernel, the
+#: element a pass updates, bytes it stores a element, an opcode the loop
+#: holds): tensorcore_update's column-tile loop on int8 planes at the
+#: main path's tile (a position stores a byte of each target), the
+#: bitplane shard kernel's group loop (a word stores 4 bytes)
+SASS_LOOPS = {
+    "tensorcore": ("tensorcore_update_kernel<a,{tile_rows},{tile_cols}>",
+                   "position", 2, "HMMA"),
+    "bitplane": ("bitplane_shard_sweeps_kernel", "word", 4, "IMAD.WIDE"),
+}
 MESH = (2, 2)               # the sharded main paths' mesh
 SMALL_MESHES = ((1, 1), (2, 2), (4, 1), (2, 1, 2))
 
@@ -216,31 +252,33 @@ def nvidia_smi(query: str) -> str:
     return out.strip().splitlines()[0]
 
 
-def tensorcore_flop_per_position(block: int) -> float:
-    """Tensor-core FLOP per plane position of ``csrc/tensorcore.cu``: for
-    each 16 x 8 output tile, the mma.sync k-steps of its four banded
-    products whose K tile is not all zero (the only ones the kernel
-    runs), 2 * 16 * 8 * 16 FLOP each."""
+def tensorcore_flop_per_position(rows: int, cols: int) -> float:
+    """Tensor-core FLOP per plane position of ``csrc/tensorcore.cu`` at
+    its tile of rows x cols: for each 16 x 8 output tile, the mma.sync
+    k-steps of its four banded products whose K tile is not all zero (the
+    only ones the kernel runs; the column products' K is cols deep, the
+    row products' rows deep), 2 * 16 * 8 * 16 FLOP each."""
     steps = 0
-    for r0 in range(0, block, 16):
-        for c0 in range(0, block, 8):
-            for lo, hi in ((c0 - 1, c0 + 7), (c0, c0 + 8), (r0, r0 + 16),
-                           (r0 - 1, r0 + 15)):
-                steps += sum(1 for k0 in range(0, block, 16)
+    for r0 in range(0, rows, 16):
+        for c0 in range(0, cols, 8):
+            for lo, hi, depth in ((c0 - 1, c0 + 7, cols), (c0, c0 + 8, cols),
+                                  (r0, r0 + 16, rows),
+                                  (r0 - 1, r0 + 15, rows)):
+                steps += sum(1 for k0 in range(0, depth, 16)
                              if lo <= k0 + 15 and hi >= k0)
-    return steps * 2 * 16 * 8 * 16 / block ** 2
-
-
-PIPE_OPS["tensorcore"]["tensor"] = tensorcore_flop_per_position(TC_BLOCK)
+    return steps * 2 * 16 * 8 * 16 / (rows * cols)
 
 
 def clocks_per_element(family: str) -> float:
     """SM clocks per element update at the busiest pipe, or at the
     dispatch rate (of the pipes other than the tensor cores' FLOP) where
     that is lower."""
-    ops = PIPE_OPS[family]
+    ops = dict(PIPE_OPS[family])
+    wide = ops.pop("wide")
+    ops["fma"] += FMA_WIDE_SLOTS * wide
     pipes = max(ops[p] / PIPE_PER_CLOCK_PER_SM[p] for p in ops)
-    issued = sum(v for p, v in ops.items() if p != "tensor")
+    issued = wide + sum(v for p, v in PIPE_OPS[family].items()
+                        if p not in ("tensor", "wide"))
     return max(pipes, issued / DISPATCH_PER_CLOCK_PER_SM)
 
 
@@ -299,6 +337,8 @@ def main() -> int:
     from repro_torch.dist import driver as shard_driver
     from repro_torch.dist import planner as shard_planner
     from repro_torch.kernels import _build, resident
+    from repro_torch.kernels.tensorcore.tensorcore import (CUDA_BLOCKS,
+                                                           kernel_geometry)
     from repro_torch.launch.mesh import make_mesh
 
     t_start = time.perf_counter()
@@ -350,6 +390,24 @@ def main() -> int:
                                                    "FSETP")
                               for op in loop["opcodes_per_site"]),
                       f"{loop['kernel']}: a float accept in the site loop")
+        if b.name in SASS_LOOPS:
+            kernel, unit, bytes_per, holds = SASS_LOOPS[b.name]
+            if b.name == "tensorcore":
+                kernel = kernel.format(**kernel_geometry(FULL_N // 2,
+                                                         FULL_N // 2))
+            loops = [lp for lp in sass.site_loops(code, kernel)
+                     if any(op.startswith(holds)
+                            for op in lp["opcodes_per_site"])]
+            check(bool(loops), f"no {unit} loop found in {kernel}")
+            for loop in loops:
+                pipes = {p: round(v * bytes_per, 2)
+                         for p, v in loop["per_site"].items()}
+                top = {o: round(v * bytes_per, 2) for o, v in
+                       list(loop["opcodes_per_site"].items())[:8]}
+                print(f"  SASS {unit} loop {loop['kernel']} {loop['range']}: "
+                      f"{loop['sites'] // bytes_per} {unit}s a pass, per "
+                      f"{unit} {loop['per_site_total'] * bytes_per:.2f} "
+                      f"instructions {pipes}; most issued {top}")
     from repro_torch.dist import kernels as shard_kernels
     for family in ("stencil", "multispin", "bitplane"):
         lib = importlib.import_module(
@@ -498,7 +556,6 @@ def main() -> int:
     tc_update = "tensorcore_update"
     tc_plane = (FULL_N // 2, FULL_N // 2)
     tc_beta = 1.0 / TEMPERATURE
-    from repro_torch.kernels.tensorcore.tensorcore import CUDA_BLOCKS
     # every block the kernel takes, on (2B, 3B) planes, both types and
     # colours: at TEMPERATURE from random planes, and at TC_COLD_T from
     # all-up planes, where the table's -8 beta entries underflow to 0
@@ -543,6 +600,53 @@ def main() -> int:
                     [want[k] for k in sorted(want)],
                     plain_ms if h == tc_plane[0] else None)
             del planes, want, got
+    # the persistent grid: a plane whose tiles are not a multiple of the
+    # grid's blocks; both colours at block 128 on a 512^2 lattice; a hot
+    # table (inverse temperature 0: every entry 1, nearly every spin
+    # flips) and the cold one from all-up planes (no spin flips); every
+    # tile the kernel takes, each on planes whose largest tile it is
+    ragged = kernel_geometry(TC_RAGGED[0], TC_RAGGED[1])
+    check(ragged["tiles"] > ragged["blocks"]
+          and ragged["tiles"] % ragged["blocks"] != 0,
+          f"tensorcore: {TC_RAGGED} planes have {ragged} tiles and blocks")
+    tc_cases = [(TC_RAGGED, 64, torch.int8, color, tc_beta, False)
+                for color in ("black", "white")]
+    tc_cases += [((SMALL_N // 2,) * 2, TC_BLOCK, dtype, color, beta, up)
+                 for dtype in (torch.int8, torch.bfloat16)
+                 for color in ("black", "white")
+                 for beta, up in ((tc_beta, False), (0.0, False),
+                                  (1.0 / TC_COLD_T, True))]
+    for tile, shape in TC_TILE_PLANES:
+        geometry = kernel_geometry(*shape)
+        check((geometry["tile_rows"], geometry["tile_cols"]) == tile,
+              f"tensorcore: {shape} planes take {geometry}, not {tile}")
+        tc_cases.append((shape, 16, torch.int8, "white", tc_beta, False))
+    for shape, block, dtype, color, beta, up in tc_cases:
+        planes = tc_random_planes(torch, shape[0], dtype, shape[1] + block,
+                                  shape[1])
+        if up:
+            planes = {k: v.abs() for k, v in planes.items()}
+        want = plains[tc_update](planes, color, beta, seed=SEED,
+                                 offset=2 ** 32 - 1, block=block)
+        got = wrappers[tc_update]({k: v.clone() for k, v in planes.items()},
+                                  color, beta, seed=SEED, offset=2 ** 32 - 1,
+                                  block=block)
+        torch.cuda.synchronize()
+        compare(tc_update, [got[k] for k in sorted(got)],
+                [want[k] for k in sorted(want)])
+        flipped = sum(int((got[k] != planes[k]).sum()) for k in got)
+        if beta == 0.0:
+            # p = 1 flips every draw but the top 2^-25 of them
+            check(flipped > 0.999 * 2 * planes["00"].numel(),
+                  "tensorcore: a hot table left spins unflipped")
+        if up:
+            check(flipped == 0,
+                  "tensorcore: a cold table flipped an aligned spin")
+        del planes, want, got
+    print(f"phase 3: {tc_update}: {TC_RAGGED} planes: tile "
+          f"{ragged['tile_rows']} x {ragged['tile_cols']}, {ragged['tiles']} "
+          f"tiles on {ragged['blocks']} blocks; hot and cold tables, every "
+          f"tile of {[t for t, _ in TC_TILE_PLANES]} checked")
     planes = tc_random_planes(torch, 64, torch.int8, 1)
     before = wrappers[tc_update].launches
     try:
@@ -556,14 +660,21 @@ def main() -> int:
     print(f"phase 3: {tc_update}: {cases} plane comparisons with the plain "
           f"version, {bad} mismatches, max abs err {err}; block 8 raises")
     check(bad == 0, f"{tc_update} disagrees with its plain version")
+    tc_geometry = kernel_geometry(*tc_plane)
+    PIPE_OPS["tensorcore"]["tensor"] = tensorcore_flop_per_position(
+        tc_geometry["tile_rows"], tc_geometry["tile_cols"])
     planes = tc_random_planes(torch, tc_plane[0], torch.int8, 2)
     kernel_ms[tc_update] = timed_ms(lambda: wrappers[tc_update](
         planes, "black", tc_beta, seed=SEED, offset=0, block=TC_BLOCK),
         reps=20)
     print(f"phase 3: tensorcore: ms per full sweep of a {FULL_N}^2 lattice "
-          f"(planes {tc_plane[0]}^2, block {TC_BLOCK}): "
+          f"(planes {tc_plane[0]}^2, block {TC_BLOCK}, the kernel's tile "
+          f"{tc_geometry['tile_rows']} x {tc_geometry['tile_cols']}, "
+          f"{tc_geometry['tiles']} tiles on {tc_geometry['blocks']} blocks): "
           f"{2 * kernel_ms[tc_update]:.4f}; plain version "
-          f"{stats[tc_update][3]:.1f} ms per half-sweep")
+          f"{stats[tc_update][3]:.1f} ms per half-sweep; bound: SM clocks "
+          f"per position {clocks_per_element('tensorcore'):.6f} (ops by "
+          f"pipe {PIPE_OPS['tensorcore']})")
     del planes
     full_plane["tensorcore"] = tc_plane
 
@@ -587,6 +698,18 @@ def main() -> int:
                 index.append(torch.randint(0, 6, shape, generator=gen,
                                            device="cuda", dtype=torch.int32))
             return index
+
+        def mixed_groups(n, w):
+            """Index planes of 4-word Philox groups (lanes 0..3), some
+            broken: a lane past 3, a group of two gidx, lanes out of
+            order."""
+            cols = torch.arange(w, device="cuda")
+            g = (torch.arange(n, device="cuda")[:, None] * 1000
+                 + cols[None, :] // 4)
+            ln = (cols % 4).expand(n, w).clone()
+            ln[3, 8], g[5, 13] = 7, g[5, 13] + 1
+            ln[9, 20:24] = torch.tensor([1, 0, 2, 3], device="cuda")
+            return [g.to(torch.int32), ln.to(torch.int32)]
 
         def driver_index(n, k, i):
             """The plan of ``MESH`` at ``n``^2 (k pinned unless None) and
@@ -612,6 +735,14 @@ def main() -> int:
             for shape, n_sweeps, case_tile in STENCIL_SHARD_EDGE_CASES:
                 cases.append((shape, n_sweeps, random_index(shape),
                               case_tile))
+        if family == "bitplane":
+            # extended widths that are not whole groups; groups of which
+            # some are one Philox group and some not
+            for shape, n_sweeps, case_tile in (((30, 41), 2, (12, 20, 64)),
+                                               ((22, 7), 3, (8, 4, 128))):
+                cases.append((shape, n_sweeps, random_index(shape),
+                              case_tile))
+            cases.append(((40, 72), 2, mixed_groups(40, 72), (16, 16, 256)))
         plan, index = driver_index(fn, None, 3)
         shard_plans[family] = plan
         ext = shard_shape[family] = (plan.n_loc + 2 * plan.halo,
@@ -675,8 +806,7 @@ def main() -> int:
         # reads its index planes once
         en, ew = shard_shape[family]
         bounds[f"{family}_shard_sweeps"] = bound(
-            "bitplane_shard" if family == "bitplane" else family,
-            (4 * size + SHARD_INDEX_BYTES[family]) * en * ew,
+            family, (4 * size + SHARD_INDEX_BYTES[family]) * en * ew,
             2 * shard_plans[family].k * en * ew, sm_clocks_per_s)
 
     # -- 4. Session at 512^2, both tiers and the CPU -----------------------

@@ -4,18 +4,22 @@
 
 Builds one small CUDA program with nvcc (into ``kernels/_build``'s
 directory) and times, with CUDA events at the card's maximum SM clock:
-lane 0 of Philox4x32-10 as ``csrc/stencil.cu`` draws it
-(``csrc/philox_lane0.cuh``) and as the general ``philox4x32_10`` gives
-it, 4 sites a thread and step with no memory traffic (SM clocks a site:
-the floor of a kernel that draws once a site); and chains of 32x32
+Philox4x32-10 with the offset's work hoisted (``csrc/philox_lane0.cuh``,
+``HoistedPhilox``) as the kernels draw it -- lane 0 (the stencil
+kernels), lanes 0 and 1 (``tensorcore_update``, also with its key's
+second word 0 as the kernel keys it) and all four lanes (the bitplane
+shard kernel's aligned groups) -- and lane 0 as the general
+``philox4x32_10`` gives it, 4 calls a thread and step with no memory
+traffic (SM clocks a call: the floor of a kernel that draws once a
+site, position or group); and chains of 32x32
 products, 16 independent chains a thread, whose rate bounds a multiply's
 throughput from below (products per SM clock): the wide multiply
 (``IMAD.WIDE.U32``, both halves), the high half alone (``IMAD.HI.U32``)
 and the low half alone (``IMAD``), each with one shift or XOR a step,
 and the shift and XOR alone.  The yardstick in ``chip_smoke.py``
-(``PIPE_OPS``) counts a wide multiply as one of 64 FMA-pipe results a
-clock; these rates say what the card does.  The last lines are the
-card's name and power limit.
+(``PIPE_OPS``, ``FMA_SLOTS``) counts a wide multiply as two of 64
+FMA-pipe slots a clock from these rates.  The last lines are the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -33,15 +37,28 @@ SOURCE = r"""
 #include "philox_lane0.cuh"
 using namespace repro_torch;
 
-__global__ void lane0(uint32_t* out, int iters, uint32_t off, uint32_t k0,
-                      uint32_t k1) {
-  const Lane0Philox ph(off, k0, k1);
+// lanes 1: lane 0; 2: lanes 0 and 1; 4: all four.  zero_key1: the key's
+// second word a literal 0, as tensorcore.cu keys it
+template <int lanes, bool zero_key1>
+__global__ void hoisted(uint32_t* out, int iters, uint32_t off, uint32_t k0,
+                        uint32_t k1) {
+  const HoistedPhilox ph(off, k0, zero_key1 ? 0u : k1);
   uint32_t acc = 0;
   uint32_t s = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
 #pragma unroll 1
   for (int i = 0; i < iters; ++i) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc += ph(s + e) >> 31;
+    for (int e = 0; e < 4; ++e) {
+      if (lanes == 1) acc += ph(s + e) >> 31;
+      if (lanes == 2) {
+        const uint2 d = ph.lanes01(s + e);
+        acc += (d.x >> 31) + (d.y >> 31);
+      }
+      if (lanes == 4) {
+        const uint4 d = ph.lanes(s + e);
+        acc += (d.x >> 31) + (d.y >> 31) + (d.z >> 31) + (d.w >> 31);
+      }
+    }
     s += 0x10000;
   }
   out[blockIdx.x * blockDim.x + threadIdx.x] = acc;
@@ -123,8 +140,25 @@ int main(int argc, char** argv) {
   cudaMalloc(&out, blocks * threads * 4);
   const double sites = 4.0 * blocks * threads * iters;
   timeit("lane-0 Philox (philox_lane0.cuh)", "site",
-         [&] { lane0<<<blocks, threads>>>(out, iters, 7, 11, 13); }, sites,
-         clocks_per_ms);
+         [&] {
+           hoisted<1, false><<<blocks, threads>>>(out, iters, 7, 11, 13);
+         },
+         sites, clocks_per_ms);
+  timeit("lanes 0-1 of hoisted Philox", "call",
+         [&] {
+           hoisted<2, false><<<blocks, threads>>>(out, iters, 7, 11, 13);
+         },
+         sites, clocks_per_ms);
+  timeit("lanes 0-1 of hoisted Philox, key (k0, 0)", "call",
+         [&] {
+           hoisted<2, true><<<blocks, threads>>>(out, iters, 7, 11, 13);
+         },
+         sites, clocks_per_ms);
+  timeit("lanes 0-3 of hoisted Philox", "call",
+         [&] {
+           hoisted<4, false><<<blocks, threads>>>(out, iters, 7, 11, 13);
+         },
+         sites, clocks_per_ms);
   timeit("philox4x32_10, lane 0", "site",
          [&] { general<<<blocks, threads>>>(out, iters, 7, 11, 13); }, sites,
          clocks_per_ms);

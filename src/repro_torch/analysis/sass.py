@@ -52,15 +52,18 @@ def disassemble(library_path, compiler: str) -> str:
 
 def _functions(sass: str):
     """``(name, body)`` of each kernel; a template instance's name
-    carries its arguments: kernelIaLi128EE -> <a,128> (a: int8, t: 16-bit
-    bf16 pattern), kernelILb1EE -> <true>."""
+    carries its arguments: kernelIaLi64ELi128EE -> <a,64,128> (a: int8,
+    t: 16-bit bf16 pattern), kernelILb1EE -> <true>."""
     for chunk in sass.split("Function : ")[1:]:
         found = re.search(r"([a-z][a-z_]*_kernel)(?:E|ILb(\d)EE|"
-                          r"I(\w)(?:Li(\d+)E)?E)", chunk)
+                          r"I(\w)((?:Li\d+E)*)E)", chunk)
         if found.group(2) is not None:
             args = ["true" if found.group(2) == "1" else "false"]
+        elif found.group(3) is not None:
+            args = [found.group(3)] + re.findall(r"Li(\d+)E",
+                                                 found.group(4))
         else:
-            args = [a for a in found.group(3, 4) if a]
+            args = []
         yield found.group(1) + (f"<{','.join(args)}>" if args else ""), chunk
 
 

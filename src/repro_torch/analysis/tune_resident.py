@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.analysis.tune_resident [--family F]
     PYTHONPATH=src python -m repro_torch.analysis.tune_resident --shard
+    PYTHONPATH=src python -m repro_torch.analysis.tune_resident --tensorcore
 
 For each kernel family, at the plane of its full-size main path in
 ``chip_smoke.py`` (stencil and multispin 32768^2, bitplane 16384^2),
@@ -12,9 +13,16 @@ untimed call, every kernel built before the first is timed.  These are
 the measurements behind ``repro_torch.kernels.resident.GEOMETRY``.
 With ``--shard`` it times the shard kernels of the sharded resident tier
 instead (``repro_torch.dist.kernels``), on the extended plane of one
-shard of the 2 x 2 main path at the planner's k with random index
-planes, times the 4 shards: the measurements behind
-``repro_torch.dist.planner.SHARD_TILES``.  The last two lines are the
+shard of the 2 x 2 main path at the planner's k with the driver's own
+index planes of that shard (for bitplane at k = 2 every 4-word group is
+one Philox group), times the 4 shards: the measurements behind
+``repro_torch.dist.planner.SHARD_TILES``.  With ``--tensorcore`` it times
+``tensorcore_update`` at the main path's four 16384^2 int8 planes and
+block 128, ms per half-sweep, at the kernel's own tile
+(``repro_torch.analysis.ablate`` times the other tiles).  Run as a file
+with another tree's ``src`` on ``PYTHONPATH`` (``python
+src/repro_torch/analysis/tune_resident.py``) it times that tree's
+kernels, as a parent's beside a change.  The last two lines are the
 card's name and power limit and one JSON object of every time.
 """
 from __future__ import annotations
@@ -55,6 +63,11 @@ CANDIDATES = {
                                                 (32, 256), (32, 128))
                  for k in (1, 2, 3) for t in (256, 512)],
 }
+
+#: the tensorcore main path: four (TC_PLANE, TC_PLANE) int8 planes of a
+#: 32768^2 lattice, ``tc_block`` TC_BLOCK, T = 2.0
+TC_PLANE = 16384
+TC_BLOCK = 128
 
 #: (tile rows, tile columns, threads) of the shard kernels; the
 #: stencil kernel's rows of whole warps of 4-cell words as above
@@ -137,28 +150,55 @@ def tune_shard(family: str, seed: int = 2 ** 33 + 5) -> dict:
     2 x 2 main path, at the planner's k, times the 4 shards."""
     from repro_torch.dist import kernels as dk
     from repro_torch.dist import planner
+    from repro_torch.core.distributed import ShardGrid
+    from repro_torch.dist import driver
+    from repro_torch.launch.mesh import make_mesh
     n, _ = FULL_PLANE[family]
     plan = planner.plan_shard_resident(family, n, n, 2, 2)
     shape = (plan.n_loc + 2 * plan.halo, plan.w_loc + 2 * plan.halo)
     kernel = getattr(dk, f"{family}_shard_sweeps")
     table = acceptance(family)
     b, w = random_planes(family, *shape, 2)
-    g = torch.Generator(device="cuda").manual_seed(3)
-    index = [torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
-                           device="cuda", dtype=torch.int32)]
-    if family == "bitplane":
-        index.append(torch.randint(0, 4, shape, generator=g, device="cuda",
-                                   dtype=torch.int32))
+    grid = ShardGrid.of(make_mesh((2, 2), ("data", "model")), n, plan.width)
+    index = driver.index_planes(plan, grid, 3)
     out = {}
     for tr, tc, threads in SHARD_CANDIDATES:
         if planner.shard_smem_bytes(family, tr, tc, plan.k) \
                 > plan.budget_bytes:
             continue
-        ms = timed_ms(lambda: kernel(b, w, table, *index, n_sweeps=plan.k,
-                                     seed=seed, start_offset=0,
-                                     tile=(tr, tc, threads)), reps=4)
+        try:
+            ms = timed_ms(lambda: kernel(
+                b, w, table, *index, n_sweeps=plan.k, seed=seed,
+                start_offset=0, tile=(tr, tc, threads)), reps=4)
+        except RuntimeError:
+            # a block of this many threads needs more registers than an
+            # SM has: the launch is refused
+            continue
         out[f"{tr}x{tc} {threads}t"] = 4 * ms / plan.k
     return out
+
+
+def tune_tensorcore(seed: int = 2 ** 33 + 5, lib=None) -> float:
+    """ms per half-sweep of ``tensorcore_update`` at the main path's
+    planes; with ``lib`` (``tensorcore.library(csrc_dir)`` of an edited
+    copy of ``csrc/tensorcore.cu``) of that library's kernel, launched
+    with the wrapper's arguments."""
+    from repro_torch.kernels.tensorcore import tensorcore as tcm
+    g = torch.Generator(device="cuda").manual_seed(2)
+    planes = {k: torch.randint(0, 2, (TC_PLANE, TC_PLANE), generator=g,
+                               device="cuda", dtype=torch.int8) * 2 - 1
+              for k in ("00", "01", "10", "11")}
+    inv_temp = 1.0 / TEMPERATURE["stencil"]
+    if lib is None:
+        return timed_ms(lambda: tcm.tensorcore_update(
+            planes, "black", inv_temp, seed=seed, offset=0, block=TC_BLOCK),
+            reps=20)
+    from repro_torch.kernels.stencil.stencil import raise_on_error
+    args = tcm.launch_args(planes, "black", inv_temp, seed=seed, offset=0,
+                           block=TC_BLOCK)
+    return timed_ms(lambda: raise_on_error(
+        lib, lib.tensorcore_update_launch(*args), "tensorcore_update"),
+        reps=20)
 
 
 def main(argv=None) -> int:
@@ -168,13 +208,20 @@ def main(argv=None) -> int:
     parser.add_argument("--shard", action="store_true",
                         help="time the shard kernels of the sharded "
                              "resident tier")
+    parser.add_argument("--tensorcore", action="store_true",
+                        help="time tensorcore_update instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_resident: no CUDA device", file=sys.stderr)
         return 1
     _build.build()
     results = {}
-    for family in args.family or FAMILIES:
+    if args.tensorcore:
+        results["tensorcore"] = {"default": tune_tensorcore()}
+        print(f"tensorcore_update, four {TC_PLANE}^2 int8 planes, block "
+              f"{TC_BLOCK}, ms per half-sweep: " + ", ".join(
+                  f"{c} {ms:.4f}" for c, ms in results["tensorcore"].items()))
+    for family in [] if args.tensorcore else args.family or FAMILIES:
         n, _ = FULL_PLANE[family]
         if args.shard:
             from repro_torch.dist.planner import plan_shard_resident

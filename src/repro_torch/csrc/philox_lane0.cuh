@@ -1,16 +1,27 @@
-// Lane 0 of Philox4x32-10 at counter (offset, 0, site, 0), for kernels
-// that draw once per site with one offset and one key for a whole
-// half-sweep (stencil.cu's k-sweep and shard kernels).
+// Philox4x32-10 at counter (offset, 0, site, 0) with the offset's work
+// hoisted, for kernels that draw with one offset and one key for a whole
+// half-sweep: lane 0 (stencil.cu's k-sweep and shard kernels), lanes 0
+// and 1 (tensorcore.cu: one per target plane) or all four lanes (the
+// bitplane shard kernel: one per word of a 4-word group).
 //
 // The same bits as philox4x32_10(make_uint4(offset, 0, site, 0), k0,
-// k1).x (philox.cuh).  What depends only on the offset and the key is
-// computed once per half-sweep, in the constructor: the key schedule,
-// round 0's product of the offset, round 1's product of the third lane
-// (which round 0 leaves the same for every site) and the XOR constants
-// they give.  Per site that leaves 17 32x32 products, each one wide
-// multiply (IMAD.WIDE.U32, round 9's high half alone IMAD.HI), and 18
-// XORs, most of them three-input: one product in rounds 0 and 1, two in
-// rounds 2 to 8, and in round 9 only lane x.
+// k1) (philox.cuh).  What depends only on the offset and the key is
+// computed once, in the constructor: the key schedule, round 0's product
+// of the offset, round 1's product of the third lane (which round 0
+// leaves the same for every site) and the XOR constants they give.  Per
+// site that leaves one product in rounds 0 and 1 and two in each of
+// rounds 2 to 8, and about 17 XORs, most of them three-input.  Every
+// product of rounds 0 to 7 is a wide multiply (both halves,
+// IMAD.WIDE.U32).  Round 8's two products feed round 9's lanes: for
+// lane 0, and for lanes 0 and 1, only the high half of M0 x (IMAD.HI) and
+// the low half of M1 z (one 32-bit IMAD), since round 9's lanes z and w
+// and its product of x are not needed; round 9 then takes the high half
+// of M1 z for lane 0, both halves of it for lanes 0 and 1 (lane y is the
+// low half of the product whose high half makes lane x).  So lane 0 and
+// lanes 0 and 1 each take 16 wide multiplies (IMAD.WIDE.U32 or IMAD.HI,
+// which issue at one rate) and one low half a site, 17 products.  All
+// four lanes need both halves of round 8's products and a second wide
+// multiply in round 9: 18 wide multiplies.
 #pragma once
 
 #include <cstdint>
@@ -20,17 +31,22 @@
 namespace repro_torch {
 
 // hi:lo = a * b, one wide multiply
-__device__ __forceinline__ void mul_wide(uint32_t a, uint32_t b,
-                                         uint32_t& hi, uint32_t& lo) {
+__host__ __device__ __forceinline__ void mul_wide(uint32_t a, uint32_t b,
+                                                  uint32_t& hi,
+                                                  uint32_t& lo) {
   const uint64_t p = static_cast<uint64_t>(a) * b;
   hi = static_cast<uint32_t>(p >> 32);
   lo = static_cast<uint32_t>(p);
 }
 
-class Lane0Philox {
+// The constructor also runs on the host: a kernel that draws with one
+// offset a launch takes the object as a kernel parameter, so that its
+// constants are operands in the constant bank and take no registers.
+class HoistedPhilox {
  public:
-  __device__ __forceinline__ Lane0Philox(uint32_t offset, uint32_t key0,
-                                         uint32_t key1) {
+  __host__ __device__ __forceinline__ HoistedPhilox(uint32_t offset,
+                                                    uint32_t key0,
+                                                    uint32_t key1) {
 #pragma unroll
     for (int r = 0; r < 10; ++r) {
       k0_[r] = key0 + static_cast<uint32_t>(r) * kPhiloxW0;
@@ -51,7 +67,35 @@ class Lane0Philox {
     x3_xor_ = lo ^ k0_[2];
   }
 
+  // lane 0
   __device__ __forceinline__ uint32_t operator()(uint32_t site) const {
+    uint32_t x, y, z, w;
+    rounds(site, x, y, z, w);
+    return __umulhi(kPhiloxM1, z) ^ y ^ k0_[9];
+  }
+
+  // lanes 0 and 1: round 9's x and y, the two halves of one product
+  __device__ __forceinline__ uint2 lanes01(uint32_t site) const {
+    uint32_t x, y, z, w, hi, lo;
+    rounds(site, x, y, z, w);
+    mul_wide(kPhiloxM1, z, hi, lo);
+    return make_uint2(hi ^ y ^ k0_[9], lo);
+  }
+
+  // all four lanes
+  __device__ __forceinline__ uint4 lanes(uint32_t site) const {
+    uint32_t x, y, z, w, hi0, lo0, hi1, lo1;
+    rounds(site, x, y, z, w);
+    mul_wide(kPhiloxM0, x, hi0, lo0);
+    mul_wide(kPhiloxM1, z, hi1, lo1);
+    return make_uint4(hi1 ^ y ^ k0_[9], lo1, hi0 ^ w ^ k1_[9], lo0);
+  }
+
+ private:
+  // the state (x, y, z, w) after rounds 0 to 8
+  __device__ __forceinline__ void rounds(uint32_t site, uint32_t& x,
+                                         uint32_t& y, uint32_t& z,
+                                         uint32_t& w) const {
     uint32_t hi0, lo0, hi1, lo1;
     // round 0: lanes y and w are 0
     mul_wide(kPhiloxM1, site, hi1, lo1);
@@ -59,14 +103,14 @@ class Lane0Philox {
     const uint32_t y1 = lo1;
     // round 1
     mul_wide(kPhiloxM0, x1, hi0, lo0);
-    uint32_t x = y1 ^ x2_xor_;
-    uint32_t z = hi0 ^ z2_xor_;
-    uint32_t w = lo0;
+    x = y1 ^ x2_xor_;
+    z = hi0 ^ z2_xor_;
+    w = lo0;
     // round 2: lane y2 is the same for every site
     mul_wide(kPhiloxM0, x, hi0, lo0);
     mul_wide(kPhiloxM1, z, hi1, lo1);
     x = hi1 ^ x3_xor_;
-    uint32_t y = lo1;
+    y = lo1;
     z = hi0 ^ w ^ k1_[2];
     w = lo0;
 #pragma unroll
@@ -78,11 +122,8 @@ class Lane0Philox {
       z = hi0 ^ w ^ k1_[r];
       w = lo0;
     }
-    // round 9: lane x alone
-    return __umulhi(kPhiloxM1, z) ^ y ^ k0_[9];
   }
 
- private:
   uint32_t k0_[10];
   uint32_t k1_[10];
   uint32_t x2_xor_;

@@ -203,7 +203,7 @@ __host__ __device__ inline size_t shard_smem_bytes(int tile_r, int tile_c,
 template <bool kPlus>
 __device__ __forceinline__ uint32_t update_word(
     uint32_t t, const uint32_t* __restrict__ op, int c, int pitch,
-    const uint32_t (&site)[4], const repro_torch::Lane0Philox& philox,
+    const uint32_t (&site)[4], const repro_torch::HoistedPhilox& philox,
     const unsigned char* s_bounds) {
   // bit 1 of a cell: clear for +1 (0x01), set for -1 (0xFF)
   constexpr uint32_t kDown = 0x02020202u;
@@ -245,7 +245,7 @@ template <bool kShard, bool kPlus, bool kWrap>
 __device__ __forceinline__ void sweep_row(
     uint32_t* __restrict__ tgt, const uint32_t* __restrict__ op,
     const uint4* __restrict__ s_g, const Tile& tile, int i, int gr,
-    int w_lo, int w_hi, int lane, const repro_torch::Lane0Philox& philox,
+    int w_lo, int w_hi, int lane, const repro_torch::HoistedPhilox& philox,
     const unsigned char* s_bounds) {
   const uint32_t row_base =
       static_cast<uint32_t>(gr) * static_cast<uint32_t>(tile.h);
@@ -285,7 +285,8 @@ template <bool kShard, bool kWrap>
 __device__ __forceinline__ void half_sweep(
     uint32_t* __restrict__ tgt, const uint32_t* __restrict__ op,
     const uint4* __restrict__ s_g, const Tile& tile, int m, int color,
-    const repro_torch::Lane0Philox& philox, const unsigned char* s_bounds) {
+    const repro_torch::HoistedPhilox& philox,
+    const unsigned char* s_bounds) {
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const int w_lo = m >> 2;
@@ -387,7 +388,7 @@ __global__ void stencil_sweeps_kernel(const int8_t* __restrict__ b_in,
   for (int s = 0; s < n_sweeps; ++s) {
     for (int color = 0; color < 2; ++color) {
       // half_sweep_offset(start, s, color), uint32 wrap
-      const repro_torch::Lane0Philox philox(
+      const repro_torch::HoistedPhilox philox(
           start + 2u * static_cast<uint32_t>(s) + static_cast<uint32_t>(color),
           k0, k1);
       uint32_t* tgt = color ? s_w : s_b;

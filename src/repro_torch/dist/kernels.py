@@ -21,9 +21,12 @@ wrapped over the extended plane's own dims, in shared memory, runs the
 half-sweeps there and writes the tile back.  So they equal their plain
 versions on the whole extended plane, edge rings included.  Like the
 single-device k-sweep kernels they are bound by Philox arithmetic; the
-index planes add 4 bytes per cell (5 for bitplane) to what a launch
-reads.  The bitplane kernel makes one Philox call per site, 4 times the
-Philox work of ``bitplane_sweeps_resident``, as the TPU kernel does.
+index planes add 4 bytes per cell (8 for bitplane) to what a launch
+reads.  The bitplane kernel takes a thread per 4-word group and makes
+one Philox call per group where the group's 4 words carry one ``gidx``
+and the lanes 0, 1, 2, 3 in order (every group of the driver's planes
+at k = 2), as ``bitplane_sweeps_resident`` does, and one per word
+elsewhere, as the TPU kernel does everywhere.
 
 The plain versions are the port's plain half-sweeps keyed on the index
 planes (``core.metropolis.index_uniforms``, ``core.multispin.

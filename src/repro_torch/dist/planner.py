@@ -21,10 +21,10 @@ VMEM) has no Hopper counterpart.  As for the single-device k-sweep tier
 time on tiles of the extended plane, so the fit is one block's shared
 memory: the family's shard tile (:data:`SHARD_TILES`) with a halo of
 2k cells, both planes and the tile's index planes (uint32 site or word
-indices, and the bitplane lane as a byte), within the budget of one
-block.  By default k is capped at the family's ``max_k`` in
-``GEOMETRY`` (the fastest k of its single-device kernel) as well as
-:data:`K_CAP`.
+indices; for bitplane, per 4-word group, the uint32 group index and an
+aligned flag as a byte), within the budget of one block.  By default k
+is capped at the family's ``max_k`` in ``GEOMETRY`` (the fastest k of
+its single-device kernel) as well as :data:`K_CAP`.
 
 Left out: the JAX planner's demotion hook (``resilience.degrade``),
 which is not ported.
@@ -36,7 +36,7 @@ import math
 from typing import Optional
 
 from repro_torch.kernels.resident import (GEOMETRY, SMEM_BUDGET_BYTES,
-                                         extended_tile)
+                                         col_halo, extended_tile)
 
 #: cap on sweeps per halo exchange: past it the redundant halo sweeps
 #: cost more than the exchanges they save
@@ -46,21 +46,25 @@ K_CAP: int = 4
 #: k out
 MAX_OVERLAP: float = 2.0
 
-#: bytes of index planes per extended cell in a shard kernel's shared
-#: memory: the uint32 site (stencil) or word (multispin) index, and for
-#: bitplane the uint32 group index and the lane as one byte
+#: bytes of index planes in a shard kernel's shared memory per extended
+#: cell: the uint32 site (stencil) or word (multispin) index; and for
+#: bitplane per 4-word group: the uint32 group index of the group's
+#: first word and a byte that says whether the group is one Philox group
+#: (4 words of one group index, lanes 0, 1, 2, 3)
 INDEX_BYTES = {"stencil": 4, "multispin": 4, "bitplane": 5}
 
 #: tile (rows, columns of the extended plane) of each family's shard
 #: kernel: the fastest k = 2 candidate of ``python -m
 #: repro_torch.analysis.tune_resident --shard`` at the 2 x 2 main paths
 #: (``PERF.md``).  Staging the index planes too, the single-device tiles
-#: (``GEOMETRY``) leave one block an SM
+#: (``GEOMETRY``) leave one block an SM.  The bitplane kernel's columns
+#: are whole 4-word groups
 SHARD_TILES = {"stencil": (64, 248), "multispin": (48, 128),
-               "bitplane": (48, 128)}
+               "bitplane": (64, 120)}
 
-#: threads of a shard-kernel block, in all three families
-SHARD_THREADS: int = 512
+#: threads of a shard-kernel block, by family (the same measurements):
+#: the bitplane kernel's registers (a thread per group) fit 256
+SHARD_THREADS = {"stencil": 512, "multispin": 512, "bitplane": 256}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +127,14 @@ def shard_smem_bytes(family: str, tile_rows: int, tile_cols: int,
         # stencil: rows of whole words, as its k-sweep kernel's
         er, ec = extended_tile(tile_rows, tile_cols, k, family)
         return g.table_bytes + cell * er * ec
+    if family == "bitplane":
+        # rows of whole 4-word groups: the tile's columns rounded up and a
+        # column halo of 2k rounded up; the planes 16-byte aligned
+        er = tile_rows + 4 * k
+        ec = -(-tile_cols // 4) * 4 + 2 * col_halo(k, family)
+        tables = -(-4 * (er + ec) // 16) * 16
+        return (tables + 2 * g.element_bytes * er * ec
+                + INDEX_BYTES[family] * er * (ec // 4))
     er, ec = tile_rows + 4 * k, tile_cols + 4 * k
     return 4 * (er + ec) + g.table_bytes + cell * er * ec
 
@@ -131,7 +143,8 @@ def shard_tile(family: str, ext_rows: int, ext_cols: int):
     """``(tile_rows, tile_cols, threads)`` of the shard kernel on an
     extended plane: the family's shard tile, shrunk to the plane."""
     tile_r, tile_c = SHARD_TILES[family]
-    return min(tile_r, ext_rows), min(tile_c, ext_cols), SHARD_THREADS
+    return (min(tile_r, ext_rows), min(tile_c, ext_cols),
+            SHARD_THREADS[family])
 
 
 def plan_shard_resident(family: str, n: int, m: int, rows_devs: int,

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, which ``ctypes`` loads.  The
 library goes into ``_build/`` beside the package (listed in
 ``.gitignore``) under a name that carries a hash of the sources, so an
-edited source builds anew and a stale library is never loaded.  The
+edited source builds anew and a stale library is never loaded.  An
+analysis tool may build an edited copy of a source from its own
+directory (``csrc_dir``, ``build_dir``).  The
 library is written to a temporary name and renamed into place, so
 processes that build at the same time never load a partial file.
 """
@@ -52,7 +54,8 @@ class Build:
         return out
 
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+#: loaded libraries by path
+_LIBS: Dict[Path, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -68,33 +71,36 @@ def nvcc() -> str:
         "(nvcc on PATH or in /usr/local/cuda/bin)")
 
 
-def _source_hash(name: str) -> str:
+def _source_hash(name: str, csrc_dir: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
+    for path in sorted(csrc_dir.glob("*.cuh")) + [csrc_dir / f"{name}.cu"]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _target(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_source_hash(name)}.so"
+def _target(name: str, csrc_dir: Path, build_dir: Path) -> Path:
+    return build_dir / f"lib{name}-{_source_hash(name, csrc_dir)}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, Build]:
-    """Compile ``csrc/<name>.cu`` for every name (default: every ``.cu``),
-    all nvcc processes started together.  Raises on a failed build."""
+def build(names: Optional[Iterable[str]] = None, csrc_dir: Path = CSRC_DIR,
+          build_dir: Path = BUILD_DIR) -> Dict[str, Build]:
+    """Compile ``<csrc_dir>/<name>.cu`` into ``build_dir`` for every name
+    (default: every ``.cu``), all nvcc processes started together.
+    Raises on a failed build."""
+    csrc_dir, build_dir = Path(csrc_dir), Path(build_dir)
     if names is None:
-        names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        names = sorted(p.stem for p in csrc_dir.glob("*.cu"))
+    build_dir.mkdir(parents=True, exist_ok=True)
     compiler = nvcc()
     jobs = {}
     builds = {}
     t0 = time.perf_counter()
     for name in names:
-        target = _target(name)
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+        target = _target(name, csrc_dir, build_dir)
+        fd, tmp = tempfile.mkstemp(dir=build_dir, suffix=".so.tmp")
         os.close(fd)
-        cmd = [compiler, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        cmd = [compiler, *NVCC_FLAGS, "-o", tmp, str(csrc_dir / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, target)
@@ -102,20 +108,24 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Build]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+            raise RuntimeError(f"nvcc failed on {csrc_dir / name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, target)
         builds[name] = Build(name, target, time.perf_counter() - t0, log)
     return builds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, csrc_dir: Path = CSRC_DIR,
+         build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+    """The loaded library of ``<csrc_dir>/<name>.cu``, built first into
+    ``build_dir`` if needed."""
+    csrc_dir, build_dir = Path(csrc_dir), Path(build_dir)
+    key = csrc_dir / name
+    lib = _LIBS.get(key)
     if lib is None:
-        target = _target(name)
+        target = _target(name, csrc_dir, build_dir)
         if not target.exists():
-            build([name])
+            build([name], csrc_dir, build_dir)
         lib = ctypes.CDLL(str(target))
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib

@@ -3,14 +3,22 @@
 Replaces the Pallas kernel ``src/repro/kernels/tensorcore/tensorcore.py``
 (``tensorcore_update``), which stages a block pair of the target planes
 and six neighbour blocks into TPU VMEM and runs the banded products on
-the MXU.  On the card (``csrc/tensorcore.cu``) one block of 8 warps takes
-one B x B block position: the spin operands staged in shared memory as
-bf16, the banded products on the tensor cores (``mma.sync`` m16n8k16,
-bf16 in, f32 sums, only the k-steps where K is not zero), then the edge
-terms, one Philox call per plane position (lane 0 for the first target
-plane, lane 1 for the second, key ``(seed mod 2^32, 0)``) and the accept
-in registers.  It is bound by bytes.  The target planes are updated in
-place, by the kernel and, on the CPU, by the wrapper.
+the MXU.  On the card (``csrc/tensorcore.cu``) a persistent grid of
+8-warp blocks walks tiles of the planes through a two-stage ring of
+``cp.async`` copies in shared memory: the spin operands converted to bf16,
+the banded products on the tensor cores (``mma.sync`` m16n8k16, bf16 in,
+f32 sums, only the k-steps where K is not zero), then the edge terms,
+lanes 0 and 1 of one Philox call per plane position (lane 0 for the
+first target plane, lane 1 for the second, key ``(seed mod 2^32, 0)``,
+the offset's work hoisted) and the accept in registers.  Its floor is
+the issue of Philox's wide multiplies, about 0.53 ms a half-sweep of
+four 16384^2 int8 planes on an H100 SXM at its 1980 MHz clock
+(``PERF.md``).  The kernel's tile is its own, the largest of 64, 32, 16
+rows and of 128, 64, 32, 16 columns that divide the planes
+(:func:`kernel_geometry`): the sums are exact whatever the tile, so
+``block`` (the engine's ``tc_block``) only has to tile the planes.  The
+target planes are updated in place, by the kernel and, on the CPU, by the
+wrapper.
 
 Planes are int8 (the engine's state) or bf16 (the TPU kernel's
 contract), all four of one type and shape, and hold spins +-1.  The
@@ -32,7 +40,8 @@ from repro_torch.kernels.stencil.stencil import raise_on_error
 
 DEFAULT_BLOCK = tc.BLOCK
 #: block sizes the CUDA kernel takes: multiples of the 16-deep mma step
-#: up to 128 (the shared memory of one block)
+#: up to 128, the TPU kernel's contract (the kernel's own tile is at most
+#: 64 x 128)
 CUDA_BLOCKS = tuple(range(16, 129, 16))
 _DTYPES = {torch.int8: 1, torch.bfloat16: 2}
 
@@ -90,9 +99,11 @@ def _bounds_arg(inv_temp: float):
     return (ctypes.c_uint64 * metropolis.TABLE_SIZE)(*values.tolist())
 
 
-def library():
-    """The compiled ``csrc/tensorcore.cu`` with its C signatures declared."""
-    lib = _build.load("tensorcore")
+def library(csrc_dir=_build.CSRC_DIR):
+    """The compiled ``tensorcore.cu`` of ``csrc_dir`` (the package's
+    ``csrc/``, or an edited copy that an analysis tool times) with its C
+    signatures declared."""
+    lib = _build.load("tensorcore", csrc_dir)
     if lib.tensorcore_update_launch.argtypes is None:
         u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
         lib.cuda_error_string.argtypes = [i32]
@@ -101,7 +112,39 @@ def library():
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
             ctypes.POINTER(ctypes.c_uint64), u32, u32, ptr]
         lib.tensorcore_update_launch.restype = i32
+        lib.tensorcore_geometry.argtypes = [i32, i32, i32,
+                                            ctypes.POINTER(i32)]
+        lib.tensorcore_geometry.restype = i32
     return lib
+
+
+def kernel_geometry(h: int, w: int, dtype=torch.int8) -> dict:
+    """The CUDA kernel's geometry on (h, w) planes of ``dtype``: its tile
+    (``tile_rows``, ``tile_cols``), the ``tiles`` of the planes and the
+    ``blocks`` of its persistent grid on the current card."""
+    lib = library()
+    out = (ctypes.c_int * 4)()
+    raise_on_error(lib, lib.tensorcore_geometry(h, w, _DTYPES[dtype], out),
+                   "tensorcore_geometry")
+    return dict(zip(("tile_rows", "tile_cols", "tiles", "blocks"), out))
+
+
+def launch_args(planes: dict, color: str, inv_temp, *, seed: int = 0,
+                offset: int = 0, block: int = DEFAULT_BLOCK) -> tuple:
+    """The arguments of ``tensorcore_update_launch`` for a half-sweep of
+    CUDA ``planes`` that :func:`check_planes` takes; raises unless the
+    kernel takes ``block``."""
+    check_block(block)
+    t1k, t2k = tc.COLOR_PLANES[color]
+    is_black = color == "black"
+    ak, bk = ("01", "10") if is_black else ("11", "00")
+    h, w = planes["00"].shape
+    stream = torch.cuda.current_stream(planes["00"].device).cuda_stream
+    return (planes[t1k].data_ptr(), planes[t2k].data_ptr(),
+            planes[ak].data_ptr(), planes[bk].data_ptr(), h, w, block,
+            int(is_black), _DTYPES[planes["00"].dtype],
+            _bounds_arg(float(inv_temp)), int(seed) & rng.MASK32,
+            int(offset) & rng.MASK32, stream)
 
 
 def tensorcore_update(planes: dict, color: str, inv_temp, *, seed: int = 0,
@@ -117,26 +160,17 @@ def tensorcore_update(planes: dict, color: str, inv_temp, *, seed: int = 0,
     if color not in tc.COLOR_PLANES:
         raise ValueError(f"color must be 'black' or 'white', got {color!r}")
     check_planes(planes, block)
-    t1k, t2k = tc.COLOR_PLANES[color]
     if planes["00"].device.type == "cpu":
+        t1k, t2k = tc.COLOR_PLANES[color]
         new = tensorcore_update_plain(planes, color, inv_temp, seed=seed,
                                       offset=offset, block=block)
         planes[t1k].copy_(new[t1k])
         planes[t2k].copy_(new[t2k])
         return planes
-    check_block(block)
     lib = library()
-    is_black = color == "black"
-    ak, bk = ("01", "10") if is_black else ("11", "00")
-    h, w = planes["00"].shape
-    rc = lib.tensorcore_update_launch(
-        planes[t1k].data_ptr(), planes[t2k].data_ptr(),
-        planes[ak].data_ptr(), planes[bk].data_ptr(), h, w, block,
-        int(is_black), _DTYPES[planes["00"].dtype],
-        _bounds_arg(float(inv_temp)), int(seed) & rng.MASK32,
-        int(offset) & rng.MASK32,
-        torch.cuda.current_stream(planes["00"].device).cuda_stream)
-    raise_on_error(lib, rc, "tensorcore_update")
+    raise_on_error(lib, lib.tensorcore_update_launch(*launch_args(
+        planes, color, inv_temp, seed=seed, offset=offset, block=block)),
+        "tensorcore_update")
     tensorcore_update.launches += 1
     return planes
 

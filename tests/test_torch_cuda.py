@@ -300,6 +300,61 @@ def test_tensorcore_kernel_matches_plain_where_the_table_is_zero(
     assert flipped < 0.05 * sum(v.numel() for v in after.values())
 
 
+#: planes whose largest dividing tile (64, 32, 16 rows; 128, 64, 32, 16
+#: columns) is each tile the kernel takes
+TC_TILE_PLANES = {(r, c): (h, w)
+                  for r, h in ((64, 128), (32, 96), (16, 80))
+                  for c, w in ((128, 256), (64, 192), (32, 160), (16, 144))}
+
+
+@pytest.mark.parametrize("tile", [(64, 128), (64, 64), (64, 32), (64, 16),
+                                  (32, 128), (32, 64), (32, 32), (32, 16),
+                                  (16, 128), (16, 64), (16, 32), (16, 16)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_tensorcore_kernel_tiles_match_plain(cuda, tile, dtype):
+    """Every tile the kernel takes gives the plain version's planes: the
+    sums are exact whatever the tile.  The kernel takes the largest tile
+    that divides the planes, so each tile has planes of its own."""
+    from repro_torch.kernels.tensorcore import (tensorcore_update,
+                                                tensorcore_update_plain)
+    from repro_torch.kernels.tensorcore.tensorcore import kernel_geometry
+    h, w = TC_TILE_PLANES[tile]
+    geo = kernel_geometry(h, w, dtype)
+    assert (geo["tile_rows"], geo["tile_cols"]) == tile
+    planes = tc_planes(h, dtype, tile[0] + tile[1], cuda, w)
+    want = tensorcore_update_plain(planes, "white", 1 / 2.0, seed=SEED,
+                                   offset=5, block=16)
+    got = tensorcore_update({k: v.clone() for k, v in planes.items()},
+                            "white", 1 / 2.0, seed=SEED, offset=5, block=16)
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("color", ["black", "white"])
+def test_tensorcore_kernel_persistent_grid_with_a_tile_over(cuda, color):
+    """Planes of one tile more than a multiple of the persistent grid's
+    blocks: the blocks' last round is ragged."""
+    from repro_torch.kernels.tensorcore.tensorcore import kernel_geometry
+    h, w = 320, 6784
+    geo = kernel_geometry(h, w)
+    assert geo["tiles"] > geo["blocks"] and geo["tiles"] % geo["blocks"]
+    tc_kernel_matches_plain(tc_planes(h, torch.int8, 3, cuda, w), color,
+                            1 / 2.0, 64)
+
+
+@pytest.mark.parametrize("color", ["black", "white"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_tensorcore_kernel_hot_table_flips_nearly_all(cuda, color, dtype):
+    """At inverse temperature 0 every entry is 1: every draw but the top
+    2^-25 flips, at block 128 on a 512^2 lattice."""
+    planes = tc_planes(256, dtype, 9, cuda)
+    before = {k: v.clone() for k, v in planes.items()}
+    after = tc_kernel_matches_plain(planes, color, 0.0, 128)
+    flipped = sum(int((after[k] != before[k]).sum()) for k in after)
+    assert flipped > 0.999 * 2 * 256 * 256
+
+
 def test_tensorcore_kernel_rejects_block_8(cuda):
     from repro_torch.kernels.tensorcore import tensorcore_update
     planes = tc_planes(32, torch.int8, 0, cuda)
@@ -404,6 +459,55 @@ def test_shard_kernel_matches_plain(cuda, family, n, w, n_sweeps, tile):
     assert kernel.launches == before + 1
     for g, x in zip(got, want):
         assert torch.equal(g, x)
+
+
+def mixed_groups(n, w):
+    """Bitplane index planes of 4-word Philox groups (lanes 0..3), some
+    broken: a lane past 3, a group of two gidx, lanes out of order."""
+    cols = np.arange(w)
+    g = np.arange(n)[:, None] * 1000 + cols[None, :] // 4
+    lane = np.broadcast_to(cols % 4, (n, w)).copy()
+    lane[3, 8], g[5, 13] = 7, g[5, 13] + 1
+    lane[9, 20:24] = [1, 0, 2, 3]
+    return g.astype(np.int32), lane.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["width-41", "width-7", "mixed",
+                                  "driver-1", "driver-2", "driver-3"])
+def test_bitplane_shard_kernel_groups_match_plain(cuda, case):
+    """The bitplane shard kernel draws once per group where a group is one
+    Philox group and per word elsewhere: extended widths that are not
+    whole groups, planes with broken groups, and the driver's own planes
+    at k = 1, 2, 3 (whole groups at k = 2 only)."""
+    r = np.random.default_rng(len(case))
+    if case.startswith("driver"):
+        from repro_torch.core.distributed import ShardGrid
+        from repro_torch.dist.driver import index_planes
+        from repro_torch.launch.mesh import make_mesh
+        k = int(case[-1])
+        plan = shard_planner.plan_shard_resident(
+            "bitplane", 512, 512, 2, 2, k_cap=k, max_overlap=100.0)
+        grid = ShardGrid.of(make_mesh((2, 2), ("data", "model")), 512, 256)
+        index = list(index_planes(plan, grid, 1))
+        n, w = index[0].shape
+        tile = (plan.tile_rows, plan.tile_cols, plan.threads)
+    else:
+        n, w, k, tile = {"width-41": (30, 41, 2, (12, 20, 64)),
+                         "width-7": (22, 7, 3, (8, 4, 128)),
+                         "mixed": (40, 72, 2, (16, 16, 256))}[case]
+        if case == "mixed":
+            index = [torch.tensor(a, device=cuda) for a in mixed_groups(n, w)]
+        else:
+            index = shard_inputs("bitplane", n, w, n + w, cuda)[3]
+    b, w_ = word_planes(n, w, n * w, cuda)
+    table = multispin.acceptance_thresholds(1 / 2.3)
+    want = dk.bitplane_shard_sweeps_plain(b, w_, table, *index, n_sweeps=k,
+                                          seed=SEED, start_offset=2 ** 32 - 3)
+    got = dk.bitplane_shard_sweeps(b, w_, table, *index, n_sweeps=k,
+                                   seed=SEED, start_offset=2 ** 32 - 3,
+                                   tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("family", sorted(SHARD_KERNELS))

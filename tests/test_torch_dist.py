@@ -134,6 +134,150 @@ def test_stencil_shard_kernel_schedule_equals_plain(n, w, n_sweeps, tile_r,
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def bitplane_tiled_shard_sweeps(black, white, thr, gidx, lane, k, seed,
+                                start, tile_r, tile_c, counts=None):
+    """PyTorch emulation of ``bitplane_shard_sweeps_kernel`` (``csrc/
+    bitplane.cu``) on an extended plane: every tile plus 2k rows above and
+    below and ``col_halo(k)`` columns each side, its columns rounded up to
+    whole 4-word groups, indices wrapped over the plane, runs 2k
+    half-sweeps on its own.  A group whose 4 words hold one gidx and the
+    lanes 0, 1, 2, 3 in order draws the 4 lanes of one Philox call; any
+    other group draws per word, lane min(lane, 3) of the call at the
+    word's own gidx.  Half-sweep q updates the rows at distance >= q + 1
+    from the extended tile's edge and the groups holding a column at that
+    distance, the side neighbour wrapped within the extended tile; only
+    the tile is written back.  ``counts`` (a dict) collects the aligned
+    and the other groups."""
+    from repro_torch.core import bitplane as bp
+    from repro_torch.core import rng
+    from repro_torch.kernels.resident import col_halo
+    n, w = black.shape
+    halo, left = 2 * k, col_halo(k, "bitplane")
+    er, ec = tile_r + 2 * halo, -(-tile_c // 4) * 4 + 2 * left
+    k0, k1 = rng.seed_keys(seed)
+    out_b, out_w = torch.empty_like(black), torch.empty_like(white)
+    for r0 in range(0, n, tile_r):
+        for c0 in range(0, w, tile_c):
+            rows = torch.arange(r0 - halo, r0 - halo + er) % n
+            cols = torch.arange(c0 - left, c0 - left + ec) % w
+            ext = [black[rows][:, cols].clone(), white[rows][:, cols].clone()]
+            g = gidx.to(torch.int64)[rows][:, cols] & rng.MASK32
+            ln = lane.to(torch.int64)[rows][:, cols]
+            gg, lg = g.reshape(er, -1, 4), ln.reshape(er, -1, 4)
+            aligned = ((gg == gg[..., :1]).all(-1)
+                       & (lg == torch.arange(4)).all(-1))
+            if counts is not None:
+                counts["aligned"] += int(aligned.sum())
+                counts["other"] += int((~aligned).sum())
+            for s in range(k):
+                for color in (0, 1):
+                    off = rng.half_sweep_offset(start, s, color)
+                    group = torch.stack(rng.philox4x32(
+                        off, 0, gg[..., 0], 0, k0, k1), -1).reshape(er, ec)
+                    draws = torch.where(aligned.repeat_interleave(4, 1),
+                                        group, bp.lane_draws(seed, g, ln, off))
+                    m = 2 * s + color + 1
+                    region = torch.zeros((er, ec), dtype=torch.bool)
+                    region[m:er - m, 4 * (m // 4):4 * ((ec - m + 3) // 4)] = 1
+                    tgt, op = ext[color], ext[1 - color]
+                    plus = ((rows % 2 == 1) == (color == 0))[:, None]
+                    side = torch.where(plus, torch.roll(op, -1, 1),
+                                       torch.roll(op, 1, 1))
+                    nbrs = bp.bit_count_neighbors(torch.roll(op, 1, 0),
+                                                  torch.roll(op, -1, 0), op,
+                                                  side)
+                    new = tgt ^ bp.flip_word_from_classes(tgt, nbrs, draws,
+                                                          thr)
+                    ext[color] = torch.where(region, new, tgt)
+            rr = slice(halo, halo + min(tile_r, n - r0))
+            cc = slice(left, left + min(tile_c, w - c0))
+            out_b[r0:r0 + tile_r, c0:c0 + tile_c] = ext[0][rr, cc]
+            out_w[r0:r0 + tile_r, c0:c0 + tile_c] = ext[1][rr, cc]
+    return out_b, out_w
+
+
+def driver_index_planes(family, n, k, i, mesh=(2, 2)):
+    """Shard ``i``'s index planes of the sharded driver on a 2 x 2 mesh
+    of an n x n lattice, k pinned."""
+    from repro_torch.dist.driver import index_planes
+    plan = plan_shard_resident(family, n, n, *mesh, k_cap=k,
+                               max_overlap=100.0)
+    assert plan is not None and plan.k == k
+    grid = dist.ShardGrid.of(make_mesh(mesh, ("data", "model"),
+                                       device="cpu"),
+                             n, n // GEOMETRY[family].col_divisor)
+    return plan, index_planes(plan, grid, i)
+
+
+@pytest.mark.parametrize("case", ["random", "mixed", "driver-1", "driver-2",
+                                  "driver-3"])
+def test_bitplane_shard_kernel_group_draws_equal_plain(case):
+    """The CUDA bitplane shard kernel's group decision and schedule (the
+    emulation above) give the plain version's whole extended planes: on
+    random planes (no group aligned, extended width 10, not a multiple
+    of 4), on planes where some groups are broken, and on the driver's
+    planes at k = 1, 2, 3 (aligned groups only at k = 2)."""
+    from repro_torch.core import multispin
+    r = np.random.default_rng(len(case))
+    thr = multispin.acceptance_thresholds(1 / 2.3)
+    if case == "random":
+        n, w, k, tile = 14, 10, 2, (6, 8)
+        gidx = words(r.integers(0, 2 ** 32, (n, w), dtype=np.uint64)
+                     .astype(np.uint32))
+        lane = torch.tensor(r.integers(0, 6, (n, w)).astype(np.int32))
+    elif case == "mixed":
+        n, w, k, tile = 20, 40, 2, (8, 16)
+        cols = np.arange(w)
+        g = np.arange(n)[:, None] * 1000 + cols[None, :] // 4
+        ln = np.broadcast_to(cols % 4, (n, w)).copy()
+        ln[3, 8] = 7                  # a lane past 3: per word
+        g[5, 13] += 1                 # a group of two gidx
+        ln[9, 20:24] = [1, 0, 2, 3]   # lanes out of order
+        gidx = words(g.astype(np.uint32))
+        lane = torch.tensor(ln.astype(np.int32))
+    else:
+        k = int(case[-1])
+        plan, (gidx, lane) = driver_index_planes("bitplane", 64, k, 3)
+        n, w = gidx.shape
+        tile = (16, 12)
+    b, w_ = (words(r.integers(0, 2 ** 32, (n, w), dtype=np.uint64)
+                   .astype(np.uint32)) for _ in range(2))
+    counts = {"aligned": 0, "other": 0}
+    got = bitplane_tiled_shard_sweeps(b, w_, thr, gidx, lane, k, SEED,
+                                      2 ** 32 - 3, *tile, counts)
+    want = dk.bitplane_shard_sweeps_plain(b, w_, thr, gidx, lane,
+                                          n_sweeps=k, seed=SEED,
+                                          start_offset=2 ** 32 - 3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case in ("random", "driver-1", "driver-3"):
+        assert counts["aligned"] == 0
+    elif case == "driver-2":
+        assert counts["other"] == 0
+    else:
+        assert counts["aligned"] > 0 and counts["other"] > 0
+
+
+@pytest.mark.parametrize("n", [64, 1024])
+@pytest.mark.parametrize("i", [0, 1, 2, 3])
+def test_driver_planes_at_k2_are_aligned_groups(n, i):
+    """At k = 2 (a halo of 4 columns) every extended shard starts 4
+    columns left of a group, so every run of 4 words from column 0 is one
+    Philox group with lanes 0, 1, 2, 3: the bitplane shard kernel draws
+    once per group on the main path (its tile columns are whole groups).
+    At k = 1 and 3 (halos of 2 and 6) no such run is one."""
+    for k in (1, 2, 3):
+        if n > 64 and k != 2:
+            continue
+        plan, (gidx, lane) = driver_index_planes("bitplane", n, k, i)
+        rows = slice(0, 16)       # the planes repeat by rows
+        g = gidx[rows].to(torch.int64).reshape(16, -1, 4)
+        ln = lane[rows].reshape(16, -1, 4)
+        aligned = (g == g[..., :1]).all(-1) & (ln == torch.arange(4)).all(-1)
+        assert bool(aligned.all()) == (k == 2)
+        assert not aligned.any() or k == 2
+    assert planner.SHARD_TILES["bitplane"][1] % 4 == 0
+
+
 def test_shard_kernel_rejects_bad_index_planes():
     b = torch.ones((6, 4), dtype=torch.int8)
     table = metropolis.acceptance_table(0.5)
@@ -202,8 +346,16 @@ def test_plan_shared_memory_counts_index_planes(family, index_bytes):
     """The word families keep row and column index tables; the stencil
     kernel keeps none, and its rows are whole 4-cell words: a left halo
     of 2k rounded up to 4, and the row rounded up to 4 (10 + 2 x 4 = 18
-    -> 20 cells)."""
+    -> 20 cells); the bitplane kernel keeps its index planes per 4-word
+    group (a uint32 gidx and an aligned byte)."""
     g = GEOMETRY[family]
+    if family == "bitplane":
+        # per 4-word group: tile columns 10 -> 12, a column halo of 2k
+        # rounded up to 4 each side; index tables rounded up to 16 bytes
+        er, ec = 8 + 4, 12 + 2 * 4
+        assert shard_smem_bytes(family, 8, 10, 1) == (
+            128 + 2 * g.element_bytes * er * ec + index_bytes * er * ec // 4)
+        return
     if family == "stencil":
         er, ec = 8 + 4, 20
         tables = 0
@@ -217,13 +369,13 @@ def test_plan_shared_memory_counts_index_planes(family, index_bytes):
 
 @pytest.mark.parametrize("family,n,tile", [("stencil", 32768, (64, 248)),
                                            ("multispin", 32768, (48, 128)),
-                                           ("bitplane", 16384, (48, 128))])
+                                           ("bitplane", 16384, (64, 120))])
 def test_plan_of_the_main_paths(family, n, tile):
     """2 x 2 shards of the full-size lattices take the family's shard
     tile at k = 2 within one block's shared memory."""
     plan = plan_shard_resident(family, n, n, 2, 2)
     assert plan.k == 2 and (plan.tile_rows, plan.tile_cols) == tile
-    assert plan.threads == SHARD_THREADS
+    assert plan.threads == SHARD_THREADS[family]
     assert plan.smem_bytes == shard_smem_bytes(family, *tile, 2) \
         <= SMEM_BUDGET_BYTES
     assert plan.n_loc == n // 2

@@ -78,3 +78,117 @@ def test_u32_to_uniform_rounds_like_reference():
     got = rng.u32_to_uniform(torch.from_numpy(bits.astype(np.int64)))
     np.testing.assert_array_equal(want, got.numpy())
     assert float(got[-1]) == 1.0
+
+
+# -- the hoisted Philox of csrc/philox_lane0.cuh -----------------------------
+
+M0, M1, W0, W1 = 0xD2511F53, 0xCD9E8D57, 0x9E3779B9, 0xBB67AE85
+MASK = 0xFFFFFFFF
+
+
+def _mulhilo(a, b):
+    p = np.asarray(a, np.uint64) * np.uint64(b)
+    return p >> np.uint64(32), p & np.uint64(MASK)
+
+
+class HoistedPhiloxModel:
+    """numpy model of ``HoistedPhilox`` (``csrc/philox_lane0.cuh``):
+    Philox4x32-10 at counter ``(offset, 0, site, 0)``, what depends on the
+    offset and the key alone computed once (the key schedule, round 0's
+    product of the offset, round 1's product of the lane that round 0
+    leaves the same for every site), then per site one product in rounds
+    0 and 1, two in rounds 2 to 8, and round 9's products of the lanes
+    asked for."""
+
+    def __init__(self, offset, key0, key1):
+        self.k0 = [np.uint64((key0 + r * W0) & MASK) for r in range(10)]
+        self.k1 = [np.uint64((key1 + r * W1) & MASK) for r in range(10)]
+        hi, lo = _mulhilo(offset, M0)
+        z1, w1 = hi ^ self.k1[0], lo
+        hi, lo = _mulhilo(z1, M1)
+        self.x2_xor = hi ^ self.k0[1]
+        self.z2_xor = w1 ^ self.k1[1]
+        self.x3_xor = lo ^ self.k0[2]
+        self.products = 0      # per-site products, counted as they run
+
+    def _mul(self, a, m):
+        self.products += 1
+        return _mulhilo(a, m)
+
+    def _rounds(self, site):
+        hi1, lo1 = self._mul(site, M1)
+        x1, y1 = hi1 ^ self.k0[0], lo1
+        hi0, lo0 = self._mul(x1, M0)
+        x, z, w = y1 ^ self.x2_xor, hi0 ^ self.z2_xor, lo0
+        hi0, lo0 = self._mul(x, M0)
+        hi1, lo1 = self._mul(z, M1)
+        x, y, z, w = hi1 ^ self.x3_xor, lo1, hi0 ^ w ^ self.k1[2], lo0
+        for r in range(3, 9):
+            hi0, lo0 = self._mul(x, M0)
+            hi1, lo1 = self._mul(z, M1)
+            x, y, z, w = hi1 ^ y ^ self.k0[r], lo1, hi0 ^ w ^ self.k1[r], lo0
+        return x, y, z, w
+
+    def lanes01(self, site):
+        x, y, z, w = self._rounds(site)
+        hi, lo = self._mul(z, M1)
+        return hi ^ y ^ self.k0[9], lo
+
+    def lanes(self, site):
+        x, y, z, w = self._rounds(site)
+        hi0, lo0 = self._mul(x, M0)
+        hi1, lo1 = self._mul(z, M1)
+        return hi1 ^ y ^ self.k0[9], lo1, hi0 ^ w ^ self.k1[9], lo0
+
+
+def _sites(seed):
+    r = np.random.default_rng(seed)
+    return np.concatenate([r.integers(0, 2 ** 32, 4096, dtype=np.uint64),
+                           np.array([0, 1, 2 ** 31, MASK], np.uint64)])
+
+
+@pytest.mark.parametrize("seed", [5, 2 ** 32 + 7, 2 ** 33 + 5, 2 ** 64 - 1])
+@pytest.mark.parametrize("offset", [0, 3, 2 ** 31, MASK])
+def test_hoisted_two_lane_philox_equals_philox_and_jax_pair(seed, offset):
+    """Lanes 0 and 1 as ``tensorcore_update`` draws them, key (seed mod
+    2^32, 0): 17 products a site; the same bits as ``philox4x32`` and,
+    as uniforms, as the JAX kernel's ``_philox_uniform_pair``."""
+    from repro.kernels.tensorcore.tensorcore import _philox_uniform_pair
+    sites = _sites(seed % 1000 + offset % 7)
+    key = seed & MASK
+    model = HoistedPhiloxModel(offset, key, 0)
+    x, y = model.lanes01(sites)
+    assert model.products == 17
+    want = rng.philox4x32(offset, 0, torch.from_numpy(sites.astype(np.int64)),
+                          0, key, 0)
+    np.testing.assert_array_equal(x.astype(np.int64), want[0].numpy())
+    np.testing.assert_array_equal(y.astype(np.int64), want[1].numpy())
+    u1, u2 = _philox_uniform_pair(jnp.uint32(key), jnp.uint32(offset),
+                                  jnp.asarray(sites.astype(np.uint32)))
+    for got, theirs in ((x, u1), (y, u2)):
+        np.testing.assert_array_equal(
+            rng.u32_to_uniform(torch.from_numpy(got.astype(np.int64))).numpy(),
+            np.asarray(theirs))
+
+
+@pytest.mark.parametrize("seed", [5, 2 ** 32 + 7, 2 ** 40 + 11, 2 ** 64 - 1])
+@pytest.mark.parametrize("offset", [0, 2 ** 31 - 1, 2 ** 32 - 3, MASK])
+def test_hoisted_four_lane_philox_equals_philox(seed, offset):
+    """All four lanes as the bitplane shard kernel draws an aligned group,
+    key ``seed_keys(seed)``: 18 products a site, the bits of the JAX
+    package's ``philox4x32`` and of the port's."""
+    sites = _sites(seed % 1000 + offset % 7)
+    k0, k1 = rng.seed_keys(seed)
+    model = HoistedPhiloxModel(offset, k0, k1)
+    got = model.lanes(sites)
+    assert model.products == 18
+    theirs = jrng.philox4x32(*_jax_bits([
+        np.full_like(sites, offset), np.zeros_like(sites), sites,
+        np.zeros_like(sites), np.full_like(sites, k0),
+        np.full_like(sites, k1)]))
+    ours = rng.philox4x32(offset, 0, torch.from_numpy(sites.astype(np.int64)),
+                          0, k0, k1)
+    for g, t, o in zip(got, theirs, ours):
+        np.testing.assert_array_equal(g.astype(np.int64),
+                                      np.asarray(t).astype(np.int64))
+        np.testing.assert_array_equal(g.astype(np.int64), o.numpy())

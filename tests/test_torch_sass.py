@@ -64,3 +64,18 @@ def test_site_loops_count_sites_by_store_width(kernel, want):
         assert loops[0]["opcodes_per_site"]["IMAD.WIDE.U32"] == 0.25
         assert loops[0]["per_site"] == {"alu": 0.25, "fma": 0.25,
                                         "lsu": 0.5, "other": 0.25}
+
+
+def test_template_names_with_two_ints():
+    """A kernel template on a type and two ints (the tensor-core kernel's
+    plane type and tile) names all three."""
+    text = """
+\t\tFunction : _ZN12_GLOBAL__N_124tensorcore_update_kernelIaLi64ELi128EEEvPT_
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0010*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_124tensorcore_update_kernelItLi16ELi32EEEvPT_
+        /*0000*/                   EXIT ;
+"""
+    assert sorted(sass.sass_mix(text)) == [
+        "tensorcore_update_kernel<a,64,128>",
+        "tensorcore_update_kernel<t,16,32>"]
