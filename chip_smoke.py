@@ -18,16 +18,20 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``HMMA``), the stencil k-sweep and shard kernels' site loops per
    site update (``repro_torch.analysis.sass``: no float accept in
    them), ``tensorcore_update``'s loop per plane position at the main
-   path's tile and the bitplane shard kernel's per word, by pipe, and
-   check each family's planner shared memory against its library's own
-   query;
+   path's tile, the bitplane shard kernel's per word and the multispin
+   k-sweep and shard kernels' word loops per word (no integer division
+   in them), by pipe, and check each family's planner shared memory
+   against its library's own query;
 3. each kernel against its plain PyTorch version on the card, 0
    mismatches required, at small shapes, ragged tiles, a halo wider than
    the plane, seeds of at least 2^32, offsets near 2^31 and 2^32, and
    the main path's full plane; for the stencil k-sweep and shard
    kernels also plane widths 3, 5, 127, 129 and 130, tiles whose width
    is not a multiple of their 4-cell words, ``n_sweeps`` 1 to 3, and
-   T = 0.05 from all-up planes, where no spin may flip; each kernel's
+   T = 0.05 from all-up planes, where no spin may flip; for the multispin
+   k-sweep and shard kernels word widths 1, 3, 5, 31, 33 and 129, tiles
+   whose width is not a multiple of 4 or of a warp, ``n_sweeps`` 1 to 3
+   and the same cold check; each kernel's
    time and its plain version's at the full plane, and both sweep
    tiers' times;
    ``tensorcore_update`` at every block it takes on small ragged planes
@@ -133,13 +137,16 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 #:   (neighbour sum, table index), 1 compare, 1 select; 1 uint32 -> float
 #:   conversion.
 #: * multispin, per word of 8 spins: two full Philox4x32-10 calls at
-#:   counters (2 off, 0, w, 0) and (2 off + 1, 0, w, 0): 18 wide
-#:   multiplies and 19 XORs each (the first round's offset product and
-#:   the second round's third lane are the same for every word), less the
-#:   first round's product of w and its XOR, which the two calls share:
-#:   35 wide multiplies, 37 XORs; 1 funnel shift and 2 three-input adds
-#:   for the neighbour sums; per nibble 1 index, 1 compare and 1 merge
-#:   into the flip word; 1 final XOR.
+#:   counters (2 off, 0, w, 0) and (2 off + 1, 0, w, 0), whose lanes x
+#:   alone differ.  Round 0's product of w and round 1's product of its
+#:   lane x (hi(M1 w) ^ k0, with that XOR) are the same for both calls;
+#:   then each call takes 2 wide multiplies in each of rounds 2 to 9 and
+#:   18 XORs (2 a round; round 0's offset product and round 1's third
+#:   lane are the same for every word): 2 + 2 x 16 = 34 wide multiplies,
+#:   1 + 2 x 18 = 37 XORs (an earlier count, 35 wide multiplies, shared
+#:   round 0's product only); 1 funnel shift and 2 three-input
+#:   adds for the neighbour sums; per nibble 1 index, 1 compare and 1
+#:   merge into the flip word; 1 final XOR.
 #: * bitplane, per word of 32 replicas: a quarter of one full Philox
 #:   call (18 wide multiplies, 19 XORs per 4-site group); 5 three-input
 #:   logic operations of the carry-save count (sum and carry of up, down
@@ -163,8 +170,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 #:   kernel's own tile (``tensorcore_flop_per_position``).
 PIPE_OPS = {
     "stencil": {"wide": 16, "fma": 1, "alu": 21, "xu": 1},
-    "multispin": {"wide": 2 * 18 - 1, "fma": 0,
-                  "alu": 2 * 19 - 1 + 3 + 8 * 3 + 1, "xu": 0},
+    "multispin": {"wide": 2 + 2 * 16, "fma": 0,
+                  "alu": 1 + 2 * 18 + 3 + 8 * 3 + 1, "xu": 0},
     "bitplane": {"wide": 18 / 4, "fma": 0, "alu": 19 / 4 + 5 + 10 * 2 + 9,
                  "xu": 0},
     "tensorcore": {"wide": 16, "fma": 1, "alu": 17 + 2 * 2, "xu": 0},
@@ -226,16 +233,38 @@ STENCIL_SHARD_EDGE_CASES = (((12, 3), 1, (6, 3, 64)),
                             ((10, 129), 1, (5, 120, 64)),
                             ((16, 130), 3, (8, 13, 96)),
                             ((40, 512), 2, (16, 248, 256)))
+#: the multispin k-sweep cases: word widths 1, 3, 31, 33 and 129, tiles
+#: whose width is not a multiple of 4 or of a warp, a halo wider than the
+#: plane, n_sweeps 1 to 3, 16-byte loads on inner tiles: (rows, words,
+#: tile rows, tile words, k, n_sweeps, start offset)
+MULTISPIN_EDGE_CASES = ((12, 1, 5, 1, 1, 2, 2 ** 31 - 2),
+                        (20, 3, 8, 3, 2, 3, 2 ** 32 - 3),
+                        (16, 31, 8, 12, 2, 2, 2 ** 31 - 1),
+                        (10, 33, 5, 33, 1, 1, 2 ** 32 - 1),
+                        (16, 129, 8, 120, 3, 3, 2 ** 32 - 3),
+                        (48, 256, 16, 120, 2, 3, 2 ** 31 - 2))
+#: the same for the multispin shard kernel: (extended plane, n_sweeps,
+#: tile)
+MULTISPIN_SHARD_EDGE_CASES = (((12, 3), 1, (6, 3, 64)),
+                              ((14, 5), 2, (6, 5, 64)),
+                              ((10, 129), 1, (5, 120, 64)),
+                              ((16, 33), 3, (8, 13, 96)),
+                              ((40, 512), 2, (16, 120, 256)))
 #: the redesigned kernels' inner loops in phase 2's SASS: (kernel, the
 #: element a pass updates, bytes it stores a element, an opcode the loop
 #: holds): tensorcore_update's column-tile loop on int8 planes at the
 #: main path's tile (a position stores a byte of each target), the
-#: bitplane shard kernel's group loop (a word stores 4 bytes)
+#: bitplane shard kernel's group loop and the multispin k-sweep and shard
+#: kernels' word loop (a word stores 4 bytes)
 SASS_LOOPS = {
     "tensorcore": ("tensorcore_update_kernel<a,{tile_rows},{tile_cols}>",
                    "position", 2, "HMMA"),
     "bitplane": ("bitplane_shard_sweeps_kernel", "word", 4, "IMAD.WIDE"),
+    "multispin": ("multispin_sweeps_kernel", "word", 4, "IMAD.WIDE"),
 }
+#: the SASS of a 32-bit integer division or remainder by a value known
+#: only at run time: a reciprocal on the XU pipe and its conversions
+DIVISION_OPCODES = ("MUFU", "I2F", "I2FP", "F2I", "F2IP")
 MESH = (2, 2)               # the sharded main paths' mesh
 SMALL_MESHES = ((1, 1), (2, 2), (4, 1), (2, 1, 2))
 
@@ -297,6 +326,19 @@ def tc_random_planes(torch, h: int, dtype, seed: int, w=None) -> dict:
     return {k: (torch.randint(0, 2, (h, w or h), generator=g, device="cuda",
                               dtype=torch.int8) * 2 - 1).to(dtype)
             for k in ("00", "01", "10", "11")}
+
+
+def cold_all_up(family: str, n: int):
+    """All-up (n, 132) int8 stencil planes or (n, 20) multispin word
+    planes on the card and the family's table at TC_COLD_T, where an up
+    spin's flip against 4 up neighbours has bound 0 (no spin may flip)."""
+    import torch
+    from repro_torch.core import metropolis, multispin
+    if family == "stencil":
+        return (torch.ones((n, 132), dtype=torch.int8, device="cuda"),
+                metropolis.acceptance_table(1.0 / TC_COLD_T))
+    return (torch.full((n, 20), 0x11111111, dtype=torch.int32, device="cuda"),
+            multispin.acceptance_thresholds(1.0 / TC_COLD_T))
 
 
 def replica_disagreements(torch, words) -> "torch.Tensor":
@@ -408,6 +450,11 @@ def main() -> int:
                       f"{loop['sites'] // bytes_per} {unit}s a pass, per "
                       f"{unit} {loop['per_site_total'] * bytes_per:.2f} "
                       f"instructions {pipes}; most issued {top}")
+                if b.name == "multispin":
+                    check(not any(op.split(".")[0] in DIVISION_OPCODES
+                                  for op in loop["opcodes_per_site"]),
+                          f"{loop['kernel']}: an integer division in the "
+                          f"word loop")
     from repro_torch.dist import kernels as shard_kernels
     for family in ("stencil", "multispin", "bitplane"):
         lib = importlib.import_module(
@@ -511,6 +558,12 @@ def main() -> int:
                 sweep_cases.append((n, h, dataclasses.replace(
                     small_plan, n=n, m=2 * h, k=k, tile_rows=tr,
                     tile_cols=tc), n_sweeps, 2 ** 32 - 3, SEED))
+        if family == "multispin":
+            for n, h, tr, tc, k, n_sweeps, start in MULTISPIN_EDGE_CASES:
+                for seed in (SEED, 2 ** 40 + 11):
+                    sweep_cases.append((n, h, dataclasses.replace(
+                        small_plan, n=n, m=16 * h, k=k, tile_rows=tr,
+                        tile_cols=tc), n_sweeps, start, seed))
         for (n, h, plan, n_sweeps, start, seed) in sweep_cases:
             b, w = random_planes(family, n, h, n_sweeps + n)
             want, plain_ms = plain_timed(lambda: plains[sweeps](
@@ -521,12 +574,13 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(sweeps, got, want, plain_ms if n == fn else None)
             del b, w, want, got
-        if family == "stencil":
+        if family in ("stencil", "multispin"):
             # T = TC_COLD_T from all-up planes: bound 0, no spin may flip
-            up = torch.ones((40, 132), dtype=torch.int8, device="cuda")
-            cold = metropolis.acceptance_table(1.0 / TC_COLD_T)
-            plan = dataclasses.replace(small_plan, n=40, m=264, k=3,
-                                       tile_rows=16, tile_cols=120)
+            up, cold = cold_all_up(family, 40)
+            plan = dataclasses.replace(
+                small_plan, n=40, m=up.shape[1] * (2 if family == "stencil"
+                                                   else 16), k=3,
+                tile_rows=16, tile_cols=120 if family == "stencil" else 12)
             got = wrappers[sweeps](up, up.clone(), cold, n_sweeps=3,
                                    seed=SEED, start_offset=2 ** 32 - 3,
                                    plan=plan)
@@ -731,10 +785,10 @@ def main() -> int:
             ext = (plan.n_loc + 2 * plan.halo, plan.w_loc + 2 * plan.halo)
             cases.append((ext, k, index,
                           (plan.tile_rows, plan.tile_cols, plan.threads)))
-        if family == "stencil":
-            for shape, n_sweeps, case_tile in STENCIL_SHARD_EDGE_CASES:
-                cases.append((shape, n_sweeps, random_index(shape),
-                              case_tile))
+        for shape, n_sweeps, case_tile in {
+                "stencil": STENCIL_SHARD_EDGE_CASES,
+                "multispin": MULTISPIN_SHARD_EDGE_CASES}.get(family, ()):
+            cases.append((shape, n_sweeps, random_index(shape), case_tile))
         if family == "bitplane":
             # extended widths that are not whole groups; groups of which
             # some are one Philox group and some not
@@ -760,12 +814,12 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(name, got, want, plain_ms if shape == ext else None)
             del b, w, want, got
-        if family == "stencil":
-            up = torch.ones((40, 132), dtype=torch.int8, device="cuda")
+        if family in ("stencil", "multispin"):
+            up, cold = cold_all_up(family, 40)
             got = wrappers[name](
-                up, up.clone(), metropolis.acceptance_table(1.0 / TC_COLD_T),
-                *random_index((40, 132)), n_sweeps=3, seed=SEED,
-                start_offset=2 ** 32 - 3, tile=(16, 120, 256))
+                up, up.clone(), cold, *random_index(tuple(up.shape)),
+                n_sweeps=3, seed=SEED, start_offset=2 ** 32 - 3,
+                tile=(16, 120, 256) if family == "stencil" else (16, 12, 64))
             torch.cuda.synchronize()
             compare(name, got, (up, up))
         cases, bad, err, _ = stats[name]

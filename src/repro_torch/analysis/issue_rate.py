@@ -8,16 +8,21 @@ Philox4x32-10 with the offset's work hoisted (``csrc/philox_lane0.cuh``,
 ``HoistedPhilox``) as the kernels draw it -- lane 0 (the stencil
 kernels), lanes 0 and 1 (``tensorcore_update``, also with its key's
 second word 0 as the kernel keys it) and all four lanes (the bitplane
-shard kernel's aligned groups) -- and lane 0 as the general
-``philox4x32_10`` gives it, 4 calls a thread and step with no memory
-traffic (SM clocks a call: the floor of a kernel that draws once a
-site, position or group); and chains of 32x32
+shard kernel's aligned groups) -- the two calls of a multispin word as
+``HoistedPhiloxPair`` draws them (its key schedule a kernel parameter,
+as the multispin k-sweep and shard kernels take it; the 8 lanes folded
+by XOR), the multispin k-sweep kernels' accept alone (on draws of one
+multiply-add each) and behind the paired Philox, and lane 0 as the
+general ``philox4x32_10`` gives it, 4 calls (or words) a thread and
+step with no memory traffic but the accept's table (SM clocks a call or
+word: the floor of a kernel that draws once a site, position, group or
+word); and chains of 32x32
 products, 16 independent chains a thread, whose rate bounds a multiply's
 throughput from below (products per SM clock): the wide multiply
 (``IMAD.WIDE.U32``, both halves), the high half alone (``IMAD.HI.U32``)
 and the low half alone (``IMAD``), each with one shift or XOR a step,
 and the shift and XOR alone.  The yardstick in ``chip_smoke.py``
-(``PIPE_OPS``, ``FMA_SLOTS``) counts a wide multiply as two of 64
+(``PIPE_OPS``, ``FMA_WIDE_SLOTS``) counts a wide multiply as two of 64
 FMA-pipe slots a clock from these rates.  The last lines are the card's
 name and power limit.
 """
@@ -58,6 +63,55 @@ __global__ void hoisted(uint32_t* out, int iters, uint32_t off, uint32_t k0,
         const uint4 d = ph.lanes(s + e);
         acc += (d.x >> 31) + (d.y >> 31) + (d.z >> 31) + (d.w >> 31);
       }
+    }
+    s += 0x10000;
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+
+// the two calls of a multispin word, counters c and c + 1; kAccept: the
+// multispin k-sweep kernels' accept on the 8 draws (a key word of
+// nibbles s * 8 + c, here made from the word index, one shared-memory
+// table load, compare and merge a nibble), kDraws false: the accept on
+// draws of one multiply-add each instead of Philox
+template <bool kDraws, bool kAccept>
+__global__ void hoisted_pair(uint32_t* out, int iters, uint32_t counter,
+                             PhiloxKeys keys) {
+  __shared__ uint32_t s_table[16];
+  if (threadIdx.x < 16) s_table[threadIdx.x] = 0x0F0F0F0Fu * threadIdx.x;
+  __syncthreads();
+  const unsigned char* table = reinterpret_cast<const unsigned char*>(s_table);
+  const HoistedPhiloxPair ph(counter, keys);
+  uint32_t acc = 0;
+  uint32_t s = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+#pragma unroll 1
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll 1
+    for (int e = 0; e < 4; ++e) {
+      uint32_t d[8];
+      if (kDraws) {
+        ph(s + e, d);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) d[q] = (s + e) * 0x9E3779B9u + q;
+      }
+      if (!kAccept) {
+        acc ^= d[0] ^ d[1] ^ d[2] ^ d[3] ^ d[4] ^ d[5] ^ d[6] ^ d[7];
+        continue;
+      }
+      const uint32_t key = ((s + e) & 0x33333333u) | ((acc & 0x11111111u) << 3);
+      const uint32_t even = (key << 2) & 0x3C3C3C3Cu;
+      const uint32_t odd = (key >> 2) & 0x3C3C3C3Cu;
+      uint32_t flip = 0;
+#pragma unroll
+      for (int nib = 0; nib < 8; ++nib) {
+        const uint32_t at =
+            __byte_perm(nib & 1 ? odd : even, 0u, 0x4440u | (nib >> 1));
+        if (d[nib] < *reinterpret_cast<const uint32_t*>(table + at)) {
+          flip |= 1u << (4 * nib);
+        }
+      }
+      acc ^= flip;
     }
     s += 0x10000;
   }
@@ -157,6 +211,26 @@ int main(int argc, char** argv) {
   timeit("lanes 0-3 of hoisted Philox", "call",
          [&] {
            hoisted<4, false><<<blocks, threads>>>(out, iters, 7, 11, 13);
+         },
+         sites, clocks_per_ms);
+  timeit("paired hoisted Philox (HoistedPhiloxPair), 8 lanes", "word",
+         [&] {
+           hoisted_pair<true, false><<<blocks, threads>>>(
+               out, iters, 14, PhiloxKeys(11, 13));
+         },
+         sites, clocks_per_ms);
+  printf("  (the yardstick: 34 wide multiplies a word at 2 of 64 FMA-pipe "
+         "slots each, 1.0625 SM clocks a word)\n");
+  timeit("the multispin accept on cheap draws", "word",
+         [&] {
+           hoisted_pair<false, true><<<blocks, threads>>>(
+               out, iters, 14, PhiloxKeys(11, 13));
+         },
+         sites, clocks_per_ms);
+  timeit("paired hoisted Philox and the multispin accept", "word",
+         [&] {
+           hoisted_pair<true, true><<<blocks, threads>>>(
+               out, iters, 14, PhiloxKeys(11, 13));
          },
          sites, clocks_per_ms);
   timeit("philox4x32_10, lane 0", "site",

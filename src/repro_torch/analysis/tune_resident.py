@@ -56,9 +56,13 @@ CANDIDATES = {
                 for k in (1, 2, 3, 4) for tr in (64, 128, 192)
                 for tc in (120, 248, 504) for t in (256, 512)]
     + [(128, 256, 2, 256)],
-    "multispin": [(tr, tc, k, t) for tr, tc in ((64, 128), (96, 128),
-                                                 (128, 64), (64, 64))
-                  for k in (1, 2, 3) for t in (256, 512)],
+    # a warp takes a row and a lane a word; the columns are those that
+    # with the halo of 4 a side at k = 2 make rows of 64, 128 or 256
+    # words (56, 120, 248), and 128, which divides the main path's 2048
+    "multispin": [(tr, tc, 2, t) for tr in (32, 40, 48, 64, 96, 128)
+                  for tc in (56, 120, 128, 248) for t in (256, 512)]
+    + [(tr, tc, k, t) for tr, tc in ((40, 248), (96, 120))
+       for k in (1, 3) for t in (256, 512)],
     "bitplane": [(tr, tc, k, t) for tr, tc in ((64, 128), (96, 128),
                                                 (32, 256), (32, 128))
                  for k in (1, 2, 3) for t in (256, 512)],
@@ -70,7 +74,9 @@ TC_PLANE = 16384
 TC_BLOCK = 128
 
 #: (tile rows, tile columns, threads) of the shard kernels; the
-#: stencil kernel's rows of whole warps of 4-cell words as above
+#: stencil kernel's rows of whole warps of 4-cell words as above; for
+#: the multispin kernel's 1032-word extended shard also 172 and 344
+#: words, which divide it (a multispin block takes at most 512 threads)
 SHARD_CANDIDATES = [(tr, tc, t) for tr, tc in ((128, 256), (128, 128),
                                                 (96, 128), (64, 256),
                                                 (64, 128), (48, 128),
@@ -78,7 +84,10 @@ SHARD_CANDIDATES = [(tr, tc, t) for tr, tc in ((128, 256), (128, 128),
                                                 (64, 248), (96, 248),
                                                 (128, 248), (64, 120),
                                                 (96, 120), (128, 120),
-                                                (192, 120))
+                                                (192, 120), (32, 120),
+                                                (48, 120), (48, 172),
+                                                (64, 172), (24, 344),
+                                                (32, 344))
                     for t in (256, 512, 1024)]
 
 

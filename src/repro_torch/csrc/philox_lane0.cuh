@@ -22,6 +22,16 @@
 // which issue at one rate) and one low half a site, 17 products.  All
 // four lanes need both halves of round 8's products and a second wide
 // multiply in round 9: 18 wide multiplies.
+//
+// HoistedPhiloxPair draws the two calls of a multispin word, at counters
+// (c, 0, site, 0) and (c + 1, 0, site, 0), all four lanes of each.  The
+// counters differ in lane x only, which round 0 multiplies by itself:
+// round 0's product of the site and round 1's product of lane x
+// (hi(M1 site) ^ k0) are the same for both calls and made once.  That
+// leaves 2 + 2 x 16 = 34 wide multiplies and 1 + 2 x 18 = 37 XORs a
+// site.  Its key schedule (PhiloxKeys) is made on the host and passed to
+// the kernel by value, so that the rounds take the keys as constant-bank
+// operands and no registers.
 #pragma once
 
 #include <cstdint>
@@ -129,6 +139,89 @@ class HoistedPhilox {
   uint32_t x2_xor_;
   uint32_t z2_xor_;
   uint32_t x3_xor_;
+};
+
+// The key schedule of rounds 0 to 9: key + r W.
+struct PhiloxKeys {
+  uint32_t k0[10];
+  uint32_t k1[10];
+
+  __host__ __device__ __forceinline__ PhiloxKeys(uint32_t key0,
+                                                 uint32_t key1) {
+#pragma unroll
+    for (int r = 0; r < 10; ++r) {
+      k0[r] = key0 + static_cast<uint32_t>(r) * kPhiloxW0;
+      k1[r] = key1 + static_cast<uint32_t>(r) * kPhiloxW1;
+    }
+  }
+};
+
+class HoistedPhiloxPair {
+ public:
+  // counter c (even for a multispin word: 2 offset, modulo 2^32); the
+  // second call's c + 1 wraps modulo 2^32 as well
+  __host__ __device__ __forceinline__ HoistedPhiloxPair(
+      uint32_t counter, const PhiloxKeys& keys)
+      : keys_(keys) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      // as HoistedPhilox: round 0's product of the counter, round 1's of
+      // lane z1, both the same for every site
+      uint32_t hi, lo;
+      mul_wide(kPhiloxM0, counter + static_cast<uint32_t>(c), hi, lo);
+      const uint32_t z1 = hi ^ keys.k1[0];
+      z2_xor_[c] = lo ^ keys.k1[1];
+      mul_wide(kPhiloxM1, z1, hi, lo);
+      x2_xor_[c] = hi ^ keys.k0[1];
+      x3_xor_[c] = lo ^ keys.k0[2];
+    }
+  }
+
+  // the 8 draws of a site: lanes x, y, z, w of the call at c, then of
+  // the call at c + 1
+  __device__ __forceinline__ void operator()(uint32_t site,
+                                             uint32_t (&out)[8]) const {
+    uint32_t hi, lo, hi0, lo0;
+    // round 0, shared: lanes y and w are 0
+    mul_wide(kPhiloxM1, site, hi, lo);
+    const uint32_t x1 = hi ^ keys_.k0[0];
+    const uint32_t y1 = lo;
+    // round 1, shared: the product of lane x1
+    mul_wide(kPhiloxM0, x1, hi0, lo0);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      uint32_t x = y1 ^ x2_xor_[c];
+      uint32_t z = hi0 ^ z2_xor_[c];
+      uint32_t w = lo0;
+      uint32_t y, h0, l0, h1, l1;
+      // round 2: lane y2 is the same for every site (in x3_xor_)
+      mul_wide(kPhiloxM0, x, h0, l0);
+      mul_wide(kPhiloxM1, z, h1, l1);
+      x = h1 ^ x3_xor_[c];
+      y = l1;
+      z = h0 ^ w ^ keys_.k1[2];
+      w = l0;
+#pragma unroll
+      for (int r = 3; r < 10; ++r) {
+        mul_wide(kPhiloxM0, x, h0, l0);
+        mul_wide(kPhiloxM1, z, h1, l1);
+        x = h1 ^ y ^ keys_.k0[r];
+        y = l1;
+        z = h0 ^ w ^ keys_.k1[r];
+        w = l0;
+      }
+      out[4 * c] = x;
+      out[4 * c + 1] = y;
+      out[4 * c + 2] = z;
+      out[4 * c + 3] = w;
+    }
+  }
+
+ private:
+  PhiloxKeys keys_;
+  uint32_t x2_xor_[2];
+  uint32_t z2_xor_[2];
+  uint32_t x3_xor_[2];
 };
 
 }  // namespace repro_torch

@@ -164,23 +164,10 @@ struct DrawBounds {
 // the bounds at the start of a block's shared memory, padded
 constexpr int kBoundsBytes = 128;
 
-// x modulo size for x a few sizes out of [0, size): no division
-__device__ __forceinline__ int wrap_near(int x, int size) {
-  while (x < 0) x += size;
-  while (x >= size) x -= size;
-  return x;
-}
-
-// cells of halo left of a tile: 2k, rounded up to a word
-__host__ __device__ inline int left_halo(int n_sweeps) {
-  return (2 * n_sweeps + 3) & ~3;
-}
-
-// cells of an extended tile row: the tile, the left halo on each side,
-// rounded up to a word (the right halo is at least the left one)
-__host__ __device__ inline int ext_cols(int tile_c, int n_sweeps) {
-  return (tile_c + 2 * left_halo(n_sweeps) + 3) & ~3;
-}
+using repro_torch::aligned;
+using repro_torch::ext_cols;
+using repro_torch::left_halo;
+using repro_torch::wrap_near;
 
 // Shared memory of one k-sweep block: the bounds, then both extended
 // planes.
@@ -435,10 +422,6 @@ DrawBounds make_bounds(const unsigned long long* bounds) {
   DrawBounds b;
   std::memcpy(b.v, bounds, sizeof(b.v));
   return b;
-}
-
-bool aligned(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // Launch one of the two; returns the CUDA error (0: launched).

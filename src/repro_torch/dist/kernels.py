@@ -35,9 +35,10 @@ gidx=, lane=)``).  A wrapper takes its plain version for CPU tensors and
 launches its kernel for CUDA tensors; it returns new planes.  Stencil
 takes the 10-entry float32 acceptance table (its kernel compares the raw
 draw with the table's ``metropolis.draw_bounds``), the word families the
-10 uint32 thresholds, as their single-device kernels do.  The stencil
-kernel shares the site loop of ``stencil_sweeps_resident`` (4 cells a
-thread, lane-0 Philox, integer accept), keyed on the staged ``gidx``.
+10 uint32 thresholds (the multispin kernel as the 16-entry
+``key_table``), as their single-device kernels do.  The stencil and
+multispin kernels share the site or word loop of their k-sweep kernels,
+keyed on the staged ``gidx`` or ``widx``.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ from repro_torch.core import bitplane as bp
 from repro_torch.core import metropolis, rng
 from repro_torch.core import multispin as ms
 from repro_torch.kernels import _build
-from repro_torch.kernels._words import check_words, thresholds_arg
+from repro_torch.kernels._words import (check_words, key_table_arg,
+                                        thresholds_arg)
 from repro_torch.kernels.stencil.stencil import (bounds_arg, check_planes,
                                                  raise_on_error)
 
@@ -181,7 +183,7 @@ def multispin_shard_sweeps(black, white, thresholds, widx, *,
             black, white, thresholds, widx, n_sweeps=n_sweeps, seed=seed,
             start_offset=start_offset)
     return _launch("multispin", multispin_shard_sweeps, (black, white, widx),
-                   black, white, thresholds_arg(thresholds),
+                   black, white, key_table_arg(thresholds),
                    n_sweeps=n_sweeps, seed=seed, start_offset=start_offset,
                    tile=tile)
 

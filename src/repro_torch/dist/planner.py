@@ -58,8 +58,9 @@ INDEX_BYTES = {"stencil": 4, "multispin": 4, "bitplane": 5}
 #: repro_torch.analysis.tune_resident --shard`` at the 2 x 2 main paths
 #: (``PERF.md``).  Staging the index planes too, the single-device tiles
 #: (``GEOMETRY``) leave one block an SM.  The bitplane kernel's columns
-#: are whole 4-word groups
-SHARD_TILES = {"stencil": (64, 248), "multispin": (48, 128),
+#: are whole 4-word groups; the multispin kernel's make rows of 128
+#: words with the halo at k = 2
+SHARD_TILES = {"stencil": (64, 248), "multispin": (64, 120),
                "bitplane": (64, 120)}
 
 #: threads of a shard-kernel block, by family (the same measurements):
@@ -124,7 +125,8 @@ def shard_smem_bytes(family: str, tile_rows: int, tile_cols: int,
     g = GEOMETRY[family]
     cell = INDEX_BYTES[family] + 2 * g.element_bytes
     if not g.index_tables:
-        # stencil: rows of whole words, as its k-sweep kernel's
+        # stencil and multispin: rows of whole words (and of 4 words), as
+        # their k-sweep kernels
         er, ec = extended_tile(tile_rows, tile_cols, k, family)
         return g.table_bytes + cell * er * ec
     if family == "bitplane":

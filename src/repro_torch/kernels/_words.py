@@ -5,7 +5,9 @@ the launch loop of their k-sweep kernels.
 
 Word planes are ``torch.int32`` tensors holding the uint32 bits; the
 thresholds an int64 tensor of 10 uint32 values
-(``repro_torch.core.multispin.acceptance_thresholds``).
+(``repro_torch.core.multispin.acceptance_thresholds``), which the
+multispin k-sweep and shard kernels take as the 16-entry
+:func:`key_table`.
 """
 from __future__ import annotations
 
@@ -19,6 +21,9 @@ from repro_torch.kernels.stencil.stencil import raise_on_error
 
 #: entries of the threshold table
 N_CLASSES = 10
+
+#: entries of the multispin k-sweep and shard kernels' table
+N_KEYS = 16
 
 
 def check_words(*planes: torch.Tensor, align: int = 4) -> None:
@@ -60,6 +65,22 @@ def thresholds_arg(thresholds: torch.Tensor):
     return (ctypes.c_uint32 * N_CLASSES)(*values)
 
 
+def key_table(thresholds: torch.Tensor) -> list:
+    """The 16 uint32 entries that ``csrc/multispin.cu``'s k-sweep and
+    shard kernels index by a word's key nibble ``s * 8 + c`` (spin s at
+    bit 3, the count c <= 4 of up neighbours below it): entry ``s * 8 +
+    c`` is threshold ``s * 5 + c``; entries 5-7 and 13-15, which no
+    nibble takes, are 0."""
+    values = list(thresholds_arg(thresholds))
+    return [values[(key >> 3) * 5 + (key & 7)] if key & 7 <= 4 else 0
+            for key in range(N_KEYS)]
+
+
+def key_table_arg(thresholds: torch.Tensor):
+    """:func:`key_table` as a ctypes array (passed by value)."""
+    return (ctypes.c_uint32 * N_KEYS)(*key_table(thresholds))
+
+
 def declare(lib, family: str):
     """Declare the C signatures of ``csrc/<family>.cu``: its two launch
     functions and its shared-memory query."""
@@ -95,20 +116,21 @@ def launch_update(lib, fn, wrapper, target, op_words, thresholds, *,
     return target
 
 
-def launch_resident(lib, fn, wrapper, black, white, thresholds, *,
+def launch_resident(lib, fn, wrapper, black, white, table, *,
                     n_sweeps: int, seed: int, start_offset: int, plan):
-    """Launch a word family's k-sweep kernel ``fn`` over ``n_sweeps``
-    sweeps in launches of at most ``plan.k``, counting each launch on
-    ``wrapper``; returns new planes."""
+    """Launch a word family's k-sweep kernel ``fn`` with its threshold
+    table ``table`` (a ctypes array: :func:`thresholds_arg` or
+    :func:`key_table_arg`) over ``n_sweeps`` sweeps in launches of at
+    most ``plan.k``, counting each launch on ``wrapper``; returns new
+    planes."""
     n, w = black.shape
     k0, k1 = rng.seed_keys(seed)
-    thr = thresholds_arg(thresholds)
     stream = torch.cuda.current_stream(black.device).cuda_stream
     for first in range(0, n_sweeps, plan.k):
         k = min(plan.k, n_sweeps - first)
         out_b, out_w = torch.empty_like(black), torch.empty_like(white)
         rc = fn(black.data_ptr(), white.data_ptr(), out_b.data_ptr(),
-                out_w.data_ptr(), n, w, thr, k0, k1,
+                out_w.data_ptr(), n, w, table, k0, k1,
                 rng.half_sweep_offset(start_offset, first, 0), k,
                 plan.tile_rows, plan.tile_cols, plan.threads, stream)
         raise_on_error(lib, rc, wrapper.__name__)

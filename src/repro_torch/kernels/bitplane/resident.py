@@ -14,7 +14,8 @@ result is bit for bit k applications of the half-sweep; the planner
 from __future__ import annotations
 
 from repro_torch.core import bitplane as bp
-from repro_torch.kernels._words import check_resident_args, launch_resident
+from repro_torch.kernels._words import (check_resident_args,
+                                        launch_resident, thresholds_arg)
 
 from .bitplane import check_bit_planes, library
 
@@ -46,8 +47,8 @@ def bitplane_sweeps_resident(black, white, thresholds, *, n_sweeps: int,
     lib = library()
     return launch_resident(
         lib, lib.bitplane_sweeps_resident_launch, bitplane_sweeps_resident,
-        black, white, thresholds, n_sweeps=n_sweeps, seed=seed,
-        start_offset=start_offset, plan=plan)
+        black, white, thresholds_arg(thresholds), n_sweeps=n_sweeps,
+        seed=seed, start_offset=start_offset, plan=plan)
 
 
 #: kernel launches since the count was last set to 0

@@ -2,13 +2,16 @@
 
 Replaces the Pallas kernel ``src/repro/kernels/multispin/resident.py``
 (``multispin_sweeps_resident``), which keeps both whole word planes in
-TPU VMEM for ``n_sweeps`` sweeps.  On the card (``csrc/multispin.cu``)
-each block loads a tile of both word planes plus a halo of 2k word rows
-and word columns into shared memory, runs 2k half-sweeps on it and
-writes back the tile.  The draws are keyed on the global word index, so
-the result is bit for bit k applications of the half-sweep.  It is bound
-by Philox arithmetic, the halo's redundant words included; the planner
-(``repro_torch.kernels.resident``) picks the tile and k.
+TPU VMEM for ``n_sweeps`` sweeps.  On the card (``csrc/multispin.cu``,
+the word loop it shares with the shard kernel) each block loads a tile
+of both word planes plus a halo of at least 2k word rows and word
+columns into shared memory, runs 2k half-sweeps on it and writes back
+the tile.  The draws are keyed on the global word index, so the result
+is bit for bit k applications of the half-sweep; the accept takes the
+thresholds as the 16-entry ``key_table``.  It is bound by instruction
+issue (the paired Philox and the accept), the halo's redundant words
+included; the planner (``repro_torch.kernels.resident``) picks the tile
+and k.
 
 A run longer than the plan's k takes ceil(n_sweeps / k) launches.
 """
@@ -16,7 +19,7 @@ from __future__ import annotations
 
 from repro_torch.core import multispin as ms
 from repro_torch.kernels._words import (check_resident_args, check_words,
-                                        launch_resident)
+                                        key_table_arg, launch_resident)
 
 from .multispin import library
 
@@ -46,8 +49,8 @@ def multispin_sweeps_resident(black, white, thresholds, *, n_sweeps: int,
     lib = library()
     return launch_resident(
         lib, lib.multispin_sweeps_resident_launch, multispin_sweeps_resident,
-        black, white, thresholds, n_sweeps=n_sweeps, seed=seed,
-        start_offset=start_offset, plan=plan)
+        black, white, key_table_arg(thresholds), n_sweeps=n_sweeps,
+        seed=seed, start_offset=start_offset, plan=plan)
 
 
 #: kernel launches since the count was last set to 0

@@ -62,9 +62,9 @@ class Geometry:
     #: the column halo (and the tile's column origin) are multiples of
     #: this: the bitplane kernel draws one Philox call per 4-site group
     col_align: int
-    #: plane elements per shared-memory word of a thread: the left halo
-    #: and each extended row are rounded up to whole words (stencil: 4
-    #: int8 cells)
+    #: the left halo and each extended row are rounded up to a multiple
+    #: of this many plane elements (stencil: the 4 int8 cells of a
+    #: thread's 32-bit word; multispin: the 4 words of a 16-byte load)
     row_word: int
     #: the kernel keeps the extended tile's global row and column
     #: indices in shared memory
@@ -87,11 +87,16 @@ GEOMETRY = {
                         plane_align=16, tile_rows=TILE_ROWS,
                         tile_cols=TILE_COLS, max_k=MAX_SWEEPS_PER_LAUNCH,
                         threads=THREADS),
-    # uint32 words of 8 spins; two uint32 planes of stencil's 64 x 504
-    # tile would take 270 KiB, over the budget
+    # uint32 words of 8 spins, the left halo and each extended row
+    # rounded up to 4 words (16-byte loads), the 256 threshold pairs of a
+    # key byte in 2 KiB; two uint32 planes of stencil's 64 x 504 tile
+    # would take 270 KiB, over the budget.  40 x 248 words: rows of 256
+    # words (8 whole passes of a warp) with the halo at k = 2, two 98 KiB
+    # blocks an SM, the fastest k = 2 candidate of ``tune_resident`` at
+    # 32768^2 (96 x 120 within 0.1 %)
     "multispin": Geometry(col_divisor=16, element_bytes=4, col_align=1,
-                          row_word=1, index_tables=True, table_bytes=64,
-                          plane_align=4, tile_rows=96, tile_cols=128,
+                          row_word=4, index_tables=False, table_bytes=2048,
+                          plane_align=16, tile_rows=40, tile_cols=248,
                           max_k=2, threads=512),
     # uint32 words of 32 replica bits; tile columns in 4-site groups, each
     # moved as one 16-byte access

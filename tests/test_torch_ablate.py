@@ -1,8 +1,8 @@
-"""The ablation tool of ``tensorcore_update`` (``repro_torch.analysis.
-ablate``): every ablation still applies to ``csrc/tensorcore.cu`` and
-takes out what it names, and every tile copy fixes its tile, so that its
-card timings mean what they say; the copies build from their own
-directories."""
+"""The ablation tool of ``tensorcore_update`` and the multispin k-sweep
+kernel (``repro_torch.analysis.ablate``): every ablation still applies
+to ``csrc/tensorcore.cu`` or ``csrc/multispin.cu`` and takes out what
+it names, and every tile copy fixes its tile, so that its card timings
+mean what they say; the copies build from their own directories."""
 import pytest
 
 from repro_torch.analysis import ablate
@@ -47,3 +47,17 @@ def test_copy_builds_from_its_own_directory(tmp_path):
     assert copy.parent == package.parent == _build.BUILD_DIR
     assert copy != package
     assert _build.CSRC_DIR == _build.PACKAGE_DIR / "csrc"
+
+
+@pytest.mark.parametrize("name", sorted(ablate.MULTISPIN_ABLATIONS))
+def test_multispin_ablation_applies_to_the_word_loop(name):
+    source = (_build.CSRC_DIR / "multispin.cu").read_text()
+    new = ablate.multispin_source(name)
+    assert new != source
+    taken_out = {"philox": "philox(widx, draw);",
+                 "accept": "flip_below(flip, draw",
+                 "plane loads": "op[c - pitch]",
+                 "staging": "load_tile<kShard>(b_in",
+                 "sweeps": "half_sweep<kShard, false>(tgt",
+                 "select": "setp.lt.u32"}[name]
+    assert taken_out in source and taken_out not in new

@@ -222,6 +222,63 @@ def test_word_resident_kernel_matches_plain(cuda, family, n, w, tile_r,
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+#: the multispin k-sweep kernel's geometry: word widths 1, 3, 31, 33 and
+#: 129, tiles whose width is not a multiple of 4 or of a warp, a halo
+#: wider than the plane, n_sweeps 1 to 3, offsets near 2^31 and 2^32, 16-
+#: byte loads on inner tiles and word loads on edge tiles:
+#: (rows, words, tile rows, tile words, k, n_sweeps, start offset)
+MULTISPIN_EDGE_CASES = [
+    (12, 1, 5, 1, 1, 2, 2 ** 31 - 2),
+    (20, 3, 8, 3, 2, 3, 2 ** 32 - 3),
+    (16, 31, 8, 12, 2, 2, 2 ** 31 - 1),
+    (10, 33, 5, 33, 1, 1, 2 ** 32 - 1),
+    (16, 129, 8, 120, 3, 3, 2 ** 32 - 3),
+    (48, 256, 16, 120, 2, 3, 2 ** 31 - 2),
+]
+
+
+@pytest.mark.parametrize("case", MULTISPIN_EDGE_CASES)
+@pytest.mark.parametrize("seed", [2 ** 33 + 5, SEED])
+def test_multispin_resident_kernel_edge_cases(cuda, case, seed):
+    n, w, tile_r, tile_c, k, n_sweeps, start = case
+    b, wp = word_planes(n, w, n + w + k, cuda, NIBBLES)
+    thr = multispin.acceptance_thresholds(1 / 2.2)
+    plan = dataclasses.replace(
+        resident.plan_resident("multispin", n, 16 * w), k=k,
+        tile_rows=tile_r, tile_cols=tile_c)
+    want = multispin_sweeps_resident_plain(b, wp, thr, n_sweeps=n_sweeps,
+                                           seed=seed, start_offset=start)
+    got = multispin_sweeps_resident(b, wp, thr, n_sweeps=n_sweeps,
+                                    seed=seed, start_offset=start, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("shard", [False, True])
+def test_multispin_kernels_cold_all_up_never_flip(cuda, shard):
+    """At T = 0.05 an up spin's flip against 3 or 4 up neighbours has a
+    threshold of 0, and from all-up planes no draw may flip a spin."""
+    n, w = 40, 20
+    up = torch.full((n, w), NIBBLES, dtype=torch.int32, device=cuda)
+    thr = multispin.acceptance_thresholds(1 / 0.05)
+    assert int(thr[8]) == int(thr[9]) == 0
+    if shard:
+        index = shard_inputs("multispin", n, w, 3, cuda)[3]
+        got = dk.multispin_shard_sweeps(up, up.clone(), thr, *index,
+                                        n_sweeps=3, seed=SEED,
+                                        start_offset=2 ** 32 - 3,
+                                        tile=(16, 12, 64))
+    else:
+        plan = dataclasses.replace(
+            resident.plan_resident("multispin", n, 16 * w), k=3,
+            tile_rows=16, tile_cols=12)
+        got = multispin_sweeps_resident(up, up.clone(), thr, n_sweeps=3,
+                                        seed=SEED, start_offset=2 ** 32 - 3,
+                                        plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], up) and torch.equal(got[1], up)
+
+
 @pytest.mark.parametrize("family", ["multispin", "bitplane"])
 def test_word_planner_and_kernel_agree_on_shared_memory(cuda, family):
     import importlib
@@ -441,10 +498,22 @@ STENCIL_SHARD_CASES = [
 ]
 
 
+#: the multispin shard kernel's: extended widths 3, 5, 33 and 129, tiles
+#: whose width is not a multiple of 4, 16-byte loads
+MULTISPIN_SHARD_CASES = [
+    (12, 3, 1, (6, 3, 64)),
+    (14, 5, 2, (6, 5, 64)),
+    (10, 129, 1, (5, 120, 64)),
+    (16, 33, 3, (8, 13, 96)),
+    (40, 512, 2, (16, 120, 256)),
+]
+
+
 @pytest.mark.parametrize("family,n,w,n_sweeps,tile", [
     (family, *case) for case in SHARD_CASES
     for family in sorted(SHARD_KERNELS)] + [
-    ("stencil", *case) for case in STENCIL_SHARD_CASES])
+    ("stencil", *case) for case in STENCIL_SHARD_CASES] + [
+    ("multispin", *case) for case in MULTISPIN_SHARD_CASES])
 def test_shard_kernel_matches_plain(cuda, family, n, w, n_sweeps, tile):
     """The whole extended plane, edge rings included, with random index
     planes."""

@@ -25,7 +25,7 @@ from repro_torch.core import rng
 from repro_torch.kernels import resident
 from repro_torch.kernels.multispin import (multispin_sweeps_resident,
                                            multispin_update)
-from repro_torch.kernels._words import thresholds_arg
+from repro_torch.kernels._words import key_table, thresholds_arg
 
 BETA = 1 / 2.2
 SMALL_SEED = 2 ** 30 + 19           # one key lane: the Pallas half-sweep's
@@ -206,45 +206,57 @@ def test_resident_wrapper_matches_pallas_kernel(k):
 
 
 def tiled_sweeps(black, white, thr, k, seed, start, tile_r, tile_c):
-    """PyTorch emulation of ``multispin_sweeps_resident_kernel``: every
-    tile of words plus a halo of 2k word rows and columns (wrapped modulo
-    the plane) runs 2k half-sweeps on its own, the side word by global
-    row parity, draws keyed on the global word index; half-sweep h (from
-    0) updates only the cells at distance >= h + 1 from the extended
-    tile's edge, and only the tile is written back."""
+    """PyTorch emulation of ``multispin_sweeps_kernel`` (the k-sweep
+    kernel of ``csrc/multispin.cu``): every tile of words plus a halo of
+    2k word rows and, on each side, 2k word columns rounded up to 4, the
+    extended row rounded up to 4 words (all wrapped modulo the plane; a
+    tile at a ragged edge extends only its own rows and words), runs 2k
+    half-sweeps on its own, the side word by global row parity, draws
+    keyed on the global word index, the accept a lookup of the key nibble
+    s * 8 + c in ``key_table``; half-sweep h (from 0) updates only the
+    words at distance >= h + 1 from the extended tile's edge, and only
+    the tile is written back."""
     n, w = black.shape
     halo = 2 * k
+    left = -(-halo // 4) * 4
+    table = torch.tensor(key_table(thr), dtype=torch.int64)
     b64, w64 = lat.words_to_u32(black), lat.words_to_u32(white)
     out_b, out_w = torch.empty_like(black), torch.empty_like(white)
     for r0 in range(0, n, tile_r):
         for c0 in range(0, w, tile_c):
-            rows = torch.arange(r0 - halo, r0 + tile_r + halo) % n
-            cols = torch.arange(c0 - halo, c0 + tile_c + halo) % w
+            n_rows, n_cols = min(tile_r, n - r0), min(tile_c, w - c0)
+            ew = -(-(n_cols + 2 * left) // 4) * 4
+            rows = torch.arange(r0 - halo, r0 + n_rows + halo) % n
+            cols = torch.arange(c0 - left, c0 - left + ew) % w
             ext = [b64[rows][:, cols].clone(), w64[rows][:, cols].clone()]
             widx = (rows[:, None] * w + cols[None, :]) & rng.MASK32
-            er, ec = len(rows), len(cols)
+            er = len(rows)
             for s in range(k):
                 for color in (0, 1):
                     margin = 2 * s + color + 1
-                    region = torch.zeros((er, ec), dtype=torch.bool)
-                    region[margin:er - margin, margin:ec - margin] = True
+                    region = torch.zeros((er, ew), dtype=torch.bool)
+                    region[margin:er - margin, margin:ew - margin] = True
                     tgt, op = ext[color], ext[1 - color]
                     plus = ((rows % 2 == 1) == (color == 0))[:, None]
                     nxt, prv = torch.roll(op, -1, 1), torch.roll(op, 1, 1)
                     side = torch.where(
                         plus, (op >> 4) | ((nxt << 28) & rng.MASK32),
                         ((op << 4) & rng.MASK32) | (prv >> 28))
-                    nn = (torch.roll(op, 1, 0) + torch.roll(op, -1, 0) + op
-                          + side)
+                    key = ((torch.roll(op, 1, 0) + torch.roll(op, -1, 0) + op
+                            + side) | ((tgt & 0x11111111) << 3))
                     draws = ms.word_randoms(
                         seed, widx, rng.half_sweep_offset(start, s, color))
-                    ext[color] = torch.where(
-                        region, tgt ^ ms.flip_words(tgt, nn, draws, thr), tgt)
-            rr = slice(halo, halo + min(tile_r, n - r0))
-            cc = slice(halo, halo + min(tile_c, w - c0))
-            out_b[r0:r0 + tile_r, c0:c0 + tile_c] = lat.u32_to_words(
+                    flip = torch.zeros_like(tgt)
+                    for nib in range(8):
+                        entry = table[(key >> (4 * nib)) & 0xF]
+                        flip |= (draws[nib] < entry).to(torch.int64) << (
+                            4 * nib)
+                    ext[color] = torch.where(region, tgt ^ flip, tgt)
+            rr = slice(halo, halo + n_rows)
+            cc = slice(left, left + n_cols)
+            out_b[r0:r0 + n_rows, c0:c0 + n_cols] = lat.u32_to_words(
                 ext[0][rr, cc])
-            out_w[r0:r0 + tile_r, c0:c0 + tile_c] = lat.u32_to_words(
+            out_w[r0:r0 + n_rows, c0:c0 + n_cols] = lat.u32_to_words(
                 ext[1][rr, cc])
     return out_b, out_w
 
@@ -264,6 +276,68 @@ def test_tiled_k_sweeps_equal_whole_plane_sweeps(n, m, tile_r, tile_c, k):
     assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
 
 
+@pytest.mark.parametrize("w,tile_r,tile_c,k,n_sweeps", [
+    (1, 5, 1, 1, 2),        # one word a row: every side word wraps
+    (3, 8, 3, 2, 3),
+    (31, 8, 12, 2, 2),      # ragged last tile of 7 words
+    (33, 5, 33, 1, 1),
+    (9, 7, 4, 3, 3),        # halo wider than the plane
+])
+def test_tiled_k_sweeps_at_ragged_word_widths(w, tile_r, tile_c, k,
+                                              n_sweeps):
+    """The kernel's geometry at word widths that are not multiples of 4
+    or of a warp, from offsets near 2^32 with a seed of both key lanes:
+    ceil(n_sweeps / k) launches of the tile emulation equal whole-plane
+    sweeps."""
+    n = 12
+    b, wp = ms.pack_lattice(*(torch.tensor(p) for p in pm1_planes(
+        n, 16 * w, seed=w + k)))
+    thr = ms.acceptance_thresholds(BETA)
+    start = 2 ** 32 - 3
+    want = ms.run_sweeps_packed(b, wp, thr, n_sweeps, BIG_SEED, start)
+    got = (b, wp)
+    for first in range(0, n_sweeps, k):
+        got = tiled_sweeps(*got, thr, min(k, n_sweeps - first), BIG_SEED,
+                           rng.half_sweep_offset(start, first, 0), tile_r,
+                           tile_c)
+    assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+
+
+@pytest.mark.parametrize("temperature", [0.05, 1.0, 2.2, 3.5])
+def test_key_table_decides_as_thresholds_and_jax_select_chain(temperature):
+    """The 16-entry table of the k-sweep and shard kernels, indexed by
+    the key nibble s * 8 + c, flips every (s, c, draw) as the 10
+    thresholds do at s * 5 + c and as the JAX resident kernel's select
+    chain does (``repro/kernels/multispin/resident.py``): draws at 0, 1,
+    each threshold and its neighbours, 2^32 - 2, 2^32 - 1 and random."""
+    beta = 1 / temperature
+    thr = ms.acceptance_thresholds(beta)
+    jthr = jax_thresholds(beta)
+    np.testing.assert_array_equal(thr.numpy(), np.asarray(jthr))
+    assert int(thr.max()) == rng.MASK32     # classes with p >= 1
+    table = key_table(thr)
+    assert len(table) == 16 and table[5:8] == [0] * 3 == table[13:16]
+    r = np.random.default_rng(int(temperature * 100))
+    for s in (0, 1):
+        for c in range(5):
+            t = int(thr[s * 5 + c])
+            draws = np.unique(np.clip(np.concatenate([
+                [0, 1, t - 1, t, t + 1, rng.MASK32 - 1, rng.MASK32],
+                r.integers(0, 2 ** 32, 64)]), 0, rng.MASK32)).astype(
+                    np.uint32)
+            want = draws < np.uint32(t)
+            key_flip = draws < np.uint32(table[s * 8 + c])
+            idx = jnp.full(draws.shape, s * 5 + c, jnp.uint32)
+            chain = jnp.zeros_like(idx)
+            for e in range(10):
+                chain = jnp.where(idx == np.uint32(e), jthr[e], chain)
+            jax_flip = np.asarray(jnp.asarray(draws) < chain)
+            np.testing.assert_array_equal(key_flip, want)
+            np.testing.assert_array_equal(jax_flip, want)
+    with pytest.raises(ValueError, match="10 entries"):
+        key_table(thr[:9])
+
+
 def test_planner_multispin_geometry_and_boundary():
     g = resident.GEOMETRY["multispin"]
     plan = resident.plan_resident("multispin", 32768, 32768)
@@ -277,8 +351,10 @@ def test_planner_multispin_geometry_and_boundary():
                                "multispin") > resident.SMEM_BUDGET_BYTES
     small = resident.plan_resident("multispin", 16, 48)
     assert (small.tile_rows, small.tile_cols) == (16, 3)
+    # the 256 threshold pairs, then rows of 3 + 2 x 4 words rounded up
+    # to 12
     need1 = resident.smem_bytes(16, 3, 1, "multispin")
-    assert need1 == 4 * (20 + 7) + 64 + 8 * 20 * 7
+    assert need1 == 2048 + 8 * 20 * 12
     assert resident.plan_resident("multispin", 16, 48, need1).k == 1
     assert resident.plan_resident("multispin", 16, 48, need1 - 1) is None
 

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from repro.core import rng as jrng
+from repro_torch.core import multispin as ms
 from repro_torch.core import rng
 
 
@@ -98,36 +99,53 @@ class HoistedPhiloxModel:
     product of the offset, round 1's product of the lane that round 0
     leaves the same for every site), then per site one product in rounds
     0 and 1, two in rounds 2 to 8, and round 9's products of the lanes
-    asked for."""
+    asked for.  :meth:`pair` models ``HoistedPhiloxPair``: the calls at
+    ``offset`` and ``offset + 1`` with rounds 0 and 1's site products
+    made once for both."""
 
     def __init__(self, offset, key0, key1):
+        self.offset = offset
         self.k0 = [np.uint64((key0 + r * W0) & MASK) for r in range(10)]
         self.k1 = [np.uint64((key1 + r * W1) & MASK) for r in range(10)]
+        self.x2_xor, self.z2_xor, self.x3_xor = self._offset_terms(offset)
+        self.products = 0      # per-site products, counted as they run
+
+    def _offset_terms(self, offset):
         hi, lo = _mulhilo(offset, M0)
         z1, w1 = hi ^ self.k1[0], lo
         hi, lo = _mulhilo(z1, M1)
-        self.x2_xor = hi ^ self.k0[1]
-        self.z2_xor = w1 ^ self.k1[1]
-        self.x3_xor = lo ^ self.k0[2]
-        self.products = 0      # per-site products, counted as they run
+        return hi ^ self.k0[1], w1 ^ self.k1[1], lo ^ self.k0[2]
 
     def _mul(self, a, m):
         self.products += 1
         return _mulhilo(a, m)
 
-    def _rounds(self, site):
+    def _rounds01(self, site):
+        """Round 0's and round 1's site products: x1's product and y1."""
         hi1, lo1 = self._mul(site, M1)
         x1, y1 = hi1 ^ self.k0[0], lo1
-        hi0, lo0 = self._mul(x1, M0)
-        x, z, w = y1 ^ self.x2_xor, hi0 ^ self.z2_xor, lo0
+        return self._mul(x1, M0), y1
+
+    def _rounds(self, site, terms=None):
+        x2_xor, z2_xor, x3_xor = terms or (self.x2_xor, self.z2_xor,
+                                           self.x3_xor)
+        (hi0, lo0), y1 = self._rounds01(site)
+        return self._rounds2to8(y1 ^ x2_xor, hi0 ^ z2_xor, lo0, x3_xor)
+
+    def _rounds2to8(self, x, z, w, x3_xor):
         hi0, lo0 = self._mul(x, M0)
         hi1, lo1 = self._mul(z, M1)
-        x, y, z, w = hi1 ^ self.x3_xor, lo1, hi0 ^ w ^ self.k1[2], lo0
+        x, y, z, w = hi1 ^ x3_xor, lo1, hi0 ^ w ^ self.k1[2], lo0
         for r in range(3, 9):
             hi0, lo0 = self._mul(x, M0)
             hi1, lo1 = self._mul(z, M1)
             x, y, z, w = hi1 ^ y ^ self.k0[r], lo1, hi0 ^ w ^ self.k1[r], lo0
         return x, y, z, w
+
+    def _round9(self, x, y, z, w):
+        hi0, lo0 = self._mul(x, M0)
+        hi1, lo1 = self._mul(z, M1)
+        return hi1 ^ y ^ self.k0[9], lo1, hi0 ^ w ^ self.k1[9], lo0
 
     def lanes01(self, site):
         x, y, z, w = self._rounds(site)
@@ -135,10 +153,20 @@ class HoistedPhiloxModel:
         return hi ^ y ^ self.k0[9], lo
 
     def lanes(self, site):
-        x, y, z, w = self._rounds(site)
-        hi0, lo0 = self._mul(x, M0)
-        hi1, lo1 = self._mul(z, M1)
-        return hi1 ^ y ^ self.k0[9], lo1, hi0 ^ w ^ self.k1[9], lo0
+        return self._round9(*self._rounds(site))
+
+    def pair(self, site):
+        """The 8 lanes of the calls at ``offset`` and ``offset + 1``
+        (mod 2^32): round 0's product of the site and round 1's of x1
+        made once, then 16 products a call."""
+        (hi0, lo0), y1 = self._rounds01(site)
+        out = []
+        for terms in ((self.x2_xor, self.z2_xor, self.x3_xor),
+                      self._offset_terms((self.offset + 1) & MASK)):
+            x2_xor, z2_xor, x3_xor = terms
+            out += self._round9(*self._rounds2to8(
+                y1 ^ x2_xor, hi0 ^ z2_xor, lo0, x3_xor))
+        return out
 
 
 def _sites(seed):
@@ -192,3 +220,31 @@ def test_hoisted_four_lane_philox_equals_philox(seed, offset):
         np.testing.assert_array_equal(g.astype(np.int64),
                                       np.asarray(t).astype(np.int64))
         np.testing.assert_array_equal(g.astype(np.int64), o.numpy())
+
+
+@pytest.mark.parametrize("seed", [2 ** 32 + 7, 2 ** 33 + 5, 2 ** 40 + 11,
+                                  2 ** 64 - 1])
+@pytest.mark.parametrize("offset", [0, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1])
+def test_hoisted_philox_pair_equals_word_randoms(seed, offset):
+    """The two calls of a multispin word as ``HoistedPhiloxPair`` draws
+    them, counters 2 offset and 2 offset + 1 (2 offset wraps modulo 2^32),
+    key ``seed_keys(seed)`` with both lanes non-zero: 34 products a word,
+    the bits of the JAX package's ``philox4x32`` and of the port's
+    ``word_randoms``."""
+    words = _sites(seed % 1000 + offset % 7)
+    k0, k1 = rng.seed_keys(seed)
+    assert k0 and k1
+    counter = (2 * offset) & MASK
+    model = HoistedPhiloxModel(counter, k0, k1)
+    got = model.pair(words)
+    assert model.products == 34
+    ours = ms.word_randoms(seed, torch.from_numpy(words.astype(np.int64)),
+                           offset)
+    theirs = [np.asarray(t).astype(np.int64) for c in (counter, counter + 1)
+              for t in jrng.philox4x32(*_jax_bits([
+                  np.full_like(words, c), np.zeros_like(words), words,
+                  np.zeros_like(words), np.full_like(words, k0),
+                  np.full_like(words, k1)]))]
+    for g, o, t in zip(got, ours, theirs):
+        np.testing.assert_array_equal(g.astype(np.int64), o.numpy())
+        np.testing.assert_array_equal(g.astype(np.int64), t)
