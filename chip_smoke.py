@@ -18,20 +18,27 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``HMMA``), the stencil k-sweep and shard kernels' site loops per
    site update (``repro_torch.analysis.sass``: no float accept in
    them), ``tensorcore_update``'s loop per plane position at the main
-   path's tile, the bitplane shard kernel's per word and the multispin
-   k-sweep and shard kernels' word loops per word (no integer division
-   in them), by pipe, and check each family's planner shared memory
-   against its library's own query;
+   path's tile, the bitplane k-sweep and shard kernels' group loop in
+   every instance (both accepts) and the multispin ones' word loop per
+   word, and ``stencil_update``'s row loop on device memory per site
+   (no integer division in these), by pipe, and check each family's
+   planner shared memory against its library's own query;
 3. each kernel against its plain PyTorch version on the card, 0
    mismatches required, at small shapes, ragged tiles, a halo wider than
    the plane, seeds of at least 2^32, offsets near 2^31 and 2^32, and
    the main path's full plane; for the stencil k-sweep and shard
    kernels also plane widths 3, 5, 127, 129 and 130, tiles whose width
    is not a multiple of their 4-cell words, ``n_sweeps`` 1 to 3, and
-   T = 0.05 from all-up planes, where no spin may flip; for the multispin
-   k-sweep and shard kernels word widths 1, 3, 5, 31, 33 and 129, tiles
-   whose width is not a multiple of 4 or of a warp, ``n_sweeps`` 1 to 3
-   and the same cold check; each kernel's
+   T = 0.05 from all-up planes, where no spin may flip; for
+   ``stencil_update`` widths 3, 5, 127, 129, 130 and 256 at odd row
+   counts and the cold check; for the multispin k-sweep and shard
+   kernels word widths 1, 3, 5, 31, 33 and 129, tiles whose width is
+   not a multiple of 4 or of a warp, ``n_sweeps`` 1 to 3 and the same
+   cold check; for the three bitplane kernels both accepts (the
+   three-threshold one at T = 3.0 and at T = 0.05, where t4 = t8 = 0,
+   and the general one for a shuffled table, each launch counted as
+   its accept's), ``n_sweeps`` 1 to 3, tiles that do not divide the
+   plane, halos wider than the plane, and the cold check; each kernel's
    time and its plain version's at the full plane, and both sweep
    tiers' times;
    ``tensorcore_update`` at every block it takes on small ragged planes
@@ -80,7 +87,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 Every Session path is driven with all ten kernels' launch counts set to
 0 just before it and read just after it: each path must launch the
 kernel of its tier and no other (a per-half-sweep distributed path
-none).  The last lines are the ``kernels`` JSON (``launches`` from the
+none), and a bitplane path its kernel's three-threshold accept only.  The last lines are the ``kernels`` JSON (``launches`` from the
 full-size path of the kernel's tier, for the shard kernels its
 ``run(200)``, and every path's count), the peak device memory, the
 ``nvidia-smi`` line and the device JSON.  Without a CUDA device, or
@@ -147,15 +154,19 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 #:   round 0's product only); 1 funnel shift and 2 three-input
 #:   adds for the neighbour sums; per nibble 1 index, 1 compare and 1
 #:   merge into the flip word; 1 final XOR.
-#: * bitplane, per word of 32 replicas: a quarter of one full Philox
-#:   call (18 wide multiplies, 19 XORs per 4-site group); 5 three-input
-#:   logic operations of the carry-save count (sum and carry of up, down
-#:   and centre, then the count's three bits with the side word); per
-#:   class (10) 1 compare and 1 select to a 0 / ~0 accept mask; a tree of
-#:   9 three-input muxes: for each spin, the 5 masks of its classes by the
-#:   count's bit 0, bit 1 and bit 2 (4 muxes; count 4 has bits 0 and 1
-#:   clear), then the new word as t ? ~a1 : a0, the flip's XOR folded
-#:   into the last mux.
+#: * bitplane, per word of 32 replicas: a quarter of one Philox call
+#:   with the offset's work hoisted (HoistedPhilox::lanes: 18 wide
+#:   multiplies, 19 XORs per 4-site group); 5 three-input logic
+#:   operations of the carry-save count (sum and carry of up, down and
+#:   centre, then the count's three bits with the side word); the
+#:   three-threshold accept of a ferromagnet's table (three distinct
+#:   thresholds: 0xFFFFFFFF, t4, t8): 4 three-input logic operations
+#:   for the three class masks (m4 = n0 & ~(t ^ n1); m8 from t, n2 and
+#:   n0 | n1 | n2, two; the rest ~(m4 | m8)), then per mask 1 compare of
+#:   the draw with its threshold and 1 XOR of the mask into the word
+#:   under that predicate: 10 (the general 10-class accept, which a
+#:   table of another layout takes, counts 10 compares, 10 selects and 9
+#:   muxes).
 #:   The shard kernels count as their families: the bitplane one draws
 #:   once per 4-word group too on the main path's index planes (the
 #:   driver's at k = 2 make every group one Philox group, lanes 0 to 3).
@@ -172,7 +183,7 @@ PIPE_OPS = {
     "stencil": {"wide": 16, "fma": 1, "alu": 21, "xu": 1},
     "multispin": {"wide": 2 + 2 * 16, "fma": 0,
                   "alu": 1 + 2 * 18 + 3 + 8 * 3 + 1, "xu": 0},
-    "bitplane": {"wide": 18 / 4, "fma": 0, "alu": 19 / 4 + 5 + 10 * 2 + 9,
+    "bitplane": {"wide": 18 / 4, "fma": 0, "alu": 19 / 4 + 5 + 4 + 3 * 2,
                  "xu": 0},
     "tensorcore": {"wide": 16, "fma": 1, "alu": 17 + 2 * 2, "xu": 0},
 }
@@ -182,6 +193,13 @@ PIPE_OPS = {
 #: H100 SXM at 700 W (PERF.md), near what two of the pipe's 64 slots a
 #: clock a wide multiply predict (33 / 64 = 0.516), far from one (0.27)
 FMA_WIDE_SLOTS = 2
+#: ALU-pipe slots of one wide multiply besides those: ``issue_rate`` runs
+#: chains of a high-half multiply with a shift or XOR at two thirds of
+#: the rate of low-half ones (20.63 against 30.64 products a clock, H100
+#: SXM at 700 W, PERF.md; 20.88 against 31.04 before), and the paired
+#: Philox and the multispin accept take the sum of their times, not the
+#: larger: as if a wide multiply also took an ALU slot
+WIDE_ALU_SLOTS = 1
 #: results per clock per SM on compute capability 9.0 (CUDA C++
 #: Programming Guide, arithmetic instruction throughput): 32-bit integer
 #: multiply 64, add, logic and compare 64, type conversions 16; dense bf16
@@ -250,21 +268,46 @@ MULTISPIN_SHARD_EDGE_CASES = (((12, 3), 1, (6, 3, 64)),
                               ((10, 129), 1, (5, 120, 64)),
                               ((16, 33), 3, (8, 13, 96)),
                               ((40, 512), 2, (16, 120, 256)))
-#: the redesigned kernels' inner loops in phase 2's SASS: (kernel, the
-#: element a pass updates, bytes it stores a element, an opcode the loop
-#: holds): tensorcore_update's column-tile loop on int8 planes at the
-#: main path's tile (a position stores a byte of each target), the
-#: bitplane shard kernel's group loop and the multispin k-sweep and shard
-#: kernels' word loop (a word stores 4 bytes)
-SASS_LOOPS = {
-    "tensorcore": ("tensorcore_update_kernel<a,{tile_rows},{tile_cols}>",
-                   "position", 2, "HMMA"),
-    "bitplane": ("bitplane_shard_sweeps_kernel", "word", 4, "IMAD.WIDE"),
-    "multispin": ("multispin_sweeps_kernel", "word", 4, "IMAD.WIDE"),
-}
+#: the redesigned kernels' inner loops in phase 2's SASS: (library,
+#: kernel, the element a pass updates, bytes it stores a element, an
+#: opcode the loop holds, the memory it updates, whether a division is
+#: barred from it): tensorcore_update's column-tile loop on int8 planes at
+#: the main path's tile (a position stores a byte of each target), the
+#: bitplane k-sweep and shard kernels' group loop (every instance: both
+#: accepts) and the multispin ones' word loop (a word stores 4 bytes),
+#: and stencil_update's row loop on device memory (a site stores a byte)
+SASS_LOOPS = (
+    ("tensorcore", "tensorcore_update_kernel<a,{tile_rows},{tile_cols}>",
+     "position", 2, "HMMA", "shared", False),
+    ("bitplane", "bitplane_sweeps_kernel", "word", 4, "IMAD.WIDE", "shared",
+     True),
+    ("multispin", "multispin_sweeps_kernel", "word", 4, "IMAD.WIDE",
+     "shared", True),
+    ("stencil", "stencil_update_kernel", "site", 1, "IMAD.WIDE", "global",
+     True),
+)
 #: the SASS of a 32-bit integer division or remainder by a value known
 #: only at run time: a reciprocal on the XU pipe and its conversions
 DIVISION_OPCODES = ("MUFU", "I2F", "I2FP", "F2I", "F2IP")
+#: stencil_update's planes: widths 3, 5, 127, 129 and 130 (cell by
+#: cell), 256 (words), odd row counts and rows past one thread's 16:
+#: (rows, plane width)
+STENCIL_UPDATE_CASES = ((13, 3), (21, 5), (17, 127), (33, 129), (15, 130),
+                        (35, 256))
+#: the bitplane accepts' k-sweep cases: k 1 to 3, tiles that do not
+#: divide the plane, halos wider than the plane: (rows, words, tile rows,
+#: tile words, k, n_sweeps)
+BITPLANE_ACCEPT_CASES = ((30, 12, 7, 8, 3, 3), (40, 52, 16, 20, 1, 2),
+                         (64, 64, 24, 56, 2, 3), (20, 4, 6, 4, 2, 2),
+                         (100, 300, 40, 120, 2, 4))
+#: ... and shard cases: (extended plane, n_sweeps, tile)
+BITPLANE_ACCEPT_SHARD_CASES = (((14, 10), 3, (14, 10, 64)),
+                               ((30, 41), 2, (12, 20, 64)),
+                               ((40, 136), 1, (16, 120, 256)))
+#: the bitplane kernels' accepts: the three-threshold one at the main
+#: path's temperature and at TC_COLD_T (t4 = t8 = 0), the general one
+#: for a table of another layout (the thresholds of T = 2.4 shuffled)
+BITPLANE_SHUFFLE = (3, 8, 1, 0, 9, 5, 7, 2, 4, 6)
 MESH = (2, 2)               # the sharded main paths' mesh
 SMALL_MESHES = ((1, 1), (2, 2), (4, 1), (2, 1, 2))
 
@@ -305,6 +348,7 @@ def clocks_per_element(family: str) -> float:
     ops = dict(PIPE_OPS[family])
     wide = ops.pop("wide")
     ops["fma"] += FMA_WIDE_SLOTS * wide
+    ops["alu"] += WIDE_ALU_SLOTS * wide
     pipes = max(ops[p] / PIPE_PER_CLOCK_PER_SM[p] for p in ops)
     issued = wide + sum(v for p, v in PIPE_OPS[family].items()
                         if p not in ("tensor", "wide"))
@@ -329,16 +373,29 @@ def tc_random_planes(torch, h: int, dtype, seed: int, w=None) -> dict:
 
 
 def cold_all_up(family: str, n: int):
-    """All-up (n, 132) int8 stencil planes or (n, 20) multispin word
-    planes on the card and the family's table at TC_COLD_T, where an up
-    spin's flip against 4 up neighbours has bound 0 (no spin may flip)."""
+    """All-up (n, 132) int8 stencil planes, (n, 20) multispin word planes
+    or (n, 44) bitplane word planes on the card and the family's table at
+    TC_COLD_T, where an up spin's flip against 4 up neighbours has bound
+    0 (no spin may flip)."""
     import torch
     from repro_torch.core import metropolis, multispin
     if family == "stencil":
         return (torch.ones((n, 132), dtype=torch.int8, device="cuda"),
                 metropolis.acceptance_table(1.0 / TC_COLD_T))
-    return (torch.full((n, 20), 0x11111111, dtype=torch.int32, device="cuda"),
+    word, w = (0x11111111, 20) if family == "multispin" else (-1, 44)
+    return (torch.full((n, w), word, dtype=torch.int32, device="cuda"),
             multispin.acceptance_thresholds(1.0 / TC_COLD_T))
+
+
+def bitplane_accept_tables() -> dict:
+    """The bitplane kernels' tables by accept (BITPLANE_SHUFFLE)."""
+    import torch
+    from repro_torch.core import multispin
+    return {"three": multispin.acceptance_thresholds(
+                1.0 / BITPLANE_TEMPERATURE),
+            "three (cold)": multispin.acceptance_thresholds(1.0 / TC_COLD_T),
+            "general": multispin.acceptance_thresholds(1.0 / 2.4)[
+                torch.tensor(BITPLANE_SHUFFLE)]}
 
 
 def replica_disagreements(torch, words) -> "torch.Tensor":
@@ -432,15 +489,24 @@ def main() -> int:
                                                    "FSETP")
                               for op in loop["opcodes_per_site"]),
                       f"{loop['kernel']}: a float accept in the site loop")
-        if b.name in SASS_LOOPS:
-            kernel, unit, bytes_per, holds = SASS_LOOPS[b.name]
-            if b.name == "tensorcore":
+        for (library, kernel, unit, bytes_per, holds, memory,
+             no_division) in SASS_LOOPS:
+            if library != b.name:
+                continue
+            if library == "tensorcore":
                 kernel = kernel.format(**kernel_geometry(FULL_N // 2,
                                                          FULL_N // 2))
-            loops = [lp for lp in sass.site_loops(code, kernel)
+            loops = [lp for lp in sass.site_loops(code, kernel, memory)
                      if any(op.startswith(holds)
                             for op in lp["opcodes_per_site"])]
             check(bool(loops), f"no {unit} loop found in {kernel}")
+            instances = {lp["kernel"] for lp in loops}
+            if library == "bitplane":
+                check(instances >= {f"{kernel}<{shard},{three}>"
+                                    for shard in ("false", "true")
+                                    for three in ("false", "true")},
+                      f"{kernel}: not every instance has a group loop "
+                      f"({sorted(instances)})")
             for loop in loops:
                 pipes = {p: round(v * bytes_per, 2)
                          for p, v in loop["per_site"].items()}
@@ -450,11 +516,11 @@ def main() -> int:
                       f"{loop['sites'] // bytes_per} {unit}s a pass, per "
                       f"{unit} {loop['per_site_total'] * bytes_per:.2f} "
                       f"instructions {pipes}; most issued {top}")
-                if b.name == "multispin":
+                if no_division:
                     check(not any(op.split(".")[0] in DIVISION_OPCODES
                                   for op in loop["opcodes_per_site"]),
                           f"{loop['kernel']}: an integer division in the "
-                          f"word loop")
+                          f"{unit} loop")
     from repro_torch.dist import kernels as shard_kernels
     for family in ("stencil", "multispin", "bitplane"):
         lib = importlib.import_module(
@@ -497,6 +563,29 @@ def main() -> int:
         if plain_ms is not None:
             s[3] = plain_ms
 
+    # per bitplane kernel and accept: comparisons, mismatches
+    accept_stats = {}
+
+    def check_accept(name, accept, launch, plain):
+        """``launch()`` (the kernel) against ``plain()`` for one bitplane
+        accept; every launch of the general accept, and only those, must
+        be counted as such."""
+        wrapper = wrappers[name]
+        before = (wrapper.launches, wrapper.general_launches)
+        got = launch()
+        torch.cuda.synchronize()
+        launched = wrapper.launches - before[0]
+        general = wrapper.general_launches - before[1]
+        check(launched > 0 and general == (launched if accept == "general"
+                                           else 0),
+              f"{name}: {general} of {launched} launches took the general "
+              f"accept for the {accept} table")
+        bad = stats[name][1]
+        compare(name, got, plain())
+        tally = accept_stats.setdefault(name, {}).setdefault(accept, [0, 0])
+        tally[0] += len(got)
+        tally[1] += stats[name][1] - bad
+
     def plain_timed(fn):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -531,6 +620,39 @@ def main() -> int:
                 torch.cuda.synchronize()
                 compare(update, [got], [want], plain_ms if n == fn else None)
                 del target, op, want, got
+        if family == "stencil":
+            # cell by cell (widths 3 to 130) and by words, odd row counts;
+            # at TC_COLD_T from all-up planes no spin may flip
+            for n, h in STENCIL_UPDATE_CASES:
+                for is_black, offset in ((True, 2 ** 31 - 1),
+                                         (False, 2 ** 32 - 1)):
+                    target, op = random_planes(family, n, h, n + h)
+                    want = plains[update](target, op, table,
+                                          is_black=is_black, seed=SEED,
+                                          offset=offset)
+                    got = wrappers[update](target.clone(), op, table,
+                                           is_black=is_black, seed=SEED,
+                                           offset=offset)
+                    torch.cuda.synchronize()
+                    compare(update, [got], [want])
+            for h in (130, 256):
+                up = torch.ones((35, h), dtype=torch.int8, device="cuda")
+                got = wrappers[update](
+                    up.clone(), up, metropolis.acceptance_table(
+                        1.0 / TC_COLD_T), is_black=True, seed=SEED, offset=5)
+                torch.cuda.synchronize()
+                compare(update, [got], [up])
+            del target, op, want, got, up
+        if family == "bitplane":
+            for accept, thr in bitplane_accept_tables().items():
+                for n, h in ((SMALL_N, small_h), (30, ragged_h), (2, 4)):
+                    target, op = random_planes(family, n, h, n + h)
+                    check_accept(update, accept, lambda: [wrappers[update](
+                        target.clone(), op, thr, is_black=False, seed=SEED,
+                        offset=2 ** 32 - 1)], lambda: [plains[update](
+                            target, op, thr, is_black=False, seed=SEED,
+                            offset=2 ** 32 - 1)])
+            del target, op
 
         small_plan = resident.plan_resident(family, SMALL_N, SMALL_N)
         full_plan = plans[family] = resident.plan_resident(family, fn, fn)
@@ -574,18 +696,30 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(sweeps, got, want, plain_ms if n == fn else None)
             del b, w, want, got
-        if family in ("stencil", "multispin"):
-            # T = TC_COLD_T from all-up planes: bound 0, no spin may flip
-            up, cold = cold_all_up(family, 40)
-            plan = dataclasses.replace(
-                small_plan, n=40, m=up.shape[1] * (2 if family == "stencil"
-                                                   else 16), k=3,
-                tile_rows=16, tile_cols=120 if family == "stencil" else 12)
-            got = wrappers[sweeps](up, up.clone(), cold, n_sweeps=3,
-                                   seed=SEED, start_offset=2 ** 32 - 3,
-                                   plan=plan)
-            torch.cuda.synchronize()
-            compare(sweeps, got, (up, up))
+        if family == "bitplane":
+            for (n, h, tr, tc, k, n_sweeps), (accept, thr) in [
+                    (case, table) for case in BITPLANE_ACCEPT_CASES
+                    for table in bitplane_accept_tables().items()]:
+                b, w = random_planes(family, n, h, n + h + k)
+                plan = dataclasses.replace(small_plan, n=n, m=2 * h, k=k,
+                                           tile_rows=tr, tile_cols=tc)
+                check_accept(sweeps, accept, lambda: wrappers[sweeps](
+                    b, w, thr, n_sweeps=n_sweeps, seed=SEED,
+                    start_offset=2 ** 32 - 3, plan=plan),
+                    lambda: plains[sweeps](b, w, thr, n_sweeps=n_sweeps,
+                                           seed=SEED,
+                                           start_offset=2 ** 32 - 3))
+        # T = TC_COLD_T from all-up planes: bound 0, no spin may flip
+        up, cold = cold_all_up(family, 40)
+        plan = dataclasses.replace(
+            small_plan, n=40, m=up.shape[1] * resident.GEOMETRY[
+                family].col_divisor, k=3, tile_rows=16,
+            tile_cols=120 if family == "stencil" else 12)
+        got = wrappers[sweeps](up, up.clone(), cold, n_sweeps=3, seed=SEED,
+                               start_offset=2 ** 32 - 3, plan=plan)
+        torch.cuda.synchronize()
+        compare(sweeps, got, (up, up))
+        del up, got
         for name in (update, sweeps):
             cases, bad, err, _ = stats[name]
             print(f"phase 3: {name}: {cases} plane comparisons with the "
@@ -797,6 +931,19 @@ def main() -> int:
                 cases.append((shape, n_sweeps, random_index(shape),
                               case_tile))
             cases.append(((40, 72), 2, mixed_groups(40, 72), (16, 16, 256)))
+            # both accepts, on random and on mixed index planes
+            for (shape, n_sweeps, case_tile), (accept, thr) in [
+                    (case, table) for case in BITPLANE_ACCEPT_SHARD_CASES
+                    for table in bitplane_accept_tables().items()]:
+                b, w = random_planes(family, *shape, shape[1] + n_sweeps)
+                for index in [random_index(shape)] + (
+                        [mixed_groups(*shape)] if shape[1] >= 24 else []):
+                    check_accept(name, accept, lambda: wrappers[name](
+                        b, w, thr, *index, n_sweeps=n_sweeps, seed=SEED,
+                        start_offset=2 ** 32 - 3, tile=case_tile),
+                        lambda: plains[name](
+                            b, w, thr, *index, n_sweeps=n_sweeps, seed=SEED,
+                            start_offset=2 ** 32 - 3))
         plan, index = driver_index(fn, None, 3)
         shard_plans[family] = plan
         ext = shard_shape[family] = (plan.n_loc + 2 * plan.halo,
@@ -814,14 +961,14 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(name, got, want, plain_ms if shape == ext else None)
             del b, w, want, got
-        if family in ("stencil", "multispin"):
-            up, cold = cold_all_up(family, 40)
-            got = wrappers[name](
-                up, up.clone(), cold, *random_index(tuple(up.shape)),
-                n_sweeps=3, seed=SEED, start_offset=2 ** 32 - 3,
-                tile=(16, 120, 256) if family == "stencil" else (16, 12, 64))
-            torch.cuda.synchronize()
-            compare(name, got, (up, up))
+        up, cold = cold_all_up(family, 40)
+        got = wrappers[name](
+            up, up.clone(), cold, *random_index(tuple(up.shape)),
+            n_sweeps=3, seed=SEED, start_offset=2 ** 32 - 3,
+            tile=(16, 120, 256) if family == "stencil" else (16, 12, 64))
+        torch.cuda.synchronize()
+        compare(name, got, (up, up))
+        del up, got
         cases, bad, err, _ = stats[name]
         print(f"phase 3: {name}: {cases} plane comparisons with the plain "
               f"version, {bad} mismatches, max abs err {err}")
@@ -838,6 +985,15 @@ def main() -> int:
               f"{MESH[0] * MESH[1] * kernel_ms[name] / plan.k:.4f} ms per "
               f"sweep; plain version {stats[name][3]:.1f} ms")
         del b, w, index
+    for name in ("bitplane_update", "bitplane_sweeps_resident",
+                 "bitplane_shard_sweeps"):
+        tallies = accept_stats[name]
+        print(f"phase 3: {name}: " + "; ".join(
+            f"{accept} accept {n} plane comparisons, {bad} mismatches"
+            for accept, (n, bad) in tallies.items()))
+        check(all(n > 0 and bad == 0 for n, bad in tallies.values())
+              and {"three", "general"} <= set(tallies),
+              f"{name}: an accept was not held against the plain version")
     phase_s[3] = time.perf_counter() - t0
 
     # bounds at the full plane: bytes of each input read once and each
@@ -870,18 +1026,28 @@ def main() -> int:
     def drive(path, family, tier, fn):
         """Run one Session path with every launch count set to 0 just
         before it and read just after it; the path must launch the
-        kernel of its tier and no other (``family=None``: no kernel)."""
+        kernel of its tier and no other (``family=None``: no kernel), a
+        bitplane kernel with the three-threshold accept only (a Session's
+        table has a ferromagnet's layout)."""
         for wrapper in wrappers.values():
             wrapper.launches = 0
+            if hasattr(wrapper, "general_launches"):
+                wrapper.general_launches = 0
         out = fn()
         torch.cuda.synchronize()
         counts = {name: wrapper.launches
                   for name, wrapper in wrappers.items()}
         launches_by_path[path] = counts
-        print(f"launches on path {path!r}: {counts}")
+        general = {name: wrapper.general_launches
+                   for name, wrapper in wrappers.items()
+                   if hasattr(wrapper, "general_launches")}
+        print(f"launches on path {path!r}: {counts}; of them with the "
+              f"general accept {general}")
         for name, count in counts.items():
             check((count > 0) == (KERNELS[name][:2] == (family, tier)),
                   f"path {path!r} launched {name} {count} times")
+        check(not any(general.values()),
+              f"path {path!r} launched the general bitplane accept")
         return out
 
     def budget(tier):
@@ -1274,6 +1440,8 @@ def main() -> int:
             entry["n_sweeps"] = plans[family].k
         if tier == "shard":
             entry["n_sweeps"] = shard_plans[family].k
+        if name in accept_stats:
+            entry["accept_comparisons"] = accept_stats[name]
         kernels.append(entry)
     print("phase seconds: " + ", ".join(
         f"{p} {s:.1f}" for p, s in sorted(phase_s.items()))

@@ -1,8 +1,8 @@
 """Time edited copies of ``tensorcore_update``'s kernel, and of the
-multispin k-sweep kernel, on the card.
+multispin and bitplane k-sweep kernels, on the card.
 
     PYTHONPATH=src python -m repro_torch.analysis.ablate [parts] [tiles]
-    PYTHONPATH=src python -m repro_torch.analysis.ablate multispin
+    PYTHONPATH=src python -m repro_torch.analysis.ablate multispin bitplane
 
 Builds copies of ``csrc/tensorcore.cu`` (each from its own directory
 under ``kernels/_build``'s, all nvcc processes at once) and times each as
@@ -25,7 +25,7 @@ largest that divides the planes; the results are the same.
 ``multispin``: copies of ``csrc/multispin.cu`` timed as
 ``multispin_sweeps_resident`` on the main path's (32768, 2048) word
 planes at the planner's plan, ms per launch of 2 sweeps
-(:func:`time_multispin`), beside the whole kernel: each with one part of
+(:func:`time_sweeps`), beside the whole kernel: each with one part of
 the word loop's work taken out (:data:`MULTISPIN_ABLATIONS`: ``philox``,
 the draws a multiply-add of the word index; ``accept``, the threshold
 loads and compares replaced by XORs; ``plane loads``, the neighbour
@@ -33,6 +33,14 @@ words made from the word's address; ``staging``, no tile read from
 device memory; ``sweeps``, no half-sweep, the staging and write-back
 alone) or its predicated OR replaced by the C compare, which the
 compiler turns into a select and an add (``select``).
+
+``bitplane``: the same for ``csrc/bitplane.cu``'s group loop, timed as
+``bitplane_sweeps_resident`` on the main path's (16384, 8192) planes at
+T = 3.0 (the three-threshold accept) and the planner's plan
+(:data:`BITPLANE_ABLATIONS`: ``philox``, the group's draws a few
+multiplies and XORs of its address; ``accept``, the class masks and
+predicated XORs replaced by two XORs; ``plane loads``, the neighbour
+words made from the group's address; ``staging``; ``sweeps``).
 
 The last lines are the card's name and power limit and one JSON object
 of every time.
@@ -103,6 +111,43 @@ MULTISPIN_ABLATIONS = {
       : "r"(draw), "r"(threshold), "r"(bit));""",
                 "  if (draw < threshold) flip |= bit;")],
 }
+#: (old, new) source edits of ``csrc/bitplane.cu``'s group loop
+BITPLANE_ABLATIONS = {
+    "philox": [("""      r = philox.lanes(row_base + static_cast<uint32_t>(gc0 + q));""",
+                """      r = make_uint4(c * 0x9E3779B9u, c ^ 0x85EBCA6Bu,
+                     c * 0xC2B2AE35u, c ^ 0x27D4EB2Fu);"""),
+               ("""      r = philox.lanes(row_base +
+                       static_cast<uint32_t>(wrap_near(gc0 + q, groups)));""",
+                """      r = make_uint4(c * 0x9E3779B9u, c ^ 0x85EBCA6Bu,
+                     c * 0xC2B2AE35u, c ^ 0x27D4EB2Fu);""")],
+    "accept": [("""    const uint32_t m8 = (t & n2) | ~(t | n0 | n1 | n2);
+    const uint32_t m4 = n0 & ~(t ^ n1);
+    uint32_t out = t;
+    xor_below(out, draw, 0xFFFFFFFFu, ~(m4 | m8));
+    xor_below(out, draw, t4, m4);
+    xor_below(out, draw, t8, m8);
+    return out;""", """    return t ^ (n0 & draw) ^ n1 ^ n2;""")],
+    "plane loads": [("""    const uint4 cv = *reinterpret_cast<const uint4*>(op + c);
+    const uint4 uv = *reinterpret_cast<const uint4*>(op + c - tile.pitch);
+    const uint4 dv = *reinterpret_cast<const uint4*>(op + c + tile.pitch);
+    const uint4 sv = kPlus ? make_uint4(cv.y, cv.z, cv.w, op[c + kGroup])
+                           : make_uint4(op[c - 1], cv.x, cv.y, cv.z);""",
+                     """    const uint32_t a = static_cast<uint32_t>(c) * 2654435761u;
+    const uint4 cv = make_uint4(a, a >> 3, a >> 5, a >> 7);
+    const uint4 uv = make_uint4(a ^ 1u, a ^ 2u, a ^ 3u, a ^ 4u);
+    const uint4 dv = make_uint4(a + 1u, a + 2u, a + 3u, a + 4u);
+    const uint4 sv = make_uint4(a << 1, a << 2, a << 3, a << 4);""")],
+    "staging": [("""  load_tile<kShard>(b_in, w_in, gidx, lane, s_b, s_w, s_g, s_aligned, tile,
+                    vec);
+""", "")],
+    "sweeps": [("""        half_sweep<kShard, kThree, false>(tgt, op, index, tile, m, color,
+                                          offset, keys, philox, acc);""", ""),
+               ("""        half_sweep<kShard, kThree, true>(tgt, op, index, tile, m, color,
+                                         offset, keys, philox, acc);""", "")],
+}
+#: the k-sweep kernels' loop ablations, by family
+LOOP_ABLATIONS = {"multispin": MULTISPIN_ABLATIONS,
+                  "bitplane": BITPLANE_ABLATIONS}
 #: (rows, columns) of the kernel's tiles: each divides the main path's
 #: planes
 TILES = tuple((r, c) for r in (64, 32, 16) for c in (128, 64, 32, 16))
@@ -155,34 +200,38 @@ def tiled_source(rows: int, cols: int) -> str:
                           f"return run({rows}, {cols}, elem_bytes,")
 
 
-def multispin_source(name: str) -> str:
-    """``csrc/multispin.cu`` with multispin ablation ``name`` applied."""
-    source = (_build.CSRC_DIR / "multispin.cu").read_text()
-    for old, new in MULTISPIN_ABLATIONS[name]:
+def loop_source(family: str, name: str) -> str:
+    """``csrc/<family>.cu`` with the loop ablation ``name`` of
+    :data:`LOOP_ABLATIONS` applied."""
+    source = (_build.CSRC_DIR / f"{family}.cu").read_text()
+    for old, new in LOOP_ABLATIONS[family][name]:
         if old not in source:
             raise RuntimeError(f"ablation {name!r} no longer applies to "
-                               f"csrc/multispin.cu")
+                               f"csrc/{family}.cu")
         source = source.replace(old, new)
     return source
 
 
-def time_multispin(lib) -> float:
-    """ms per launch of ``lib``'s multispin k-sweep kernel (a build of
-    ``csrc/multispin.cu`` or of a copy) at the main path's word planes and
-    the planner's plan, launched as ``multispin_sweeps_resident``
-    launches it."""
+def time_sweeps(family: str, lib) -> float:
+    """ms per launch of ``lib``'s k-sweep kernel of ``family`` (a build
+    of ``csrc/<family>.cu`` or of a copy) at the main path's planes,
+    temperature and the planner's plan, launched as the family's
+    ``*_sweeps_resident`` launches it."""
     from repro_torch.kernels import resident
-    from repro_torch.kernels._words import (declare, key_table_arg,
-                                            launch_resident)
-    n, w = tune_resident.FULL_PLANE["multispin"]
-    plan = resident.plan_resident("multispin", n, n)
-    b, wp = tune_resident.random_planes("multispin", n, w, 1)
-    table = key_table_arg(tune_resident.acceptance("multispin"))
-    declare(lib, "multispin")
-    counter = types.SimpleNamespace(launches=0,
-                                    __name__="multispin_sweeps_resident")
+    from repro_torch.kernels._words import (accept_arg, declare,
+                                            key_table_arg, launch_resident)
+    n, w = tune_resident.FULL_PLANE[family]
+    plan = resident.plan_resident(family, n, n)
+    b, wp = tune_resident.random_planes(family, n, w, 1)
+    thresholds = tune_resident.acceptance(family)
+    table = ((key_table_arg(thresholds),) if family == "multispin"
+             else accept_arg(thresholds))
+    declare(lib, family)
+    name = f"{family}_sweeps_resident"
+    counter = types.SimpleNamespace(launches=0, general_launches=0,
+                                    __name__=name)
     return tune_resident.timed_ms(lambda: launch_resident(
-        lib, lib.multispin_sweeps_resident_launch, counter, b, wp, table,
+        lib, getattr(lib, f"{name}_launch"), counter, b, wp, table,
         n_sweeps=plan.k, seed=2 ** 33 + 5, start_offset=0, plan=plan),
         reps=8)
 
@@ -190,21 +239,19 @@ def time_multispin(lib) -> float:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", nargs="*",
-                        choices=("parts", "tiles", "multispin"),
+                        choices=("parts", "tiles", *LOOP_ABLATIONS),
                         help="what to time (default: parts and tiles)")
     args = parser.parse_args(argv)
     what = args.what or ["parts", "tiles"]
     if not torch.cuda.is_available():
         print("ablate: no CUDA device", file=sys.stderr)
         return 1
-    if "multispin" in what:
-        results = {"multispin": _time_multispin_copies()}
-        if what == ["multispin"]:
-            _report(results)
-            return 0
-        what = [w for w in what if w != "multispin"]
-    else:
-        results = {}
+    results = {family: _time_loop_copies(family)
+               for family in LOOP_ABLATIONS if family in what}
+    what = [w for w in what if w not in LOOP_ABLATIONS]
+    if not what:
+        _report(results)
+        return 0
     sources = {}
     if "parts" in what:
         sources.update({f"without {name}": ablated_source(name)
@@ -246,17 +293,17 @@ def _copy_dirs(family: str, sources: dict) -> dict:
     return dirs
 
 
-def _time_multispin_copies() -> dict:
-    """ms per launch of the whole multispin k-sweep kernel and of each
-    copy of :data:`MULTISPIN_ABLATIONS`."""
-    dirs = _copy_dirs("multispin", {
+def _time_loop_copies(family: str) -> dict:
+    """ms per launch of the whole k-sweep kernel of ``family`` and of each
+    copy of its :data:`LOOP_ABLATIONS`."""
+    dirs = _copy_dirs(family, {
         ("with the compiler's select" if name == "select"
-         else f"without {name}"): multispin_source(name)
-        for name in MULTISPIN_ABLATIONS})
-    results = {"whole": time_multispin(_build.load("multispin"))}
+         else f"without {name}"): loop_source(family, name)
+        for name in LOOP_ABLATIONS[family]})
+    results = {"whole": time_sweeps(family, _build.load(family))}
     for label, csrc in dirs.items():
-        results[label] = time_multispin(_build.load("multispin", csrc))
-        print(f"multispin_sweeps_resident {label}: {results[label]:.4f} ms "
+        results[label] = time_sweeps(family, _build.load(family, csrc))
+        print(f"{family}_sweeps_resident {label}: {results[label]:.4f} ms "
               f"per launch (whole kernel {results['whole']:.4f})",
               flush=True)
     return results

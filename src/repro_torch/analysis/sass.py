@@ -11,8 +11,11 @@ memory and loads nothing from device memory, its instructions counted
 once, divided by the int8 cells it stores a pass
 (a 1-byte store is one site, a 4-byte store four).  That is the issue
 cost of one site in the loop's steady state; the instructions outside
-the loop (loads, barriers, stores to device memory) are not in it.  The
-CLI prints one line a loop.  It needs the CUDA toolkit's ``cuobjdump``
+the loop (loads, barriers, stores to device memory) are not in it.  A
+kernel that updates device memory in place (``stencil_update``) has its
+site loop there instead: ``memory="global"`` takes the loops that load
+from and store to device memory and touch no shared memory.  The CLI
+prints one line a loop.  It needs the CUDA toolkit's ``cuobjdump``
 beside ``nvcc``.
 """
 from __future__ import annotations
@@ -35,8 +38,12 @@ SASS_PIPES = {
     "tensor": ("HMMA",),
 }
 _PIPE_OF = {op: pipe for pipe, ops in SASS_PIPES.items() for op in ops}
-#: bytes of a shared-memory store by its width suffix
-_STS_BYTES = {"U8": 1, "S8": 1, "U16": 2, "S16": 2, "64": 8, "128": 16}
+#: bytes of a store by its width suffix (4 where it has none)
+_STORE_BYTES = {"U8": 1, "S8": 1, "U16": 2, "S16": 2, "64": 8, "128": 16}
+#: (load, store) opcodes of a site loop's memory, and those it must not
+#: hold
+_LOOP_MEMORY = {"shared": (("LDS", "STS"), "LDG"),
+                "global": (("LDG", "STG"), "LDS")}
 
 _INSTRUCTION = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -53,12 +60,14 @@ def disassemble(library_path, compiler: str) -> str:
 def _functions(sass: str):
     """``(name, body)`` of each kernel; a template instance's name
     carries its arguments: kernelIaLi64ELi128EE -> <a,64,128> (a: int8,
-    t: 16-bit bf16 pattern), kernelILb1EE -> <true>."""
+    t: 16-bit bf16 pattern), kernelILb1EE -> <true>, kernelILb1ELb0EE ->
+    <true,false>."""
     for chunk in sass.split("Function : ")[1:]:
-        found = re.search(r"([a-z][a-z_]*_kernel)(?:E|ILb(\d)EE|"
+        found = re.search(r"([a-z][a-z_]*_kernel)(?:E|I((?:Lb\dE)+)E|"
                           r"I(\w)((?:Li\d+E)*)E)", chunk)
         if found.group(2) is not None:
-            args = ["true" if found.group(2) == "1" else "false"]
+            args = ["true" if b == "1" else "false"
+                    for b in re.findall(r"Lb(\d)E", found.group(2))]
         elif found.group(3) is not None:
             args = [found.group(3)] + re.findall(r"Li(\d+)E",
                                                  found.group(4))
@@ -82,11 +91,17 @@ def sass_mix(sass: str) -> dict:
     return mix
 
 
-def site_loops(sass: str, kernel: str = "") -> list:
+def _store_bytes(op: str) -> int:
+    return next((_STORE_BYTES[p] for p in op.split(".")[1:]
+                 if p in _STORE_BYTES), 4)
+
+
+def site_loops(sass: str, kernel: str = "", memory: str = "shared") -> list:
     """The site loops (as the module says) of each kernel whose name
-    holds ``kernel``: dicts of the kernel, the loop's address range, its
-    instructions, the sites it stores a pass, and per site the count by
-    pipe and by opcode."""
+    holds ``kernel``, over ``memory`` ("shared" or "global"): dicts of
+    the kernel, the loop's address range, its instructions, the sites it
+    stores a pass, and per site the count by pipe and by opcode."""
+    (load, store), barred = _LOOP_MEMORY[memory]
     out = []
     for name, body in _functions(sass):
         if kernel not in name:
@@ -113,13 +128,12 @@ def site_loops(sass: str, kernel: str = "") -> list:
                 continue
             body_ops = [op for addr, op, _ in code if lo <= addr <= hi]
             bases = {op.split(".")[0] for op in body_ops}
-            # a site loop reads and writes shared memory and nothing else:
-            # no tile loads from device memory, no index tables written
-            if "LDS" not in bases or "LDG" in bases:
+            # a site loop reads and writes its memory and no other: no
+            # tile loads from device memory, no index tables written
+            if load not in bases or barred in bases:
                 continue
-            sites = sum(_STS_BYTES.get(op.split(".")[1] if "." in op else "",
-                                       4)
-                        for op in body_ops if op.split(".")[0] == "STS")
+            sites = sum(_store_bytes(op) for op in body_ops
+                        if op.split(".")[0] == store)
             if not sites:
                 continue
             pipes = collections.Counter(_pipe(op) for op in body_ops)
@@ -139,10 +153,14 @@ def main(argv=None) -> int:
     parser.add_argument("library", help="a library built from csrc/")
     parser.add_argument("--kernel", default="",
                         help="only kernels whose name holds this")
+    parser.add_argument("--memory", choices=sorted(_LOOP_MEMORY),
+                        default="shared",
+                        help="the memory of the site loops (global: a "
+                             "kernel that updates device memory)")
     args = parser.parse_args(argv)
     from repro_torch.kernels import _build
     sass = disassemble(args.library, _build.nvcc())
-    for loop in site_loops(sass, args.kernel):
+    for loop in site_loops(sass, args.kernel, args.memory):
         print(f"{Path(args.library).name} {loop['kernel']} loop "
               f"{loop['range']}: {loop['instructions']} instructions, "
               f"{loop['sites']} sites a pass; per site "

@@ -63,9 +63,15 @@ CANDIDATES = {
                   for tc in (56, 120, 128, 248) for t in (256, 512)]
     + [(tr, tc, k, t) for tr, tc in ((40, 248), (96, 120))
        for k in (1, 3) for t in (256, 512)],
-    "bitplane": [(tr, tc, k, t) for tr, tc in ((64, 128), (96, 128),
-                                                (32, 256), (32, 128))
-                 for k in (1, 2, 3) for t in (256, 512)],
+    # a warp takes a row and a lane a 4-word group; the columns are those
+    # that with the halo of 4 a side at k = 1, 2 make rows of 16, 32 or
+    # 64 groups (56, 120, 248), and 128, which divides the main path's
+    # 8192 words
+    "bitplane": [(tr, tc, 2, t) for tr in (32, 48, 64, 96, 128)
+                 for tc in (56, 120, 128, 248) for t in (256, 512)]
+    + [(tr, 248, 2, t) for tr in (24, 40, 44) for t in (256, 512)]
+    + [(tr, tc, k, t) for tr, tc in ((96, 120), (48, 248), (64, 248))
+       for k in (1, 3) for t in (256, 512)],
 }
 
 #: the tensorcore main path: four (TC_PLANE, TC_PLANE) int8 planes of a
@@ -87,7 +93,8 @@ SHARD_CANDIDATES = [(tr, tc, t) for tr, tc in ((128, 256), (128, 128),
                                                 (192, 120), (32, 120),
                                                 (48, 120), (48, 172),
                                                 (64, 172), (24, 344),
-                                                (32, 344))
+                                                (32, 344), (24, 248),
+                                                (40, 248), (48, 248))
                     for t in (256, 512, 1024)]
 
 

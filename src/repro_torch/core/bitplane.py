@@ -168,6 +168,25 @@ def flip_word_from_classes(target, counts, draws, thresholds):
     return flip
 
 
+def flip_word_three(target, counts, draws, t4: int, t8: int):
+    """The flip word of the three-threshold accept (``csrc/bitplane.cu``,
+    ``Accept<true>``), for thresholds of a ferromagnet's layout
+    (``repro_torch.kernels._words.three_thresholds``): the class mask of
+    (s, c) = (1, 4) and (0, 0) where ``draws < t8``, of (1, 3) and
+    (0, 1) where ``draws < t4``, of every other class where ``draws <
+    0xFFFFFFFF``.  Equals :func:`flip_word_from_classes` for such
+    thresholds."""
+    n0, n1, n2 = counts
+    m8 = (target & n2) | ~(target | n0 | n1 | n2)
+    m4 = n0 & ~(target ^ n1)
+
+    def below(threshold):
+        return -(draws < threshold).to(target.dtype)
+
+    return ((below(rng.MASK32) & ~(m4 | m8)) | (below(t4) & m4)
+            | (below(t8) & m8))
+
+
 def lane_draws(seed: int, gidx: torch.Tensor, lane: torch.Tensor,
                offset: int) -> torch.Tensor:
     """One uint32 draw (int64) per site from planes of uint32 group

@@ -32,10 +32,4 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
-// uint32 -> float32 in [0, 1]: round to nearest, then times 2^-32
-// (repro_torch.core.rng.u32_to_uniform).
-__device__ __forceinline__ float u32_to_uniform(uint32_t bits) {
-  return __uint2float_rn(bits) * 2.3283064365386963e-10f;
-}
-
 }  // namespace repro_torch

@@ -1,8 +1,8 @@
 // Philox4x32-10 at counter (offset, 0, site, 0) with the offset's work
 // hoisted, for kernels that draw with one offset and one key for a whole
-// half-sweep: lane 0 (stencil.cu's k-sweep and shard kernels), lanes 0
-// and 1 (tensorcore.cu: one per target plane) or all four lanes (the
-// bitplane shard kernel: one per word of a 4-word group).
+// half-sweep: lane 0 (stencil.cu's kernels), lanes 0 and 1
+// (tensorcore.cu: one per target plane) or all four lanes (the bitplane
+// k-sweep and shard kernels: one per word of a 4-word group).
 //
 // The same bits as philox4x32_10(make_uint4(offset, 0, site, 0), k0,
 // k1) (philox.cuh).  What depends only on the offset and the key is
@@ -49,98 +49,6 @@ __host__ __device__ __forceinline__ void mul_wide(uint32_t a, uint32_t b,
   lo = static_cast<uint32_t>(p);
 }
 
-// The constructor also runs on the host: a kernel that draws with one
-// offset a launch takes the object as a kernel parameter, so that its
-// constants are operands in the constant bank and take no registers.
-class HoistedPhilox {
- public:
-  __host__ __device__ __forceinline__ HoistedPhilox(uint32_t offset,
-                                                    uint32_t key0,
-                                                    uint32_t key1) {
-#pragma unroll
-    for (int r = 0; r < 10; ++r) {
-      k0_[r] = key0 + static_cast<uint32_t>(r) * kPhiloxW0;
-      k1_[r] = key1 + static_cast<uint32_t>(r) * kPhiloxW1;
-    }
-    // round 0, lanes x = offset and w = 0: z1 = hi(M0 offset) ^ k1,
-    // w1 = lo(M0 offset)
-    uint32_t hi, lo;
-    mul_wide(kPhiloxM0, offset, hi, lo);
-    const uint32_t z1 = hi ^ k1_[0];
-    const uint32_t w1 = lo;
-    // round 1, lane z1: x2 = y1 ^ hi(M1 z1) ^ k0, y2 = lo(M1 z1),
-    // z2 = hi(M0 x1) ^ w1 ^ k1
-    mul_wide(kPhiloxM1, z1, hi, lo);
-    x2_xor_ = hi ^ k0_[1];
-    z2_xor_ = w1 ^ k1_[1];
-    // round 2: x3 = hi(M1 z2) ^ y2 ^ k0
-    x3_xor_ = lo ^ k0_[2];
-  }
-
-  // lane 0
-  __device__ __forceinline__ uint32_t operator()(uint32_t site) const {
-    uint32_t x, y, z, w;
-    rounds(site, x, y, z, w);
-    return __umulhi(kPhiloxM1, z) ^ y ^ k0_[9];
-  }
-
-  // lanes 0 and 1: round 9's x and y, the two halves of one product
-  __device__ __forceinline__ uint2 lanes01(uint32_t site) const {
-    uint32_t x, y, z, w, hi, lo;
-    rounds(site, x, y, z, w);
-    mul_wide(kPhiloxM1, z, hi, lo);
-    return make_uint2(hi ^ y ^ k0_[9], lo);
-  }
-
-  // all four lanes
-  __device__ __forceinline__ uint4 lanes(uint32_t site) const {
-    uint32_t x, y, z, w, hi0, lo0, hi1, lo1;
-    rounds(site, x, y, z, w);
-    mul_wide(kPhiloxM0, x, hi0, lo0);
-    mul_wide(kPhiloxM1, z, hi1, lo1);
-    return make_uint4(hi1 ^ y ^ k0_[9], lo1, hi0 ^ w ^ k1_[9], lo0);
-  }
-
- private:
-  // the state (x, y, z, w) after rounds 0 to 8
-  __device__ __forceinline__ void rounds(uint32_t site, uint32_t& x,
-                                         uint32_t& y, uint32_t& z,
-                                         uint32_t& w) const {
-    uint32_t hi0, lo0, hi1, lo1;
-    // round 0: lanes y and w are 0
-    mul_wide(kPhiloxM1, site, hi1, lo1);
-    const uint32_t x1 = hi1 ^ k0_[0];
-    const uint32_t y1 = lo1;
-    // round 1
-    mul_wide(kPhiloxM0, x1, hi0, lo0);
-    x = y1 ^ x2_xor_;
-    z = hi0 ^ z2_xor_;
-    w = lo0;
-    // round 2: lane y2 is the same for every site
-    mul_wide(kPhiloxM0, x, hi0, lo0);
-    mul_wide(kPhiloxM1, z, hi1, lo1);
-    x = hi1 ^ x3_xor_;
-    y = lo1;
-    z = hi0 ^ w ^ k1_[2];
-    w = lo0;
-#pragma unroll
-    for (int r = 3; r < 9; ++r) {
-      mul_wide(kPhiloxM0, x, hi0, lo0);
-      mul_wide(kPhiloxM1, z, hi1, lo1);
-      x = hi1 ^ y ^ k0_[r];
-      y = lo1;
-      z = hi0 ^ w ^ k1_[r];
-      w = lo0;
-    }
-  }
-
-  uint32_t k0_[10];
-  uint32_t k1_[10];
-  uint32_t x2_xor_;
-  uint32_t z2_xor_;
-  uint32_t x3_xor_;
-};
-
 // The key schedule of rounds 0 to 9: key + r W.
 struct PhiloxKeys {
   uint32_t k0[10];
@@ -154,6 +62,100 @@ struct PhiloxKeys {
       k1[r] = key1 + static_cast<uint32_t>(r) * kPhiloxW1;
     }
   }
+};
+
+// The constructor also runs on the host: a kernel that draws with one
+// offset a launch takes the object as a kernel parameter, so that its
+// constants are operands in the constant bank and take no registers.  A
+// kernel that draws with one offset a half-sweep makes it from the key
+// schedule it takes as a parameter, which so stays in the constant bank.
+class HoistedPhilox {
+ public:
+  __host__ __device__ __forceinline__ HoistedPhilox(uint32_t offset,
+                                                    uint32_t key0,
+                                                    uint32_t key1)
+      : HoistedPhilox(offset, PhiloxKeys(key0, key1)) {}
+
+  __host__ __device__ __forceinline__ HoistedPhilox(uint32_t offset,
+                                                    const PhiloxKeys& keys)
+      : keys_(keys) {
+    // round 0, lanes x = offset and w = 0: z1 = hi(M0 offset) ^ k1,
+    // w1 = lo(M0 offset)
+    uint32_t hi, lo;
+    mul_wide(kPhiloxM0, offset, hi, lo);
+    const uint32_t z1 = hi ^ keys_.k1[0];
+    const uint32_t w1 = lo;
+    // round 1, lane z1: x2 = y1 ^ hi(M1 z1) ^ k0, y2 = lo(M1 z1),
+    // z2 = hi(M0 x1) ^ w1 ^ k1
+    mul_wide(kPhiloxM1, z1, hi, lo);
+    x2_xor_ = hi ^ keys_.k0[1];
+    z2_xor_ = w1 ^ keys_.k1[1];
+    // round 2: x3 = hi(M1 z2) ^ y2 ^ k0
+    x3_xor_ = lo ^ keys_.k0[2];
+  }
+
+  // lane 0
+  __device__ __forceinline__ uint32_t operator()(uint32_t site) const {
+    uint32_t x, y, z, w;
+    rounds(site, x, y, z, w);
+    return __umulhi(kPhiloxM1, z) ^ y ^ keys_.k0[9];
+  }
+
+  // lanes 0 and 1: round 9's x and y, the two halves of one product
+  __device__ __forceinline__ uint2 lanes01(uint32_t site) const {
+    uint32_t x, y, z, w, hi, lo;
+    rounds(site, x, y, z, w);
+    mul_wide(kPhiloxM1, z, hi, lo);
+    return make_uint2(hi ^ y ^ keys_.k0[9], lo);
+  }
+
+  // all four lanes
+  __device__ __forceinline__ uint4 lanes(uint32_t site) const {
+    uint32_t x, y, z, w, hi0, lo0, hi1, lo1;
+    rounds(site, x, y, z, w);
+    mul_wide(kPhiloxM0, x, hi0, lo0);
+    mul_wide(kPhiloxM1, z, hi1, lo1);
+    return make_uint4(hi1 ^ y ^ keys_.k0[9], lo1, hi0 ^ w ^ keys_.k1[9],
+                      lo0);
+  }
+
+ private:
+  // the state (x, y, z, w) after rounds 0 to 8
+  __device__ __forceinline__ void rounds(uint32_t site, uint32_t& x,
+                                         uint32_t& y, uint32_t& z,
+                                         uint32_t& w) const {
+    uint32_t hi0, lo0, hi1, lo1;
+    // round 0: lanes y and w are 0
+    mul_wide(kPhiloxM1, site, hi1, lo1);
+    const uint32_t x1 = hi1 ^ keys_.k0[0];
+    const uint32_t y1 = lo1;
+    // round 1
+    mul_wide(kPhiloxM0, x1, hi0, lo0);
+    x = y1 ^ x2_xor_;
+    z = hi0 ^ z2_xor_;
+    w = lo0;
+    // round 2: lane y2 is the same for every site
+    mul_wide(kPhiloxM0, x, hi0, lo0);
+    mul_wide(kPhiloxM1, z, hi1, lo1);
+    x = hi1 ^ x3_xor_;
+    y = lo1;
+    z = hi0 ^ w ^ keys_.k1[2];
+    w = lo0;
+#pragma unroll
+    for (int r = 3; r < 9; ++r) {
+      mul_wide(kPhiloxM0, x, hi0, lo0);
+      mul_wide(kPhiloxM1, z, hi1, lo1);
+      x = hi1 ^ y ^ keys_.k0[r];
+      y = lo1;
+      z = hi0 ^ w ^ keys_.k1[r];
+      w = lo0;
+    }
+  }
+
+  PhiloxKeys keys_;
+  uint32_t x2_xor_;
+  uint32_t z2_xor_;
+  uint32_t x3_xor_;
 };
 
 class HoistedPhiloxPair {

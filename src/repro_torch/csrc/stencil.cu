@@ -4,16 +4,27 @@
 // repro_torch.kernels.stencil and repro_torch.dist.kernels):
 //
 // * stencil_update: one colour half-sweep.  Replaces the Pallas kernel
-//   src/repro/kernels/stencil/stencil.py:stencil_update.  One thread per
-//   target site reads its own target spin and its four neighbours in the
-//   opposite plane (periodic wrap, side tap by global row parity), draws
-//   lane 0 of Philox4x32-10 at counter (offset, 0, row*h + col, 0) and
-//   flips iff u < table[s, nn].  Each thread reads only its own target
-//   site, so the target plane is updated in place.
+//   src/repro/kernels/stencil/stencil.py:stencil_update.  Each cell
+//   reads its own target spin and its four neighbours in the opposite
+//   plane (periodic wrap, side tap by global row parity), draws lane 0
+//   of Philox4x32-10 at counter (offset, 0, row*h + col, 0) and flips
+//   iff u < table[s, nn].  Each thread reads only its own target cells,
+//   so the target plane is updated in place.
 //   Bound: the Philox rounds (integer multiplies and XORs), not bytes:
-//   a site moves 3 bytes but costs some 40 integer instructions.  The
-//   design keeps every thread independent (no shared memory, no
-//   barriers) so that all warps can run Philox arithmetic.
+//   a cell moves 3 bytes but costs some 40 integer instructions.  So
+//   the kernel runs the k-sweep kernels' word update (flip_cells) on
+//   device memory: a thread takes a word of 4 cells and walks down its
+//   column for kRowsPerThread rows, the up and centre words carried in
+//   registers from the row before, the side word a byte permute of the
+//   centre and the word beside it; the draws from a lane-0 HoistedPhilox
+//   made on the host once a launch (a kernel parameter, its constants
+//   in the constant bank); the accept the integer compare with the draw
+//   bounds, read through the L1 cache from an 80-byte device table
+//   (lanes of a warp take up to 10 of its entries at once, which the
+//   constant bank would serve one address at a time); no shared memory,
+//   no barrier, no division.  A plane whose width is not a multiple of 4
+//   cells (its rows are then not whole aligned words) is read and
+//   written cell by cell, the same update on words built from bytes.
 //
 // * stencil_sweeps_resident: n_sweeps full sweeps in one launch.
 //   Replaces src/repro/kernels/stencil/resident.py:stencil_sweeps_resident,
@@ -66,10 +77,10 @@
 //   the work is integer issue, neither a product of matrices nor a
 //   stream of bytes.
 //
-// stencil_update's accept is a lookup in a 10-entry float32 table passed
-// by value (index (s > 0) * 5 + (nn + 4) / 2), never expf: the table is
-// built once on the host so that the card, the CPU and the reference
-// agree.  The k-sweep kernels take the same table as its draw bounds.
+// The accept of all three is the 10-entry float32 table (index (s > 0) *
+// 5 + (nn + 4) / 2) built once on the host, never expf, so that the card,
+// the CPU and the reference agree, taken as its exclusive bounds on the
+// raw uint32 draw (draw_bounds): the decisions of u < p.
 
 #include <cuda_runtime.h>
 
@@ -84,58 +95,162 @@ namespace {
 
 constexpr int kTableSize = 10;
 
-struct AcceptTable {
-  float v[kTableSize];
+// -- the word update ---------------------------------------------------------
+//
+// 4 int8 cells of a row as one 32-bit word.  A word's four neighbour
+// words in the opposite plane are read whole: up, down and centre, and
+// the side word built from the centre and the word beside it with a byte
+// permute.  The count of -1 neighbours of each byte is a sum of masked
+// words without carries between the bytes, and turns into each cell's
+// byte offset in the table of draw bounds (8 B entries, so one load with
+// no bank conflicts in shared memory, one cache line in device memory).
+// The cell flips iff its Philox draw is below the bound (integer
+// compare, draw_bounds: the decisions of u < p of the float table).
+
+// The side word of a word whose side neighbour is at column +1 (kPlus:
+// cells 1..3 of the centre and cell 0 of the next word) or -1 (cell 3 of
+// the word before and cells 0..2); `beside` is that next or previous
+// word.
+template <bool kPlus>
+__device__ __forceinline__ uint32_t side_word(uint32_t centre,
+                                              uint32_t beside) {
+  return kPlus ? __byte_perm(centre, beside, 0x4321)
+               : __byte_perm(beside, centre, 0x6543);
+}
+
+// The new target word t of 4 cells from its neighbour words; site[e]
+// keys cell e's draw, `bounds` holds the 10 uint64 draw bounds.
+__device__ __forceinline__ uint32_t flip_cells(
+    uint32_t t, uint32_t up, uint32_t down, uint32_t centre, uint32_t side,
+    const uint32_t (&site)[4], const repro_torch::HoistedPhilox& philox,
+    const unsigned char* __restrict__ bounds) {
+  // bit 1 of a cell: clear for +1 (0x01), set for -1 (0xFF)
+  constexpr uint32_t kDown = 0x02020202u;
+  // per byte: twice the number of -1 neighbours, at most 8
+  const uint32_t down2 = (up & kDown) + (down & kDown) + (centre & kDown) +
+                         (side & kDown);
+  // per byte: 8 x the table index 5 (t > 0) + (nn + 4) / 2, which is
+  // 9 - down - 5 (t < 0): at most 72, so no byte carries into the next
+  const uint32_t offset8 = (0x12121212u - down2 - 5u * (t & kDown)) << 2;
+  uint32_t flip = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t draw = philox(site[e]);
+    const unsigned long long bound =
+        *reinterpret_cast<const unsigned long long*>(
+            bounds + ((offset8 >> (8 * e)) & 0xFFu));
+    // 0x01 ^ 0xFE = 0xFF and back
+    if (draw < bound) flip |= 0xFEu << (8 * e);
+  }
+  return t ^ flip;
+}
+
+// -- stencil_update: the word update on device memory ------------------------
+
+// rows a thread walks down its word column
+constexpr int kRowsPerThread = 16;
+
+// The cells of an n x h int8 plane as words of 4: nw = ceil(h / 4) words
+// a row, moved as 32-bit words (kWords: h a multiple of 4, the planes
+// 4-byte aligned) or cell by cell, a word's cells past the row's end 0
+// and never stored.
+template <bool kWords>
+struct Cells {
+  int h, nw;
+
+  __device__ __forceinline__ uint32_t load(const int8_t* __restrict__ p,
+                                           int r, int wc) const {
+    if (kWords) {
+      return reinterpret_cast<const uint32_t*>(p)[static_cast<size_t>(r) *
+                                                   nw + wc];
+    }
+    uint32_t v = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 4 * wc + e;
+      if (col < h) {
+        v |= static_cast<uint32_t>(static_cast<uint8_t>(
+                 p[static_cast<size_t>(r) * h + col]))
+             << (8 * e);
+      }
+    }
+    return v;
+  }
+
+  __device__ __forceinline__ void store(int8_t* __restrict__ p, int r,
+                                        int wc, uint32_t v) const {
+    if (kWords) {
+      reinterpret_cast<uint32_t*>(p)[static_cast<size_t>(r) * nw + wc] = v;
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 4 * wc + e;
+      if (col < h) {
+        p[static_cast<size_t>(r) * h + col] =
+            static_cast<int8_t>(v >> (8 * e));
+      }
+    }
+  }
+
+  // the side word of word wc of row r, its side neighbour at +1 (kPlus)
+  // or -1, wrapped within the row
+  template <bool kPlus>
+  __device__ __forceinline__ uint32_t side(const int8_t* __restrict__ p,
+                                           int r, int wc, uint32_t centre,
+                                           int beside) const {
+    if (kWords) return side_word<kPlus>(centre, load(p, r, beside));
+    uint32_t v = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 4 * wc + e;
+      const int sc = kPlus ? (col + 1 >= h ? 0 : col + 1)
+                           : (col == 0 ? h - 1 : col - 1);
+      v |= static_cast<uint32_t>(static_cast<uint8_t>(
+               p[static_cast<size_t>(r) * h + sc]))
+           << (8 * e);
+    }
+    return v;
+  }
 };
 
-__device__ __forceinline__ int8_t metropolis_site(int8_t t, int nn,
-                                                  uint32_t site,
-                                                  uint32_t offset,
-                                                  uint32_t k0, uint32_t k1,
-                                                  const float* table) {
-  const uint4 r =
-      repro_torch::philox4x32_10(make_uint4(offset, 0u, site, 0u), k0, k1);
-  const float u = repro_torch::u32_to_uniform(r.x);
-  const int index = (t > 0 ? 5 : 0) + ((nn + 4) >> 1);
-  return u < table[index] ? static_cast<int8_t>(-t) : t;
-}
-
-__device__ __forceinline__ void load_table(const AcceptTable& tab,
-                                           float* s_table, int tid) {
-  if (tid == 0) {
-#pragma unroll
-    for (int i = 0; i < kTableSize; ++i) s_table[i] = tab.v[i];
+// grid (ceil(nw / blockDim.x), ceil(n / kRowsPerThread)): a thread takes
+// word column wc of kRowsPerThread rows, top to bottom
+template <bool kWords>
+__global__ void __launch_bounds__(256) stencil_update_kernel(
+    int8_t* __restrict__ target, const int8_t* __restrict__ op, int n, int h,
+    int is_black, const unsigned long long* __restrict__ bounds,
+    repro_torch::HoistedPhilox philox) {
+  const Cells<kWords> cells{h, (h + 3) >> 2};
+  const int wc = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (wc >= cells.nw) return;
+  const int r_lo = static_cast<int>(blockIdx.y) * kRowsPerThread;
+  const int r_hi = min(n, r_lo + kRowsPerThread);
+  // the words beside this one in its row, wrapped
+  const int next = wc + 1 == cells.nw ? 0 : wc + 1;
+  const int prev = wc == 0 ? cells.nw - 1 : wc - 1;
+  const unsigned char* b8 = reinterpret_cast<const unsigned char*>(bounds);
+  uint32_t up = cells.load(op, r_lo == 0 ? n - 1 : r_lo - 1, wc);
+  uint32_t centre = cells.load(op, r_lo, wc);
+  uint32_t base = static_cast<uint32_t>(r_lo) * static_cast<uint32_t>(h) +
+                  static_cast<uint32_t>(4 * wc);
+#pragma unroll 1
+  for (int r = r_lo; r < r_hi; ++r) {
+    const uint32_t down = cells.load(op, r + 1 == n ? 0 : r + 1, wc);
+    // black targets take (i, k+1) on odd rows, (i, k-1) on even; white
+    // the reverse
+    const uint32_t side =
+        ((r & 1) != 0) == (is_black != 0)
+            ? cells.template side<true>(op, r, wc, centre, next)
+            : cells.template side<false>(op, r, wc, centre, prev);
+    const uint32_t site[4] = {base, base + 1, base + 2, base + 3};
+    const uint32_t t = cells.load(target, r, wc);
+    cells.store(target, r, wc,
+                flip_cells(t, up, down, centre, side, site, philox, b8));
+    up = centre;
+    centre = down;
+    base += static_cast<uint32_t>(h);
   }
-}
-
-// grid (n, ceil(h / blockDim.x)): blockIdx.x is the row
-__global__ void stencil_update_kernel(int8_t* __restrict__ target,
-                                      const int8_t* __restrict__ op, int n,
-                                      int h, int is_black, AcceptTable tab,
-                                      uint32_t k0, uint32_t k1,
-                                      uint32_t offset) {
-  __shared__ float s_table[kTableSize];
-  load_table(tab, s_table, threadIdx.x);
-  __syncthreads();
-  const int row = blockIdx.x;
-  const int col = blockIdx.y * blockDim.x + threadIdx.x;
-  if (col >= h) return;
-  const int up = row == 0 ? n - 1 : row - 1;
-  const int down = row == n - 1 ? 0 : row + 1;
-  // black targets take (i, k+1) on odd rows, (i, k-1) on even; white the
-  // reverse
-  const bool plus = ((row & 1) != 0) == (is_black != 0);
-  const int side = plus ? (col == h - 1 ? 0 : col + 1)
-                        : (col == 0 ? h - 1 : col - 1);
-  const size_t base = static_cast<size_t>(row) * h;
-  const int nn = op[static_cast<size_t>(up) * h + col] +
-                 op[static_cast<size_t>(down) * h + col] + op[base + col] +
-                 op[base + side];
-  const uint32_t site =
-      static_cast<uint32_t>(row) * static_cast<uint32_t>(h) +
-      static_cast<uint32_t>(col);
-  target[base + col] =
-      metropolis_site(target[base + col], nn, site, offset, k0, k1, s_table);
 }
 
 // -- the k-sweep and shard kernels: one site loop --------------------------
@@ -145,15 +260,8 @@ __global__ void stencil_update_kernel(int8_t* __restrict__ target,
 // and below) by ext_cols() cells (a halo of at least 2k on each side, the
 // left one rounded up to a word so that a tile's words line up with the
 // plane's).  Rows go to warps; a lane takes one word of 4 consecutive
-// cells of its row, and the lanes of a warp take consecutive words.  A
-// word's four neighbour words in the opposite plane are read whole: up,
-// down and centre, and the side word built from the centre and the word
-// beside it with a byte permute.  The count of -1 neighbours of each byte
-// is a sum of masked words without carries between the bytes, and turns
-// into each cell's byte offset in the table of draw bounds (8 B entries
-// at the start of shared memory, so one load with no bank conflicts).
-// The cell flips iff its Philox draw is below the bound (integer compare,
-// draw_bounds: the decisions of u < p of the float table).
+// cells of its row (the word update above, its draw bounds at the start
+// of shared memory), and the lanes of a warp take consecutive words.
 
 // 10 exclusive bounds on the raw uint32 draw (repro_torch.core.
 // metropolis.draw_bounds): 0 never flips, 2^32 always does
@@ -192,28 +300,10 @@ __device__ __forceinline__ uint32_t update_word(
     uint32_t t, const uint32_t* __restrict__ op, int c, int pitch,
     const uint32_t (&site)[4], const repro_torch::HoistedPhilox& philox,
     const unsigned char* s_bounds) {
-  // bit 1 of a cell: clear for +1 (0x01), set for -1 (0xFF)
-  constexpr uint32_t kDown = 0x02020202u;
   const uint32_t centre = op[c];
-  const uint32_t side = kPlus ? __byte_perm(centre, op[c + 1], 0x4321)
-                              : __byte_perm(op[c - 1], centre, 0x6543);
-  // per byte: twice the number of -1 neighbours, at most 8
-  const uint32_t down2 = (op[c - pitch] & kDown) + (op[c + pitch] & kDown) +
-                         (centre & kDown) + (side & kDown);
-  // per byte: 8 x the table index 5 (t > 0) + (nn + 4) / 2, which is
-  // 9 - down - 5 (t < 0): at most 72, so no byte carries into the next
-  const uint32_t offset8 = (0x12121212u - down2 - 5u * (t & kDown)) << 2;
-  uint32_t flip = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const uint32_t draw = philox(site[e]);
-    const unsigned long long bound =
-        *reinterpret_cast<const unsigned long long*>(
-            s_bounds + ((offset8 >> (8 * e)) & 0xFFu));
-    // 0x01 ^ 0xFE = 0xFF and back
-    if (draw < bound) flip |= 0xFEu << (8 * e);
-  }
-  return t ^ flip;
+  const uint32_t side = side_word<kPlus>(centre, op[kPlus ? c + 1 : c - 1]);
+  return flip_cells(t, op[c - pitch], op[c + pitch], centre, side, site,
+                    philox, s_bounds);
 }
 
 // Where a block's extended tile sits: rows r0.., cells c0.. of an n x h
@@ -469,25 +559,30 @@ int launch_sweeps(bool shard, const void* b_in, const void* w_in,
   return static_cast<int>(cudaGetLastError());
 }
 
-AcceptTable make_table(const float* table) {
-  AcceptTable tab;
-  std::memcpy(tab.v, table, sizeof(tab.v));
-  return tab;
-}
-
 }  // namespace
 
 extern "C" {
 
+// bounds: the 10 uint64 draw bounds in device memory
 int stencil_update_launch(void* target, const void* op, int n, int h,
-                          int is_black, const float* table, uint32_t k0,
+                          int is_black, const void* bounds, uint32_t k0,
                           uint32_t k1, uint32_t offset, void* stream) {
-  const int threads = h >= 256 ? 256 : ((h + 31) / 32) * 32;
-  const dim3 grid(n, (h + threads - 1) / threads);
-  stencil_update_kernel<<<grid, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(target), static_cast<const int8_t*>(op), n, h,
-      is_black, make_table(table), k0, k1, offset);
+  const int nw = (h + 3) / 4;
+  const int threads = nw >= 256 ? 256 : ((nw + 31) / 32) * 32;
+  const dim3 grid((nw + threads - 1) / threads,
+                  (n + kRowsPerThread - 1) / kRowsPerThread);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int8_t* t = static_cast<int8_t*>(target);
+  const int8_t* o = static_cast<const int8_t*>(op);
+  const unsigned long long* b = static_cast<const unsigned long long*>(bounds);
+  const repro_torch::HoistedPhilox philox(offset, k0, k1);
+  if (h % 4 == 0 && aligned(target, 4) && aligned(op, 4)) {
+    stencil_update_kernel<true><<<grid, threads, 0, s>>>(t, o, n, h, is_black,
+                                                        b, philox);
+  } else {
+    stencil_update_kernel<false><<<grid, threads, 0, s>>>(t, o, n, h,
+                                                         is_black, b, philox);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,9 +36,11 @@ launches its kernel for CUDA tensors; it returns new planes.  Stencil
 takes the 10-entry float32 acceptance table (its kernel compares the raw
 draw with the table's ``metropolis.draw_bounds``), the word families the
 10 uint32 thresholds (the multispin kernel as the 16-entry
-``key_table``), as their single-device kernels do.  The stencil and
-multispin kernels share the site or word loop of their k-sweep kernels,
-keyed on the staged ``gidx`` or ``widx``.
+``key_table``, the bitplane kernel as ``accept_arg``: t4 and t8 for its
+three-threshold accept, all 10 for a table of another layout), as their
+single-device kernels do.  Each kernel shares the site, word or group
+loop of its family's k-sweep kernel, keyed on the staged ``gidx`` or
+``widx``.
 """
 from __future__ import annotations
 
@@ -50,8 +52,9 @@ from repro_torch.core import bitplane as bp
 from repro_torch.core import metropolis, rng
 from repro_torch.core import multispin as ms
 from repro_torch.kernels import _build
-from repro_torch.kernels._words import (check_words, key_table_arg,
-                                        thresholds_arg)
+from repro_torch.kernels._words import (accept_arg, check_words,
+                                        count_launch, key_table_arg,
+                                        table_argtypes)
 from repro_torch.kernels.stencil.stencil import (bounds_arg, check_planes,
                                                  raise_on_error)
 
@@ -105,12 +108,12 @@ def library(family: str):
     launch = getattr(lib, f"{family}_shard_sweeps_launch")
     if launch.argtypes is None:
         u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
-        table = ctypes.POINTER(ctypes.c_uint64 if family == "stencil"
-                               else ctypes.c_uint32)
+        table = ([ctypes.POINTER(ctypes.c_uint64)] if family == "stencil"
+                 else table_argtypes(family))
         planes = [ptr] * (6 if family == "bitplane" else 5)
         lib.cuda_error_string.argtypes = [i32]
         lib.cuda_error_string.restype = ctypes.c_char_p
-        launch.argtypes = planes + [i32, i32, table, u32, u32, u32, i32, i32,
+        launch.argtypes = planes + [i32, i32, *table, u32, u32, u32, i32, i32,
                                     i32, i32, ptr]
         launch.restype = i32
         smem = getattr(lib, f"{family}_shard_smem_bytes")
@@ -119,11 +122,11 @@ def library(family: str):
     return lib
 
 
-def _launch(family, wrapper, inputs, black, white, table, *, n_sweeps,
-            seed, start_offset, tile):
+def _launch(family, wrapper, inputs, black, white, table: tuple, *,
+            n_sweeps, seed, start_offset, tile):
     """Launch ``family``'s shard kernel once over ``n_sweeps`` sweeps of
-    the extended planes, counting the launch on ``wrapper``; returns new
-    planes."""
+    the extended planes with its threshold arguments ``table``, counting
+    the launch on ``wrapper``; returns new planes."""
     lib = library(family)
     n, w = black.shape
     tile_r, tile_c, threads = shard_tile(family, n, w) if tile is None \
@@ -134,11 +137,11 @@ def _launch(family, wrapper, inputs, black, white, table, *, n_sweeps,
     with torch.cuda.device(black.device):
         rc = getattr(lib, f"{family}_shard_sweeps_launch")(
             *(t.data_ptr() for t in inputs), out_b.data_ptr(),
-            out_w.data_ptr(), n, w, table, k0, k1,
+            out_w.data_ptr(), n, w, *table, k0, k1,
             int(start_offset) & rng.MASK32, n_sweeps, tile_r, tile_c,
             threads, torch.cuda.current_stream(black.device).cuda_stream)
     raise_on_error(lib, rc, wrapper.__name__)
-    wrapper.launches += 1
+    count_launch(wrapper, table)
     return out_b, out_w
 
 
@@ -167,7 +170,7 @@ def stencil_shard_sweeps(black, white, table, gidx, *, n_sweeps: int,
             black, white, table, gidx, n_sweeps=n_sweeps, seed=seed,
             start_offset=start_offset)
     return _launch("stencil", stencil_shard_sweeps, (black, white, gidx),
-                   black, white, bounds_arg(table), n_sweeps=n_sweeps,
+                   black, white, (bounds_arg(table),), n_sweeps=n_sweeps,
                    seed=seed, start_offset=start_offset, tile=tile)
 
 
@@ -183,7 +186,7 @@ def multispin_shard_sweeps(black, white, thresholds, widx, *,
             black, white, thresholds, widx, n_sweeps=n_sweeps, seed=seed,
             start_offset=start_offset)
     return _launch("multispin", multispin_shard_sweeps, (black, white, widx),
-                   black, white, key_table_arg(thresholds),
+                   black, white, (key_table_arg(thresholds),),
                    n_sweeps=n_sweeps, seed=seed, start_offset=start_offset,
                    tile=tile)
 
@@ -202,11 +205,14 @@ def bitplane_shard_sweeps(black, white, thresholds, gidx, lane, *,
             seed=seed, start_offset=start_offset)
     return _launch("bitplane", bitplane_shard_sweeps,
                    (black, white, gidx, lane), black, white,
-                   thresholds_arg(thresholds), n_sweeps=n_sweeps, seed=seed,
+                   accept_arg(thresholds), n_sweeps=n_sweeps, seed=seed,
                    start_offset=start_offset, tile=tile)
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (the bitplane
+#: kernel's of the general accept also in ``general_launches``, as
+#: ``repro_torch.kernels.bitplane`` counts them)
 stencil_shard_sweeps.launches = 0
 multispin_shard_sweeps.launches = 0
 bitplane_shard_sweeps.launches = 0
+bitplane_shard_sweeps.general_launches = 0

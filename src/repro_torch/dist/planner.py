@@ -58,10 +58,10 @@ INDEX_BYTES = {"stencil": 4, "multispin": 4, "bitplane": 5}
 #: repro_torch.analysis.tune_resident --shard`` at the 2 x 2 main paths
 #: (``PERF.md``).  Staging the index planes too, the single-device tiles
 #: (``GEOMETRY``) leave one block an SM.  The bitplane kernel's columns
-#: are whole 4-word groups; the multispin kernel's make rows of 128
-#: words with the halo at k = 2
+#: are whole 4-word groups, rows of 64 groups with the halo at k = 2;
+#: the multispin kernel's make rows of 128 words with the halo at k = 2
 SHARD_TILES = {"stencil": (64, 248), "multispin": (64, 120),
-               "bitplane": (64, 120)}
+               "bitplane": (32, 248)}
 
 #: threads of a shard-kernel block, by family (the same measurements):
 #: the bitplane kernel's registers (a thread per group) fit 256
@@ -117,28 +117,23 @@ class ShardPlan:
 
 def shard_smem_bytes(family: str, tile_rows: int, tile_cols: int,
                      k: int) -> int:
-    """Shared memory of one shard-kernel block for k sweeps: the row and
-    column indices of the extended tile where the kernel keeps them, the
+    """Shared memory of one shard-kernel block for k sweeps: the
     acceptance table where the kernel keeps one there (stencil: its draw
-    bounds), the tile's index planes and both extended planes (the layout
-    of the family's shard kernel)."""
+    bounds; multispin: its threshold pairs), the tile's index planes and
+    both extended planes (the layout of the family's shard kernel)."""
     g = GEOMETRY[family]
-    cell = INDEX_BYTES[family] + 2 * g.element_bytes
-    if not g.index_tables:
-        # stencil and multispin: rows of whole words (and of 4 words), as
-        # their k-sweep kernels
-        er, ec = extended_tile(tile_rows, tile_cols, k, family)
-        return g.table_bytes + cell * er * ec
     if family == "bitplane":
         # rows of whole 4-word groups: the tile's columns rounded up and a
-        # column halo of 2k rounded up; the planes 16-byte aligned
+        # column halo of 2k rounded up; index planes per group
         er = tile_rows + 4 * k
         ec = -(-tile_cols // 4) * 4 + 2 * col_halo(k, family)
-        tables = -(-4 * (er + ec) // 16) * 16
-        return (tables + 2 * g.element_bytes * er * ec
+        return (2 * g.element_bytes * er * ec
                 + INDEX_BYTES[family] * er * (ec // 4))
-    er, ec = tile_rows + 4 * k, tile_cols + 4 * k
-    return 4 * (er + ec) + g.table_bytes + cell * er * ec
+    # stencil and multispin: rows of whole words (and of 4 words), as
+    # their k-sweep kernels
+    er, ec = extended_tile(tile_rows, tile_cols, k, family)
+    return (g.table_bytes
+            + (INDEX_BYTES[family] + 2 * g.element_bytes) * er * ec)
 
 
 def shard_tile(family: str, ext_rows: int, ext_cols: int):

@@ -5,13 +5,17 @@ Replaces the Pallas kernel ``src/repro/kernels/bitplane/bitplane.py``
 On the card (``csrc/bitplane.cu``) one thread updates a group of 4
 consecutive words of a row: one Philox4x32-10 call at counter
 ``(offset, 0, group, 0)`` gives the 4 sites' shared draws, each word
-gets the carry-save neighbour count and the 10-class OR accept.  One
-thread per site would compute every Philox call four times.  Each
-thread reads only its own target words, so the kernel updates the
-target plane in place, and so does the wrapper on every device.
+gets the carry-save neighbour count and the accept.  One thread per
+site would compute every Philox call four times.  Each thread reads
+only its own target words, so the kernel updates the target plane in
+place, and so does the wrapper on every device.
 
 Word planes and thresholds as in ``repro_torch.kernels._words``, the
-planes' width a multiple of 4.
+planes' width a multiple of 4.  The accept is the kernel's
+three-threshold one where the thresholds have a ferromagnet's layout
+(``_words.accept_arg``), else its general 10-class one: each wrapper
+counts every launch in ``launches`` and those of the general accept
+also in ``general_launches``.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import torch
 
 from repro_torch.core import bitplane as bp
 from repro_torch.kernels import _build
-from repro_torch.kernels._words import check_words, declare, launch_update
+from repro_torch.kernels._words import (accept_arg, check_words, declare,
+                                        launch_update)
 
 
 def bitplane_update_plain(target, op_words, thresholds, *, is_black: bool,
@@ -55,9 +60,11 @@ def bitplane_update(target, op_words, thresholds, *, is_black: bool,
             offset=offset))
     lib = library()
     return launch_update(lib, lib.bitplane_update_launch, bitplane_update,
-                         target, op_words, thresholds, is_black=is_black,
-                         seed=seed, offset=offset)
+                         target, op_words, accept_arg(thresholds),
+                         is_black=is_black, seed=seed, offset=offset)
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, and of them those
+#: of the general accept
 bitplane_update.launches = 0
+bitplane_update.general_launches = 0

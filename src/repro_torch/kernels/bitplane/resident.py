@@ -2,20 +2,22 @@
 
 Replaces the Pallas kernel ``src/repro/kernels/bitplane/resident.py``
 (``bitplane_sweeps_resident``), which keeps both whole bit planes in TPU
-VMEM for ``n_sweeps`` sweeps.  On the card (``csrc/bitplane.cu``) each
-block loads a tile of both planes plus a halo of 2k rows and of 2k
-columns rounded up to a multiple of 4 into shared memory, so that every
-thread still owns whole 4-site draw groups, runs 2k half-sweeps and
-writes back the tile.  Draws are keyed on the global group index, so the
-result is bit for bit k applications of the half-sweep; the planner
-(``repro_torch.kernels.resident``) picks the tile (columns a multiple of
-4) and k.
+VMEM for ``n_sweeps`` sweeps.  On the card (``csrc/bitplane.cu``,
+``bitplane_sweeps_kernel<false, ...>``, the group loop it shares with the
+shard kernel) each block loads a tile of both planes plus a halo of 2k
+rows and of 2k columns rounded up to a multiple of 4 into shared
+memory, so that every thread still owns whole 4-site draw groups, runs
+2k half-sweeps and writes back the tile.  Draws are keyed on the global
+group index, so the result is bit for bit k applications of the
+half-sweep; the planner (``repro_torch.kernels.resident``) picks the
+tile (columns a multiple of 4) and k.  The accept and the launch counts
+as in :mod:`.bitplane`.
 """
 from __future__ import annotations
 
 from repro_torch.core import bitplane as bp
-from repro_torch.kernels._words import (check_resident_args,
-                                        launch_resident, thresholds_arg)
+from repro_torch.kernels._words import (accept_arg, check_resident_args,
+                                        launch_resident)
 
 from .bitplane import check_bit_planes, library
 
@@ -47,9 +49,11 @@ def bitplane_sweeps_resident(black, white, thresholds, *, n_sweeps: int,
     lib = library()
     return launch_resident(
         lib, lib.bitplane_sweeps_resident_launch, bitplane_sweeps_resident,
-        black, white, thresholds_arg(thresholds), n_sweeps=n_sweeps,
+        black, white, accept_arg(thresholds), n_sweeps=n_sweeps,
         seed=seed, start_offset=start_offset, plan=plan)
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, and of them those
+#: of the general accept
 bitplane_sweeps_resident.launches = 0
+bitplane_sweeps_resident.general_launches = 0

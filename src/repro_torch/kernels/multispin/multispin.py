@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.core import multispin as ms
 from repro_torch.kernels import _build
-from repro_torch.kernels._words import check_words, declare, launch_update
+from repro_torch.kernels._words import (check_words, declare, launch_update,
+                                        thresholds_arg)
 
 
 def multispin_update_plain(target, op_words, thresholds, *, is_black: bool,
@@ -52,8 +53,8 @@ def multispin_update(target, op_words, thresholds, *, is_black: bool,
             offset=offset))
     lib = library()
     return launch_update(lib, lib.multispin_update_launch, multispin_update,
-                         target, op_words, thresholds, is_black=is_black,
-                         seed=seed, offset=offset)
+                         target, op_words, (thresholds_arg(thresholds),),
+                         is_black=is_black, seed=seed, offset=offset)
 
 
 #: kernel launches since the count was last set to 0

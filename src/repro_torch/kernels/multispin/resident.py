@@ -49,7 +49,7 @@ def multispin_sweeps_resident(black, white, thresholds, *, n_sweeps: int,
     lib = library()
     return launch_resident(
         lib, lib.multispin_sweeps_resident_launch, multispin_sweeps_resident,
-        black, white, key_table_arg(thresholds), n_sweeps=n_sweeps,
+        black, white, (key_table_arg(thresholds),), n_sweeps=n_sweeps,
         seed=seed, start_offset=start_offset, plan=plan)
 
 

@@ -22,9 +22,13 @@ one value that moves that boundary:
 same session through either tier.
 
 The rule takes the k-sweep tier wherever a tile fits, also where it is
-not the faster tier: for bitplane at 16384^2 the per-half-sweep tier
-was 6 % faster per sweep (``PERF.md`` section 5).  Choosing the tier by
-measurement is open work (``ROADMAP.md``, "Next").
+not the faster tier.  On an H100 SXM at 700 W (``PERF.md`` section 6)
+it is for multispin and, since its group loop was redesigned, for
+bitplane (0.84 against 1.09 ms a sweep at 16384^2, where it was 1.30
+against 1.22), but no longer for stencil at 32768^2, whose
+per-half-sweep kernel, redesigned too, takes 3.27 ms a sweep against
+the k-sweep kernel's 3.46.  Choosing the tier by measurement is open
+work (``ROADMAP.md``, Queue 2).
 """
 from __future__ import annotations
 
@@ -66,9 +70,6 @@ class Geometry:
     #: of this many plane elements (stencil: the 4 int8 cells of a
     #: thread's 32-bit word; multispin: the 4 words of a 16-byte load)
     row_word: int
-    #: the kernel keeps the extended tile's global row and column
-    #: indices in shared memory
-    index_tables: bool
     #: bytes of the acceptance table in shared memory
     table_bytes: int
     #: the planes start at a multiple of this many bytes of shared memory
@@ -83,7 +84,7 @@ class Geometry:
 GEOMETRY = {
     # int8 cells in 32-bit words, the 10 uint64 draw bounds in 128 bytes
     "stencil": Geometry(col_divisor=2, element_bytes=1, col_align=1,
-                        row_word=4, index_tables=False, table_bytes=128,
+                        row_word=4, table_bytes=128,
                         plane_align=16, tile_rows=TILE_ROWS,
                         tile_cols=TILE_COLS, max_k=MAX_SWEEPS_PER_LAUNCH,
                         threads=THREADS),
@@ -95,15 +96,17 @@ GEOMETRY = {
     # blocks an SM, the fastest k = 2 candidate of ``tune_resident`` at
     # 32768^2 (96 x 120 within 0.1 %)
     "multispin": Geometry(col_divisor=16, element_bytes=4, col_align=1,
-                          row_word=4, index_tables=False, table_bytes=2048,
+                          row_word=4, table_bytes=2048,
                           plane_align=16, tile_rows=40, tile_cols=248,
                           max_k=2, threads=512),
     # uint32 words of 32 replica bits; tile columns in 4-site groups, each
-    # moved as one 16-byte access
+    # moved as one 16-byte access, a lane a group: 248 words and the halo
+    # at k = 2 make rows of 64 groups, two passes of a warp; two 96 KiB
+    # blocks an SM; the fastest k = 2 candidate of ``tune_resident`` at
+    # 16384^2 (``PERF.md``)
     "bitplane": Geometry(col_divisor=2, element_bytes=4, col_align=4,
-                         row_word=1, index_tables=True, table_bytes=0,
-                         plane_align=16, tile_rows=96, tile_cols=128,
-                         max_k=2, threads=256),
+                         row_word=1, table_bytes=0, plane_align=16,
+                         tile_rows=40, tile_cols=248, max_k=2, threads=512),
 }
 
 
@@ -145,14 +148,12 @@ def extended_tile(tile_rows: int, tile_cols: int, k: int,
 
 def smem_bytes(tile_rows: int, tile_cols: int, k: int,
                family: str = "stencil") -> int:
-    """Shared memory of one block for k sweeps: global row and column
-    indices of the extended tile where the kernel keeps them, the
-    acceptance table (stencil: its draw bounds), and both extended planes
-    (the layout of the family's k-sweep kernel)."""
+    """Shared memory of one block for k sweeps: the acceptance table
+    (stencil: its draw bounds; multispin: its threshold pairs) and both
+    extended planes (the layout of the family's k-sweep kernel)."""
     g = GEOMETRY[family]
     er, ec = extended_tile(tile_rows, tile_cols, k, family)
-    header = (4 * (er + ec) if g.index_tables else 0) + g.table_bytes
-    header = -(-header // g.plane_align) * g.plane_align
+    header = -(-g.table_bytes // g.plane_align) * g.plane_align
     return header + 2 * g.element_bytes * er * ec
 
 

@@ -2,14 +2,16 @@
 
 Replaces the Pallas kernel ``src/repro/kernels/stencil/stencil.py``
 (``stencil_update``), which stages row blocks i-1, i, i+1 into TPU VMEM.
-On the card (``csrc/stencil.cu``) one thread updates one target site:
-four neighbour reads in the opposite plane, one Philox4x32-10 draw at
-counter ``(offset, 0, row*h + col, 0)``, a table lookup and a select.
-It is bound by the Philox integer arithmetic, not by its 3 bytes per
-site, so the design keeps every thread independent (no shared tiles, no
-barriers) and lets the L1 cache serve the neighbour rows.  Each thread
-reads only its own target site, so the kernel updates the target plane
-in place, and so does the wrapper on every device.
+On the card (``csrc/stencil.cu``) a thread updates a word of 4 cells and
+walks down its column, with the k-sweep kernels' word update: the
+neighbour words read whole, lane 0 of Philox4x32-10 at counter
+``(offset, 0, row*h + col, 0)`` from offset constants made once a
+launch, and the integer compare of the raw draw with the table's draw
+bounds (:func:`device_bounds`).  It is bound by the Philox integer
+arithmetic, not by its 3 bytes per site, so no shared tiles and no
+barriers.  Each thread reads only its own target cells, so the kernel
+updates the target plane in place, and so does the wrapper on every
+device.
 """
 from __future__ import annotations
 
@@ -52,11 +54,6 @@ def _table_values(table: torch.Tensor) -> tuple:
     return tuple(table.to(torch.float32).flatten().tolist())
 
 
-def table_arg(table: torch.Tensor):
-    """The 10-entry float32 table as a ctypes array (passed by value)."""
-    return (ctypes.c_float * metropolis.TABLE_SIZE)(*_table_values(table))
-
-
 def bounds_arg(table: torch.Tensor):
     """The float32 table's 10 exclusive uint64 draw bounds
     (``metropolis.draw_bounds``) as a ctypes array, for the kernels that
@@ -70,6 +67,20 @@ def _bounds_arg(values: tuple):
     return (ctypes.c_uint64 * metropolis.TABLE_SIZE)(*bounds.tolist())
 
 
+def device_bounds(table: torch.Tensor, device) -> torch.Tensor:
+    """The table's 10 draw bounds (:func:`bounds_arg`) as an int64 tensor
+    on the CUDA ``device``, which ``stencil_update``'s kernel reads
+    through the L1 cache: made once per table and device."""
+    device = torch.device(device)
+    return _device_bounds(_table_values(table), device.type, device.index)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_bounds(values: tuple, device_type: str, index):
+    return torch.tensor(list(_bounds_arg(values)), dtype=torch.int64,
+                        device=torch.device(device_type, index))
+
+
 def raise_on_error(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.cuda_error_string(rc).decode()
@@ -81,11 +92,10 @@ def library():
     lib = _build.load("stencil")
     if lib.stencil_update_launch.argtypes is None:
         u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
-        table = ctypes.POINTER(ctypes.c_float)
         lib.cuda_error_string.argtypes = [i32]
         lib.cuda_error_string.restype = ctypes.c_char_p
         lib.stencil_update_launch.argtypes = [
-            ptr, ptr, i32, i32, i32, table, u32, u32, u32, ptr]
+            ptr, ptr, i32, i32, i32, ptr, u32, u32, u32, ptr]
         lib.stencil_update_launch.restype = i32
         lib.stencil_resident_smem_bytes.argtypes = [i32, i32, i32]
         lib.stencil_resident_smem_bytes.restype = ctypes.c_longlong
@@ -116,7 +126,8 @@ def stencil_update(target, op_plane, table, *, is_black: bool, seed: int,
     k0, k1 = rng.seed_keys(seed)
     rc = lib.stencil_update_launch(
         target.data_ptr(), op_plane.data_ptr(), n, h, int(is_black),
-        table_arg(table), k0, k1, int(offset) & rng.MASK32,
+        device_bounds(table, target.device).data_ptr(), k0, k1,
+        int(offset) & rng.MASK32,
         torch.cuda.current_stream(target.device).cuda_stream)
     raise_on_error(lib, rc, "stencil_update")
     stencil_update.launches += 1

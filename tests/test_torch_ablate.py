@@ -1,8 +1,10 @@
-"""The ablation tool of ``tensorcore_update`` and the multispin k-sweep
-kernel (``repro_torch.analysis.ablate``): every ablation still applies
-to ``csrc/tensorcore.cu`` or ``csrc/multispin.cu`` and takes out what
-it names, and every tile copy fixes its tile, so that its card timings
-mean what they say; the copies build from their own directories."""
+"""The ablation tool of ``tensorcore_update`` and the multispin and
+bitplane k-sweep kernels (``repro_torch.analysis.ablate``): every
+ablation still applies to ``csrc/tensorcore.cu``, ``csrc/multispin.cu``
+or ``csrc/bitplane.cu`` and takes out what it names, and every tile copy
+fixes its tile, so that its card timings mean what they say; the copies
+build from their own directories; the command line takes the families
+and, without a card, exits non-zero."""
 import pytest
 
 from repro_torch.analysis import ablate
@@ -52,7 +54,7 @@ def test_copy_builds_from_its_own_directory(tmp_path):
 @pytest.mark.parametrize("name", sorted(ablate.MULTISPIN_ABLATIONS))
 def test_multispin_ablation_applies_to_the_word_loop(name):
     source = (_build.CSRC_DIR / "multispin.cu").read_text()
-    new = ablate.multispin_source(name)
+    new = ablate.loop_source("multispin", name)
     assert new != source
     taken_out = {"philox": "philox(widx, draw);",
                  "accept": "flip_below(flip, draw",
@@ -61,3 +63,31 @@ def test_multispin_ablation_applies_to_the_word_loop(name):
                  "sweeps": "half_sweep<kShard, false>(tgt",
                  "select": "setp.lt.u32"}[name]
     assert taken_out in source and taken_out not in new
+
+
+@pytest.mark.parametrize("name", sorted(ablate.BITPLANE_ABLATIONS))
+def test_bitplane_ablation_applies_to_the_group_loop(name):
+    source = (_build.CSRC_DIR / "bitplane.cu").read_text()
+    new = ablate.loop_source("bitplane", name)
+    assert new != source
+    taken_out = {"philox": "r = philox.lanes(row_base",
+                 "accept": "xor_below(out, draw, t4, m4);",
+                 "plane loads": "op + c - tile.pitch",
+                 "staging": "load_tile<kShard>(b_in",
+                 "sweeps": "half_sweep<kShard, kThree, false>(tgt"}[name]
+    assert taken_out in source and taken_out not in new
+    # the shard kernel's draws stay: only the k-sweep kernel's are cut
+    assert "philox.lanes(index.s_g[gq])" in new
+
+
+@pytest.mark.parametrize("argv", [["bitplane"], ["multispin", "bitplane"],
+                                  ["parts", "bitplane"], []])
+def test_command_line_takes_the_families_and_needs_a_card(argv, capsys):
+    """Without a card every valid choice exits 1 and says why."""
+    assert ablate.main(argv) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_command_line_refuses_an_unknown_family():
+    with pytest.raises(SystemExit):
+        ablate.main(["stencil"])

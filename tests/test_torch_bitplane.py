@@ -21,7 +21,7 @@ from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, Session
 from repro_torch.core import bitplane as bp
 from repro_torch.core import multispin as ms
 from repro_torch.core import rng
-from repro_torch.kernels import resident
+from repro_torch.kernels import _words, resident
 from repro_torch.kernels.bitplane import (bitplane_sweeps_resident,
                                           bitplane_update)
 
@@ -193,26 +193,29 @@ def test_replica_observables_match_reference(n, m):
 
 
 def tiled_sweeps(black, white, thr, k, seed, start, tile_r, tile_c):
-    """PyTorch emulation of ``bitplane_sweeps_resident_kernel``: every
+    """PyTorch emulation of ``bitplane_sweeps_kernel<false, ...>``: every
     tile plus a halo of 2k rows and of 2k columns rounded up to a whole
-    4-site group (wrapped modulo the plane) runs 2k half-sweeps on its
-    own, the side tap by global row parity and wrapped within the
-    extended tile at its edge, one draw per global group and lane;
-    half-sweep h (from 0) updates the rows at distance >= h + 1 from the
-    extended tile's edge and the 4-site groups that hold a column at that
-    distance; only the tile is written back."""
+    4-site group (wrapped modulo the plane), cut to the plane at a ragged
+    edge, runs 2k half-sweeps on its own, the side tap by global row
+    parity and, at the extended tile's edge, the next or previous word of
+    its row-major layout (as stale as a wrapped one), one draw per global
+    group and lane; half-sweep h (from 0) updates the rows at distance
+    >= h + 1 from the extended tile's edge and the 4-site groups that
+    hold a column at that distance; only the tile is written back."""
     n, h = black.shape
     halo_r, halo_c = 2 * k, resident.col_halo(k, "bitplane")
     k0, k1 = rng.seed_keys(seed)
     out_b, out_w = torch.empty_like(black), torch.empty_like(white)
     for r0 in range(0, n, tile_r):
         for c0 in range(0, h, tile_c):
-            rows = torch.arange(r0 - halo_r, r0 + tile_r + halo_r) % n
-            cols = torch.arange(c0 - halo_c, c0 + tile_c + halo_c) % h
+            n_rows, n_cols = min(tile_r, n - r0), min(tile_c, h - c0)
+            ec = -(-n_cols // 4) * 4 + 2 * halo_c
+            rows = torch.arange(r0 - halo_r, r0 + n_rows + halo_r) % n
+            cols = torch.arange(c0 - halo_c, c0 - halo_c + ec) % h
             ext = [black[rows][:, cols].clone(), white[rows][:, cols].clone()]
             group = (rows[:, None] * (h // 4) + cols[None, :] // 4)
             lane = (cols % 4)[None, :].expand_as(group)
-            er, ec = len(rows), len(cols)
+            er = len(rows)
             for s in range(k):
                 for color in (0, 1):
                     margin = 2 * s + color + 1
@@ -221,8 +224,10 @@ def tiled_sweeps(black, white, thr, k, seed, start, tile_r, tile_c):
                            margin // 4 * 4:-(-(ec - margin) // 4) * 4] = True
                     tgt, op = ext[color], ext[1 - color]
                     plus = ((rows % 2 == 1) == (color == 0))[:, None]
-                    side = torch.where(plus, torch.roll(op, -1, 1),
-                                       torch.roll(op, 1, 1))
+                    flat = op.reshape(-1)
+                    side = torch.where(plus,
+                                       torch.roll(flat, -1).view(er, ec),
+                                       torch.roll(flat, 1).view(er, ec))
                     counts = bp.bit_count_neighbors(
                         torch.roll(op, 1, 0), torch.roll(op, -1, 0), op, side)
                     lanes = torch.stack(rng.philox4x32(
@@ -233,10 +238,10 @@ def tiled_sweeps(black, white, thr, k, seed, start, tile_r, tile_c):
                         region,
                         tgt ^ bp.flip_word_from_classes(tgt, counts, draws,
                                                         thr), tgt)
-            rr = slice(halo_r, halo_r + min(tile_r, n - r0))
-            cc = slice(halo_c, halo_c + min(tile_c, h - c0))
-            out_b[r0:r0 + tile_r, c0:c0 + tile_c] = ext[0][rr, cc]
-            out_w[r0:r0 + tile_r, c0:c0 + tile_c] = ext[1][rr, cc]
+            rr = slice(halo_r, halo_r + n_rows)
+            cc = slice(halo_c, halo_c + n_cols)
+            out_b[r0:r0 + n_rows, c0:c0 + n_cols] = ext[0][rr, cc]
+            out_w[r0:r0 + n_rows, c0:c0 + n_cols] = ext[1][rr, cc]
     return out_b, out_w
 
 
@@ -244,6 +249,9 @@ def tiled_sweeps(black, white, thr, k, seed, start, tile_r, tile_c):
     (16, 64, 8, 16, 1),     # tiles divide the plane
     (12, 40, 5, 8, 2),      # ragged tiles, odd tile rows, 4-aligned groups
     (8, 16, 8, 4, 3),       # halo wider than the plane: multiple wraps
+    (18, 48, 7, 12, 2),     # ragged both ways: the region cut to the plane
+    (10, 8, 3, 4, 3),       # one group wide, halo wider than the plane
+    (20, 240, 8, 56, 1),    # rows of 16 groups with the halo
 ])
 def test_tiled_k_sweeps_equal_whole_plane_sweeps(n, m, tile_r, tile_c, k):
     """The halo argument the CUDA k-sweep kernel rests on."""
@@ -266,8 +274,8 @@ def test_planner_bitplane_geometry_and_boundary():
     small = resident.plan_resident("bitplane", 16, 24)
     assert (small.tile_rows, small.tile_cols) == (16, 12)
     need1 = resident.smem_bytes(16, 12, 1, "bitplane")
-    # indices rounded up to 16 bytes, then two (20 x 20) uint32 planes
-    assert need1 == 160 + 8 * 20 * 20
+    # two (20 x 20) uint32 planes, no index tables
+    assert need1 == 8 * 20 * 20
     assert resident.plan_resident("bitplane", 16, 24, need1).k == 1
     assert resident.plan_resident("bitplane", 16, 24, need1 - 1) is None
 
@@ -325,6 +333,92 @@ def test_wrappers_validate_planes():
                                  start_offset=0,
                                  plan=dataclasses.replace(plan, n=16))
 
+
+
+#: the parity temperatures of the Session tests, the main path's 3.0 and
+#: 0.05, where t4 and t8 underflow to 0
+LAYOUT_TEMPERATURES = (1.5, 1.8, 2.0, 2.1, 2.2, 2.269, 2.3, 2.5, 3.0, 0.05)
+
+
+def reference_thresholds(temperature):
+    return torch.from_numpy(np.asarray(jms.acceptance_thresholds(
+        jnp.float32(1 / temperature))).astype(np.int64))
+
+
+@pytest.mark.parametrize("source", ["port", "reference"])
+@pytest.mark.parametrize("temperature", LAYOUT_TEMPERATURES)
+def test_thresholds_have_the_three_value_layout(temperature, source):
+    """The port's and the JAX package's thresholds take three values in
+    the layout of the bitplane kernels' three-threshold accept, and the
+    host passes it t4 and t8."""
+    thr = (ms.acceptance_thresholds(1 / temperature) if source == "port"
+           else reference_thresholds(temperature))
+    values = [int(v) for v in thr.tolist()]
+    assert {values[i] for i in _words.ALWAYS} == {rng.MASK32}
+    t4, t8 = values[8], values[9]
+    assert (values[1], values[0]) == (t4, t8)
+    assert t8 <= t4 < rng.MASK32
+    assert (t4 == t8 == 0) == (temperature == 0.05)
+    assert _words.three_thresholds(thr) == (t4, t8)
+    array, count = _words.accept_arg(thr)
+    assert count == 2 and list(array) == [t4, t8]
+
+
+def random_words(r, *shape):
+    return torch.from_numpy(r.integers(0, 2 ** 32, shape, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("temperature", [1.5, 2.269, 3.0, 0.05])
+def test_flip_word_three_equals_the_class_accept(temperature, seed):
+    """The three-threshold flip word against the 10-class one on random
+    target words, counts of random neighbour words and draws that take
+    0, t8, t4, 0xFFFFFFFF and their neighbours exactly."""
+    r = np.random.default_rng(seed)
+    thr = ms.acceptance_thresholds(1 / temperature)
+    t4, t8 = _words.three_thresholds(thr)
+    target = random_words(r, 64, 24)
+    counts = bp.bit_count_neighbors(*(random_words(r, 64, 24)
+                                      for _ in range(4)))
+    special = [0, 1, t8 - 1, t8, t8 + 1, t4 - 1, t4, t4 + 1,
+               rng.MASK32 - 1, rng.MASK32]
+    draws = torch.from_numpy(r.integers(0, 2 ** 32, (64, 24),
+                                        dtype=np.uint64).astype(np.int64))
+    draws[: len(special)] = torch.tensor(
+        [min(max(v, 0), rng.MASK32) for v in special])[:, None]
+    want = bp.flip_word_from_classes(target, counts, draws, thr)
+    got = bp.flip_word_three(target, counts, draws, t4, t8)
+    assert torch.equal(got, want)
+
+
+#: tables of another layout: a shuffle, t4's or t8's pair split, a
+#: class that never flips where it should always flip
+OTHER_LAYOUTS = {
+    "shuffled": lambda v: [v[i] for i in (3, 8, 1, 0, 9, 5, 7, 2, 4, 6)],
+    "t4 pair split": lambda v: v[:1] + [v[1] - 1] + v[2:],
+    "t8 pair split": lambda v: v[:9] + [v[9] + 1],
+    "always class 0": lambda v: v[:4] + [0] + v[5:],
+    "t4 and t8 swapped at s = 1": lambda v: v[:8] + [v[9], v[8]],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(OTHER_LAYOUTS))
+@pytest.mark.parametrize("temperature", [2.2, 3.0])
+def test_layout_check_picks_the_general_accept(layout, temperature):
+    """A table of another layout goes to the kernels' general accept with
+    all 10 thresholds, and its launches count as general ones."""
+    values = [int(v) for v in
+              ms.acceptance_thresholds(1 / temperature).tolist()]
+    other = torch.tensor(OTHER_LAYOUTS[layout](values), dtype=torch.int64)
+    assert _words.three_thresholds(other) is None
+    array, count = _words.accept_arg(other)
+    assert count == _words.N_CLASSES and list(array) == other.tolist()
+    wrapper = type("Launches", (), {"launches": 0, "general_launches": 0})
+    _words.count_launch(wrapper, (array, count))
+    _words.count_launch(wrapper, _words.accept_arg(
+        ms.acceptance_thresholds(1 / temperature)))
+    assert (wrapper.launches, wrapper.general_launches) == (2, 1)
 
 
 @pytest.mark.parametrize("temperature", [1.0, 2.0, 3.0, 5.0])

@@ -49,7 +49,9 @@ def planes(n, h, seed, device):
                  for _ in range(2))
 
 
-@pytest.mark.parametrize("n,h", [(64, 32), (30, 7), (2, 1)])
+@pytest.mark.parametrize("n,h", [(64, 32), (30, 7), (2, 1), (13, 3),
+                                 (21, 5), (17, 127), (33, 129), (15, 130),
+                                 (35, 256)])
 @pytest.mark.parametrize("is_black,offset", [(True, 0), (False, 2 ** 32 - 1)])
 def test_stencil_update_kernel_matches_plain(cuda, n, h, is_black, offset):
     target, op = planes(n, h, n + h, cuda)
@@ -120,6 +122,15 @@ def test_stencil_kernels_cold_all_up_never_flip(cuda, shard):
                                       plan=plan)
     torch.cuda.synchronize()
     assert torch.equal(got[0], up) and torch.equal(got[1], up)
+
+
+@pytest.mark.parametrize("h", [130, 256])
+def test_stencil_update_cold_all_up_never_flips(cuda, h):
+    up = torch.ones((35, h), dtype=torch.int8, device=cuda)
+    got = stencil_update(up.clone(), up, metropolis.acceptance_table(
+        1 / 0.05), is_black=True, seed=SEED, offset=5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, up)
 
 
 def test_planner_and_kernel_agree_on_shared_memory(cuda):
@@ -220,6 +231,89 @@ def test_word_resident_kernel_matches_plain(cuda, family, n, w, tile_r,
     torch.cuda.synchronize()
     assert kernel.launches == before - (-n_sweeps // k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+#: the bitplane kernels' tables by accept: the three-threshold one at
+#: T = 3.0 and T = 0.05 (t4 = t8 = 0), the general one for a shuffled
+#: table
+BITPLANE_TABLES = {
+    "three": lambda: multispin.acceptance_thresholds(1 / 3.0),
+    "three-cold": lambda: multispin.acceptance_thresholds(1 / 0.05),
+    "general": lambda: multispin.acceptance_thresholds(1 / 2.4)[
+        torch.tensor([3, 8, 1, 0, 9, 5, 7, 2, 4, 6])],
+}
+
+
+def run_bitplane(kernel, accept, fn):
+    """``fn()`` on the card, checking that its launches took ``accept``."""
+    before = (kernel.launches, kernel.general_launches)
+    out = fn()
+    torch.cuda.synchronize()
+    launched = kernel.launches - before[0]
+    general = kernel.general_launches - before[1]
+    assert launched > 0
+    assert general == (launched if accept == "general" else 0)
+    return out
+
+
+@pytest.mark.parametrize("accept", sorted(BITPLANE_TABLES))
+@pytest.mark.parametrize("n,w,tile_r,tile_c,k,n_sweeps", [
+    (30, 12, 7, 8, 3, 3),       # halo wider than the plane
+    (40, 52, 16, 20, 1, 2),     # ragged tiles
+    (64, 64, 24, 56, 2, 3),     # tiles that do not divide the plane
+    (20, 4, 6, 4, 2, 2),        # one group wide
+    (100, 300, 40, 120, 2, 4),  # rows of 32 groups
+])
+def test_bitplane_resident_accepts_match_plain(cuda, accept, n, w, tile_r,
+                                               tile_c, k, n_sweeps):
+    b, wp = word_planes(n, w, n + w + k, cuda)
+    thr = BITPLANE_TABLES[accept]()
+    plan = dataclasses.replace(resident.plan_resident("bitplane", n, 2 * w),
+                               k=k, tile_rows=tile_r, tile_cols=tile_c)
+    want = bitplane_sweeps_resident_plain(b, wp, thr, n_sweeps=n_sweeps,
+                                          seed=SEED, start_offset=2 ** 32 - 3)
+    got = run_bitplane(bitplane_sweeps_resident, accept,
+                       lambda: bitplane_sweeps_resident(
+                           b, wp, thr, n_sweeps=n_sweeps, seed=SEED,
+                           start_offset=2 ** 32 - 3, plan=plan))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("accept", sorted(BITPLANE_TABLES))
+@pytest.mark.parametrize("n,w", [(64, 128), (30, 12), (2, 4)])
+def test_bitplane_update_accepts_match_plain(cuda, accept, n, w):
+    target, op = word_planes(n, w, n * w, cuda)
+    thr = BITPLANE_TABLES[accept]()
+    want = bitplane_update_plain(target, op, thr, is_black=False, seed=SEED,
+                                 offset=2 ** 32 - 1)
+    got = run_bitplane(bitplane_update, accept, lambda: bitplane_update(
+        target.clone(), op, thr, is_black=False, seed=SEED,
+        offset=2 ** 32 - 1))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shard", [False, True])
+def test_bitplane_kernels_cold_all_up_never_flip(cuda, shard):
+    """At T = 0.05 t8 is 0: from all-up planes (every site of every
+    replica up with 4 up neighbours) no draw may flip a spin."""
+    n, w = 40, 44
+    up = torch.full((n, w), -1, dtype=torch.int32, device=cuda)
+    thr = BITPLANE_TABLES["three-cold"]()
+    if shard:
+        index = shard_inputs("bitplane", n, w, 3, cuda)[3]
+        got = dk.bitplane_shard_sweeps(up, up.clone(), thr, *index,
+                                       n_sweeps=3, seed=SEED,
+                                       start_offset=2 ** 32 - 3,
+                                       tile=(16, 12, 64))
+    else:
+        plan = dataclasses.replace(
+            resident.plan_resident("bitplane", n, 2 * w), k=3,
+            tile_rows=16, tile_cols=12)
+        got = bitplane_sweeps_resident(up, up.clone(), thr, n_sweeps=3,
+                                       seed=SEED, start_offset=2 ** 32 - 3,
+                                       plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], up) and torch.equal(got[1], up)
 
 
 #: the multispin k-sweep kernel's geometry: word widths 1, 3, 31, 33 and
@@ -576,6 +670,27 @@ def test_bitplane_shard_kernel_groups_match_plain(cuda, case):
                                    seed=SEED, start_offset=2 ** 32 - 3,
                                    tile=tile)
     torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("accept", sorted(BITPLANE_TABLES))
+@pytest.mark.parametrize("case", ["width-41", "mixed", "rows-of-32"])
+def test_bitplane_shard_accepts_match_plain(cuda, accept, case):
+    n, w, k, tile = {"width-41": (30, 41, 2, (12, 20, 64)),
+                     "mixed": (40, 72, 2, (16, 16, 256)),
+                     "rows-of-32": (40, 136, 1, (16, 120, 256))}[case]
+    if case == "mixed":
+        index = [torch.tensor(a, device=cuda) for a in mixed_groups(n, w)]
+    else:
+        index = shard_inputs("bitplane", n, w, n + w, cuda)[3]
+    b, w_ = word_planes(n, w, n * w + k, cuda)
+    thr = BITPLANE_TABLES[accept]()
+    want = dk.bitplane_shard_sweeps_plain(b, w_, thr, *index, n_sweeps=k,
+                                          seed=SEED, start_offset=2 ** 32 - 3)
+    got = run_bitplane(dk.bitplane_shard_sweeps, accept,
+                       lambda: dk.bitplane_shard_sweeps(
+                           b, w_, thr, *index, n_sweeps=k, seed=SEED,
+                           start_offset=2 ** 32 - 3, tile=tile))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

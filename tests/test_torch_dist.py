@@ -343,19 +343,18 @@ def test_plan_shared_memory_budget_demotes():
                                                 ("multispin", 4),
                                                 ("bitplane", 5)])
 def test_plan_shared_memory_counts_index_planes(family, index_bytes):
-    """The stencil and multispin kernels keep no index tables, and their
-    rows are whole 4-cell words or 4-word chunks: a left halo of 2k
-    rounded up to 4, and the row rounded up to 4 (10 + 2 x 4 = 18 -> 20
-    cells or words); the bitplane kernel keeps row and column index
-    tables and its index planes per 4-word group (a uint32 gidx and an
-    aligned byte)."""
+    """No kernel keeps row or column index tables.  The stencil and
+    multispin kernels' rows are whole 4-cell words or 4-word chunks: a
+    left halo of 2k rounded up to 4, and the row rounded up to 4 (10 + 2
+    x 4 = 18 -> 20 cells or words); the bitplane kernel keeps its index
+    planes per 4-word group (a uint32 gidx and an aligned byte)."""
     g = GEOMETRY[family]
     if family == "bitplane":
         # per 4-word group: tile columns 10 -> 12, a column halo of 2k
-        # rounded up to 4 each side; index tables rounded up to 16 bytes
+        # rounded up to 4 each side
         er, ec = 8 + 4, 12 + 2 * 4
         assert shard_smem_bytes(family, 8, 10, 1) == (
-            128 + 2 * g.element_bytes * er * ec + index_bytes * er * ec // 4)
+            2 * g.element_bytes * er * ec + index_bytes * er * ec // 4)
         return
     er, ec = 8 + 4, 20
     assert shard_smem_bytes(family, 8, 10, 1) == (
@@ -364,7 +363,7 @@ def test_plan_shared_memory_counts_index_planes(family, index_bytes):
 
 @pytest.mark.parametrize("family,n,tile", [("stencil", 32768, (64, 248)),
                                            ("multispin", 32768, (64, 120)),
-                                           ("bitplane", 16384, (64, 120))])
+                                           ("bitplane", 16384, (32, 248))])
 def test_plan_of_the_main_paths(family, n, tile):
     """2 x 2 shards of the full-size lattices take the family's shard
     tile at k = 2 within one block's shared memory."""

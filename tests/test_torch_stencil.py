@@ -2,7 +2,8 @@
 (``repro_torch.core.metropolis``) and the wrappers against the JAX
 package's Pallas kernels (interpret mode) and its oracle, bit-exact with
 the acceptance table JAX computes; the tiled k-sweep algorithm of the
-CUDA kernel, emulated in PyTorch; and the Hopper planner."""
+CUDA kernel and ``stencil_update``'s word update, emulated in PyTorch;
+and the Hopper planner."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -19,7 +20,7 @@ from repro_torch.core import metropolis, rng
 from repro_torch.kernels import resident
 from repro_torch.kernels.stencil import (stencil_sweeps_resident,
                                          stencil_update)
-from repro_torch.kernels.stencil.stencil import bounds_arg
+from repro_torch.kernels.stencil.stencil import bounds_arg, device_bounds
 
 BETA = 1 / 1.7
 SEED = 2 ** 40 + 7
@@ -266,6 +267,80 @@ def test_planner_reads_budget_at_call_time():
     s = Session.open(spec, device="cpu", resident_budget_bytes=0)
     assert s.engine.resident_plan is None
     assert resident.plan_resident("stencil", 64, 64, budget_bytes=0) is None
+
+
+def word_update(target, op, table, is_black, seed, offset):
+    """numpy emulation of ``stencil_update_kernel``: a row as words of 4
+    int8 cells (the last one padded with 0 cells past the row's end), the
+    side word a byte permute of the centre and the word beside it (built
+    cell by cell where the width is not a multiple of 4), per byte twice
+    the count of -1 neighbours summed without carries, the byte offset 8
+    x (5 (t > 0) + (nn + 4) / 2) of the cell's draw bound, and lane 0 of
+    Philox at the cell's site compared with that bound."""
+    n, h = target.shape
+    nw = -(-h // 4)
+
+    def words(cells):
+        padded = np.zeros((n, 4 * nw), np.uint8)
+        padded[:, :h] = cells.view(np.uint8)
+        return padded.view("<u4").astype(np.int64)
+
+    plus = ((np.arange(n) % 2 == 1) == is_black)[:, None]
+    centre = words(op)
+    if h % 4 == 0:
+        after, before = np.roll(centre, -1, 1), np.roll(centre, 1, 1)
+        side = np.where(plus, (centre >> 8) | ((after << 24) & 0xFFFFFFFF),
+                        ((centre << 8) & 0xFFFFFFFF) | (before >> 24))
+    else:
+        side = words(np.where(plus, np.roll(op, -1, 1), np.roll(op, 1, 1)))
+    t_words = words(target)
+    k_down = 0x02020202
+    down2 = sum(w & k_down for w in (np.roll(centre, 1, 0),
+                                     np.roll(centre, -1, 0), centre, side))
+    offset8 = ((0x12121212 - down2 - 5 * (t_words & k_down)) << 2) \
+        & 0xFFFFFFFF
+    bounds = np.array(list(bounds_arg(table)), np.int64)
+    k0, k1 = rng.seed_keys(seed)
+    base = (np.arange(n)[:, None] * h + 4 * np.arange(nw)[None, :])
+    flip = np.zeros_like(t_words)
+    for e in range(4):
+        draw = rng.philox4x32(offset, 0, torch.from_numpy(
+            (base + e) & rng.MASK32), 0, k0, k1)[0].numpy()
+        bound = bounds[((offset8 >> (8 * e)) & 0xFF) // 8]
+        flip |= np.where(draw < bound, 0xFE << (8 * e), 0)
+    out = (t_words ^ flip).astype("<u4").view(np.uint8).reshape(n, 4 * nw)
+    return out[:, :h].view(np.int8)
+
+
+@pytest.mark.parametrize("n,h", [(9, 1), (13, 3), (21, 5), (17, 7),
+                                 (17, 127), (33, 129), (15, 130), (7, 256)])
+@pytest.mark.parametrize("is_black,offset", [(True, 2 ** 31 - 1),
+                                             (False, 2 ** 32 - 1)])
+def test_stencil_update_word_loop_equals_plain(n, h, is_black, offset):
+    """The CUDA ``stencil_update``'s arithmetic on words of 4 cells, at
+    widths that are and are not a multiple of 4 and odd row counts."""
+    b, w = planes(n, 2 * h, seed=n + h)
+    table = metropolis.acceptance_table(BETA)
+    want = metropolis.update_color_philox(t(b), t(w), table, is_black, SEED,
+                                          offset)
+    got = word_update(b, w, table, is_black, SEED, offset)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_stencil_update_word_loop_cold_all_up_never_flips():
+    """At T = 0.05 from all-up planes every bound is 0."""
+    up = np.ones((11, 130), np.int8)
+    got = word_update(up, up, metropolis.acceptance_table(1 / 0.05), True,
+                      SEED, 5)
+    np.testing.assert_array_equal(got, up)
+
+
+def test_device_bounds_are_the_draw_bounds_made_once():
+    table = metropolis.acceptance_table(BETA)
+    got = device_bounds(table, "cpu")
+    assert got.dtype == torch.int64 and got.tolist() == list(
+        bounds_arg(table))
+    assert device_bounds(table.clone(), "cpu") is got
 
 
 def test_planner_rejects_unported_family():
