@@ -9,7 +9,10 @@ halo-extended shard, keyed on index planes): stencil (int8 planes),
 multispin (8 nibble spins per uint32 word) and bitplane (32 replicas per
 uint32 word); and the fused tensor-core kernel ``tensorcore_update``
 (four int8 sublattice planes, banded products on the tensor cores).
-Phases, each of which raises (and so exits non-zero) when it fails:
+The six single-device kernels of the three families also take an
+ensemble's members as a grid axis (``BatchSpec``: B members' stacked
+planes in one launch).  Phases, each of which raises (and so exits
+non-zero) when it fails:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA source of ``src/repro_torch/csrc`` with nvcc (one
@@ -54,7 +57,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``n_sweeps`` 1, 2 and 3, and its time at the main path's shard; the
    bitplane one also at extended widths that are not whole groups and
    on planes of which some 4-word groups are one Philox group and some
-   not;
+   not; the six single-device kernels' member axis against their plain
+   batched versions (each member's single-member plain version): B = 3
+   members of distinct temperatures and seeds (2^31 + 11 and 2^32 - 1
+   among them) at the small and ragged shapes, ``n_sweeps`` 1 to 3 and
+   an odd tile grid, for bitplane also a batch of a shuffled table and
+   ferromagnet tables (the general accept for the whole launch), then
+   at the ensemble main path's shape, with each one's time there;
 4. the Session at 512^2 for each engine: the card's k-sweep tier, its
    per-half-sweep tier (``resident_budget_bytes=0``) and the CPU plain
    versions give one ``state_digest``, and restore-continue equals the
@@ -65,7 +74,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    PyTorch, no kernel), ``stencil_pallas`` on (2, 2) with no shard plan
    (``resident_budget_bytes=0``): each the single-mode digest; saved on
    (2, 2) and restored on (4, 1) and in single mode, and a single-mode
-   checkpoint restored on (2, 2): the same digest;
+   checkpoint restored on (2, 2): the same digest; ensembles of 3
+   members of each of the five counter-based engines: every member's
+   ``state_digest(member=i)`` the single-mode digest of its (T, seed) on
+   the k-sweep tier, the per-half-sweep tier and the CPU, one launch a
+   block of sweeps for all members; restore-continue of an ensemble
+   checkpoint; ``rebind`` to new members on the same engine and plan
+   equal to a fresh session;
 5. the main paths: ``stencil_pallas`` and ``multispin_pallas`` at
    32768^2 (2^30 spins) from an ordered start at T = 2.0, ``run(200)``
    and ``measure()``, |m| within 2e-3 of Onsager's value;
@@ -82,14 +97,31 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (T = 2.0, ordered start) and ``bitplane_pallas`` at 16384^2 x 32
    (T = 3.0, hot start), ``run(200)`` then ``measure()``, the gates of
    phase 5; ``halo_exchanges`` = ceil(200 / k) and 4 ceil(200 / k)
-   launches of the family's shard kernel in ``run(200)``.
+   launches of the family's shard kernel in ``run(200)``;
+7. the ensemble main paths at full width, a temperature scan as users
+   run one: ``stencil_pallas`` and ``multispin_pallas`` with 16 members
+   of 8192^2 (8 temperatures x 2 seeds, ordered start), ``bitplane_pallas``
+   with 16 members of 4096^2 x 32 replicas (4 x 4, hot start):
+   ``run(200)`` launches the k-sweep kernel ceil(200 / k) times for all
+   members and no other kernel; the first and last members' planes
+   equal their single-mode sessions'; after ``measure()`` the members
+   at T <= 2.0 within 2e-3 of Onsager's |m|, at T = 2.5 |m| < 0.01
+   (bitplane: every replica's energy within 2e-3 of its member's exact
+   value, every |m| < 0.01, no two replicas of a member equal); 10
+   sweeps on the per-half-sweep tier launch its kernel 20 times and give
+   the k-sweep tier's planes; flips/ns beside single mode's; then 64
+   members of 512^2 at T_c against 64 single-mode sessions one after
+   another, timed in turn.
 
 Every Session path is driven with all ten kernels' launch counts set to
 0 just before it and read just after it: each path must launch the
 kernel of its tier and no other (a per-half-sweep distributed path
-none), and a bitplane path its kernel's three-threshold accept only.  The last lines are the ``kernels`` JSON (``launches`` from the
-full-size path of the kernel's tier, for the shard kernels its
-``run(200)``, and every path's count), the peak device memory, the
+none), and a bitplane path its kernel's three-threshold accept only.
+The last lines are the ensemble rates, the ``kernels`` JSON
+(``launches`` from the full-size path of the kernel's tier, for the
+shard kernels its ``run(200)``, and every path's count; for the six
+single-device kernels also ``batched``: the member axis at the ensemble
+shape, its launches on the ensemble path), the peak device memory, the
 ``nvidia-smi`` line and the device JSON.  Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
 result.
@@ -269,7 +301,8 @@ MULTISPIN_SHARD_EDGE_CASES = (((12, 3), 1, (6, 3, 64)),
                               ((16, 33), 3, (8, 13, 96)),
                               ((40, 512), 2, (16, 120, 256)))
 #: the redesigned kernels' inner loops in phase 2's SASS: (library,
-#: kernel, the element a pass updates, bytes it stores a element, an
+#: kernel (a part of its name: every kernel whose name holds it), the
+#: element a pass updates, bytes it stores a element, an
 #: opcode the loop holds, the memory it updates, whether a division is
 #: barred from it): tensorcore_update's column-tile loop on int8 planes at
 #: the main path's tile (a position stores a byte of each target), the
@@ -281,8 +314,8 @@ SASS_LOOPS = (
      "position", 2, "HMMA", "shared", False),
     ("bitplane", "bitplane_sweeps_kernel", "word", 4, "IMAD.WIDE", "shared",
      True),
-    ("multispin", "multispin_sweeps_kernel", "word", 4, "IMAD.WIDE",
-     "shared", True),
+    ("multispin", "multispin_sweeps", "word", 4, "IMAD.WIDE", "shared",
+     True),
     ("stencil", "stencil_update_kernel", "site", 1, "IMAD.WIDE", "global",
      True),
 )
@@ -310,6 +343,37 @@ BITPLANE_ACCEPT_SHARD_CASES = (((14, 10), 3, (14, 10, 64)),
 BITPLANE_SHUFFLE = (3, 8, 1, 0, 9, 5, 7, 2, 4, 6)
 MESH = (2, 2)               # the sharded main paths' mesh
 SMALL_MESHES = ((1, 1), (2, 2), (4, 1), (2, 1, 2))
+#: the ensemble main paths: a temperature scan as users run one (the
+#: examples/figures.py scan at a research lattice size, two seeds a
+#: temperature), 16 members of 8192^2 (2^30 spins, as the single path's
+#: 32768^2); bitplane 16 members of 4096^2 x 32 replicas (2^33
+#: replica-spins)
+ENSEMBLE_N = 8192
+BITPLANE_ENSEMBLE_N = 4096
+ENSEMBLE_TEMPS = (1.5, 1.8, 2.0, 2.1, 2.2, 2.269, 2.3, 2.5)
+ENSEMBLE_SEEDS = (7, 2 ** 31 + 11)
+BITPLANE_ENSEMBLE_TEMPS = (2.5, 2.75, 3.0, 3.5)
+BITPLANE_ENSEMBLE_SEEDS = (7, 8, 2 ** 31 + 11, 2 ** 32 - 1)
+#: the member-axis checks: 3 members of distinct temperatures and seeds
+#: (a member's seed is a uint32 Philox key: its top bit and 2^32 - 1)
+CHECK_TEMPS = (2.0, 2.5, 3.0)
+CHECK_SEEDS = (7, 2 ** 31 + 11, 2 ** 32 - 1)
+#: the member-axis k-sweep cases beside the small and ragged ones, of an
+#: odd tile grid: (rows, plane width, tile rows, tile columns, k,
+#: n_sweeps)
+BATCHED_EDGE_CASES = {"stencil": (16, 130, 8, 13, 3, 3),
+                      "multispin": (16, 129, 8, 120, 3, 3),
+                      "bitplane": (30, 12, 7, 8, 3, 3)}
+#: every engine an ensemble takes (the counter-based ones) and its family
+ENSEMBLE_ENGINES = {"stencil_pallas": "stencil", "multispin": "multispin",
+                    "multispin_pallas": "multispin", "bitplane": "bitplane",
+                    "bitplane_pallas": "bitplane"}
+#: the small-member path: 64 seeds at T_c on 512^2, one ensemble against
+#: 64 single-mode sessions one after another
+SMALL_ENSEMBLE_MEMBERS = 64
+SMALL_ENSEMBLE_T = 2.269
+#: sweeps of the 512^2 ensemble parity checks
+ENSEMBLE_CHECK_SWEEPS = 20
 
 
 def check(ok: bool, what: str) -> None:
@@ -398,6 +462,41 @@ def bitplane_accept_tables() -> dict:
                 torch.tensor(BITPLANE_SHUFFLE)]}
 
 
+def ensemble_batch(family: str):
+    """``(lattice side, BatchSpec)`` of the family's ensemble main path."""
+    from repro_torch.api import BatchSpec
+    if family == "bitplane":
+        return BITPLANE_ENSEMBLE_N, BatchSpec(BITPLANE_ENSEMBLE_TEMPS,
+                                              BITPLANE_ENSEMBLE_SEEDS,
+                                              grid=True)
+    return ENSEMBLE_N, BatchSpec(ENSEMBLE_TEMPS, ENSEMBLE_SEEDS, grid=True)
+
+
+def member_tables(family: str, temps) -> list:
+    """The family's table at each temperature."""
+    from repro_torch.core import metropolis, multispin
+    make = metropolis.acceptance_table if family == "stencil" \
+        else multispin.acceptance_thresholds
+    return [make(1.0 / t) for t in temps]
+
+
+def member_limit(family: str) -> int:
+    """The most members one launch of the family's kernels takes."""
+    import importlib
+    lib = importlib.import_module(
+        f"repro_torch.kernels.{family}.{family}").library()
+    return getattr(lib, f"{family}_max_members")()
+
+
+def random_batch(family: str, members: int, n: int, h: int, seed: int):
+    """Two random ``(members, n, h)`` planes of the family's kind on the
+    card."""
+    import torch
+    from repro_torch.analysis.tune_resident import random_planes
+    planes = [random_planes(family, n, h, seed + i) for i in range(members)]
+    return tuple(torch.stack(p) for p in zip(*planes))
+
+
 def replica_disagreements(torch, words) -> "torch.Tensor":
     """(31, 32) int64: entry [d-1, r] counts the sites where replica r
     and replica (r + d) % 32 differ, summed over the given word planes."""
@@ -427,8 +526,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import importlib
 
-    from repro_torch.api import (EngineSpec, LatticeSpec, MeshSpec, RunSpec,
-                                 Session, SweepSpec)
+    from repro_torch.api import (BatchSpec, EngineSpec, LatticeSpec,
+                                 MeshSpec, RunSpec, Session, SweepSpec)
     from repro_torch.core import distributed, metropolis, multispin
     from repro_torch.core import observables
     from repro_torch.analysis import sass
@@ -502,8 +601,12 @@ def main() -> int:
             check(bool(loops), f"no {unit} loop found in {kernel}")
             instances = {lp["kernel"] for lp in loops}
             if library == "bitplane":
-                check(instances >= {f"{kernel}<{shard},{three}>"
-                                    for shard in ("false", "true")
+                # <shard, three, batch>: the k-sweep kernel of one member
+                # and of an ensemble, the shard kernel, each accept
+                check(instances >= {f"{kernel}<{shard},{three},{batch}>"
+                                    for shard, batch in (("false", "false"),
+                                                         ("false", "true"),
+                                                         ("true", "false"))
                                     for three in ("false", "true")},
                       f"{kernel}: not every instance has a group loop "
                       f"({sorted(instances)})")
@@ -994,6 +1097,191 @@ def main() -> int:
         check(all(n > 0 and bad == 0 for n, bad in tallies.values())
               and {"three", "general"} <= set(tallies),
               f"{name}: an accept was not held against the plain version")
+
+    # the six kernels' member axis: B = 3 members of distinct
+    # temperatures and seeds in one launch against the plain batched
+    # version (each member's single-member plain version), at the small
+    # and ragged shapes, n_sweeps 1 to 3 and an odd tile grid; bitplane
+    # with a batch of a shuffled table and ferromagnet tables, which
+    # takes the general accept; then one comparison and the times at the
+    # ensemble main path's shape (16 members, 2^30 sites or 2^33
+    # replica-sites)
+    batched = {}
+    ensemble_shape = {}
+    for family in ("stencil", "multispin", "bitplane"):
+        fn, fh = full_plane[family]
+        pkg = importlib.import_module(f"repro_torch.kernels.{family}")
+        update = f"{family}_update"
+        sweeps = f"{family}_sweeps_resident"
+        for name in (update, sweeps):
+            batched[name] = {"comparisons": 0, "mismatches": 0,
+                             "max_abs_err": 0, "by_accept": {}}
+
+        def compare_batched(name, got, want, accept="three"):
+            s = batched[name]
+            for a, b in zip(got, want):
+                s["comparisons"] += 1
+                bad = int((a != b).sum())
+                s["mismatches"] += bad
+                s["max_abs_err"] = max(s["max_abs_err"], int(
+                    (a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+                tally = s["by_accept"].setdefault(accept, [0, 0])
+                tally[0] += 1
+                tally[1] += bad
+
+        def launch_batched(name, accept, fn):
+            """``fn()`` (a batched kernel call); each of its launches
+            must take the accept of its tables."""
+            wrapper = wrappers[name]
+            before = (wrapper.launches,
+                      getattr(wrapper, "general_launches", 0))
+            got = fn()
+            torch.cuda.synchronize()
+            launched = wrapper.launches - before[0]
+            general = getattr(wrapper, "general_launches", 0) - before[1]
+            check(launched >= 1 and general == (
+                launched if accept == "general" else 0),
+                f"{name}: {general} of {launched} batched launches took "
+                f"the general accept for {accept} tables")
+            return got
+
+        table_sets = {"three": member_tables(family, CHECK_TEMPS)}
+        if family == "bitplane":
+            table_sets["general"] = [bitplane_accept_tables()["general"]] \
+                + table_sets["three"][1:]
+        small_h = SMALL_N * fh // fn
+        ragged_h = 12 if family == "bitplane" else 7
+        small_plan = resident.plan_resident(family, SMALL_N, SMALL_N)
+        col_unit = resident.GEOMETRY[family].col_align
+        divisor = resident.GEOMETRY[family].col_divisor
+        n, h, tr, tc, k, n_sweeps = BATCHED_EDGE_CASES[family]
+        sweep_cases = [
+            (SMALL_N, small_h, dataclasses.replace(small_plan, k=1), 1),
+            (SMALL_N, small_h, dataclasses.replace(small_plan, k=3), 3),
+            (SMALL_N, small_h, dataclasses.replace(
+                small_plan, k=2, tile_rows=48, tile_cols=10 * col_unit), 2),
+            (30, ragged_h, dataclasses.replace(
+                small_plan, n=30, m=ragged_h * divisor, k=3, tile_rows=7,
+                tile_cols=2 * col_unit), 3),
+            (n, h, dataclasses.replace(small_plan, n=n, m=h * divisor, k=k,
+                                       tile_rows=tr, tile_cols=tc),
+             n_sweeps)]
+        for accept, tabs in table_sets.items():
+            for n, h in ((SMALL_N, small_h), (30, ragged_h)):
+                for is_black, offset in ((True, 2 ** 31 - 1),
+                                         (False, 2 ** 32 - 1)):
+                    t, o = random_batch(family, 3, n, h, n + h)
+                    want = getattr(pkg, f"{update}_batched_plain")(
+                        t, o, tabs, is_black=is_black, seeds=CHECK_SEEDS,
+                        offset=offset)
+                    got = launch_batched(update, accept, lambda: getattr(
+                        pkg, f"{update}_batched")(
+                            t.clone(), o, tabs, is_black=is_black,
+                            seeds=CHECK_SEEDS, offset=offset))
+                    compare_batched(update, [got], [want], accept)
+            for n, h, plan, n_sweeps in sweep_cases:
+                b, w = random_batch(family, 3, n, h, n + n_sweeps)
+                want = getattr(pkg, f"{sweeps}_batched_plain")(
+                    b, w, tabs, n_sweeps=n_sweeps, seeds=CHECK_SEEDS,
+                    start_offset=2 ** 32 - 3)
+                got = launch_batched(sweeps, accept, lambda: getattr(
+                    pkg, f"{sweeps}_batched")(
+                        b, w, tabs, n_sweeps=n_sweeps, seeds=CHECK_SEEDS,
+                        start_offset=2 ** 32 - 3, plan=plan))
+                compare_batched(sweeps, got, want, accept)
+            # one member over the library's limit: the launches split
+            # into a full one and a trailing member (the single-member
+            # instance), ceil(B / limit) launches a block
+            limit = member_limit(family)
+            over = limit + 1
+            over_tabs = [tabs[i % len(tabs)] for i in range(over)]
+            over_tabs[-1] = tabs[0]
+            over_seeds = CHECK_SEEDS + tuple(range(100, 97 + over))
+            n, h, plan, _ = sweep_cases[3]
+            n_sweeps = 2 * plan.k - 1
+            t, o = random_batch(family, over, n, h, over)
+            want = getattr(pkg, f"{update}_batched_plain")(
+                t, o, over_tabs, is_black=False, seeds=over_seeds,
+                offset=2 ** 32 - 1)
+            before = wrappers[update].launches
+            got = launch_batched(update, accept, lambda: getattr(
+                pkg, f"{update}_batched")(
+                    t.clone(), o, over_tabs, is_black=False,
+                    seeds=over_seeds, offset=2 ** 32 - 1))
+            update_launches = wrappers[update].launches - before
+            compare_batched(update, [got], [want], accept)
+            want = getattr(pkg, f"{sweeps}_batched_plain")(
+                t, o, over_tabs, n_sweeps=n_sweeps, seeds=over_seeds,
+                start_offset=2 ** 32 - 3)
+            before = wrappers[sweeps].launches
+            got = launch_batched(sweeps, accept, lambda: getattr(
+                pkg, f"{sweeps}_batched")(
+                    t, o, over_tabs, n_sweeps=n_sweeps, seeds=over_seeds,
+                    start_offset=2 ** 32 - 3, plan=plan))
+            sweep_launches = wrappers[sweeps].launches - before
+            compare_batched(sweeps, got, want, accept)
+            print(f"phase 3: {family} {accept}: {over} members (the limit "
+                  f"{limit} + 1) of {n} x {h}: {update_launches} launches "
+                  f"of {update}, {sweep_launches} of {sweeps} for "
+                  f"{n_sweeps} sweeps at k = {plan.k}; mismatches so far "
+                  f"{batched[update]['mismatches']}, "
+                  f"{batched[sweeps]['mismatches']}")
+            check(update_launches == 2 and sweep_launches == 4,
+                  f"{family}: {over} members took {update_launches} and "
+                  f"{sweep_launches} launches, not 2 and 4")
+        del t, o, b, w, want, got
+        # the ensemble main path's shape and tables
+        en, batch = ensemble_batch(family)
+        seeds = batch.member_seeds
+        tabs = member_tables(family, batch.member_temperatures)
+        eh = en * fh // fn
+        ensemble_shape[family] = (batch.size, en, eh)
+        plan = resident.plan_resident(family, en, en)
+        b, w = random_batch(family, batch.size, en, eh, 11)
+        want, plain_ms = plain_timed(lambda: getattr(
+            pkg, f"{update}_batched_plain")(
+                b, w, tabs, is_black=True, seeds=seeds, offset=5))
+        got = launch_batched(update, "three", lambda: getattr(
+            pkg, f"{update}_batched")(b.clone(), w, tabs, is_black=True,
+                                      seeds=seeds, offset=5))
+        compare_batched(update, [got], [want])
+        batched[update]["plain_ms"] = plain_ms
+        del want, got
+        want, plain_ms = plain_timed(lambda: getattr(
+            pkg, f"{sweeps}_batched_plain")(
+                b, w, tabs, n_sweeps=plan.k, seeds=seeds, start_offset=6))
+        got = launch_batched(sweeps, "three", lambda: getattr(
+            pkg, f"{sweeps}_batched")(b, w, tabs, n_sweeps=plan.k,
+                                      seeds=seeds, start_offset=6,
+                                      plan=plan))
+        compare_batched(sweeps, got, want)
+        batched[sweeps]["plain_ms"] = plain_ms
+        del want, got
+        batched[update]["ms"] = timed_ms(lambda: getattr(
+            pkg, f"{update}_batched")(b, w, tabs, is_black=True, seeds=seeds,
+                                      offset=0), reps=20)
+        batched[sweeps]["ms"] = timed_ms(lambda: getattr(
+            pkg, f"{sweeps}_batched")(b, w, tabs, n_sweeps=plan.k,
+                                      seeds=seeds, start_offset=0,
+                                      plan=plan), reps=8)
+        batched[sweeps]["n_sweeps"] = plan.k
+        del b, w
+        for name in (update, sweeps):
+            s = batched[name]
+            print(f"phase 3: {name} batched: {s['comparisons']} plane "
+                  f"comparisons with the plain batched version (3 members, "
+                  f"and {ensemble_shape[family][0]} at "
+                  f"{ensemble_shape[family]}), "
+                  f"{s['mismatches']} mismatches, max abs err "
+                  f"{s['max_abs_err']}, by accept {s['by_accept']}; "
+                  f"{s['ms']:.4f} ms a launch at {ensemble_shape[family]}, "
+                  f"plain {s['plain_ms']:.1f}")
+            check(s["mismatches"] == 0,
+                  f"{name}: the member axis disagrees with the plain "
+                  f"batched version")
+        if family == "bitplane":
+            check({"three", "general"} <= set(batched[sweeps]["by_accept"]),
+                  "bitplane: an accept of the member axis was not held")
     phase_s[3] = time.perf_counter() - t0
 
     # bounds at the full plane: bytes of each input read once and each
@@ -1018,6 +1306,16 @@ def main() -> int:
         bounds[f"{family}_shard_sweeps"] = bound(
             family, (4 * size + SHARD_INDEX_BYTES[family]) * en * ew,
             2 * shard_plans[family].k * en * ew, sm_clocks_per_s)
+        # the member axis at the ensemble shape: B members' bytes and
+        # updates (the single bound of one member's planes times B)
+        members, mn, mh = ensemble_shape[family]
+        elements = members * mn * mh
+        batched[f"{family}_update"]["bound"] = bound(
+            family, 3 * size * elements, elements, sm_clocks_per_s)
+        batched[f"{family}_sweeps_resident"]["bound"] = bound(
+            family, 4 * size * elements,
+            2 * batched[f"{family}_sweeps_resident"]["n_sweeps"] * elements,
+            sm_clocks_per_s)
 
     # -- 4. Session at 512^2, both tiers and the CPU -----------------------
     t0 = time.perf_counter()
@@ -1205,11 +1503,95 @@ def main() -> int:
         check_digest(path, s.state_digest(),
                      small_digests[engine + ("" if "pallas" in engine
                                              else "_pallas")])
+
+    # ensembles at 512^2: 3 members of each counter-based engine, every
+    # member's digest the single-mode session's of its (T, seed) on the
+    # k-sweep tier, on the per-half-sweep tier and on the CPU, one launch
+    # of the member axis a block of sweeps; restore-continue of an
+    # ensemble checkpoint the uninterrupted run; rebind to new members a
+    # fresh session of the new spec, on the same engine and plan
+    small_lattice = LatticeSpec(SMALL_N, SMALL_N, init_p_up=0.5)
+    for engine, family in ENSEMBLE_ENGINES.items():
+        spec = RunSpec(lattice=small_lattice, engine=EngineSpec(engine),
+                       batch=BatchSpec(CHECK_TEMPS, CHECK_SEEDS))
+
+        def single_members():
+            out = []
+            for t, sd in spec.batch.members:
+                s = Session.open(RunSpec(lattice=small_lattice,
+                                         engine=EngineSpec(engine),
+                                         temperature=t, seed=sd))
+                s.run(ENSEMBLE_CHECK_SWEEPS)
+                out.append(s.state_digest())
+            return out
+
+        want = drive(f"{engine} {SMALL_N}^2 single-mode members", family,
+                     "k-sweep", single_members)
+        got = {}
+        for tier in ("k-sweep", "half-sweep"):
+            path = f"{engine} {SMALL_N}^2 ensemble of 3 {tier}"
+
+            def ensemble_run():
+                e = Session.open(spec, resident_budget_bytes=budget(tier))
+                check(e.mode == "ensemble"
+                      and (e.engine.resident_plan is not None)
+                      == (tier == "k-sweep"),
+                      f"{path}: not an ensemble on the {tier} tier")
+                e.run(ENSEMBLE_CHECK_SWEEPS)
+                return e
+
+            e = drive(path, family, tier, ensemble_run)
+            if tier == "k-sweep":
+                name = f"{family}_sweeps_resident"
+                blocks = math.ceil(ENSEMBLE_CHECK_SWEEPS
+                                   / e.engine.resident_plan.k)
+            else:
+                name = f"{family}_update"
+                blocks = 2 * ENSEMBLE_CHECK_SWEEPS
+            check(launches_by_path[path][name] == blocks,
+                  f"{path}: {launches_by_path[path][name]} launches of "
+                  f"{name}, not {blocks}")
+            got[tier] = [e.state_digest(member=i) for i in range(3)]
+        e = Session.open(spec, device="cpu")
+        e.run(ENSEMBLE_CHECK_SWEEPS)
+        got["cpu"] = [e.state_digest(member=i) for i in range(3)]
+        print(f"phase 4: {engine} {SMALL_N}^2 ensemble {spec.batch.members},"
+              f" {ENSEMBLE_CHECK_SWEEPS} sweeps: member digests {got}, "
+              f"single mode {want}")
+        check(all(v == want for v in got.values()),
+              f"{engine}: an ensemble member is not its single-mode run")
+        check_restore_continue(f"{engine} ensemble", *drive(
+            f"{engine} {SMALL_N}^2 ensemble save, restore, measure", family,
+            "k-sweep", lambda: restore_continue(spec)))
+        rebound = dataclasses.replace(spec, batch=BatchSpec(
+            (2.2, 2.7, 1.9), (9, 2 ** 32 - 2, 10)))
+
+        def rebind():
+            e = Session.open(spec)
+            e.run(5)
+            engine_obj, plan = e.engine, e.engine.resident_plan
+            e._runner.rebind(rebound)
+            check(e.engine is engine_obj and e.engine.resident_plan is plan
+                  and e.step_count == 0,
+                  f"{engine}: rebind made a new engine or plan")
+            e._runner.run(ENSEMBLE_CHECK_SWEEPS)
+            f = Session.open(rebound)
+            f.run(ENSEMBLE_CHECK_SWEEPS)
+            return e, f
+
+        e, f = drive(f"{engine} {SMALL_N}^2 ensemble rebind", family,
+                     "k-sweep", rebind)
+        print(f"phase 4: {engine} rebind to {rebound.batch.members}: "
+              f"digest {e.state_digest()}, fresh session "
+              f"{f.state_digest()}")
+        check(e.state_digest() == f.state_digest(),
+              f"{engine}: a rebound ensemble is not a fresh session")
+        del e, f
     phase_s[4] = time.perf_counter() - t0
 
     # -- 5. main paths at full size, on each tier ----------------------------
     t0 = time.perf_counter()
-    main_paths, half_paths, peaks = {}, {}, {}
+    main_paths, half_paths, peaks, single_rates = {}, {}, {}, {}
     for engine, family in ENGINE_FAMILY.items():
         bitplane = family == "bitplane"
         n = BITPLANE_N if bitplane else FULL_N
@@ -1240,7 +1622,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         session, open_s, run_ms, traj, measure_s = drive(
             main_path, family, "k-sweep", main_run)
-        flips_per_ns = 200 * spins / (run_ms * 1e6)
+        flips_per_ns = single_rates[family] = 200 * spins / (run_ms * 1e6)
         plan = session.engine.resident_plan
         print(f"phase 5: {main_path}: open {open_s:.2f} s; run(200) "
               f"{run_ms:.1f} ms = {flips_per_ns:.2f} flips/ns (k = {plan.k},"
@@ -1416,6 +1798,207 @@ def main() -> int:
         del session
     phase_s[6] = time.perf_counter() - t0
 
+    # -- 7. the ensemble main paths at full width -----------------------------
+    t0 = time.perf_counter()
+    ensemble_paths, ensemble_half_paths, ensemble_rates = {}, {}, {}
+    for engine, family in ENGINE_FAMILY.items():
+        bitplane = family == "bitplane"
+        n, batch = ensemble_batch(family)
+        spec = RunSpec(lattice=LatticeSpec(n, n,
+                                           init_p_up=0.5 if bitplane else 1.0),
+                       engine=EngineSpec(engine), batch=batch,
+                       sweep=SweepSpec(thermalize=0, measure_every=10,
+                                       n_measure=10))
+        run_path = ensemble_paths[family] = \
+            f"{engine} ensemble {batch.size} x {n}^2 run(200)"
+        spins = batch.size * n * n * (32 if bitplane else 1)
+        name = f"{family}_sweeps_resident"
+
+        def open_run():
+            t1 = time.perf_counter()
+            session = Session.open(spec)
+            torch.cuda.synchronize()
+            open_s = time.perf_counter() - t1
+            run_ms = timed_ms(lambda: session.run(200), reps=1,
+                              warmup=False)
+            # what run() spends on its (B,) magnetizations
+            mag_ms = timed_ms(session.magnetization, reps=1, warmup=False)
+            firsts = [tuple(p[i].clone() for p in session.state)
+                      for i in (0, batch.size - 1)]
+            return session, open_s, run_ms, mag_ms, firsts
+
+        torch.cuda.reset_peak_memory_stats()
+        session, open_s, run_ms, mag_ms, firsts = drive(
+            run_path, family, "k-sweep", open_run)
+        plan = session.engine.resident_plan
+        limit = member_limit(family)
+        blocks = math.ceil(200 / plan.k) * math.ceil(batch.size / limit)
+        launched = launches_by_path[run_path][name]
+        flips = 200 * spins / (run_ms * 1e6)
+        sweep_flips = 200 * spins / ((run_ms - mag_ms) * 1e6)
+        ensemble_rates[family] = {"run_ms": run_ms, "flips_per_ns": flips,
+                                  "magnetizations_ms": mag_ms,
+                                  "sweeps_flips_per_ns": sweep_flips,
+                                  "single_flips_per_ns": single_rates[family],
+                                  "open_s": open_s}
+        print(f"phase 7: {run_path}: open {open_s:.2f} s; run(200) "
+              f"{run_ms:.1f} ms = {flips:.2f} flips/ns, of which the (B,) "
+              f"magnetizations {mag_ms:.1f} ms: the sweeps "
+              f"{sweep_flips:.2f} flips/ns, "
+              f"{sweep_flips / single_rates[family]:.4f} of single mode's "
+              f"{single_rates[family]:.2f} in phase 5 (k = {plan.k}, tile "
+              f"{plan.tile_rows} x {plan.tile_cols}); {launched} launches "
+              f"of {name} ({limit} members a launch at the most)")
+        check(launched == blocks,
+              f"{run_path}: {launched} launches, not ceil(200 / k) "
+              f"ceil(B / {limit}) = {blocks}")
+
+        def single_members():
+            out = []
+            for i in (0, batch.size - 1):
+                t, sd = batch.members[i]
+                s = Session.open(RunSpec(lattice=spec.lattice,
+                                         engine=EngineSpec(engine),
+                                         temperature=t, seed=sd))
+                s.run(200)
+                out.append(s.state)
+            return out
+
+        singles = drive(f"{engine} {n}^2 single mode, first and last "
+                        f"members, run(200)", family, "k-sweep",
+                        single_members)
+        same = all(torch.equal(a, b) for got, want in zip(firsts, singles)
+                   for a, b in zip(got, want))
+        print(f"phase 7: {run_path}: the first and last members' planes "
+              f"equal their single-mode sessions': {same}")
+        check(same, f"{engine}: an ensemble member is not its single-mode "
+              f"run at full width")
+        del firsts, singles
+
+        def measure():
+            t1 = time.perf_counter()
+            return session.measure(), time.perf_counter() - t1
+
+        traj, measure_s = drive(f"{engine} ensemble {batch.size} x {n}^2 "
+                                f"measure()", family, "k-sweep", measure)
+        print(f"phase 7: {run_path}: measure() {spec.sweep.total_sweeps} "
+              f"sweeps + {spec.sweep.n_measure} samples of {batch.size} "
+              f"members {measure_s:.3f} s, samples {traj['m'].shape}")
+        if bitplane:
+            obs = session.engine.observables_batched(
+                session.state, session._runner.inv_temps)
+            for i, (t, sd) in enumerate(batch.members):
+                m, e = obs["m"][i].cpu(), obs["e"][i].cpu()
+                exact = observables.onsager_energy(t)
+                diffs = replica_disagreements(
+                    torch, [p[i] for p in session.state])
+                print(f"phase 7: member {i} T={t} seed={sd}: per-replica e "
+                      f"in [{float(e.min()):.5f}, {float(e.max()):.5f}] "
+                      f"(exact {exact:.5f}), max |m| "
+                      f"{float(m.abs().max()):.5f}, fewest sites where two "
+                      f"replicas differ {int(diffs.min())}")
+                check(bool(((e - exact).abs() < 2e-3).all()),
+                      f"member {i}: a replica's energy is not within 2e-3 "
+                      f"of Onsager's")
+                check(bool((m.abs() < 0.01).all()),
+                      f"member {i}: a replica's |m| >= 0.01")
+                check(int(diffs.min()) > 0, f"member {i}: two replicas are "
+                      f"equal")
+                del diffs
+        else:
+            mags = [abs(float(v)) for v in session.magnetization()]
+            for i, (t, sd) in enumerate(batch.members):
+                onsager = observables.onsager_magnetization(t)
+                print(f"phase 7: member {i} T={t} seed={sd}: |m| "
+                      f"{mags[i]:.5f} (Onsager {onsager:.5f})")
+                if t <= 2.0:
+                    check(abs(mags[i] - onsager) < 2e-3,
+                          f"member {i}: |m| is not within 2e-3 of Onsager")
+                if t >= 2.5:
+                    check(mags[i] < 0.01, f"member {i}: |m| >= 0.01 at "
+                          f"T = {t}")
+        peaks[run_path] = torch.cuda.max_memory_allocated()
+        del session
+
+        half_path = ensemble_half_paths[family] = \
+            f"{engine} ensemble {batch.size} x {n}^2 half-sweep"
+
+        def half_run():
+            session = Session.open(spec, resident_budget_bytes=0)
+            check(session.engine.resident_plan is None,
+                  "budget 0 still planned k-sweeps")
+            ms = timed_ms(lambda: session.run(HALF_SWEEP_CHECK),
+                          reps=1, warmup=False)
+            return session, ms
+
+        half, half_ms = drive(half_path, family, "half-sweep", half_run)
+        launched = launches_by_path[half_path][f"{family}_update"]
+        blocks = 2 * HALF_SWEEP_CHECK * math.ceil(batch.size / limit)
+        ref = Session.open(spec)
+        ref.run(HALF_SWEEP_CHECK)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(half.state, ref.state))
+        print(f"phase 7: {half_path}: run({HALF_SWEEP_CHECK}) {half_ms:.1f} "
+              f"ms = {HALF_SWEEP_CHECK * spins / (half_ms * 1e6):.2f} "
+              f"flips/ns (with the magnetizations), {launched} launches of "
+              f"{family}_update; planes equal to the k-sweep tier's: {same}")
+        check(launched == blocks, f"{half_path}: {launched} launches, not "
+              f"{blocks}")
+        check(same, f"{engine}: the ensemble's tiers' planes differ")
+        del half, ref
+
+    # many small members: one ensemble of 64 seeds at T_c on 512^2 against
+    # 64 single-mode sessions run one after another, each run(200)
+    small = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N, init_p_up=0.5),
+                    engine=EngineSpec("multispin_pallas"),
+                    batch=BatchSpec((SMALL_ENSEMBLE_T,),
+                                    tuple(range(SMALL_ENSEMBLE_MEMBERS)),
+                                    grid=True))
+    path = (f"multispin_pallas ensemble {SMALL_ENSEMBLE_MEMBERS} x "
+            f"{SMALL_N}^2 run(200)")
+
+    def small_ensemble():
+        e = Session.open(small)
+        torch.cuda.synchronize()
+        return e, timed_ms(lambda: e.run(200), reps=1, warmup=False)
+
+    e, ensemble_ms = drive(path, "multispin", "k-sweep", small_ensemble)
+    ensemble_launches = launches_by_path[path]["multispin_sweeps_resident"]
+    singles_path = (f"multispin_pallas {SMALL_ENSEMBLE_MEMBERS} single-mode "
+                    f"sessions {SMALL_N}^2 run(200)")
+
+    def small_singles():
+        sessions = [Session.open(RunSpec(lattice=small.lattice,
+                                         engine=small.engine,
+                                         temperature=t, seed=sd))
+                    for t, sd in small.batch.members]
+        torch.cuda.synchronize()
+        ms = timed_ms(lambda: [s.run(200) for s in sessions], reps=1,
+                      warmup=False)
+        return sessions, ms
+
+    sessions, singles_ms = drive(singles_path, "multispin", "k-sweep",
+                                 small_singles)
+    same = all(e.state_digest(member=i) == s.state_digest()
+               for i, s in enumerate(sessions))
+    ensemble_rates["small"] = {"ensemble_ms": ensemble_ms,
+                               "singles_ms": singles_ms,
+                               "ensemble_launches": ensemble_launches,
+                               "singles_launches": launches_by_path[
+                                   singles_path]["multispin_sweeps_resident"]}
+    print(f"phase 7: {path}: {ensemble_ms:.1f} ms ({ensemble_launches} "
+          f"launches) against {singles_ms:.1f} ms for the "
+          f"{SMALL_ENSEMBLE_MEMBERS} single-mode sessions one after another "
+          f"({ensemble_rates['small']['singles_launches']} launches): "
+          f"{singles_ms / ensemble_ms:.2f}x; member digests equal theirs: "
+          f"{same}")
+    check(same, "the small ensemble's members are not their single-mode "
+          "runs")
+    check(ensemble_ms < singles_ms, "the 64-member ensemble took longer than "
+          "its 64 single-mode sessions")
+    del e, sessions
+    phase_s[7] = time.perf_counter() - t0
+
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}
 
@@ -1442,10 +2025,28 @@ def main() -> int:
             entry["n_sweeps"] = shard_plans[family].k
         if name in accept_stats:
             entry["accept_comparisons"] = accept_stats[name]
+        if name in batched:
+            # the member axis at the ensemble main path's shape; launches
+            # from that path's run(200) (k-sweep) or 10 sweeps
+            # (half-sweep)
+            b = batched[name]
+            ens = (ensemble_paths if tier == "k-sweep"
+                   else ensemble_half_paths)[family]
+            entry["batched"] = {
+                "shape": list(ensemble_shape[family]),
+                "launches": launches_by_path[ens][name],
+                "launches_path": ens,
+                "comparisons": b["comparisons"],
+                "mismatches": b["mismatches"],
+                "max_abs_err": float(b["max_abs_err"]),
+                "by_accept": b["by_accept"], "ms": b["ms"],
+                "plain_ms": b["plain_ms"], "bound_ms": b["bound"][0],
+                "bound_by": b["bound"][1]}
         kernels.append(entry)
     print("phase seconds: " + ", ".join(
         f"{p} {s:.1f}" for p, s in sorted(phase_s.items()))
         + f"; total {time.perf_counter() - t_start:.1f}")
+    print("ensemble rates: " + json.dumps(ensemble_rates))
     print(json.dumps({"kernels": kernels}))
     print("peak device memory by main path: " + ", ".join(
         f"{p} {b} B" for p, b in peaks.items()))

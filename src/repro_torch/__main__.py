@@ -1,4 +1,4 @@
-"""``python -m repro_torch run`` -- single and sharded runs from flags.
+"""``python -m repro_torch run`` -- single, ensemble and sharded runs.
 
     # 1024^2 ordered start at T=2.0: 200 sweeps, then 10 samples
     python -m repro_torch run --n 1024 --init-p-up 1.0 --temperature 2.0 \\
@@ -11,6 +11,12 @@
     # the tensor-core engine (paper S3.2) on 64 x 64 blocks of its planes
     python -m repro_torch run --engine tensorcore --tc-block 64 --n 1024 \\
         --init-p-up 1.0 --temperature 2.0 --sweeps 200
+
+    # an ensemble: 2 temperatures x 2 seeds (--grid; without it the two
+    # lists zip), 4 members in one launch a block of sweeps; one line a
+    # member
+    python -m repro_torch run --n 1024 --init-p-up 1.0 --temps 1.8,2.2 \
+        --seeds 3,4 --grid --sweeps 200
 
     # sharded: a 2 x 2 mesh of shards (rows over "data", columns over
     # "model"), several shards to a card where there are fewer cards
@@ -34,8 +40,8 @@ import torch
 
 
 def _build_spec(args):
-    from repro_torch.api import (EngineSpec, LatticeSpec, MeshSpec, RunSpec,
-                                 SweepSpec)
+    from repro_torch.api import (BatchSpec, EngineSpec, LatticeSpec,
+                                 MeshSpec, RunSpec, SweepSpec)
     params = {}
     if args.tc_block is not None:
         params["tc_block"] = args.tc_block
@@ -44,6 +50,12 @@ def _build_spec(args):
         sweep = SweepSpec(thermalize=args.thermalize,
                           measure_every=args.measure_every,
                           n_measure=args.n_measure)
+    batch = None
+    if args.temps:
+        temps = tuple(float(t) for t in args.temps.split(","))
+        seeds = tuple(int(s) for s in args.seeds.split(",")) \
+            if args.seeds else None
+        batch = BatchSpec(temperatures=temps, seeds=seeds, grid=args.grid)
     mesh = None
     if args.mesh:
         shape = tuple(int(d) for d in args.mesh.split("x"))
@@ -54,7 +66,7 @@ def _build_spec(args):
                                        init_p_up=args.init_p_up),
                    engine=EngineSpec(name=args.engine, params=params),
                    temperature=args.temperature, seed=args.seed,
-                   sweep=sweep, mesh=mesh)
+                   sweep=sweep, batch=batch, mesh=mesh)
 
 
 def _sync(session) -> None:
@@ -71,6 +83,7 @@ def cmd_run(args) -> int:
         session = Session.open(_build_spec(args), device=device)
     spec = session.spec
     did = False
+    members = spec.batch.members if spec.batch is not None else None
     if spec.sweep is not None:
         t0 = time.perf_counter()
         traj = session.measure()
@@ -80,6 +93,12 @@ def cmd_run(args) -> int:
               f"({spec.sweep.total_sweeps} sweeps) in {dt:.2f}s: " +
               " ".join(f"{k}_mean={float(np.mean(v)):.4f}"
                        for k, v in tail.items()))
+        if members is not None:
+            # the samples' member axis: (n_measure, B) or (n_measure, B, 32)
+            for i, (t, seed) in enumerate(members):
+                print(f"member {i} T={t:g} seed={seed}: " + " ".join(
+                    f"{k}_mean={float(np.mean(v[:, i])):.4f}"
+                    for k, v in tail.items()))
         did = True
     if args.sweeps:
         _sync(session)
@@ -89,8 +108,15 @@ def cmd_run(args) -> int:
         dt = time.perf_counter() - t0
         where = session.device if spec.mesh is None else \
             f"a {'x'.join(map(str, spec.mesh.shape))} mesh"
-        print(f"ran {args.sweeps} sweeps in {dt:.2f}s on {where}; "
-              f"|m| = {abs(mag):.4f}")  # bitplane: |mean over replicas|
+        if members is None:
+            print(f"ran {args.sweeps} sweeps in {dt:.2f}s on {where}; "
+                  f"|m| = {abs(mag):.4f}")  # bitplane: |mean over replicas|
+        else:
+            print(f"ran {args.sweeps} sweeps of {len(members)} members in "
+                  f"{dt:.2f}s on {where}")
+            for i, (t, seed) in enumerate(members):
+                print(f"member {i} T={t:g} seed={seed}: "
+                      f"|m| = {abs(float(mag[i])):.4f}")
         did = True
     if not did:
         print("nothing to do: no --n-measure and --sweeps is 0",
@@ -108,7 +134,7 @@ def main(argv=None) -> int:
         description="RunSpec launcher of the PyTorch port")
     sub = ap.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser(
-        "run", help="execute a single or sharded RunSpec",
+        "run", help="execute a single, ensemble or sharded RunSpec",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     run.add_argument("--n", type=int, default=64)
     run.add_argument("--m", type=int, default=0,
@@ -128,6 +154,14 @@ def main(argv=None) -> int:
                      help="samples to record (0: plain --sweeps run)")
     run.add_argument("--sweeps", type=int, default=0,
                      help="plain sweeps to run (after any sweep plan)")
+    run.add_argument("--temps", default="",
+                     help="comma list of temperatures: an ensemble "
+                          "(BatchSpec), one member each")
+    run.add_argument("--seeds", default="",
+                     help="comma list of member seeds (below 2^32; "
+                          "default 0, 1, ...)")
+    run.add_argument("--grid", action="store_true",
+                     help="members: the temps x seeds cross product")
     run.add_argument("--mesh", default="",
                      help="mesh shape of a sharded run, e.g. 2x2")
     run.add_argument("--mesh-axes", default="",

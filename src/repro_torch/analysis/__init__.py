@@ -1,4 +1,4 @@
 """Measurement: observables sampled along a trajectory."""
-from .measure import MeasurementPlan, measure_scan
+from .measure import MeasurementPlan, measure_scan, measure_scan_batched
 
-__all__ = ["MeasurementPlan", "measure_scan"]
+__all__ = ["MeasurementPlan", "measure_scan", "measure_scan_batched"]

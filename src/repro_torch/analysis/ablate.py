@@ -218,22 +218,17 @@ def time_sweeps(family: str, lib) -> float:
     temperature and the planner's plan, launched as the family's
     ``*_sweeps_resident`` launches it."""
     from repro_torch.kernels import resident
-    from repro_torch.kernels._words import (accept_arg, declare,
-                                            key_table_arg, launch_resident)
+    from repro_torch.kernels._words import declare, launch_resident
     n, w = tune_resident.FULL_PLANE[family]
     plan = resident.plan_resident(family, n, n)
     b, wp = tune_resident.random_planes(family, n, w, 1)
     thresholds = tune_resident.acceptance(family)
-    table = ((key_table_arg(thresholds),) if family == "multispin"
-             else accept_arg(thresholds))
     declare(lib, family)
-    name = f"{family}_sweeps_resident"
     counter = types.SimpleNamespace(launches=0, general_launches=0,
-                                    __name__=name)
+                                    __name__=f"{family}_sweeps_resident")
     return tune_resident.timed_ms(lambda: launch_resident(
-        lib, getattr(lib, f"{name}_launch"), counter, b, wp, table,
-        n_sweeps=plan.k, seed=2 ** 33 + 5, start_offset=0, plan=plan),
-        reps=8)
+        lib, family, counter, b, wp, [thresholds], n_sweeps=plan.k,
+        seeds=[2 ** 33 + 5], start_offset=0, plan=plan), reps=8)
 
 
 def main(argv=None) -> int:

@@ -7,6 +7,7 @@ Python loop over the engine's ``scan_step`` and ``observables``, which
 gives the same samples: the Philox stream depends only on the
 cumulative sweep count.  Samples stay on the device until the end, so
 the loop does not wait for the card between samples.
+:func:`measure_scan_batched` does the same for an ensemble's members.
 """
 from __future__ import annotations
 
@@ -71,3 +72,40 @@ def measure_scan(engine, state, plan: MeasurementPlan, step_count: int = 0):
     traj = {k: torch.stack(v).cpu().numpy().astype(np.float32)
             for k, v in samples.items()}
     return state, traj, step_count + plan.total_sweeps
+
+
+def measure_scan_batched(engine, states, inv_temps, seeds,
+                         plan: MeasurementPlan, step_count: int = 0):
+    """:func:`measure_scan` of every member of an ensemble at once (its
+    inverse temperature and seed; one launch of the member axis a block
+    of sweeps).
+
+    Returns ``(final_states, {field: (n_measure, B) float32 ndarray},
+    new_step_count)``, ``(n_measure, B, 32)`` for the per-replica
+    observables of the bitplane engines, as in the JAX package.
+    """
+    if not engine.counter_based:
+        raise ValueError(
+            f"engine {engine.name!r} is not counter-based; batched "
+            "measurement needs a traceable-seed sweep (DESIGN.md S3/S4)")
+    missing = set(plan.fields) - set(engine.observable_fields)
+    if missing:
+        raise ValueError(f"plan fields {sorted(missing)} not in engine "
+                         f"{engine.name!r} observables "
+                         f"{sorted(engine.observable_fields)}")
+    step = step_count
+    if plan.thermalize:
+        states = engine.scan_step_batched(states, inv_temps, seeds, step,
+                                          plan.thermalize)
+        step += plan.thermalize
+    samples = {k: [] for k in plan.fields}
+    for _ in range(plan.n_measure):
+        states = engine.scan_step_batched(states, inv_temps, seeds, step,
+                                          plan.sweeps_between)
+        step += plan.sweeps_between
+        o = engine.observables_batched(states, inv_temps)
+        for k in plan.fields:
+            samples[k].append(o[k])
+    traj = {k: torch.stack(v).cpu().numpy().astype(np.float32)
+            for k, v in samples.items()}
+    return states, traj, step_count + plan.total_sweeps

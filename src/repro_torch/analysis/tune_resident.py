@@ -1,6 +1,7 @@
 """Time the k-sweep kernels' tile, k and block-size candidates on the card.
 
     PYTHONPATH=src python -m repro_torch.analysis.tune_resident [--family F]
+    PYTHONPATH=src python -m repro_torch.analysis.tune_resident --ensemble
     PYTHONPATH=src python -m repro_torch.analysis.tune_resident --shard
     PYTHONPATH=src python -m repro_torch.analysis.tune_resident --tensorcore
 
@@ -11,6 +12,11 @@ the k-sweep kernel at each candidate (tile rows, tile columns, k,
 threads) that fits one block's shared memory: CUDA events, after one
 untimed call, every kernel built before the first is timed.  These are
 the measurements behind ``repro_torch.kernels.resident.GEOMETRY``.
+With ``--ensemble`` it times the member axis at the shape of
+``chip_smoke.py``'s ensemble main paths (:data:`ENSEMBLE`: 16 members of
+8192^2, bitplane of 4096^2), per full sweep of all members: both tiers
+in one launch a block, the same work one member at a time through the
+single-member kernels, and each candidate tile on the member axis.
 With ``--shard`` it times the shard kernels of the sharded resident tier
 instead (``repro_torch.dist.kernels``), on the extended plane of one
 shard of the 2 x 2 main path at the planner's k with the driver's own
@@ -45,6 +51,9 @@ FULL_PLANE = {"stencil": (32768, 16384), "multispin": (32768, 2048),
               "bitplane": (16384, 8192)}
 #: the temperature of that path
 TEMPERATURE = {"stencil": 2.0, "multispin": 2.0, "bitplane": 3.0}
+#: the ensemble main paths in ``chip_smoke.py``: (members, lattice side)
+ENSEMBLE = {"stencil": (16, 8192), "multispin": (16, 8192),
+            "bitplane": (16, 4096)}
 #: a multispin word of 0/1 nibbles
 NIBBLES = 0x11111111
 #: (tile rows, tile columns, k, threads).  Stencil: a lane takes a word
@@ -160,6 +169,49 @@ def tune(family: str, seed: int = 2 ** 33 + 5) -> dict:
     return out
 
 
+def tune_ensemble(family: str, seed: int = 7) -> dict:
+    """``{configuration: ms per full sweep of all members}`` at the
+    family's ensemble shape (:data:`ENSEMBLE`), the members' seeds
+    ``seed``, ``seed + 1``, ...: the per-half-sweep tier and the
+    planner's plan on the member axis, each also one member at a time
+    (the single-member kernels on member 0's planes, times B), then
+    every candidate on the member axis."""
+    pkg = importlib.import_module(f"repro_torch.kernels.{family}")
+    members, n = ENSEMBLE[family]
+    h = n // resident.GEOMETRY[family].col_divisor
+    plan = resident.plan_resident(family, n, n)
+    table = acceptance(family)
+    tables, seeds = [table] * members, [seed + i for i in range(members)]
+    b, w = (torch.stack(p) for p in zip(
+        *(random_planes(family, n, h, 1 + i) for i in range(members))))
+    update = getattr(pkg, f"{family}_update")
+    sweeps = getattr(pkg, f"{family}_sweeps_resident")
+    out = {"half-sweep": 2 * timed_ms(lambda: getattr(
+        pkg, f"{family}_update_batched")(b, w, tables, is_black=True,
+                                         seeds=seeds, offset=0), reps=20),
+        "half-sweep, one member at a time": 2 * members * timed_ms(
+            lambda: update(b[0], w[0], table, is_black=True, seed=seed,
+                           offset=0), reps=40),
+        f"k={plan.k} plan, one member at a time": members * timed_ms(
+            lambda: sweeps(b[0], w[0], table, n_sweeps=plan.k, seed=seed,
+                           start_offset=0, plan=plan), reps=16) / plan.k}
+    batched = getattr(pkg, f"{family}_sweeps_resident_batched")
+    for tr, tc, k, threads in CANDIDATES[family]:
+        cand = dataclasses.replace(plan, k=k, tile_rows=tr, tile_cols=tc,
+                                   threads=threads)
+        if resident.smem_bytes(tr, tc, k, family) > cand.budget_bytes:
+            continue
+        ms = timed_ms(lambda: batched(b, w, tables, n_sweeps=k, seeds=seeds,
+                                      start_offset=0, plan=cand),
+                      reps=max(2, 8 // k))
+        label = f"k={k} {tr}x{tc} {threads}t"
+        if (tr, tc, k, threads) == (plan.tile_rows, plan.tile_cols, plan.k,
+                                    plan.threads):
+            label += " (plan)"
+        out[label] = ms / k
+    return out
+
+
 def tune_shard(family: str, seed: int = 2 ** 33 + 5) -> dict:
     """``{configuration: ms per full sweep of the whole lattice}`` of the
     family's shard kernel on the extended plane of one shard of the
@@ -226,6 +278,9 @@ def main(argv=None) -> int:
                              "resident tier")
     parser.add_argument("--tensorcore", action="store_true",
                         help="time tensorcore_update instead")
+    parser.add_argument("--ensemble", action="store_true",
+                        help="time the member axis at the ensemble main "
+                             "paths' shape")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_resident: no CUDA device", file=sys.stderr)
@@ -244,6 +299,11 @@ def main(argv=None) -> int:
             plan = plan_shard_resident(family, n, n, 2, 2)
             results[family] = tune_shard(family)
             where = f"2 x 2 shards of {n}^2 at k = {plan.k}"
+        elif args.ensemble:
+            members, n = ENSEMBLE[family]
+            plan = resident.plan_resident(family, n, n)
+            results[family] = tune_ensemble(family)
+            where = f"{members} members of {n}^2"
         else:
             plan = resident.plan_resident(family, n, n)
             results[family] = tune(family)

@@ -1,21 +1,26 @@
 """Session: open, run, measure, save, restore and digest a run.
 
-Counterpart of ``repro.api.session`` for single and sharded mode.
-``Session.open(spec)`` builds the runner the spec's shape asks for:
+Counterpart of ``repro.api.session``.  ``Session.open(spec)`` builds
+the runner the spec's shape asks for:
 
-* single  -- the registry engine advanced in place;
-* sharded -- a ``MeshSpec`` mesh of shards (``_ShardedRunner``): the
-             sharded resident tier (``repro_torch.dist``) where the
-             shard planner fits the engine's ``shard_family``, else the
-             per-half-sweep step named by its ``dist_factory``
-             (``repro_torch.core.distributed``).
+* single   -- the registry engine advanced in place;
+* ensemble -- a ``BatchSpec``'s (temperature, seed) members, stacked
+              ``(B, n, w)`` planes advanced together (``_EnsembleRunner``):
+              each block of sweeps one launch of the kernel's member
+              axis for all members, member i on the trajectory of the
+              single-mode run of its own (temperature, seed);
+* sharded  -- a ``MeshSpec`` mesh of shards (``_ShardedRunner``): the
+              sharded resident tier (``repro_torch.dist``) where the
+              shard planner fits the engine's ``shard_family``, else the
+              per-half-sweep step named by its ``dist_factory``
+              (``repro_torch.core.distributed``).
 
 The checkpoint is the JAX package's layout -- an atomically renamed
 ``.npz`` with ``spec_json``, ``step_count`` and ``state_<name>`` arrays
-(the whole planes, in either mode) -- and ``state_digest`` frames the
-state as the JAX package does, so a run saved by either package restores
-in the other, on any mesh or none, and the digests of equal states are
-equal.
+(the whole planes in single and sharded mode, batched along axis 0 for
+an ensemble) -- and ``state_digest`` frames the state as the JAX package
+does, so a run saved by either package restores in the other, on any
+mesh or none, and the digests of equal states are equal.
 
 The entry points run on CUDA unless the caller passes ``device="cpu"``;
 with no device named and no GPU present they raise.  They never move to
@@ -117,6 +122,101 @@ class _SingleRunner:
 
     def load_arrays(self, arrays: dict) -> None:
         self.state = self.engine.from_arrays(arrays)
+
+
+class _EnsembleRunner:
+    """A (temperature, seed) batch advanced together: the counterpart of
+    the JAX package's vmapped ``_EnsembleRunner``.
+
+    Member ``i`` follows exactly the trajectory of the single-mode spec
+    with ``temperature=members[i][0], seed=members[i][1]``: the same
+    Philox stream from the same offset, its own table and keys; the
+    plan of the k-sweep tier depends on the lattice alone, so every
+    member runs on the single-mode tier.  ``BatchSpec`` keeps seeds below
+    2^32 (key lane 1 is 0).
+    """
+
+    def __init__(self, spec: RunSpec, device: torch.device, state=None,
+                 step_count: int = 0, resident_budget_bytes=None):
+        self.spec = spec
+        self.cfg = spec.sim_config()
+        self.engine = make_engine(self.cfg, device, resident_budget_bytes)
+        self.step_count = step_count
+        self._set_members(spec)
+        self.state = self._fresh_states() if state is None else state
+
+    def _set_members(self, spec: RunSpec) -> None:
+        temps = spec.batch.member_temperatures
+        self.temperatures = np.asarray(temps, np.float32)
+        # inverted in Python-float precision as SimConfig.inv_temp is, so
+        # that a member's table is its single-mode run's
+        self.inv_temps = [1.0 / float(t) for t in temps]
+        self.seeds = [int(s) for s in spec.batch.member_seeds]
+
+    def _fresh_states(self):
+        return self.engine.init_states(self.seeds)
+
+    def rebind(self, spec: RunSpec) -> None:
+        """Re-point this runner at a new (temperature, seed) batch of the
+        same shape (engine and params, lattice, batch size): the same
+        engine object and plan, no new build or load of a library; fresh
+        states at step 0."""
+        if spec.mode != "ensemble":
+            raise ValueError(
+                f"rebind needs an ensemble spec, got mode={spec.mode!r}")
+        old, new = self.spec, spec
+        same = (old.engine.to_dict() == new.engine.to_dict()
+                and old.lattice.to_dict() == new.lattice.to_dict()
+                and old.batch.size == new.batch.size)
+        if not same:
+            raise ValueError(
+                f"rebind shape mismatch: cached runner is "
+                f"{old.engine.name}/{old.lattice.n}x{old.lattice.m}/"
+                f"B{old.batch.size}, spec wants "
+                f"{new.engine.name}/{new.lattice.n}x{new.lattice.m}/"
+                f"B{new.batch.size}")
+        self.spec = spec
+        self._set_members(spec)
+        self.state = self._fresh_states()
+        self.step_count = 0
+
+    @property
+    def size(self) -> int:
+        return int(self.temperatures.size)
+
+    def run(self, n_sweeps: int) -> np.ndarray:
+        """Advance every member; returns the (B,) per-member
+        magnetizations (at fixed seeds: the magnetization-vs-temperature
+        curve)."""
+        self.state = self.engine.sweep_fn_batched(
+            self.state, self.inv_temps, self.seeds,
+            (2 * self.step_count) & rng.MASK32, n_sweeps)
+        self.step_count += n_sweeps
+        return self.magnetization()
+
+    def measure(self, plan) -> dict:
+        from repro_torch.analysis.measure import measure_scan_batched
+        self.state, traj, self.step_count = measure_scan_batched(
+            self.engine, self.state, self.inv_temps, self.seeds, plan,
+            step_count=self.step_count)
+        return traj
+
+    def magnetization(self) -> np.ndarray:
+        """(B,) float32: each member's magnetization."""
+        return self.engine.magnetizations(self.state).cpu().numpy()
+
+    def full_lattice(self) -> torch.Tensor:
+        """(B, N, M): each member's lattice (measurement and debug
+        view)."""
+        return self.engine.full_lattices(self.state)
+
+    def state_arrays(self) -> dict:
+        """The engine's named arrays with the batch axis leading: the
+        names of a single checkpoint, one rank higher."""
+        return self.engine.state_arrays(self.state)
+
+    def load_arrays(self, arrays: dict) -> None:
+        self.state = self.engine.from_arrays(arrays, members=self.size)
 
 
 #: ``Engine.dist_factory`` -> the ``repro_torch.core.distributed``
@@ -274,13 +374,17 @@ def _runner(spec: RunSpec, device, *, state=None, step_count: int = 0,
     if spec.mode == "sharded":
         return _ShardedRunner(spec, device, state, step_count,
                               resident_budget_bytes)
-    return _SingleRunner(spec, resolve_device(device), state, step_count,
-                         resident_budget_bytes)
+    cls = _EnsembleRunner if spec.mode == "ensemble" else _SingleRunner
+    return cls(spec, resolve_device(device), state, step_count,
+               resident_budget_bytes)
 
 
 class Session:
-    """Open a spec, run it, measure it, checkpoint it (single or sharded
-    mode)."""
+    """Open a spec, run it, measure it, checkpoint it: single, ensemble
+    or sharded mode.  ``run``, ``measure``, ``magnetization`` and
+    ``full_lattice`` return single values in single and sharded mode and
+    values with a batch axis in ensemble mode (``run`` then returns the
+    (B,) per-member magnetizations)."""
 
     def __init__(self, spec: RunSpec, runner):
         self.spec = spec
@@ -290,7 +394,8 @@ class Session:
     def open(cls, spec: RunSpec, device=None, *,
              resident_budget_bytes=None) -> "Session":
         """A fresh run of ``spec`` on ``device`` (default: the CUDA card;
-        a sharded spec spreads its shards over every card).
+        a sharded spec spreads its shards over every card; an ensemble
+        spec holds its members on the one device).
         ``resident_budget_bytes`` overrides the k-sweep planner's (or, in
         sharded mode, the shard planner's) shared memory budget per block
         (0: the per-half-sweep tier)."""
@@ -299,7 +404,7 @@ class Session:
 
     @property
     def mode(self) -> str:
-        """"single" or "sharded"."""
+        """"single", "ensemble" or "sharded"."""
         return self.spec.mode
 
     @property
@@ -334,22 +439,35 @@ class Session:
         words whose bit r is replica r (``black_bits``, ``white_bits``);
         ``tensorcore``: a dict of four int8 sublattice planes ``'00'``,
         ``'01'``, ``'10'``, ``'11'`` of ``(n/2, m/2)`` (``plane_XX``).
-        In sharded mode each plane is a list of its shards, shard ``i``
-        at position ``i`` of the mesh in row-major order."""
+        In ensemble mode each plane has the batch axis leading, ``(B, n,
+        w)``, member i at index i.  In sharded mode each plane is a list
+        of its shards, shard ``i`` at position ``i`` of the mesh in
+        row-major order."""
         return self._runner.state
+
+    @state.setter
+    def state(self, value) -> None:
+        self._runner.state = value
 
     @property
     def step_count(self) -> int:
         return self._runner.step_count
 
-    def run(self, n_sweeps: int) -> None:
-        """Advance ``n_sweeps`` full lattice sweeps."""
-        self._runner.run(n_sweeps)
+    @step_count.setter
+    def step_count(self, value: int) -> None:
+        self._runner.step_count = value
+
+    def run(self, n_sweeps: int):
+        """Advance ``n_sweeps`` full lattice sweeps (every member, in
+        ensemble mode, which returns the (B,) per-member
+        magnetizations)."""
+        return self._runner.run(n_sweeps)
 
     def measure(self, plan=None) -> dict:
         """Run a measurement plan (default: ``spec.sweep``); returns
-        ``{field: (n_measure,) float32 ndarray}``, or ``(n_measure, 32)``
-        for the bitplane engines' per-replica observables."""
+        ``{field: (n_measure,) float32 ndarray}``, with a trailing batch
+        axis in ensemble mode and a trailing replica axis (32) for the
+        bitplane engines' per-replica observables."""
         if plan is None:
             if self.spec.sweep is None:
                 raise ValueError("no plan: pass one or set RunSpec.sweep")
@@ -358,15 +476,16 @@ class Session:
 
     def trajectory(self, n_measure: int, sweeps_between: int,
                    thermalize: int = 0) -> np.ndarray:
-        """Magnetization samples, shape ``(n_measure,)`` (``(n_measure,
-        32)`` for the bitplane engines)."""
+        """Magnetization samples, shape ``(n_measure,)``, with the batch
+        and replica axes of :meth:`measure`."""
         from repro_torch.analysis.measure import MeasurementPlan
         plan = MeasurementPlan(n_measure, sweeps_between, thermalize,
                                fields=("m",))
         return self.measure(plan)["m"]
 
-    def magnetization(self) -> float:
-        """Mean spin (for bitplane: the mean over the 32 replicas)."""
+    def magnetization(self):
+        """Mean spin (for bitplane: the mean over the 32 replicas); in
+        ensemble mode a (B,) float32 array, one a member."""
         return self._runner.magnetization()
 
     def energy(self) -> float:
@@ -374,15 +493,33 @@ class Session:
         return self._runner.energy()
 
     def full_lattice(self) -> torch.Tensor:
+        """The +-1 lattice (ensemble mode: ``(B, N, M)``, one a
+        member)."""
         return self._runner.full_lattice()
 
-    def state_digest(self) -> str:
+    def state_digest(self, member=None) -> str:
         """CRC32C hex digest of (step_count, every named state array),
         framed as the JAX package frames it: equal digests mean
-        bit-identical lattices at the same point of the trajectory."""
+        bit-identical lattices at the same point of the trajectory.
+
+        ``member`` (ensemble mode only) digests one member's slice of the
+        batched state with a single-mode session's framing: by the
+        ensemble's contract it equals the digest of the single-mode run
+        of that member's (temperature, seed)."""
+        arrays = self._runner.state_arrays()
+        if member is not None:
+            if self.mode != "ensemble":
+                raise ValueError(
+                    f"member= digest needs ensemble mode, this session "
+                    f"is {self.mode!r}")
+            if not 0 <= member < self._runner.size:
+                raise ValueError(
+                    f"member {member} out of range for batch size "
+                    f"{self._runner.size}")
+            arrays = {k: np.asarray(v)[member] for k, v in arrays.items()}
         crc = integrity.crc32c(
             f"step_count={self._runner.step_count}".encode())
-        for k, v in sorted(self._runner.state_arrays().items()):
+        for k, v in sorted(arrays.items()):
             a = np.ascontiguousarray(np.asarray(v))
             crc = integrity.crc32c(f"{k}:{a.dtype}:{a.shape}:".encode(), crc)
             crc = integrity.crc32c(a.tobytes(), crc)
@@ -390,7 +527,7 @@ class Session:
 
     def save(self, path: str) -> None:
         """Atomic checkpoint: serialized spec, step count and the
-        engine's named state arrays."""
+        engine's named state arrays (batched in ensemble mode)."""
         arrays = {f"state_{k}": v
                   for k, v in self._runner.state_arrays().items()}
         _atomic_savez(path, spec_json=self.spec.to_json(),

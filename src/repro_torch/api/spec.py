@@ -4,8 +4,10 @@ The same frozen dataclass tree and the same JSON document as the JAX
 package: ``version``, ``lattice``, ``engine``, ``temperature``, ``seed``,
 ``sweep``, ``batch``, ``mesh``, serialized with ``sort_keys=True``, so a
 spec written by either package reads in the other.  Engine names resolve
-against this package's registry.  Single and sharded (``mesh``) specs
-run; ensemble (``batch``) specs parse and validate, then raise.
+against this package's registry.  Dispatch is a function of the tree's
+shape, as there: no ``batch`` and no ``mesh`` -- one run; a ``batch`` --
+one ensemble over its members (counter-based engines only); a ``mesh``
+-- a sharded run; both at once are refused.
 """
 from __future__ import annotations
 
@@ -160,8 +162,10 @@ class SweepSpec:
 
 @dataclasses.dataclass(frozen=True)
 class BatchSpec:
-    """The (temperature, seed) members of an ensemble: parsed and
-    validated as in the JAX package; running one is not ported yet."""
+    """The (temperature, seed) members of an ensemble: the zip of
+    ``temperatures`` and ``seeds`` (default seeds 0, 1, ...), or with
+    ``grid`` their cross product, temperature-major.  Seeds are uint32
+    Philox keys, so a member's key lane 1 is 0."""
 
     temperatures: Tuple[float, ...] = ()
     seeds: Optional[Tuple[int, ...]] = None
@@ -188,6 +192,28 @@ class BatchSpec:
             if self.grid and not seeds:
                 raise ValueError("grid batch needs at least one seed")
         object.__setattr__(self, "seeds", seeds)
+
+    @property
+    def members(self) -> Tuple[Tuple[float, int], ...]:
+        """Expanded (temperature, seed) pairs, batch-axis order."""
+        if self.grid:
+            seeds = self.seeds or (0,)
+            return tuple((t, s) for t in self.temperatures for s in seeds)
+        seeds = self.seeds if self.seeds is not None \
+            else tuple(range(len(self.temperatures)))
+        return tuple(zip(self.temperatures, seeds))
+
+    @property
+    def size(self) -> int:
+        return len(self.members)
+
+    @property
+    def member_temperatures(self) -> Tuple[float, ...]:
+        return tuple(t for t, _ in self.members)
+
+    @property
+    def member_seeds(self) -> Tuple[int, ...]:
+        return tuple(s for _, s in self.members)
 
     def to_dict(self) -> dict:
         return {"temperatures": list(self.temperatures),
@@ -240,7 +266,11 @@ class MeshSpec:
 
 @dataclasses.dataclass(frozen=True)
 class RunSpec:
-    """The complete, serializable description of one run."""
+    """The complete, serializable description of one run.
+
+    ``temperature`` and ``seed`` drive single and sharded runs; an
+    ensemble takes its members from ``batch`` (the scalar fields then
+    describe member 0, which is also what its engine config carries)."""
 
     lattice: LatticeSpec = dataclasses.field(default_factory=LatticeSpec)
     engine: EngineSpec = dataclasses.field(default_factory=EngineSpec)
@@ -263,9 +293,12 @@ class RunSpec:
             raise ValueError(
                 "batch + mesh in one RunSpec is not supported yet: "
                 "run the ensemble per mesh shard or drop one of them")
-        if self.batch is not None:
-            raise NotImplementedError(
-                "ensemble specs (batch) are not ported to repro_torch yet")
+        if self.batch is not None and not cls.counter_based:
+            raise ValueError(
+                f"engine {self.engine.name!r} is not counter-based; a "
+                f"batched ensemble needs a Philox engine whose sweep_fn "
+                f"is a pure function of (seed, offset) -- see DESIGN.md "
+                f"S3/S4")
         if self.mesh is not None and cls.dist_factory is None:
             from repro_torch.core.engine import ENGINES
             have = sorted(n for n, c in ENGINES.items()
@@ -278,14 +311,21 @@ class RunSpec:
 
     @property
     def mode(self) -> str:
-        """"sharded" with a mesh, else "single"."""
+        """"ensemble" with a batch, "sharded" with a mesh, else
+        "single"."""
+        if self.batch is not None:
+            return "ensemble"
         return "single" if self.mesh is None else "sharded"
 
     def sim_config(self):
-        """The equivalent :class:`repro_torch.core.sim.SimConfig`."""
+        """The equivalent :class:`repro_torch.core.sim.SimConfig` (for an
+        ensemble: member 0's scalars)."""
         from repro_torch.core.sim import SimConfig
+        temp, seed = self.temperature, self.seed
+        if self.batch is not None:
+            temp, seed = self.batch.members[0]
         return SimConfig(n=self.lattice.n, m=self.lattice.m,
-                         temperature=self.temperature, seed=self.seed,
+                         temperature=temp, seed=seed,
                          engine=self.engine.name,
                          init_p_up=self.lattice.init_p_up,
                          **self.engine.param_dict)

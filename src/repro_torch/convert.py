@@ -9,6 +9,8 @@ package holds the int8 planes as int8 tensors and the uint32 planes as
 int32 tensors with the same bits (PyTorch has no uint32 arithmetic on
 the CPU); the numpy side is always uint32, since the digest framing
 writes the dtype.
+An ensemble's arrays carry the batch axis first, ``(B, n, w)`` planes
+under the same names, in both packages.
 Together with the shared ``.npz`` layout (``spec_json``, ``step_count``,
 ``state_<name>``), a run saved by either package restores in the other.
 """
@@ -25,19 +27,21 @@ _HOLDER = {np.dtype(np.int8): np.int8, np.dtype(np.uint32): np.int32}
 
 
 def state_from_reference(arrays, device, keys=("black", "white"),
-                         dtype=np.int8):
-    """Two named 2-D numpy planes of ``dtype`` -> two tensors on
-    ``device`` (always copies: the planes are updated in place later, and
-    must not alias the caller's arrays)."""
+                         dtype=np.int8, batched: bool = False):
+    """Two named 2-D numpy planes of ``dtype`` (``batched``: an
+    ensemble's 3-D ``(B, n, w)`` planes) -> two tensors on ``device``
+    (always copies: the planes are updated in place later, and must not
+    alias the caller's arrays)."""
     dtype = np.dtype(dtype)
+    ndim = 3 if batched else 2
     planes = []
     for key in keys:
         if key not in arrays:
             raise ValueError(f"state arrays lack {key!r}: {sorted(arrays)}")
         a = np.asarray(arrays[key])
-        if a.dtype != dtype or a.ndim != 2:
-            raise ValueError(f"state plane {key!r} must be 2-D {dtype}, got "
-                             f"{a.dtype} {a.shape}")
+        if a.dtype != dtype or a.ndim != ndim:
+            raise ValueError(f"state plane {key!r} must be {ndim}-D {dtype}, "
+                             f"got {a.dtype} {a.shape}")
         host = np.ascontiguousarray(a).view(_HOLDER[dtype])
         planes.append(torch.tensor(host, device=device))
     if planes[0].shape != planes[1].shape:
@@ -48,7 +52,8 @@ def state_from_reference(arrays, device, keys=("black", "white"),
 
 def state_to_reference(state, keys=("black", "white"), dtype=np.int8) -> dict:
     """Two tensors -> host numpy copies of ``dtype`` under ``keys``, the
-    JAX engine's ``state_arrays()`` layout."""
+    JAX engine's ``state_arrays()`` layout (an ensemble's ``(B, n, w)``
+    planes as they are: the JAX ensemble's layout)."""
     return {k: p.detach().cpu().numpy().view(dtype).copy()
             for k, p in zip(keys, state)}
 

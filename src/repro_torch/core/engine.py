@@ -21,8 +21,13 @@ Protocol:
 
 Counter-based engines draw from Philox addressed by (seed, half-sweep
 offset, site), so a run continues its stream bit for bit from any
-``step_count``, and both tiers of ``sweep_fn`` draw the same stream.  On
-a mesh (``api.session._ShardedRunner``) an engine's ``dist_factory`` and
+``step_count``, and both tiers of ``sweep_fn`` draw the same stream.
+They also advance an ensemble's members at once (``sweep_fn_batched``:
+``(B, n, w)`` planes, an inverse temperature and a seed a member, one
+shared offset, as the JAX package's ``vmap`` of ``sweep_fn`` over
+``in_axes=(0, 0, 0, None)``), each member on the trajectory of its own
+single-mode run; ``sweep_fn`` is its batch of one.  On a mesh
+(``api.session._ShardedRunner``) an engine's ``dist_factory`` and
 ``shard_family`` name its two sharded tiers, and ``init_block`` makes a
 shard's part of a fresh lattice.
 """
@@ -79,6 +84,10 @@ class Engine:
     """Base class: holds the config and the device, defines the protocol."""
 
     name: ClassVar[str]
+    #: the JAX registry's flag: a Philox engine whose sweep is a function
+    #: of (state, inverse temperature, seed, offset), so that an ensemble
+    #: (``BatchSpec``) may batch it
+    counter_based: ClassVar[bool] = False
     #: engine-specific config knobs (``EngineSpec.params`` is checked
     #: against them)
     param_fields: ClassVar[tuple] = ()
@@ -144,14 +153,17 @@ class CounterEngine(Engine):
     """Counter-based (Philox skip-ahead) engines, with two tiers.
 
     Subclasses implement ``color_update`` (one half-sweep) and, where a
-    k-sweep kernel exists, ``resident_sweeps``.  At construction the
+    k-sweep kernel exists, ``resident_sweeps``, both on ``(B, n, w)``
+    planes with a table and a seed a member.  At construction the
     planner (``repro_torch.kernels.resident``) decides whether this
-    lattice runs k sweeps per launch; ``sweep_fn`` then routes every
-    block of sweeps through it, or else through the per-half-sweep loop.
-    Both tiers use the counter layout of ``rng.half_sweep_offset``, so
-    which one ran cannot be seen in the trajectory.
+    lattice runs k sweeps per launch; ``sweep_fn_batched`` then routes
+    every block of sweeps through it, or else through the per-half-sweep
+    loop, and ``sweep_fn`` is its batch of one.  Both tiers use the
+    counter layout of ``rng.half_sweep_offset``, so which one ran cannot
+    be seen in the trajectory.
     """
 
+    counter_based = True
     #: planner family of the k-sweep tier; ``None``: no k-sweep kernel
     resident_family: ClassVar[Optional[str]] = None
 
@@ -165,13 +177,13 @@ class CounterEngine(Engine):
                 self.resident_family, config.n, config.m,
                 budget_bytes=resident_budget_bytes)
 
-    def color_update(self, target, op, table, is_black, seed, offset):
-        """One half-sweep of ``target`` against ``op``."""
+    def color_update(self, targets, ops, tables, is_black, seeds, offset):
+        """One half-sweep of every member's target plane."""
         raise NotImplementedError
 
-    def resident_sweeps(self, state, table, seed, start_offset,
+    def resident_sweeps(self, states, tables, seeds, start_offset,
                         n_sweeps: int):
-        """``n_sweeps`` full sweeps through the k-sweep kernel tier."""
+        """``n_sweeps`` sweeps of every member through the k-sweep tier."""
         raise NotImplementedError
 
     def sweep_context(self, inv_temp) -> torch.Tensor:
@@ -180,25 +192,93 @@ class CounterEngine(Engine):
         host."""
         return metro.acceptance_table(inv_temp)
 
-    def sweep_fn(self, state, inv_temp, seed, start_offset, n_sweeps: int):
-        """``n_sweeps`` x (black, white) half-sweeps at offsets
-        ``half_sweep_offset(start_offset, i, colour)``."""
-        table = self.sweep_context(inv_temp)
+    def sweep_fn_batched(self, states, inv_temps, seeds, start_offset,
+                         n_sweeps: int):
+        """``n_sweeps`` x (black, white) half-sweeps of every member (its
+        inverse temperature and seed) at the shared offsets
+        ``half_sweep_offset(start_offset, i, colour)``, on the tier the
+        plan chose: it depends on (n, m) alone, so every member shares
+        it.  Each block of sweeps (or half-sweep) is one launch of the
+        kernel's member axis for all members."""
+        tables = [self.sweep_context(beta) for beta in inv_temps]
+        seeds = [int(s) for s in seeds]
         if self.resident_plan is not None and n_sweeps > 0:
-            return tuple(self.resident_sweeps(state, table, seed,
-                                              start_offset, n_sweeps))
-        b, w = state
+            return tuple(self.resident_sweeps(
+                states, tables, seeds, start_offset, n_sweeps))
+        b, w = states
         for i in range(n_sweeps):
-            b = self.color_update(b, w, table, True, seed,
+            b = self.color_update(b, w, tables, True, seeds,
                                   rng.half_sweep_offset(start_offset, i, 0))
-            w = self.color_update(w, b, table, False, seed,
+            w = self.color_update(w, b, tables, False, seeds,
                                   rng.half_sweep_offset(start_offset, i, 1))
         return (b, w)
+
+    def sweep_fn(self, state, inv_temp, seed, start_offset, n_sweeps: int):
+        """:meth:`sweep_fn_batched` of one member: the planes viewed as a
+        batch of one, which launches the kernels' single-member
+        instances; returns views of member 0's planes."""
+        states = tuple(p[None] for p in state)
+        return self.member(self.sweep_fn_batched(
+            states, [inv_temp], [seed], start_offset, n_sweeps), 0)
 
     def scan_step(self, state, inv_temp, seed, step_count, n_sweeps: int):
         # one half-sweep offset per colour: cumulative offset = 2 * sweeps
         return self.sweep_fn(state, inv_temp, seed,
                              (2 * int(step_count)) & rng.MASK32, n_sweeps)
+
+    def scan_step_batched(self, states, inv_temps, seeds, step_count,
+                          n_sweeps: int):
+        return self.sweep_fn_batched(states, inv_temps, seeds,
+                                     (2 * int(step_count)) & rng.MASK32,
+                                     n_sweeps)
+
+    # -- ensembles: (B, n, w) planes, one member a leading index --------
+
+    def init_states(self, seeds):
+        """Every member's fresh state, stacked: member i's is the
+        single-mode fresh state of seed i, made one member at a time."""
+        stacked = None
+        for i, seed in enumerate(seeds):
+            member = self.init_member(int(seed))
+            if stacked is None:
+                stacked = tuple(torch.empty((len(seeds), *p.shape),
+                                            dtype=p.dtype, device=p.device)
+                                for p in member)
+            for dst, src in zip(stacked, member):
+                dst[i] = src
+            del member
+        return stacked
+
+    def init_member(self, seed: int):
+        """The fresh state of the config's lattice for ``seed``."""
+        raise NotImplementedError
+
+    @staticmethod
+    def member(states, i: int):
+        """Member ``i``'s state: views of its planes."""
+        return tuple(p[i] for p in states)
+
+    def each_member(self, fn, states) -> torch.Tensor:
+        """``fn(member state)`` of each member, stacked: the observables
+        of an ensemble, one member's planes at a time, so that no
+        temporary grows with the batch."""
+        return torch.stack([fn(self.member(states, i))
+                            for i in range(states[0].shape[0])])
+
+    def magnetizations(self, states) -> torch.Tensor:
+        """(B,) float32: each member's :meth:`magnetization`."""
+        return self.each_member(self.magnetization, states)
+
+    def full_lattices(self, states) -> torch.Tensor:
+        """(B, N, M): each member's :meth:`full_lattice`."""
+        return self.each_member(self.full_lattice, states)
+
+    def observables_batched(self, states, inv_temps) -> dict:
+        """Each member's :meth:`observables`, stacked: ``{field: (B,)}``,
+        or ``(B, 32)`` for the bitplane engines' per-replica values."""
+        per = [self.observables(self.member(states, i), beta)
+               for i, beta in enumerate(inv_temps)]
+        return {k: torch.stack([o[k] for o in per]) for k in per[0]}
 
 
 class _TwoPlaneEngine(CounterEngine):
@@ -212,24 +292,35 @@ class _TwoPlaneEngine(CounterEngine):
     col_divisor: ClassVar[int] = 2
 
     def init_state(self):
-        cfg = self.cfg
-        return self.init_block((0, cfg.n), (0, cfg.m), self.device)
+        return self.init_member(self.cfg.seed)
 
-    def init_block(self, rows, cols, device):
+    def init_member(self, seed: int):
+        cfg = self.cfg
+        return self.init_block((0, cfg.n), (0, cfg.m), self.device, seed)
+
+    def init_block(self, rows, cols, device, seed=None):
         """The fresh planes of the lattice block ``rows`` x ``cols``
-        (``(start, stop)`` lattice ranges, the start even) on ``device``:
-        what :meth:`init_state` holds there, so that each shard of a
-        sharded run makes its own part."""
+        (``(start, stop)`` lattice ranges, the start even) on ``device``,
+        drawn for ``seed`` (default: the config's): what
+        :meth:`init_state` holds there, so that each shard of a sharded
+        run makes its own part."""
         raise NotImplementedError
 
     def state_arrays(self, state) -> dict:
+        """Named host arrays of the planes; an ensemble's ``(B, n, w)``,
+        as the JAX package's ensemble checkpoint holds them."""
         return convert.state_to_reference(state, self.plane_keys,
                                           self.plane_dtype)
 
-    def from_arrays(self, arrays: dict):
+    def from_arrays(self, arrays: dict, members: Optional[int] = None):
+        """The state of named host arrays: ``(n, w)`` planes, or an
+        ensemble's ``(members, n, w)``."""
         black, white = convert.state_from_reference(
-            arrays, self.device, self.plane_keys, self.plane_dtype)
+            arrays, self.device, self.plane_keys, self.plane_dtype,
+            batched=members is not None)
         want = (self.cfg.n, self.cfg.m // self.col_divisor)
+        if members is not None:
+            want = (members, *want)
         if tuple(black.shape) != want:
             raise ValueError(f"state planes are {tuple(black.shape)}, the "
                              f"{self.cfg.n}x{self.cfg.m} lattice needs {want}")
@@ -254,10 +345,11 @@ class StencilPallasEngine(_TwoPlaneEngine):
     dist_factory = "basic"
     shard_family = "stencil"
 
-    def init_block(self, rows, cols, device):
+    def init_block(self, rows, cols, device, seed=None):
         cfg = self.cfg
-        return lat.init_planes(cfg.n, cfg.m, cfg.init_p_up, cfg.seed,
-                               device, rows, cols)
+        return lat.init_planes(cfg.n, cfg.m, cfg.init_p_up,
+                               cfg.seed if seed is None else seed, device,
+                               rows, cols)
 
     def full_lattice(self, state) -> torch.Tensor:
         return lat.merge_checkerboard(*state)
@@ -269,16 +361,20 @@ class StencilPallasEngine(_TwoPlaneEngine):
         return {"m": obs.magnetization(*state),
                 "e": obs.energy_per_spin(*state)}
 
-    def color_update(self, target, op, table, is_black, seed, offset):
-        from repro_torch.kernels.stencil import stencil_update
-        return stencil_update(target, op, table, is_black=is_black,
-                              seed=seed, offset=offset)
+    def color_update(self, targets, ops, tables, is_black, seeds,
+                     offset):
+        from repro_torch.kernels.stencil import stencil_update_batched
+        return stencil_update_batched(targets, ops, tables,
+                                      is_black=is_black, seeds=seeds,
+                                      offset=offset)
 
-    def resident_sweeps(self, state, table, seed, start_offset, n_sweeps):
-        from repro_torch.kernels.stencil import stencil_sweeps_resident
-        return stencil_sweeps_resident(*state, table, n_sweeps=n_sweeps,
-                                       seed=seed, start_offset=start_offset,
-                                       plan=self.resident_plan)
+    def resident_sweeps(self, states, tables, seeds, start_offset,
+                        n_sweeps):
+        from repro_torch.kernels.stencil import \
+            stencil_sweeps_resident_batched
+        return stencil_sweeps_resident_batched(
+            *states, tables, n_sweeps=n_sweeps, seeds=seeds,
+            start_offset=start_offset, plan=self.resident_plan)
 
 
 class _WordPlanesEngine(_TwoPlaneEngine):
@@ -321,10 +417,11 @@ class MultispinEngine(_WordPlanesEngine):
                 f"uint32 word: the compact plane width m/2 must be a "
                 f"multiple of {lat.SPINS_PER_WORD}, got m={m}")
 
-    def init_block(self, rows, cols, device):
+    def init_block(self, rows, cols, device, seed=None):
         cfg = self.cfg
         return ms.pack_lattice(*lat.init_planes(
-            cfg.n, cfg.m, cfg.init_p_up, cfg.seed, device, rows, cols))
+            cfg.n, cfg.m, cfg.init_p_up, cfg.seed if seed is None else seed,
+            device, rows, cols))
 
     def full_lattice(self, state) -> torch.Tensor:
         return lat.merge_checkerboard(*ms.unpack_lattice(*state))
@@ -337,16 +434,20 @@ class MultispinEngine(_WordPlanesEngine):
         return {"m": obs.magnetization(*planes),
                 "e": obs.energy_per_spin(*planes)}
 
-    def color_update(self, target, op, table, is_black, seed, offset):
-        from repro_torch.kernels.multispin import multispin_update
-        return multispin_update(target, op, table, is_black=is_black,
-                                seed=seed, offset=offset)
+    def color_update(self, targets, ops, tables, is_black, seeds,
+                     offset):
+        from repro_torch.kernels.multispin import multispin_update_batched
+        return multispin_update_batched(targets, ops, tables,
+                                        is_black=is_black, seeds=seeds,
+                                        offset=offset)
 
-    def resident_sweeps(self, state, table, seed, start_offset, n_sweeps):
-        from repro_torch.kernels.multispin import multispin_sweeps_resident
-        return multispin_sweeps_resident(*state, table, n_sweeps=n_sweeps,
-                                         seed=seed, start_offset=start_offset,
-                                         plan=self.resident_plan)
+    def resident_sweeps(self, states, tables, seeds, start_offset,
+                        n_sweeps):
+        from repro_torch.kernels.multispin import \
+            multispin_sweeps_resident_batched
+        return multispin_sweeps_resident_batched(
+            *states, tables, n_sweeps=n_sweeps, seeds=seeds,
+            start_offset=start_offset, plan=self.resident_plan)
 
 
 @register
@@ -392,9 +493,10 @@ class BitplaneEngine(_WordPlanesEngine):
                 f"group: the compact plane width m/2 must be a multiple "
                 f"of 4, got m={m}")
 
-    def init_block(self, rows, cols, device):
+    def init_block(self, rows, cols, device, seed=None):
         cfg = self.cfg
-        return bp.init_words(cfg.n, cfg.m, cfg.init_p_up, cfg.seed, device,
+        return bp.init_words(cfg.n, cfg.m, cfg.init_p_up,
+                             cfg.seed if seed is None else seed, device,
                              rows, cols)
 
     def full_lattice(self, state) -> torch.Tensor:
@@ -410,16 +512,20 @@ class BitplaneEngine(_WordPlanesEngine):
         """Per-replica vectors: ``{"m": (32,), "e": (32,)}``."""
         return bp.replica_observables(*state)
 
-    def color_update(self, target, op, table, is_black, seed, offset):
-        from repro_torch.kernels.bitplane import bitplane_update
-        return bitplane_update(target, op, table, is_black=is_black,
-                               seed=seed, offset=offset)
+    def color_update(self, targets, ops, tables, is_black, seeds,
+                     offset):
+        from repro_torch.kernels.bitplane import bitplane_update_batched
+        return bitplane_update_batched(targets, ops, tables,
+                                       is_black=is_black, seeds=seeds,
+                                       offset=offset)
 
-    def resident_sweeps(self, state, table, seed, start_offset, n_sweeps):
-        from repro_torch.kernels.bitplane import bitplane_sweeps_resident
-        return bitplane_sweeps_resident(*state, table, n_sweeps=n_sweeps,
-                                        seed=seed, start_offset=start_offset,
-                                        plan=self.resident_plan)
+    def resident_sweeps(self, states, tables, seeds, start_offset,
+                        n_sweeps):
+        from repro_torch.kernels.bitplane import \
+            bitplane_sweeps_resident_batched
+        return bitplane_sweeps_resident_batched(
+            *states, tables, n_sweeps=n_sweeps, seeds=seeds,
+            start_offset=start_offset, plan=self.resident_plan)
 
 
 @register
@@ -453,6 +559,9 @@ class TensorCoreEngine(CounterEngine):
     """
 
     name = "tensorcore"
+    # the JAX engine of this name draws from jax.random and is refused in
+    # a batch; so is this one, which adds no feature the JAX package lacks
+    counter_based = False
     param_fields = ("tc_block",)
 
     @classmethod

@@ -76,11 +76,21 @@
 // a table of another layout takes the general accept, the OR over the 10
 // classes of class mask & (draw < t_class) (Accept<false>), the second
 // instantiation of each kernel.  Both give the same bits.
+//
+// Ensembles (common.cuh): bitplane_update and bitplane_sweeps_resident
+// also run B members' stacked planes in one launch, blockIdx.z the
+// member, each member's accept (t4 and t8, or its 10 thresholds) and
+// Philox keys one record of a __grid_constant__ parameter (their kBatch
+// instances; the shard kernel runs one member): what jax.vmap makes of
+// the two pallas_calls under repro.api.session._EnsembleRunner.  A launch
+// takes the three-threshold accept only where every member's table has
+// a ferromagnet's layout, else the general one for all its members.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 #include "philox.cuh"
@@ -183,13 +193,27 @@ __device__ __forceinline__ uint4 update_group(uint4 tv, uint4 uv, uint4 dv,
                     update_word(tv.w, uv.w, dv.w, cv.w, sv.w, r.w, acc));
 }
 
-// grid (n, ceil(h / 4 / blockDim.x)): blockIdx.x is the row
+// A member's record of bitplane_update: its accept and key.
 template <bool kThree>
-__global__ void bitplane_update_kernel(uint32_t* __restrict__ target,
-                                       const uint32_t* __restrict__ op,
-                                       int n, int h, int is_black,
-                                       Accept<kThree> acc, uint32_t k0,
-                                       uint32_t k1, uint32_t offset) {
+struct UpdateMember {
+  Accept<kThree> acc;
+  uint32_t k0, k1;
+};
+
+// grid (n, ceil(h / 4 / blockDim.x), members): blockIdx.x is the row
+template <bool kThree, bool kBatch>
+__global__ void bitplane_update_kernel(
+    uint32_t* __restrict__ target, const uint32_t* __restrict__ op, int n,
+    int h, int is_black,
+    const __grid_constant__ repro_torch::Members<UpdateMember<kThree>, kBatch>
+        members,
+    uint32_t offset) {
+  const int member = repro_torch::member_index<kBatch>();
+  const Accept<kThree>& acc = members.v[member].acc;
+  const uint32_t k0 = members.v[member].k0;
+  const uint32_t k1 = members.v[member].k1;
+  target += repro_torch::member_offset(member, n, h);
+  op += repro_torch::member_offset(member, n, h);
   const int row = blockIdx.x;
   const int groups = h / kGroup;
   const int gc = blockIdx.y * blockDim.x + threadIdx.x;
@@ -255,6 +279,14 @@ __host__ __device__ inline size_t shard_smem_bytes(int tile_r, int tile_c,
   const size_t ec = ext_words(tile_c, n_sweeps);
   return 2 * 4 * er * ec + (4 + 1) * er * (ec / kGroup);
 }
+
+// A member's record of the k-sweep and shard kernels: its accept and key
+// schedule.
+template <bool kThree>
+struct SweepMember {
+  Accept<kThree> acc;
+  PhiloxKeys keys;
+};
 
 // Where a block's extended tile sits: rows r0.., words c0.. of an n x w
 // plane (both may lie off the plane and wrap); er rows of ew words hold
@@ -426,18 +458,27 @@ __device__ __forceinline__ void load_tile(
 // n_sweeps sweeps of one extended tile; the k-sweep kernel (kShard
 // false) keys each group on the lattice group row * (w / 4) + column,
 // the shard kernel on the group index staged from gidx.  grid (ceil(w /
-// tile_c), ceil(n / tile_r)), 1-D blocks of whole warps, at most 512.
-// The k-sweep kernel takes w and tile_c multiples of 4 and 16-byte
-// aligned planes; the shard kernel any (vec: every plane pointer is
-// 16-byte aligned).
-template <bool kShard, bool kThree>
+// tile_c), ceil(n / tile_r), members), 1-D blocks of whole warps, at
+// most 512.  The k-sweep kernel takes w and tile_c multiples of 4 and
+// 16-byte aligned planes; the shard kernel any (vec: every plane pointer
+// is 16-byte aligned).
+template <bool kShard, bool kThree, bool kBatch>
 __global__ void __launch_bounds__(512) bitplane_sweeps_kernel(
     const uint32_t* __restrict__ b_in, const uint32_t* __restrict__ w_in,
     const uint32_t* __restrict__ gidx, const uint32_t* __restrict__ lane,
     uint32_t* __restrict__ b_out, uint32_t* __restrict__ w_out, int n, int w,
-    Accept<kThree> acc, PhiloxKeys keys, uint32_t start, int n_sweeps,
-    int tile_r, int tile_c, int vec) {
+    const __grid_constant__ repro_torch::Members<SweepMember<kThree>, kBatch>
+        members,
+    uint32_t start, int n_sweeps, int tile_r, int tile_c, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int member = repro_torch::member_index<kBatch>();
+  const Accept<kThree>& acc = members.v[member].acc;
+  const PhiloxKeys& keys = members.v[member].keys;
+  const size_t plane = repro_torch::member_offset(member, n, w);
+  b_in += plane;
+  w_in += plane;
+  b_out += plane;
+  w_out += plane;
   const int halo = 2 * n_sweeps;
   const int hl = col_halo(n_sweeps);
   const int by = static_cast<int>(blockIdx.y);
@@ -518,64 +559,100 @@ int aligned16(std::initializer_list<const void*> ptrs) {
   return 1;
 }
 
-// Launch the sweeps kernel with a given accept; returns the CUDA error
-// (0: launched).
-template <bool kShard, bool kThree>
-int launch_sweeps(Accept<kThree> acc, const void* b_in, const void* w_in,
-                  const void* gidx, const void* lane, void* b_out,
-                  void* w_out, int n, int w, uint32_t k0, uint32_t k1,
+// The accept of member i: Accept<true> of t4 and t8 (n_thr 2) or
+// Accept<false> of t[s * 5 + c] (n_thr 10), from thr + n_thr * i.
+template <bool kThree>
+Accept<kThree> accept_of(const uint32_t* thr, int i);
+
+template <>
+Accept<true> accept_of<true>(const uint32_t* thr, int i) {
+  return Accept<true>{thr[2 * i], thr[2 * i + 1]};
+}
+
+template <>
+Accept<false> accept_of<false>(const uint32_t* thr, int i) {
+  return Accept<false>{make_thresholds(thr + repro_torch::kClasses * i)};
+}
+
+// Launch the sweeps kernel with a given accept and members; returns the
+// CUDA error (0: launched).
+template <bool kShard, bool kThree, bool kBatch>
+int launch_sweeps(const uint32_t* thr, const uint32_t* keys, int members,
+                  const void* b_in, const void* w_in, const void* gidx,
+                  const void* lane, void* b_out, void* w_out, int n, int w,
                   uint32_t start, int n_sweeps, int tile_r, int tile_c,
                   int threads, void* stream) {
+  using Rec = SweepMember<kThree>;
   if (threads < 32 || threads > 512 || threads % 32 || n_sweeps < 1 ||
       tile_r < 1 || tile_c < 1 ||
-      (!kShard && (w % kGroup || tile_c % kGroup))) {
+      (!kShard && (w % kGroup || tile_c % kGroup)) ||
+      repro_torch::check_members<Rec>(members)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = kShard ? shard_smem_bytes(tile_r, tile_c, n_sweeps)
                              : resident_smem_bytes(tile_r, tile_c, n_sweeps);
   cudaError_t err = cudaFuncSetAttribute(
-      bitplane_sweeps_kernel<kShard, kThree>,
+      bitplane_sweeps_kernel<kShard, kThree, kBatch>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, or the next launch would report it
     return static_cast<int>(err);
   }
-  const dim3 grid((w + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r);
-  bitplane_sweeps_kernel<kShard, kThree>
+  repro_torch::Members<Rec, kBatch> records;
+  for (int i = 0; i < members; ++i) {
+    records.v[i].acc = accept_of<kThree>(thr, i);
+    records.v[i].keys = PhiloxKeys(keys[2 * i], keys[2 * i + 1]);
+  }
+  const dim3 grid((w + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r,
+                  members);
+  bitplane_sweeps_kernel<kShard, kThree, kBatch>
       <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint32_t*>(b_in),
           static_cast<const uint32_t*>(w_in),
           static_cast<const uint32_t*>(gidx),
           static_cast<const uint32_t*>(lane), static_cast<uint32_t*>(b_out),
-          static_cast<uint32_t*>(w_out), n, w, acc, PhiloxKeys(k0, k1), start,
-          n_sweeps, tile_r, tile_c,
-          aligned16({b_in, w_in, gidx, lane, b_out, w_out}));
+          static_cast<uint32_t*>(w_out), n, w, records, start, n_sweeps,
+          tile_r, tile_c, aligned16({b_in, w_in, gidx, lane, b_out, w_out}));
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch(acc) with the accept of n_thr thresholds: Accept<true> of t4
-// and t8 (2) or Accept<false> of t[s * 5 + c] (10); returns the CUDA
-// error.
+// launch(three, batch) for the accept of n_thr thresholds a member (2:
+// the three-threshold accept, 10: the general one) and `members`
+// members, as std::integral_constant tags; returns the CUDA error.
 template <class Launch>
-int with_accept(const uint32_t* thr, int n_thr, Launch launch) {
-  if (n_thr == 2) return launch(Accept<true>{thr[0], thr[1]});
+int with_accept(int n_thr, int members, Launch launch) {
+  using T = std::true_type;
+  using F = std::false_type;
+  if (n_thr == 2) {
+    return members > 1 ? launch(T{}, T{}) : launch(T{}, F{});
+  }
   if (n_thr == repro_torch::kClasses) {
-    return launch(Accept<false>{make_thresholds(thr)});
+    return members > 1 ? launch(F{}, T{}) : launch(F{}, F{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool kThree>
-int launch_update(Accept<kThree> acc, void* target, const void* op, int n,
-                  int h, int is_black, uint32_t k0, uint32_t k1,
+template <bool kThree, bool kBatch>
+int launch_update(const uint32_t* thr, const uint32_t* keys, int members,
+                  void* target, const void* op, int n, int h, int is_black,
                   uint32_t offset, void* stream) {
+  using Rec = UpdateMember<kThree>;
+  if (repro_torch::check_members<Rec>(members)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  repro_torch::Members<Rec, kBatch> records;
+  for (int i = 0; i < members; ++i) {
+    records.v[i].acc = accept_of<kThree>(thr, i);
+    records.v[i].k0 = keys[2 * i];
+    records.v[i].k1 = keys[2 * i + 1];
+  }
   const int groups = h / kGroup;
   const int threads = groups >= 256 ? 256 : ((groups + 31) / 32) * 32;
-  const dim3 grid(n, (groups + threads - 1) / threads);
-  bitplane_update_kernel<kThree>
+  const dim3 grid(n, (groups + threads - 1) / threads, members);
+  bitplane_update_kernel<kThree, kBatch>
       <<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<uint32_t*>(target), static_cast<const uint32_t*>(op),
-          n, h, is_black, acc, k0, k1, offset);
+          n, h, is_black, records, offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -583,16 +660,28 @@ int launch_update(Accept<kThree> acc, void* target, const void* op, int n,
 
 extern "C" {
 
-// thr, n_thr: t4 and t8 (2) for the three-threshold accept, or the 10
-// thresholds (10) for the general one
+// thr, n_thr: per member t4 and t8 (2) for the three-threshold accept, or
+// the 10 thresholds (10) for the general one; keys: the members' (k0, k1)
+// pairs; members 1 or a batch of stacked planes
+
+// The most members one batched launch of this library takes.
+int bitplane_max_members() {
+  const int m[] = {repro_torch::max_members<UpdateMember<true>>(),
+                   repro_torch::max_members<UpdateMember<false>>(),
+                   repro_torch::max_members<SweepMember<true>>(),
+                   repro_torch::max_members<SweepMember<false>>()};
+  int out = m[0];
+  for (int v : m) out = v < out ? v : out;
+  return out;
+}
 
 int bitplane_update_launch(void* target, const void* op, int n, int h,
                            int is_black, const uint32_t* thr, int n_thr,
-                           uint32_t k0, uint32_t k1, uint32_t offset,
-                           void* stream) {
-  return with_accept(thr, n_thr, [&](auto acc) {
-    return launch_update(acc, target, op, n, h, is_black, k0, k1, offset,
-                         stream);
+                           const uint32_t* keys, int members,
+                           uint32_t offset, void* stream) {
+  return with_accept(n_thr, members, [&](auto three, auto batch) {
+    return launch_update<decltype(three)::value, decltype(batch)::value>(
+        thr, keys, members, target, op, n, h, is_black, offset, stream);
   });
 }
 
@@ -603,13 +692,14 @@ long long bitplane_resident_smem_bytes(int tile_r, int tile_c, int n_sweeps) {
 int bitplane_sweeps_resident_launch(const void* b_in, const void* w_in,
                                     void* b_out, void* w_out, int n, int h,
                                     const uint32_t* thr, int n_thr,
-                                    uint32_t k0, uint32_t k1, uint32_t start,
-                                    int n_sweeps, int tile_r, int tile_c,
-                                    int threads, void* stream) {
-  return with_accept(thr, n_thr, [&](auto acc) {
-    return launch_sweeps<false>(acc, b_in, w_in, nullptr, nullptr, b_out,
-                                w_out, n, h, k0, k1, start, n_sweeps, tile_r,
-                                tile_c, threads, stream);
+                                    const uint32_t* keys, int members,
+                                    uint32_t start, int n_sweeps, int tile_r,
+                                    int tile_c, int threads, void* stream) {
+  return with_accept(n_thr, members, [&](auto three, auto batch) {
+    return launch_sweeps<false, decltype(three)::value,
+                         decltype(batch)::value>(
+        thr, keys, members, b_in, w_in, nullptr, nullptr, b_out, w_out, n, h,
+        start, n_sweeps, tile_r, tile_c, threads, stream);
   });
 }
 
@@ -624,10 +714,11 @@ int bitplane_shard_sweeps_launch(const void* b_in, const void* w_in,
                                  uint32_t k1, uint32_t start, int n_sweeps,
                                  int tile_r, int tile_c, int threads,
                                  void* stream) {
-  return with_accept(thr, n_thr, [&](auto acc) {
-    return launch_sweeps<true>(acc, b_in, w_in, gidx, lane, b_out, w_out, n,
-                               w, k0, k1, start, n_sweeps, tile_r, tile_c,
-                               threads, stream);
+  const uint32_t keys[2] = {k0, k1};
+  return with_accept(n_thr, 1, [&](auto three, auto) {
+    return launch_sweeps<true, decltype(three)::value, false>(
+        thr, keys, 1, b_in, w_in, gidx, lane, b_out, w_out, n, w, start,
+        n_sweeps, tile_r, tile_c, threads, stream);
   });
 }
 

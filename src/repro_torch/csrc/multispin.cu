@@ -47,7 +47,8 @@
 //   whole extended plane, its edge rings included.  Input and output
 //   planes must differ.
 //
-//   Both run one word loop (multispin_sweeps_kernel<kShard>).  Bound:
+//   Both run one word loop (multispin_sweeps_kernel<kShard>, and its
+//   member axis multispin_sweeps_members_kernel).  Bound:
 //   instruction issue, not bytes (a word moves 8 bytes a launch but needs
 //   two Philox calls and 8 compares, some 140 instructions).  On an H100
 //   the integer costs add rather than overlap: the paired Philox alone
@@ -78,6 +79,14 @@
 //   kernel without them, repro_torch.analysis.ablate), so the up and
 //   centre words are not kept in registers down a column.  No tensor
 //   cores, TMA or wgmma: the work is integer issue.
+//
+// Ensembles (common.cuh): multispin_update and multispin_sweeps_resident
+// also run B members' stacked word planes in one launch, blockIdx.z the
+// member, each member's thresholds (or key table) and Philox keys one
+// record of a __grid_constant__ parameter (multispin_update's kBatch
+// instance, and multispin_sweeps_members_kernel beside the k-sweep
+// kernel of one member; the shard kernel runs one member): what jax.vmap
+// makes of the two pallas_calls under repro.api.session._EnsembleRunner.
 //
 // multispin_update's accept compares the raw uint32 draw with 10 uint32
 // thresholds passed by value (repro_torch.core.multispin.
@@ -142,12 +151,25 @@ __device__ __forceinline__ uint32_t update_word(uint32_t target, uint32_t nn,
   return target ^ flip;
 }
 
-// grid (n, ceil(w / blockDim.x)): blockIdx.x is the row
-__global__ void multispin_update_kernel(uint32_t* __restrict__ target,
-                                        const uint32_t* __restrict__ op,
-                                        int n, int w, int is_black,
-                                        Thresholds thr, uint32_t k0,
-                                        uint32_t k1, uint32_t offset) {
+// A member's record of multispin_update: its thresholds and key.
+struct UpdateMember {
+  Thresholds thr;
+  uint32_t k0, k1;
+};
+
+// grid (n, ceil(w / blockDim.x), members): blockIdx.x is the row
+template <bool kBatch>
+__global__ void multispin_update_kernel(
+    uint32_t* __restrict__ target, const uint32_t* __restrict__ op, int n,
+    int w, int is_black,
+    const __grid_constant__ repro_torch::Members<UpdateMember, kBatch> members,
+    uint32_t offset) {
+  const int member = repro_torch::member_index<kBatch>();
+  const Thresholds& thr = members.v[member].thr;
+  const uint32_t k0 = members.v[member].k0;
+  const uint32_t k1 = members.v[member].k1;
+  target += repro_torch::member_offset(member, n, w);
+  op += repro_torch::member_offset(member, n, w);
   __shared__ uint32_t s_thr[kClasses];
   load_thresholds(thr, s_thr, threadIdx.x);
   __syncthreads();
@@ -199,6 +221,13 @@ constexpr int kTableBytes = 8 * 256;
 
 struct KeyTable {
   uint32_t v[kKeyClasses];
+};
+
+// A member's record of the k-sweep and shard kernels: its table and key
+// schedule
+struct SweepMember {
+  KeyTable table;
+  repro_torch::PhiloxKeys keys;
 };
 
 // Shared memory of one k-sweep block: the table, then both extended
@@ -367,12 +396,12 @@ __device__ __forceinline__ void load_tile(
 // `words`: w and tile_c are multiples of 4 and every plane pointer is
 // 16-byte aligned.
 template <bool kShard>
-__global__ void __launch_bounds__(512) multispin_sweeps_kernel(
+__device__ __forceinline__ void sweep_tile(
     const uint32_t* __restrict__ b_in, const uint32_t* __restrict__ w_in,
     const uint32_t* __restrict__ widx, uint32_t* __restrict__ b_out,
-    uint32_t* __restrict__ w_out, int n, int w, KeyTable table,
-    repro_torch::PhiloxKeys keys, uint32_t start, int n_sweeps, int tile_r,
-    int tile_c, int words) {
+    uint32_t* __restrict__ w_out, int n, int w, const KeyTable& table,
+    const repro_torch::PhiloxKeys& keys, uint32_t start, int n_sweeps,
+    int tile_r, int tile_c, int words) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int halo = 2 * n_sweeps;
   const int hl = left_halo(n_sweeps);
@@ -450,22 +479,71 @@ __global__ void __launch_bounds__(512) multispin_sweeps_kernel(
   }
 }
 
-// Launch one of the two; returns the CUDA error (0: launched).
+// One member's tile: its table and key schedule by value (the constant
+// bank's operands in the word loop, as before the member axis came:
+// binding them from a __grid_constant__ record of one member cost the
+// loop 4 IMADs a word).
+template <bool kShard>
+__global__ void __launch_bounds__(512) multispin_sweeps_kernel(
+    const uint32_t* __restrict__ b_in, const uint32_t* __restrict__ w_in,
+    const uint32_t* __restrict__ widx, uint32_t* __restrict__ b_out,
+    uint32_t* __restrict__ w_out, int n, int w, KeyTable table,
+    repro_torch::PhiloxKeys keys, uint32_t start, int n_sweeps, int tile_r,
+    int tile_c, int words) {
+  sweep_tile<kShard>(b_in, w_in, widx, b_out, w_out, n, w, table, keys,
+                     start, n_sweeps, tile_r, tile_c, words);
+}
+
+// The member axis of the k-sweep kernel: grid (ceil(w / tile_c), ceil(n /
+// tile_r), members), member blockIdx.z on the planes at its offset with
+// its record.
+__global__ void __launch_bounds__(512) multispin_sweeps_members_kernel(
+    const uint32_t* __restrict__ b_in, const uint32_t* __restrict__ w_in,
+    uint32_t* __restrict__ b_out, uint32_t* __restrict__ w_out, int n, int w,
+    const __grid_constant__ repro_torch::Members<SweepMember, true> members,
+    uint32_t start, int n_sweeps, int tile_r, int tile_c, int words) {
+  const int member = static_cast<int>(blockIdx.z);
+  const size_t plane = repro_torch::member_offset(member, n, w);
+  sweep_tile<false>(b_in + plane, w_in + plane, nullptr, b_out + plane,
+                    w_out + plane, n, w, members.v[member].table,
+                    members.v[member].keys, start, n_sweeps, tile_r, tile_c,
+                    words);
+}
+
+// The records of `members` members from their tables (16 entries each)
+// and key pairs (k0, k1 each).
+repro_torch::Members<SweepMember, true> make_members(const uint32_t* table,
+                                                     const uint32_t* keys,
+                                                     int members) {
+  repro_torch::Members<SweepMember, true> out;
+  for (int i = 0; i < members; ++i) {
+    std::memcpy(out.v[i].table.v, table + kKeyClasses * i,
+                sizeof(out.v[i].table.v));
+    out.v[i].keys = repro_torch::PhiloxKeys(keys[2 * i], keys[2 * i + 1]);
+  }
+  return out;
+}
+
+// Launch one of the three (the shard kernel, the k-sweep kernel of one
+// member or of `members`); returns the CUDA error (0: launched).
 int launch_sweeps(bool shard, const void* b_in, const void* w_in,
                   const void* widx, void* b_out, void* w_out, int n, int w,
-                  const uint32_t* table, uint32_t k0, uint32_t k1,
+                  const uint32_t* table, const uint32_t* keys, int members,
                   uint32_t start, int n_sweeps, int tile_r, int tile_c,
                   int threads, void* stream) {
   if (threads < 32 || threads > 512 || threads % 32 || n_sweeps < 1 ||
-      tile_r < 1 || tile_c < 1) {
+      tile_r < 1 || tile_c < 1 ||
+      repro_torch::check_members<SweepMember>(members) ||
+      (shard && members != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool batch = members > 1;
   const size_t smem = shard ? shard_smem_bytes(tile_r, tile_c, n_sweeps)
                             : resident_smem_bytes(tile_r, tile_c, n_sweeps);
-  const void* kernel = shard ? reinterpret_cast<const void*>(
-                                   multispin_sweeps_kernel<true>)
-                             : reinterpret_cast<const void*>(
-                                   multispin_sweeps_kernel<false>);
+  const void* kernel =
+      shard   ? reinterpret_cast<const void*>(multispin_sweeps_kernel<true>)
+      : batch ? reinterpret_cast<const void*>(multispin_sweeps_members_kernel)
+              : reinterpret_cast<const void*>(multispin_sweeps_kernel<false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -476,25 +554,51 @@ int launch_sweeps(bool shard, const void* b_in, const void* w_in,
   const int words = w % 4 == 0 && tile_c % 4 == 0 && aligned(b_in, 16) &&
                     aligned(w_in, 16) && aligned(b_out, 16) &&
                     aligned(w_out, 16) && (!shard || aligned(widx, 16));
-  KeyTable tab;
-  std::memcpy(tab.v, table, sizeof(tab.v));
-  const repro_torch::PhiloxKeys keys(k0, k1);
-  const dim3 grid((w + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r);
+  const dim3 grid((w + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r,
+                  members);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* bi = static_cast<const uint32_t*>(b_in);
   const uint32_t* wi = static_cast<const uint32_t*>(w_in);
   const uint32_t* gi = static_cast<const uint32_t*>(widx);
   uint32_t* bo = static_cast<uint32_t*>(b_out);
   uint32_t* wo = static_cast<uint32_t*>(w_out);
+  if (batch) {
+    multispin_sweeps_members_kernel<<<grid, threads, smem, s>>>(
+        bi, wi, bo, wo, n, w, make_members(table, keys, members), start,
+        n_sweeps, tile_r, tile_c, words);
+    return static_cast<int>(cudaGetLastError());
+  }
+  KeyTable tab;
+  std::memcpy(tab.v, table, sizeof(tab.v));
+  const repro_torch::PhiloxKeys philox_keys(keys[0], keys[1]);
   if (shard) {
     multispin_sweeps_kernel<true><<<grid, threads, smem, s>>>(
-        bi, wi, gi, bo, wo, n, w, tab, keys, start, n_sweeps, tile_r, tile_c,
-        words);
+        bi, wi, gi, bo, wo, n, w, tab, philox_keys, start, n_sweeps, tile_r,
+        tile_c, words);
   } else {
     multispin_sweeps_kernel<false><<<grid, threads, smem, s>>>(
-        bi, wi, gi, bo, wo, n, w, tab, keys, start, n_sweeps, tile_r, tile_c,
-        words);
+        bi, wi, gi, bo, wo, n, w, tab, philox_keys, start, n_sweeps, tile_r,
+        tile_c, words);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBatch>
+int launch_update(void* target, const void* op, int n, int w, int is_black,
+                  const uint32_t* thr, const uint32_t* keys, int members,
+                  uint32_t offset, void* stream) {
+  repro_torch::Members<UpdateMember, kBatch> records;
+  for (int i = 0; i < members; ++i) {
+    records.v[i].thr = make_thresholds(thr + kClasses * i);
+    records.v[i].k0 = keys[2 * i];
+    records.v[i].k1 = keys[2 * i + 1];
+  }
+  const int threads = w >= 256 ? 256 : ((w + 31) / 32) * 32;
+  const dim3 grid(n, (w + threads - 1) / threads, members);
+  multispin_update_kernel<kBatch>
+      <<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<uint32_t*>(target), static_cast<const uint32_t*>(op), n,
+          w, is_black, records, offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -502,16 +606,27 @@ int launch_sweeps(bool shard, const void* b_in, const void* w_in,
 
 extern "C" {
 
+// The most members one batched launch of this library takes.
+int multispin_max_members() {
+  const int a = repro_torch::max_members<UpdateMember>();
+  const int b = repro_torch::max_members<SweepMember>();
+  return a < b ? a : b;
+}
+
+
+// thr: the members' 10 thresholds each; keys: their (k0, k1) pairs;
+// members 1 or a batch of stacked (n, w) planes
 int multispin_update_launch(void* target, const void* op, int n, int w,
-                            int is_black, const uint32_t* thr, uint32_t k0,
-                            uint32_t k1, uint32_t offset, void* stream) {
-  const int threads = w >= 256 ? 256 : ((w + 31) / 32) * 32;
-  const dim3 grid(n, (w + threads - 1) / threads);
-  multispin_update_kernel<<<grid, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(target), static_cast<const uint32_t*>(op), n, w,
-      is_black, make_thresholds(thr), k0, k1, offset);
-  return static_cast<int>(cudaGetLastError());
+                            int is_black, const uint32_t* thr,
+                            const uint32_t* keys, int members,
+                            uint32_t offset, void* stream) {
+  if (repro_torch::check_members<UpdateMember>(members)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return members > 1 ? launch_update<true>(target, op, n, w, is_black, thr,
+                                           keys, members, offset, stream)
+                     : launch_update<false>(target, op, n, w, is_black, thr,
+                                            keys, 1, offset, stream);
 }
 
 long long multispin_resident_smem_bytes(int tile_r, int tile_c,
@@ -519,15 +634,17 @@ long long multispin_resident_smem_bytes(int tile_r, int tile_c,
   return static_cast<long long>(resident_smem_bytes(tile_r, tile_c, n_sweeps));
 }
 
+// table: the members' 16 key-table entries each; keys: their (k0, k1)
+// pairs
 int multispin_sweeps_resident_launch(const void* b_in, const void* w_in,
                                      void* b_out, void* w_out, int n, int w,
-                                     const uint32_t* table, uint32_t k0,
-                                     uint32_t k1, uint32_t start,
-                                     int n_sweeps, int tile_r, int tile_c,
-                                     int threads, void* stream) {
+                                     const uint32_t* table,
+                                     const uint32_t* keys, int members,
+                                     uint32_t start, int n_sweeps, int tile_r,
+                                     int tile_c, int threads, void* stream) {
   return launch_sweeps(false, b_in, w_in, nullptr, b_out, w_out, n, w, table,
-                       k0, k1, start, n_sweeps, tile_r, tile_c, threads,
-                       stream);
+                       keys, members, start, n_sweeps, tile_r, tile_c,
+                       threads, stream);
 }
 
 long long multispin_shard_smem_bytes(int tile_r, int tile_c, int n_sweeps) {
@@ -540,8 +657,10 @@ int multispin_shard_sweeps_launch(const void* b_in, const void* w_in,
                                   uint32_t k0, uint32_t k1, uint32_t start,
                                   int n_sweeps, int tile_r, int tile_c,
                                   int threads, void* stream) {
-  return launch_sweeps(true, b_in, w_in, widx, b_out, w_out, n, w, table, k0,
-                       k1, start, n_sweeps, tile_r, tile_c, threads, stream);
+  const uint32_t keys[2] = {k0, k1};
+  return launch_sweeps(true, b_in, w_in, widx, b_out, w_out, n, w, table,
+                       keys, 1, start, n_sweeps, tile_r, tile_c, threads,
+                       stream);
 }
 
 }  // extern "C"

@@ -54,6 +54,8 @@ struct PhiloxKeys {
   uint32_t k0[10];
   uint32_t k1[10];
 
+  PhiloxKeys() = default;
+
   __host__ __device__ __forceinline__ PhiloxKeys(uint32_t key0,
                                                  uint32_t key1) {
 #pragma unroll
@@ -71,6 +73,8 @@ struct PhiloxKeys {
 // schedule it takes as a parameter, which so stays in the constant bank.
 class HoistedPhilox {
  public:
+  HoistedPhilox() = default;
+
   __host__ __device__ __forceinline__ HoistedPhilox(uint32_t offset,
                                                     uint32_t key0,
                                                     uint32_t key1)

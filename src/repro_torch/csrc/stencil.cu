@@ -77,6 +77,15 @@
 //   the work is integer issue, neither a product of matrices nor a
 //   stream of bytes.
 //
+// Ensembles (common.cuh): stencil_update and stencil_sweeps_resident
+// also run B members' stacked planes in one launch, blockIdx.z the
+// member, each member's draw bounds and Philox keys (stencil_update: its
+// HoistedPhilox, and its 10 bounds in the device table at 10 x member)
+// one record of a __grid_constant__ parameter (their kBatch instances;
+// the shard kernel runs one member).  Replaces what jax.vmap makes of the
+// two pallas_calls under repro.api.session._EnsembleRunner: one launch
+// whose grid has a member axis.
+//
 // The accept of all three is the 10-entry float32 table (index (s > 0) *
 // 5 + (nn + 4) / 2) built once on the host, never expf, so that the card,
 // the CPU and the reference agree, taken as its exclusive bounds on the
@@ -214,13 +223,19 @@ struct Cells {
   }
 };
 
-// grid (ceil(nw / blockDim.x), ceil(n / kRowsPerThread)): a thread takes
-// word column wc of kRowsPerThread rows, top to bottom
-template <bool kWords>
+// grid (ceil(nw / blockDim.x), ceil(n / kRowsPerThread), members): a
+// thread takes word column wc of kRowsPerThread rows, top to bottom
+template <bool kWords, bool kBatch>
 __global__ void __launch_bounds__(256) stencil_update_kernel(
     int8_t* __restrict__ target, const int8_t* __restrict__ op, int n, int h,
     int is_black, const unsigned long long* __restrict__ bounds,
-    repro_torch::HoistedPhilox philox) {
+    const __grid_constant__ repro_torch::Members<repro_torch::HoistedPhilox,
+                                                 kBatch> philoxes) {
+  const int member = repro_torch::member_index<kBatch>();
+  const repro_torch::HoistedPhilox& philox = philoxes.v[member];
+  target += repro_torch::member_offset(member, n, h);
+  op += repro_torch::member_offset(member, n, h);
+  bounds += kTableSize * member;
   const Cells<kWords> cells{h, (h + 3) >> 2};
   const int wc = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
   if (wc >= cells.nw) return;
@@ -267,6 +282,12 @@ __global__ void __launch_bounds__(256) stencil_update_kernel(
 // metropolis.draw_bounds): 0 never flips, 2^32 always does
 struct DrawBounds {
   unsigned long long v[kTableSize];
+};
+
+// A member's record of the k-sweep and shard kernels: its bounds and key
+struct Member {
+  DrawBounds bounds;
+  uint32_t k0, k1;
 };
 
 // the bounds at the start of a block's shared memory, padded
@@ -425,18 +446,26 @@ __device__ __forceinline__ void load_tile(
 // n_sweeps sweeps of one extended tile; the k-sweep kernel (kShard
 // false) keys each draw on the lattice site row * h + col, the shard
 // kernel on the site index staged from gidx.  grid (ceil(h / tile_c),
-// ceil(n / tile_r)), 1-D blocks of whole warps.  `words`: h and tile_c
-// are multiples of 4 and every plane pointer is 4-byte aligned (gidx 16).
-template <bool kShard>
-__global__ void stencil_sweeps_kernel(const int8_t* __restrict__ b_in,
-                              const int8_t* __restrict__ w_in,
-                              const uint32_t* __restrict__ gidx,
-                              int8_t* __restrict__ b_out,
-                              int8_t* __restrict__ w_out, int n, int h,
-                              DrawBounds bounds, uint32_t k0, uint32_t k1,
-                              uint32_t start, int n_sweeps, int tile_r,
-                              int tile_c, int words) {
+// ceil(n / tile_r), members), 1-D blocks of whole warps.  `words`: h and
+// tile_c are multiples of 4 and every plane pointer is 4-byte aligned
+// (gidx 16).
+template <bool kShard, bool kBatch>
+__global__ void stencil_sweeps_kernel(
+    const int8_t* __restrict__ b_in, const int8_t* __restrict__ w_in,
+    const uint32_t* __restrict__ gidx, int8_t* __restrict__ b_out,
+    int8_t* __restrict__ w_out, int n, int h,
+    const __grid_constant__ repro_torch::Members<Member, kBatch> members,
+    uint32_t start, int n_sweeps, int tile_r, int tile_c, int words) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int member = repro_torch::member_index<kBatch>();
+  const DrawBounds& bounds = members.v[member].bounds;
+  const uint32_t k0 = members.v[member].k0;
+  const uint32_t k1 = members.v[member].k1;
+  const size_t plane = repro_torch::member_offset(member, n, h);
+  b_in += plane;
+  w_in += plane;
+  b_out += plane;
+  w_out += plane;
   const int halo = 2 * n_sweeps;
   const int hl = left_halo(n_sweeps);
   Tile tile;
@@ -508,28 +537,41 @@ __global__ void stencil_sweeps_kernel(const int8_t* __restrict__ b_in,
   }
 }
 
-DrawBounds make_bounds(const unsigned long long* bounds) {
-  DrawBounds b;
-  std::memcpy(b.v, bounds, sizeof(b.v));
-  return b;
+// The records of `members` members from their bounds (10 each) and key
+// pairs (k0, k1 each).
+template <bool kBatch>
+repro_torch::Members<Member, kBatch> make_members(
+    const unsigned long long* bounds, const uint32_t* keys, int members) {
+  repro_torch::Members<Member, kBatch> out;
+  for (int i = 0; i < members; ++i) {
+    std::memcpy(out.v[i].bounds.v, bounds + kTableSize * i,
+                sizeof(out.v[i].bounds.v));
+    out.v[i].k0 = keys[2 * i];
+    out.v[i].k1 = keys[2 * i + 1];
+  }
+  return out;
 }
 
-// Launch one of the two; returns the CUDA error (0: launched).
+// Launch one of the three (the shard kernel, the k-sweep kernel of one
+// member or of `members`); returns the CUDA error (0: launched).
 int launch_sweeps(bool shard, const void* b_in, const void* w_in,
                   const void* gidx, void* b_out, void* w_out, int n, int h,
-                  const unsigned long long* bounds, uint32_t k0, uint32_t k1,
-                  uint32_t start, int n_sweeps, int tile_r, int tile_c,
-                  int threads, void* stream) {
+                  const unsigned long long* bounds, const uint32_t* keys,
+                  int members, uint32_t start, int n_sweeps, int tile_r,
+                  int tile_c, int threads, void* stream) {
   if (threads < 32 || threads > 1024 || threads % 32 || n_sweeps < 1 ||
-      tile_r < 1 || tile_c < 1) {
+      tile_r < 1 || tile_c < 1 ||
+      repro_torch::check_members<Member>(members) || (shard && members != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool batch = members > 1;
   const size_t smem = shard ? shard_smem_bytes(tile_r, tile_c, n_sweeps)
                             : resident_smem_bytes(tile_r, tile_c, n_sweeps);
-  const void* kernel = shard ? reinterpret_cast<const void*>(
-                                   stencil_sweeps_kernel<true>)
-                             : reinterpret_cast<const void*>(
-                                   stencil_sweeps_kernel<false>);
+  const void* kernel =
+      shard ? reinterpret_cast<const void*>(stencil_sweeps_kernel<true, false>)
+      : batch
+          ? reinterpret_cast<const void*>(stencil_sweeps_kernel<false, true>)
+          : reinterpret_cast<const void*>(stencil_sweeps_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -540,7 +582,8 @@ int launch_sweeps(bool shard, const void* b_in, const void* w_in,
   const int words = h % 4 == 0 && tile_c % 4 == 0 && aligned(b_in, 4) &&
                     aligned(w_in, 4) && aligned(b_out, 4) &&
                     aligned(w_out, 4) && (!shard || aligned(gidx, 16));
-  const dim3 grid((h + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r);
+  const dim3 grid((h + tile_c - 1) / tile_c, (n + tile_r - 1) / tile_r,
+                  members);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* bi = static_cast<const int8_t*>(b_in);
   const int8_t* wi = static_cast<const int8_t*>(w_in);
@@ -548,13 +591,44 @@ int launch_sweeps(bool shard, const void* b_in, const void* w_in,
   int8_t* bo = static_cast<int8_t*>(b_out);
   int8_t* wo = static_cast<int8_t*>(w_out);
   if (shard) {
-    stencil_sweeps_kernel<true><<<grid, threads, smem, s>>>(
-        bi, wi, gi, bo, wo, n, h, make_bounds(bounds), k0, k1, start,
+    stencil_sweeps_kernel<true, false><<<grid, threads, smem, s>>>(
+        bi, wi, gi, bo, wo, n, h, make_members<false>(bounds, keys, 1), start,
         n_sweeps, tile_r, tile_c, words);
+  } else if (batch) {
+    stencil_sweeps_kernel<false, true><<<grid, threads, smem, s>>>(
+        bi, wi, gi, bo, wo, n, h, make_members<true>(bounds, keys, members),
+        start, n_sweeps, tile_r, tile_c, words);
   } else {
-    stencil_sweeps_kernel<false><<<grid, threads, smem, s>>>(
-        bi, wi, gi, bo, wo, n, h, make_bounds(bounds), k0, k1, start,
+    stencil_sweeps_kernel<false, false><<<grid, threads, smem, s>>>(
+        bi, wi, gi, bo, wo, n, h, make_members<false>(bounds, keys, 1), start,
         n_sweeps, tile_r, tile_c, words);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBatch>
+int launch_update(void* target, const void* op, int n, int h, int is_black,
+                  const void* bounds, const uint32_t* keys, int members,
+                  uint32_t offset, void* stream) {
+  const int nw = (h + 3) / 4;
+  const int threads = nw >= 256 ? 256 : ((nw + 31) / 32) * 32;
+  const dim3 grid((nw + threads - 1) / threads,
+                  (n + kRowsPerThread - 1) / kRowsPerThread, members);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int8_t* t = static_cast<int8_t*>(target);
+  const int8_t* o = static_cast<const int8_t*>(op);
+  const unsigned long long* b = static_cast<const unsigned long long*>(bounds);
+  repro_torch::Members<repro_torch::HoistedPhilox, kBatch> philoxes;
+  for (int i = 0; i < members; ++i) {
+    philoxes.v[i] =
+        repro_torch::HoistedPhilox(offset, keys[2 * i], keys[2 * i + 1]);
+  }
+  if (h % 4 == 0 && aligned(target, 4) && aligned(op, 4)) {
+    stencil_update_kernel<true, kBatch><<<grid, threads, 0, s>>>(
+        t, o, n, h, is_black, b, philoxes);
+  } else {
+    stencil_update_kernel<false, kBatch><<<grid, threads, 0, s>>>(
+        t, o, n, h, is_black, b, philoxes);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -563,41 +637,41 @@ int launch_sweeps(bool shard, const void* b_in, const void* w_in,
 
 extern "C" {
 
-// bounds: the 10 uint64 draw bounds in device memory
+// The most members one batched launch of this library takes.
+int stencil_max_members() {
+  const int a = repro_torch::max_members<Member>();
+  const int b = repro_torch::max_members<repro_torch::HoistedPhilox>();
+  return a < b ? a : b;
+}
+
+// bounds: the members' 10 uint64 draw bounds each in device memory; keys:
+// their (k0, k1) pairs; members 1 or a batch of stacked (n, h) planes
 int stencil_update_launch(void* target, const void* op, int n, int h,
-                          int is_black, const void* bounds, uint32_t k0,
-                          uint32_t k1, uint32_t offset, void* stream) {
-  const int nw = (h + 3) / 4;
-  const int threads = nw >= 256 ? 256 : ((nw + 31) / 32) * 32;
-  const dim3 grid((nw + threads - 1) / threads,
-                  (n + kRowsPerThread - 1) / kRowsPerThread);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int8_t* t = static_cast<int8_t*>(target);
-  const int8_t* o = static_cast<const int8_t*>(op);
-  const unsigned long long* b = static_cast<const unsigned long long*>(bounds);
-  const repro_torch::HoistedPhilox philox(offset, k0, k1);
-  if (h % 4 == 0 && aligned(target, 4) && aligned(op, 4)) {
-    stencil_update_kernel<true><<<grid, threads, 0, s>>>(t, o, n, h, is_black,
-                                                        b, philox);
-  } else {
-    stencil_update_kernel<false><<<grid, threads, 0, s>>>(t, o, n, h,
-                                                         is_black, b, philox);
+                          int is_black, const void* bounds,
+                          const uint32_t* keys, int members, uint32_t offset,
+                          void* stream) {
+  if (repro_torch::check_members<repro_torch::HoistedPhilox>(members)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return members > 1 ? launch_update<true>(target, op, n, h, is_black, bounds,
+                                           keys, members, offset, stream)
+                     : launch_update<false>(target, op, n, h, is_black,
+                                            bounds, keys, 1, offset, stream);
 }
 
 long long stencil_resident_smem_bytes(int tile_r, int tile_c, int n_sweeps) {
   return static_cast<long long>(resident_smem_bytes(tile_r, tile_c, n_sweeps));
 }
 
+// bounds: the members' 10 draw bounds each; keys: their (k0, k1) pairs
 int stencil_sweeps_resident_launch(const void* b_in, const void* w_in,
                                    void* b_out, void* w_out, int n, int h,
                                    const unsigned long long* bounds,
-                                   uint32_t k0, uint32_t k1, uint32_t start,
-                                   int n_sweeps, int tile_r, int tile_c,
-                                   int threads, void* stream) {
+                                   const uint32_t* keys, int members,
+                                   uint32_t start, int n_sweeps, int tile_r,
+                                   int tile_c, int threads, void* stream) {
   return launch_sweeps(false, b_in, w_in, nullptr, b_out, w_out, n, h,
-                       bounds, k0, k1, start, n_sweeps, tile_r, tile_c,
+                       bounds, keys, members, start, n_sweeps, tile_r, tile_c,
                        threads, stream);
 }
 
@@ -611,8 +685,9 @@ int stencil_shard_sweeps_launch(const void* b_in, const void* w_in,
                                 uint32_t k0, uint32_t k1, uint32_t start,
                                 int n_sweeps, int tile_r, int tile_c,
                                 int threads, void* stream) {
+  const uint32_t keys[2] = {k0, k1};
   return launch_sweeps(true, b_in, w_in, gidx, b_out, w_out, n, w, bounds,
-                       k0, k1, start, n_sweeps, tile_r, tile_c, threads,
+                       keys, 1, start, n_sweeps, tile_r, tile_c, threads,
                        stream);
 }
 

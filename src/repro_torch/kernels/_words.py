@@ -1,14 +1,17 @@
 """What the two word-plane kernel families share: their plain C interface
-(``csrc/multispin.cu`` and ``csrc/bitplane.cu`` export the same three
+(``csrc/multispin.cu`` and ``csrc/bitplane.cu`` export the same four
 functions under their family's name), the checks of their arguments and
-the launch loop of their k-sweep kernels.
+the launch loops of their kernels, for one member or an ensemble's
+(``repro_torch.kernels._members``).
 
 Word planes are ``torch.int32`` tensors holding the uint32 bits; the
 thresholds an int64 tensor of 10 uint32 values
 (``repro_torch.core.multispin.acceptance_thresholds``), which the
 multispin k-sweep and shard kernels take as the 16-entry
 :func:`key_table` and the bitplane kernels as :func:`accept_arg`: t4 and
-t8 where the table has a ferromagnet's three values, else all 10.
+t8 where the table has a ferromagnet's three values, else all 10.  A
+launch of several members passes their tables one after another
+(:func:`members_arg`).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import rng
+from repro_torch.kernels._members import as_batch, keys_arg, member_chunks
 from repro_torch.kernels.resident import GEOMETRY
 from repro_torch.kernels.stencil.stencil import raise_on_error
 
@@ -56,11 +60,11 @@ def check_words(*planes: torch.Tensor, align: int = 4) -> None:
 
 def check_resident_args(black, n_sweeps: int, plan) -> None:
     """Raise unless ``n_sweeps`` is positive and ``plan`` is for planes of
-    ``black``'s shape."""
+    ``black``'s shape (of each member's, for a ``(B, n, w)`` batch)."""
     if n_sweeps < 1:
         raise ValueError(f"n_sweeps must be >= 1, got {n_sweeps}")
     width = plan.m // GEOMETRY[plan.family].col_divisor
-    if tuple(black.shape) != (plan.n, width):
+    if tuple(black.shape[-2:]) != (plan.n, width):
         raise ValueError(f"plan is for a {plan.n}x{plan.m} lattice, planes "
                          f"are {tuple(black.shape)}")
 
@@ -91,11 +95,9 @@ def three_thresholds(thresholds: torch.Tensor) -> Optional[tuple]:
 def accept_arg(thresholds: torch.Tensor) -> tuple:
     """The bitplane kernels' accept: ``(array, 2)`` of t4 and t8 for the
     three-threshold accept where :func:`three_thresholds` finds them,
-    else ``(array, 10)`` of all 10 for the general one (ctypes arrays)."""
-    three = three_thresholds(thresholds)
-    if three is None:
-        return thresholds_arg(thresholds), N_CLASSES
-    return (ctypes.c_uint32 * 2)(*three), 2
+    else ``(array, 10)`` of all 10 for the general one (ctypes arrays):
+    :func:`accept_args` of one member."""
+    return accept_args([thresholds])
 
 
 def key_table(thresholds: torch.Tensor) -> list:
@@ -114,6 +116,42 @@ def key_table_arg(thresholds: torch.Tensor):
     return (ctypes.c_uint32 * N_KEYS)(*key_table(thresholds))
 
 
+def members_arg(arrays) -> ctypes.Array:
+    """The ctypes arrays of a launch's members, one after another."""
+    values = [v for a in arrays for v in a]
+    return (arrays[0]._type_ * len(values))(*values)
+
+
+def thresholds_args(tables) -> tuple:
+    """``multispin_update``'s threshold argument for the members'
+    ``tables``: their :func:`thresholds_arg` one after another."""
+    return (members_arg([thresholds_arg(t) for t in tables]),)
+
+
+def key_table_args(tables) -> tuple:
+    """The multispin k-sweep kernel's argument: the members'
+    :func:`key_table_arg` one after another."""
+    return (members_arg([key_table_arg(t) for t in tables]),)
+
+
+def accept_args(tables) -> tuple:
+    """The bitplane kernels' accept for the members' ``tables``:
+    ``(t4 and t8 of each, 2)`` where every table has a ferromagnet's
+    layout (:func:`three_thresholds`), else ``(the 10 thresholds of each,
+    10)``: the general accept for all members of the launch."""
+    threes = [three_thresholds(t) for t in tables]
+    if any(three is None for three in threes):
+        return members_arg([thresholds_arg(t) for t in tables]), N_CLASSES
+    values = [v for three in threes for v in three]
+    return (ctypes.c_uint32 * len(values))(*values), 2
+
+
+#: the threshold arguments of each family's kernels for its members'
+#: tables: (half-sweep kernel, k-sweep kernel)
+TABLE_ARGS = {"multispin": (thresholds_args, key_table_args),
+              "bitplane": (accept_args, accept_args)}
+
+
 def table_argtypes(family: str) -> list:
     """The C types of a family's threshold arguments: the multispin
     kernels' table, the bitplane kernels' table and its length."""
@@ -123,22 +161,26 @@ def table_argtypes(family: str) -> list:
 
 def declare(lib, family: str):
     """Declare the C signatures of ``csrc/<family>.cu``: its two launch
-    functions and its shared-memory query."""
+    functions (the members' thresholds, key pairs and count), its
+    shared-memory query and its member limit."""
     if getattr(lib, f"{family}_update_launch").argtypes is None:
         u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
         thr = table_argtypes(family)
+        keys = [ctypes.POINTER(ctypes.c_uint32), i32]
         lib.cuda_error_string.argtypes = [i32]
         lib.cuda_error_string.restype = ctypes.c_char_p
         update = getattr(lib, f"{family}_update_launch")
-        update.argtypes = [ptr, ptr, i32, i32, i32, *thr, u32, u32, u32, ptr]
+        update.argtypes = [ptr, ptr, i32, i32, i32, *thr, *keys, u32, ptr]
         update.restype = i32
         smem = getattr(lib, f"{family}_resident_smem_bytes")
         smem.argtypes = [i32, i32, i32]
         smem.restype = ctypes.c_longlong
         sweeps = getattr(lib, f"{family}_sweeps_resident_launch")
-        sweeps.argtypes = [ptr, ptr, ptr, ptr, i32, i32, *thr, u32, u32, u32,
+        sweeps.argtypes = [ptr, ptr, ptr, ptr, i32, i32, *thr, *keys, u32,
                            i32, i32, i32, i32, ptr]
         sweeps.restype = i32
+        getattr(lib, f"{family}_max_members").argtypes = []
+        getattr(lib, f"{family}_max_members").restype = i32
     return lib
 
 
@@ -151,39 +193,51 @@ def count_launch(wrapper, table: tuple) -> None:
         wrapper.general_launches += 1
 
 
-def launch_update(lib, fn, wrapper, target, op_words, table: tuple, *,
-                  is_black: bool, seed: int, offset: int) -> torch.Tensor:
-    """Launch a word family's half-sweep kernel ``fn`` on ``target`` in
-    place with its threshold arguments ``table`` (``(thresholds_arg,)``
-    or :func:`accept_arg`), counting the launch on ``wrapper``; returns
+def launch_update(lib, family: str, wrapper, target, op_words, tables, *,
+                  is_black: bool, seeds, offset: int) -> torch.Tensor:
+    """Launch ``family``'s half-sweep kernel on ``target`` in place: a
+    ``(n, w)`` plane with one table and seed, or a ``(B, n, w)`` batch
+    with a table and a seed a member, in ceil(B / limit) launches of the
+    member axis; each launch counted on ``wrapper``.  Returns
     ``target``."""
-    n, w = target.shape
-    k0, k1 = rng.seed_keys(seed)
-    rc = fn(target.data_ptr(), op_words.data_ptr(), n, w, int(is_black),
-            *table, k0, k1, int(offset) & rng.MASK32,
-            torch.cuda.current_stream(target.device).cuda_stream)
-    raise_on_error(lib, rc, wrapper.__name__)
-    count_launch(wrapper, table)
+    fn = getattr(lib, f"{family}_update_launch")
+    targets, ops = as_batch(target), as_batch(op_words)
+    members, n, w = targets.shape
+    stream = torch.cuda.current_stream(target.device).cuda_stream
+    for lo, hi in member_chunks(lib, family, members):
+        table = TABLE_ARGS[family][0](tables[lo:hi])
+        rc = fn(targets[lo].data_ptr(), ops[lo].data_ptr(), n, w,
+                int(is_black), *table, keys_arg(seeds[lo:hi]), hi - lo,
+                int(offset) & rng.MASK32, stream)
+        raise_on_error(lib, rc, wrapper.__name__)
+        count_launch(wrapper, table)
     return target
 
 
-def launch_resident(lib, fn, wrapper, black, white, table: tuple, *,
-                    n_sweeps: int, seed: int, start_offset: int, plan):
-    """Launch a word family's k-sweep kernel ``fn`` with its threshold
-    arguments ``table`` (``(key_table_arg,)`` or :func:`accept_arg`) over
-    ``n_sweeps`` sweeps in launches of at most ``plan.k``, counting each
-    launch on ``wrapper``; returns new planes."""
-    n, w = black.shape
-    k0, k1 = rng.seed_keys(seed)
+def launch_resident(lib, family: str, wrapper, black, white, tables, *,
+                    n_sweeps: int, seeds, start_offset: int, plan):
+    """Launch ``family``'s k-sweep kernel over ``n_sweeps`` sweeps of one
+    member's ``(n, w)`` planes or a ``(B, n, w)`` batch's (a table and a
+    seed a member) in launches of at most ``plan.k`` sweeps and of the
+    library's limit of members, each counted on ``wrapper``; returns new
+    planes."""
+    fn = getattr(lib, f"{family}_sweeps_resident_launch")
+    members, n, w = as_batch(black).shape
+    chunks = [(lo, hi, TABLE_ARGS[family][1](tables[lo:hi]),
+               keys_arg(seeds[lo:hi]))
+              for lo, hi in member_chunks(lib, family, members)]
     stream = torch.cuda.current_stream(black.device).cuda_stream
+    member_bytes = n * w * black.element_size()
     for first in range(0, n_sweeps, plan.k):
         k = min(plan.k, n_sweeps - first)
         out_b, out_w = torch.empty_like(black), torch.empty_like(white)
-        rc = fn(black.data_ptr(), white.data_ptr(), out_b.data_ptr(),
-                out_w.data_ptr(), n, w, *table, k0, k1,
-                rng.half_sweep_offset(start_offset, first, 0), k,
-                plan.tile_rows, plan.tile_cols, plan.threads, stream)
-        raise_on_error(lib, rc, wrapper.__name__)
-        count_launch(wrapper, table)
+        bases = [p.data_ptr() for p in (black, white, out_b, out_w)]
+        for lo, hi, table, keys in chunks:
+            rc = fn(*(b + lo * member_bytes for b in bases), n, w, *table,
+                    keys, hi - lo,
+                    rng.half_sweep_offset(start_offset, first, 0), k,
+                    plan.tile_rows, plan.tile_cols, plan.threads, stream)
+            raise_on_error(lib, rc, wrapper.__name__)
+            count_launch(wrapper, table)
         black, white = out_b, out_w
     return black, white

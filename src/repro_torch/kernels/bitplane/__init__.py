@@ -1,7 +1,14 @@
 """The bitplane kernel pair: one half-sweep of 32 replicas, and k sweeps
-per launch."""
-from .bitplane import bitplane_update, bitplane_update_plain
-from .resident import bitplane_sweeps_resident, bitplane_sweeps_resident_plain
+per launch, each also over an ensemble's members in one launch."""
+from .bitplane import (bitplane_update, bitplane_update_batched,
+                       bitplane_update_batched_plain, bitplane_update_plain)
+from .resident import (bitplane_sweeps_resident,
+                       bitplane_sweeps_resident_batched,
+                       bitplane_sweeps_resident_batched_plain,
+                       bitplane_sweeps_resident_plain)
 
 __all__ = ["bitplane_update", "bitplane_update_plain",
-           "bitplane_sweeps_resident", "bitplane_sweeps_resident_plain"]
+           "bitplane_update_batched", "bitplane_update_batched_plain",
+           "bitplane_sweeps_resident", "bitplane_sweeps_resident_plain",
+           "bitplane_sweeps_resident_batched",
+           "bitplane_sweeps_resident_batched_plain"]

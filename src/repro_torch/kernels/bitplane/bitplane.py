@@ -15,7 +15,10 @@ planes' width a multiple of 4.  The accept is the kernel's
 three-threshold one where the thresholds have a ferromagnet's layout
 (``_words.accept_arg``), else its general 10-class one: each wrapper
 counts every launch in ``launches`` and those of the general accept
-also in ``general_launches``.
+also in ``general_launches``.  :func:`bitplane_update_batched` runs an
+ensemble's ``(B, n, w)`` planes in one launch of the kernel's member
+axis (``kernels._members``), with the three-threshold accept only where
+every member's table takes it.
 """
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ import torch
 
 from repro_torch.core import bitplane as bp
 from repro_torch.kernels import _build
-from repro_torch.kernels._words import (accept_arg, check_words, declare,
-                                        launch_update)
+from repro_torch.kernels._members import check_batch, per_member
+from repro_torch.kernels._words import check_words, declare, launch_update
 
 
 def bitplane_update_plain(target, op_words, thresholds, *, is_black: bool,
@@ -58,13 +61,37 @@ def bitplane_update(target, op_words, thresholds, *, is_black: bool,
         return target.copy_(bitplane_update_plain(
             target, op_words, thresholds, is_black=is_black, seed=seed,
             offset=offset))
-    lib = library()
-    return launch_update(lib, lib.bitplane_update_launch, bitplane_update,
-                         target, op_words, accept_arg(thresholds),
-                         is_black=is_black, seed=seed, offset=offset)
+    return launch_update(library(), "bitplane", bitplane_update, target,
+                         op_words, [thresholds], is_black=is_black,
+                         seeds=[seed], offset=offset)
 
 
-#: kernel launches since the count was last set to 0, and of them those
-#: of the general accept
+def bitplane_update_batched_plain(targets, ops, tables, *, is_black: bool,
+                                  seeds, offset: int) -> torch.Tensor:
+    """The plain batched version: :func:`bitplane_update_plain` of each
+    member (its table and seed), stacked."""
+    return per_member(bitplane_update_plain, (targets, ops), tables, seeds,
+                      is_black=is_black, offset=offset)
+
+
+def bitplane_update_batched(targets, ops, tables, *, is_black: bool, seeds,
+                            offset: int) -> torch.Tensor:
+    """:func:`bitplane_update` of B members at one offset, in place:
+    ``(B, n, w)`` planes, a threshold table and a seed a member.  CPU
+    planes take the plain batched version; CUDA planes launch the
+    kernel's member axis, with the three-threshold accept where every
+    member's table has a ferromagnet's layout."""
+    check_batch((targets, ops), tables, seeds, check_bit_planes)
+    if targets.device.type == "cpu":
+        return targets.copy_(bitplane_update_batched_plain(
+            targets, ops, tables, is_black=is_black, seeds=seeds,
+            offset=offset))
+    return launch_update(library(), "bitplane", bitplane_update, targets,
+                         ops, list(tables), is_black=is_black,
+                         seeds=list(seeds), offset=offset)
+
+
+#: kernel launches since the count was last set to 0 (a batched launch
+#: counts once), and of them those of the general accept
 bitplane_update.launches = 0
 bitplane_update.general_launches = 0

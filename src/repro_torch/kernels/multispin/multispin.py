@@ -17,6 +17,9 @@ Pallas kernel keys on the seed's low 32 bits only, so the two agree for
 seeds below 2^32.
 
 Word planes and thresholds as in ``repro_torch.kernels._words``.
+:func:`multispin_update_batched` runs an ensemble's ``(B, n, w)`` planes
+in one launch of the kernel's member axis (``kernels._members``),
+counted in ``multispin_update.launches``.
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ import torch
 
 from repro_torch.core import multispin as ms
 from repro_torch.kernels import _build
-from repro_torch.kernels._words import (check_words, declare, launch_update,
-                                        thresholds_arg)
+from repro_torch.kernels._members import check_batch, per_member
+from repro_torch.kernels._words import check_words, declare, launch_update
 
 
 def multispin_update_plain(target, op_words, thresholds, *, is_black: bool,
@@ -51,11 +54,35 @@ def multispin_update(target, op_words, thresholds, *, is_black: bool,
         return target.copy_(multispin_update_plain(
             target, op_words, thresholds, is_black=is_black, seed=seed,
             offset=offset))
-    lib = library()
-    return launch_update(lib, lib.multispin_update_launch, multispin_update,
-                         target, op_words, (thresholds_arg(thresholds),),
-                         is_black=is_black, seed=seed, offset=offset)
+    return launch_update(library(), "multispin", multispin_update, target,
+                         op_words, [thresholds], is_black=is_black,
+                         seeds=[seed], offset=offset)
 
 
-#: kernel launches since the count was last set to 0
+def multispin_update_batched_plain(targets, ops, tables, *, is_black: bool,
+                                   seeds, offset: int) -> torch.Tensor:
+    """The plain batched version: :func:`multispin_update_plain` of each
+    member (its table and seed), stacked."""
+    return per_member(multispin_update_plain, (targets, ops), tables, seeds,
+                      is_black=is_black, offset=offset)
+
+
+def multispin_update_batched(targets, ops, tables, *, is_black: bool,
+                             seeds, offset: int) -> torch.Tensor:
+    """:func:`multispin_update` of B members at one offset, in place:
+    ``(B, n, w)`` planes, a threshold table and a seed a member.  CPU
+    planes take the plain batched version; CUDA planes launch the
+    kernel's member axis."""
+    check_batch((targets, ops), tables, seeds, check_words)
+    if targets.device.type == "cpu":
+        return targets.copy_(multispin_update_batched_plain(
+            targets, ops, tables, is_black=is_black, seeds=seeds,
+            offset=offset))
+    return launch_update(library(), "multispin", multispin_update, targets,
+                         ops, list(tables), is_black=is_black,
+                         seeds=list(seeds), offset=offset)
+
+
+#: kernel launches since the count was last set to 0 (a batched launch
+#: counts once)
 multispin_update.launches = 0

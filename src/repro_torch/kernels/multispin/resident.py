@@ -13,13 +13,16 @@ issue (the paired Philox and the accept), the halo's redundant words
 included; the planner (``repro_torch.kernels.resident``) picks the tile
 and k.
 
-A run longer than the plan's k takes ceil(n_sweeps / k) launches.
+A run longer than the plan's k takes ceil(n_sweeps / k) launches, an
+ensemble's (:func:`multispin_sweeps_resident_batched`) as many for all
+its members.
 """
 from __future__ import annotations
 
 from repro_torch.core import multispin as ms
+from repro_torch.kernels._members import check_batch, per_member
 from repro_torch.kernels._words import (check_resident_args, check_words,
-                                        key_table_arg, launch_resident)
+                                        launch_resident)
 
 from .multispin import library
 
@@ -46,12 +49,41 @@ def multispin_sweeps_resident(black, white, thresholds, *, n_sweeps: int,
         return multispin_sweeps_resident_plain(
             black, white, thresholds, n_sweeps=n_sweeps, seed=seed,
             start_offset=start_offset)
-    lib = library()
-    return launch_resident(
-        lib, lib.multispin_sweeps_resident_launch, multispin_sweeps_resident,
-        black, white, (key_table_arg(thresholds),), n_sweeps=n_sweeps,
-        seed=seed, start_offset=start_offset, plan=plan)
+    return launch_resident(library(), "multispin", multispin_sweeps_resident,
+                           black, white, [thresholds], n_sweeps=n_sweeps,
+                           seeds=[seed], start_offset=start_offset, plan=plan)
 
 
-#: kernel launches since the count was last set to 0
+def multispin_sweeps_resident_batched_plain(black, white, tables, *,
+                                            n_sweeps: int, seeds,
+                                            start_offset: int):
+    """The plain batched version: :func:`multispin_sweeps_resident_plain`
+    of each member (its table and seed), stacked."""
+    return per_member(multispin_sweeps_resident_plain, (black, white),
+                      tables, seeds, n_sweeps=n_sweeps,
+                      start_offset=start_offset)
+
+
+def multispin_sweeps_resident_batched(black, white, tables, *,
+                                      n_sweeps: int, seeds,
+                                      start_offset: int, plan):
+    """:func:`multispin_sweeps_resident` of B members from one offset:
+    ``(B, n, w)`` planes, a threshold table and a seed a member, each
+    block of sweeps one launch of the kernel's member axis (counted in
+    ``multispin_sweeps_resident.launches``).  CPU planes take the plain
+    batched version."""
+    check_batch((black, white), tables, seeds, check_words)
+    check_resident_args(black, n_sweeps, plan)
+    if black.device.type == "cpu":
+        return multispin_sweeps_resident_batched_plain(
+            black, white, tables, n_sweeps=n_sweeps, seeds=seeds,
+            start_offset=start_offset)
+    return launch_resident(library(), "multispin", multispin_sweeps_resident,
+                           black, white, list(tables), n_sweeps=n_sweeps,
+                           seeds=list(seeds), start_offset=start_offset,
+                           plan=plan)
+
+
+#: kernel launches since the count was last set to 0 (a batched launch
+#: counts once)
 multispin_sweeps_resident.launches = 0

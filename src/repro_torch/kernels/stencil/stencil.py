@@ -11,7 +11,9 @@ bounds (:func:`device_bounds`).  It is bound by the Philox integer
 arithmetic, not by its 3 bytes per site, so no shared tiles and no
 barriers.  Each thread reads only its own target cells, so the kernel
 updates the target plane in place, and so does the wrapper on every
-device.
+device.  :func:`stencil_update_batched` runs an ensemble's ``(B, n, h)``
+planes in one launch of the kernel's member axis (``kernels._members``),
+counted in ``stencil_update.launches``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import torch
 
 from repro_torch.core import metropolis, rng
 from repro_torch.kernels import _build
+from repro_torch.kernels._members import (as_batch, check_batch, keys_arg,
+                                          member_chunks, per_member)
 
 
 def stencil_update_plain(target, op_plane, table, *, is_black: bool,
@@ -81,6 +85,28 @@ def _device_bounds(values: tuple, device_type: str, index):
                         device=torch.device(device_type, index))
 
 
+def device_bounds_members(tables, device) -> torch.Tensor:
+    """The members' draw bounds as a ``(B, 10)`` int64 tensor on
+    ``device`` (member i's at row i): made once per member set."""
+    device = torch.device(device)
+    return _device_bounds_members(tuple(_table_values(t) for t in tables),
+                                  device.type, device.index)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_bounds_members(values: tuple, device_type: str, index):
+    return torch.tensor([list(_bounds_arg(v)) for v in values],
+                        dtype=torch.int64,
+                        device=torch.device(device_type, index))
+
+
+def bounds_args(tables):
+    """The k-sweep kernel's argument: the members' :func:`bounds_arg`
+    one after another (a ctypes array of 10 B uint64 values)."""
+    values = [v for t in tables for v in bounds_arg(t)]
+    return (ctypes.c_uint64 * len(values))(*values)
+
+
 def raise_on_error(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.cuda_error_string(rc).decode()
@@ -94,16 +120,41 @@ def library():
         u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
         lib.cuda_error_string.argtypes = [i32]
         lib.cuda_error_string.restype = ctypes.c_char_p
+        keys = [ctypes.POINTER(ctypes.c_uint32), i32]
         lib.stencil_update_launch.argtypes = [
-            ptr, ptr, i32, i32, i32, ptr, u32, u32, u32, ptr]
+            ptr, ptr, i32, i32, i32, ptr, *keys, u32, ptr]
         lib.stencil_update_launch.restype = i32
         lib.stencil_resident_smem_bytes.argtypes = [i32, i32, i32]
         lib.stencil_resident_smem_bytes.restype = ctypes.c_longlong
         lib.stencil_sweeps_resident_launch.argtypes = [
             ptr, ptr, ptr, ptr, i32, i32, ctypes.POINTER(ctypes.c_uint64),
-            u32, u32, u32, i32, i32, i32, i32, ptr]
+            *keys, u32, i32, i32, i32, i32, ptr]
         lib.stencil_sweeps_resident_launch.restype = i32
+        lib.stencil_max_members.argtypes = []
+        lib.stencil_max_members.restype = i32
     return lib
+
+
+def _launch_update(target, op_plane, tables, *, is_black: bool, seeds,
+                   offset: int) -> torch.Tensor:
+    """Launch the kernel on one member's ``(n, h)`` planes or a ``(B, n,
+    h)`` batch's, in place, in ceil(B / limit) launches of its member
+    axis, each counted on :func:`stencil_update`."""
+    lib = library()
+    targets, ops = as_batch(target), as_batch(op_plane)
+    members, n, h = targets.shape
+    bounds = device_bounds(tables[0], target.device) if members == 1 \
+        else device_bounds_members(tables, target.device)
+    stream = torch.cuda.current_stream(target.device).cuda_stream
+    for lo, hi in member_chunks(lib, "stencil", members):
+        rc = lib.stencil_update_launch(
+            targets[lo].data_ptr(), ops[lo].data_ptr(), n, h, int(is_black),
+            bounds.data_ptr() + 8 * metropolis.TABLE_SIZE * lo,
+            keys_arg(seeds[lo:hi]), hi - lo,
+            int(offset) & rng.MASK32, stream)
+        raise_on_error(lib, rc, "stencil_update")
+        stencil_update.launches += 1
+    return target
 
 
 def stencil_update(target, op_plane, table, *, is_black: bool, seed: int,
@@ -121,18 +172,33 @@ def stencil_update(target, op_plane, table, *, is_black: bool, seed: int,
         return target.copy_(stencil_update_plain(
             target, op_plane, table, is_black=is_black, seed=seed,
             offset=offset))
-    lib = library()
-    n, h = target.shape
-    k0, k1 = rng.seed_keys(seed)
-    rc = lib.stencil_update_launch(
-        target.data_ptr(), op_plane.data_ptr(), n, h, int(is_black),
-        device_bounds(table, target.device).data_ptr(), k0, k1,
-        int(offset) & rng.MASK32,
-        torch.cuda.current_stream(target.device).cuda_stream)
-    raise_on_error(lib, rc, "stencil_update")
-    stencil_update.launches += 1
-    return target
+    return _launch_update(target, op_plane, [table], is_black=is_black,
+                          seeds=[seed], offset=offset)
 
 
-#: kernel launches since the count was last set to 0
+def stencil_update_batched_plain(targets, ops, tables, *, is_black: bool,
+                                 seeds, offset: int) -> torch.Tensor:
+    """The plain batched version: :func:`stencil_update_plain` of each
+    member (its table and seed), stacked."""
+    return per_member(stencil_update_plain, (targets, ops), tables, seeds,
+                      is_black=is_black, offset=offset)
+
+
+def stencil_update_batched(targets, ops, tables, *, is_black: bool, seeds,
+                           offset: int) -> torch.Tensor:
+    """:func:`stencil_update` of B members at one offset, in place:
+    ``(B, n, h)`` planes, a table and a seed a member.  CPU planes take
+    the plain batched version; CUDA planes launch the kernel's member
+    axis."""
+    check_batch((targets, ops), tables, seeds, check_planes)
+    if targets.device.type == "cpu":
+        return targets.copy_(stencil_update_batched_plain(
+            targets, ops, tables, is_black=is_black, seeds=seeds,
+            offset=offset))
+    return _launch_update(targets, ops, list(tables), is_black=is_black,
+                          seeds=list(seeds), offset=offset)
+
+
+#: kernel launches since the count was last set to 0 (a batched launch
+#: counts once)
 stencil_update.launches = 0

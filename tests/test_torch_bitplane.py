@@ -433,3 +433,19 @@ def test_onsager_energy_matches_elliptic_integral(temperature):
                                * ellipk(k * k))
     assert onsager_energy(temperature) == pytest.approx(want, rel=1e-12)
     assert -2.0 < onsager_energy(temperature) < 0.0
+
+
+@pytest.mark.parametrize("shape", [(1,), (3, 7), (5, 1 << 18), (2, 40, 12)])
+def test_bit_counts_count_every_bit(shape):
+    """The per-replica counts against the count of each bit of the uint32
+    words, across chunks; a view that is not contiguous counts as its
+    copy."""
+    r = np.random.default_rng(sum(shape))
+    u = r.integers(0, 2 ** 32, shape, dtype=np.uint64)
+    words = torch.tensor(u.astype(np.uint32).view(np.int32))
+    want = [int(((u >> k) & 1).sum()) for k in range(32)]
+    assert bp.bit_counts(words).tolist() == want
+    if words.dim() > 1 and words.shape[-1] > 1:
+        view = words[..., ::2]
+        want = [int(((u[..., ::2] >> k) & 1).sum()) for k in range(32)]
+        assert bp.bit_counts(view).tolist() == want

@@ -724,3 +724,152 @@ def test_sharded_session_on_card_equals_cpu(cuda, engine):
     single = Session.open(dataclasses.replace(spec, mesh=None))
     single.run(5)
     assert single.state_digest() == cpu.state_digest()
+
+
+# -- ensembles: the six kernels' member axis ---------------------------------
+
+ENSEMBLE_TEMPS = (2.0, 2.5, 3.0)
+ENSEMBLE_SEEDS = (7, 2 ** 31 + 11, 2 ** 32 - 1)
+
+
+def member_batch(family, n, w, seed, device):
+    if family == "stencil":
+        return tuple(torch.stack(p) for p in zip(
+            *(planes(n, w, seed + i, device) for i in range(3))))
+    mask = 0x11111111 if family == "multispin" else 0xFFFFFFFF
+    return tuple(torch.stack(p) for p in zip(
+        *(word_planes(n, w, seed + i, device, mask) for i in range(3))))
+
+
+def member_tables(family, accept):
+    make = metropolis.acceptance_table if family == "stencil" \
+        else multispin.acceptance_thresholds
+    tables = [make(1.0 / t) for t in ENSEMBLE_TEMPS]
+    if accept == "general":
+        tables[0] = tables[0][torch.tensor((3, 8, 1, 0, 9, 5, 7, 2, 4, 6))]
+    return tables
+
+
+@pytest.mark.parametrize("family,accept", [
+    ("stencil", "three"), ("multispin", "three"), ("bitplane", "three"),
+    ("bitplane", "general")])
+@pytest.mark.parametrize("n,w,tile_r,tile_c,k,n_sweeps", [
+    (64, 32, 16, 8, 1, 1), (30, 12, 7, 8, 3, 3), (40, 52, 16, 20, 2, 2)])
+def test_member_axis_matches_plain(cuda, family, accept, n, w, tile_r,
+                                   tile_c, k, n_sweeps):
+    """B = 3 members of distinct temperatures and seeds in one launch of
+    each kernel against the plain batched version; a tile grid that does
+    not divide the planes."""
+    import importlib
+    pkg = importlib.import_module(f"repro_torch.kernels.{family}")
+    tables = member_tables(family, accept)
+    b, wp = member_batch(family, n, w, n + w, cuda)
+    want = getattr(pkg, f"{family}_update_batched_plain")(
+        b, wp, tables, is_black=False, seeds=ENSEMBLE_SEEDS,
+        offset=2 ** 32 - 1)
+    update = getattr(pkg, f"{family}_update")
+    before = update.launches
+    got = getattr(pkg, f"{family}_update_batched")(
+        b.clone(), wp, tables, is_black=False, seeds=ENSEMBLE_SEEDS,
+        offset=2 ** 32 - 1)
+    torch.cuda.synchronize()
+    assert update.launches - before == 1
+    assert torch.equal(got, want)
+    divisor = resident.GEOMETRY[family].col_divisor
+    plan = dataclasses.replace(resident.plan_resident(family, n, w * divisor),
+                               n=n, m=w * divisor, k=k, tile_rows=tile_r,
+                               tile_cols=tile_c)
+    want = getattr(pkg, f"{family}_sweeps_resident_batched_plain")(
+        b, wp, tables, n_sweeps=n_sweeps, seeds=ENSEMBLE_SEEDS,
+        start_offset=2 ** 32 - 3)
+    sweeps = getattr(pkg, f"{family}_sweeps_resident")
+    before = (sweeps.launches, getattr(sweeps, "general_launches", 0))
+    got = getattr(pkg, f"{family}_sweeps_resident_batched")(
+        b, wp, tables, n_sweeps=n_sweeps, seeds=ENSEMBLE_SEEDS,
+        start_offset=2 ** 32 - 3, plan=plan)
+    torch.cuda.synchronize()
+    blocks = -(-n_sweeps // k)
+    assert sweeps.launches - before[0] == blocks
+    assert getattr(sweeps, "general_launches", 0) - before[1] == (
+        blocks if accept == "general" else 0)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("family,accept", [
+    ("stencil", "three"), ("multispin", "three"), ("bitplane", "three"),
+    ("bitplane", "general")])
+def test_member_axis_over_the_launch_limit(cuda, family, accept):
+    """One member over the library's limit: each block of sweeps (and each
+    half-sweep) takes ceil(B / limit) = 2 launches, the second of one
+    member (the single-member instance), and agrees with the plain
+    batched version."""
+    import importlib
+    pkg = importlib.import_module(f"repro_torch.kernels.{family}")
+    lib = importlib.import_module(
+        f"repro_torch.kernels.{family}.{family}").library()
+    members = getattr(lib, f"{family}_max_members")() + 1
+    three = member_tables(family, accept)
+    tables = [three[i % 3] for i in range(members)]
+    tables[-1] = three[0]
+    seeds = ENSEMBLE_SEEDS + tuple(range(100, 97 + members))
+    n, w = 30, 12
+    b, wp = (torch.stack(p) for p in zip(*(
+        member_batch(family, n, w, n + 3 * i, cuda) for i in
+        range(-(-members // 3)))))
+    b, wp = (p.reshape(-1, n, w)[:members].contiguous() for p in (b, wp))
+    want = getattr(pkg, f"{family}_update_batched_plain")(
+        b, wp, tables, is_black=True, seeds=seeds, offset=5)
+    update = getattr(pkg, f"{family}_update")
+    before = update.launches
+    got = getattr(pkg, f"{family}_update_batched")(
+        b.clone(), wp, tables, is_black=True, seeds=seeds, offset=5)
+    torch.cuda.synchronize()
+    assert update.launches - before == 2
+    assert torch.equal(got, want)
+    divisor = resident.GEOMETRY[family].col_divisor
+    plan = dataclasses.replace(resident.plan_resident(family, n, w * divisor),
+                               n=n, m=w * divisor, k=3, tile_rows=7,
+                               tile_cols=8)
+    want = getattr(pkg, f"{family}_sweeps_resident_batched_plain")(
+        b, wp, tables, n_sweeps=5, seeds=seeds, start_offset=2 ** 32 - 3)
+    sweeps = getattr(pkg, f"{family}_sweeps_resident")
+    before = (sweeps.launches, getattr(sweeps, "general_launches", 0))
+    got = getattr(pkg, f"{family}_sweeps_resident_batched")(
+        b, wp, tables, n_sweeps=5, seeds=seeds, start_offset=2 ** 32 - 3,
+        plan=plan)
+    torch.cuda.synchronize()
+    assert sweeps.launches - before[0] == 4
+    assert getattr(sweeps, "general_launches", 0) - before[1] == (
+        4 if accept == "general" else 0)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("engine", ["stencil_pallas", "multispin",
+                                    "multispin_pallas", "bitplane",
+                                    "bitplane_pallas"])
+@pytest.mark.parametrize("tier", ["k-sweep", "half-sweep"])
+def test_ensemble_session_on_card_equals_cpu(cuda, engine, tier):
+    """Every member's digest on the card is the CPU's, each block of
+    sweeps one launch of the member axis."""
+    import importlib
+    from repro_torch.api import BatchSpec
+    spec = RunSpec(lattice=LatticeSpec(64, 96), engine=EngineSpec(engine),
+                   batch=BatchSpec(ENSEMBLE_TEMPS, ENSEMBLE_SEEDS))
+    cpu = Session.open(spec, device="cpu")
+    cpu.run(5)
+    card = Session.open(
+        spec, resident_budget_bytes=0 if tier == "half-sweep" else None)
+    family = engine.split("_")[0]
+    pkg = importlib.import_module(f"repro_torch.kernels.{family}")
+    name = f"{family}_sweeps_resident" if tier == "k-sweep" \
+        else f"{family}_update"
+    before = getattr(pkg, name).launches
+    card.run(5)
+    torch.cuda.synchronize()
+    blocks = -(-5 // card.engine.resident_plan.k) if tier == "k-sweep" \
+        else 10
+    assert getattr(pkg, name).launches - before == blocks
+    for i in range(3):
+        assert card.state_digest(member=i) == cpu.state_digest(member=i)

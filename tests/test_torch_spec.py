@@ -1,5 +1,5 @@
-"""RunSpec JSON round trips between the two packages, and the specs the
-port does not run yet."""
+"""RunSpec JSON round trips between the two packages, and the specs
+either refuses."""
 import json
 
 import pytest
@@ -86,20 +86,19 @@ def test_cli_engine_default_is_multispin(cli, monkeypatch):
     {"mesh": {"shape": [2, 1], "axis_names": ["data", "model"]}},
 ])
 def test_batch_and_mesh_parse_then_raise(extra):
-    """A batch spec parses, then raises: ensembles are not ported.  A
-    mesh spec is ported: it reads as sharded, and raises beside a batch,
-    as in the JAX package."""
+    """A batch spec and a mesh spec are ported: they read as an ensemble
+    and as sharded, as in the JAX package, and together they raise in
+    both packages."""
     doc = json.dumps(dict(FULL, **extra))
-    japi.RunSpec.from_json(doc)  # a valid reference spec
-    if "batch" in extra:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tspec.RunSpec.from_json(doc)
-        return
+    ref = japi.RunSpec.from_json(doc)  # a valid reference spec
     port = tspec.RunSpec.from_json(doc)
-    assert port.mode == "sharded"
-    assert port.to_json() == japi.RunSpec.from_json(doc).to_json()
-    both = json.dumps(dict(FULL, **extra, batch={
-        "temperatures": [2.0], "seeds": None, "grid": False}))
+    assert port.mode == ref.mode == ("ensemble" if "batch" in extra
+                                     else "sharded")
+    assert port.to_json() == ref.to_json()
+    both = dict(FULL, batch={"temperatures": [2.0], "seeds": None,
+                             "grid": False},
+                mesh={"shape": [2, 1], "axis_names": ["data", "model"]})
+    both = json.dumps(dict(both, **extra))
     for package in (japi, tspec):
         with pytest.raises(ValueError, match="batch \\+ mesh"):
             package.RunSpec.from_json(both)
