@@ -111,13 +111,36 @@ non-zero) when it fails:
    sweeps on the per-half-sweep tier launch its kernel 20 times and give
    the k-sweep tier's planes; flips/ns beside single mode's; then 64
    members of 512^2 at T_c against 64 single-mode sessions one after
-   another, timed in turn.
+   another, timed in turn;
+8. the analysis front door: the Fig. 5/6 scan at its default size
+   (``python -m repro_torch.analysis.figures``: multispin, 13
+   temperatures as one ensemble a size, sizes 32 and 64, 1500
+   thermalizing sweeps, then 2000 samples 4 sweeps apart), the
+   Binder-crossing T_c within 2 % of 2.269185, one graph replay a sample
+   after the first;
+   each size's ``measure()`` again through the graph and as the loop,
+   both equal to the figure's samples; each counter-based engine on both
+   tiers at 512^2, single mode and an ensemble of 3, graph against loop;
+   ``python -m repro_torch run spec.json --record`` on the card, the
+   record validated by ``repro_torch.perf.schema``; ``--dry-run`` with no
+   launch and no device memory, and in a process that sees no card.
+
+Every counter-based ``measure()`` (phases 5, 7 and 8) launches its
+sweeps from the host and replays one captured CUDA graph of a sample's
+observables for every sample after the first
+(``repro_torch.analysis.measure``): after it, the same plan from host
+copies of the planes it started from runs as the loop of launches on
+the card, driven as its own path, and its samples and final planes must
+be the graph's; the line ``measure() graph against loop`` holds both
+wall times, the graph's capture and instantiation seconds, its replays
+and the device memory each took above the planes.
 
 Every Session path is driven with all ten kernels' launch counts set to
 0 just before it and read just after it: each path must launch the
 kernel of its tier and no other (a per-half-sweep distributed path
 none), and a bitplane path its kernel's three-threshold accept only.
-The last lines are the ensemble rates, the ``kernels`` JSON
+The last lines are the ensemble rates, the graph against the loop, the
+``kernels`` JSON
 (``launches`` from the full-size path of the kernel's tier, for the
 shard kernels its ``run(200)``, and every path's count; for the six
 single-device kernels also ``batched``: the member axis at the ensemble
@@ -131,6 +154,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -515,6 +539,7 @@ def replica_disagreements(torch, words) -> "torch.Tensor":
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1351,6 +1376,87 @@ def main() -> int:
     def budget(tier):
         return 0 if tier == "half-sweep" else None
 
+    from repro_torch.analysis import measure as measuring
+    #: measure() through the graph and through the loop, by path
+    graph_rows = {}
+
+    def graph_measure(session, plan=None):
+        """Host copies of the planes, then ``session.measure()``, its
+        observables one captured graph, timed on the host clock to the
+        samples on the host; its replays (``DISPATCHES``), the graph's
+        capture and instantiation seconds, and the device memory it took
+        above what was allocated when it started."""
+        before = [p.cpu() for p in session.state]
+        step = session.step_count
+        torch.cuda.synchronize()
+        path_peak = torch.cuda.max_memory_allocated()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        replays = measuring.DISPATCHES
+        t1 = time.perf_counter()
+        traj = session.measure(plan)
+        seconds = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        return {"before": before, "step": step, "plan": plan, "traj": traj,
+                "seconds": seconds,
+                "replays": measuring.DISPATCHES - replays,
+                "stats": dict(measuring.GRAPH_STATS),
+                "extra_bytes": peak - start,
+                "path_peak": max(path_peak, peak)}
+
+    def loop_against_graph(phase, path, family, tier, session, graph):
+        """The plan of ``graph`` (a :func:`graph_measure` of ``session``)
+        as the loop of launches on the card, from the planes it started
+        from, driven as its own path: its samples and final planes must be
+        the graph's, and the graph replayed once a sample after the
+        first."""
+        runner = session._runner
+        plan = graph["plan"] or session.spec.sweep.plan()
+        states = tuple(p.to("cuda") for p in graph["before"])
+        del graph["before"]
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def loop():
+            t1 = time.perf_counter()
+            if session.mode == "ensemble":
+                out = measuring.measure_scan_batched(
+                    runner.engine, states, runner.inv_temps, runner.seeds,
+                    plan, graph["step"], loop=True)
+            else:
+                out = measuring.measure_scan(runner.engine, states, plan,
+                                             graph["step"], loop=True)
+            return out[0], out[1], time.perf_counter() - t1
+
+        final, want, loop_s = drive(f"{path} as the loop", family, tier,
+                                    loop)
+        extra = torch.cuda.max_memory_allocated() - start
+        traj = graph["traj"]
+        same = all(np.array_equal(traj[k], want[k]) for k in traj) and all(
+            torch.equal(a, b) for a, b in zip(session.state, final))
+        stats = graph["stats"]
+        row = {"samples": plan.n_measure, "sweeps": plan.total_sweeps,
+               "graph_s": graph["seconds"], "loop_s": loop_s,
+               "replays": graph["replays"], "equal": same,
+               "graph_extra_bytes": graph["extra_bytes"],
+               "loop_extra_bytes": extra, **stats}
+        graph_rows[path] = row
+        print(f"phase {phase}: {path} of {plan.n_measure} "
+              f"samples ({plan.total_sweeps} sweeps): graph "
+              f"{graph['seconds']:.4f} s (capture {stats['capture_s']:.4f}, "
+              f"instantiate {stats['instantiate_s']}; {graph['replays']} "
+              f"replays; {graph['extra_bytes']} B above the planes) against "
+              f"the loop {loop_s:.4f} s ({extra} B): "
+              f"{loop_s / graph['seconds']:.2f}x; samples and final planes "
+              f"equal: {same}")
+        check(graph["replays"] == plan.n_measure - 1,
+              f"{path}: {graph['replays']} graph replays in one measure() "
+              f"of {plan.n_measure} samples")
+        check(same, f"{path}: the graph's samples or planes are not the "
+              f"loop's")
+        del final, states
+
     def restore_continue(spec):
         """20 sweeps, save and restore, then 30 sweeps and a measure plan
         on both: the uninterrupted and the restored session."""
@@ -1615,13 +1721,12 @@ def main() -> int:
             open_s = time.perf_counter() - t1
             run_ms = timed_ms(lambda: session.run(200), reps=1,
                               warmup=False)
-            t1 = time.perf_counter()
-            traj = session.measure()
-            return session, open_s, run_ms, traj, time.perf_counter() - t1
+            return session, open_s, run_ms, graph_measure(session)
 
         torch.cuda.reset_peak_memory_stats()
-        session, open_s, run_ms, traj, measure_s = drive(
+        session, open_s, run_ms, measured = drive(
             main_path, family, "k-sweep", main_run)
+        traj, measure_s = measured["traj"], measured["seconds"]
         flips_per_ns = single_rates[family] = 200 * spins / (run_ms * 1e6)
         plan = session.engine.resident_plan
         print(f"phase 5: {main_path}: open {open_s:.2f} s; run(200) "
@@ -1654,7 +1759,11 @@ def main() -> int:
                   f"m {float(traj['m'][-1]):.5f}")
             check(abs(m - onsager) < 2e-3,
                   f"{engine}: |m| is not within 2e-3 of Onsager")
-        peaks[main_path] = torch.cuda.max_memory_allocated()
+        # read where PR 20 read it: through the checks above
+        peaks[main_path] = max(measured["path_peak"],
+                               torch.cuda.max_memory_allocated())
+        loop_against_graph(5, f"{main_path} measure()", family, "k-sweep",
+                           session, measured)
         del session
 
         def half_run():
@@ -1875,12 +1984,10 @@ def main() -> int:
               f"run at full width")
         del firsts, singles
 
-        def measure():
-            t1 = time.perf_counter()
-            return session.measure(), time.perf_counter() - t1
-
-        traj, measure_s = drive(f"{engine} ensemble {batch.size} x {n}^2 "
-                                f"measure()", family, "k-sweep", measure)
+        measure_path = f"{engine} ensemble {batch.size} x {n}^2 measure()"
+        measured = drive(measure_path, family, "k-sweep",
+                         lambda: graph_measure(session))
+        traj, measure_s = measured["traj"], measured["seconds"]
         print(f"phase 7: {run_path}: measure() {spec.sweep.total_sweeps} "
               f"sweeps + {spec.sweep.n_measure} samples of {batch.size} "
               f"members {measure_s:.3f} s, samples {traj['m'].shape}")
@@ -1917,7 +2024,11 @@ def main() -> int:
                 if t >= 2.5:
                     check(mags[i] < 0.01, f"member {i}: |m| >= 0.01 at "
                           f"T = {t}")
-        peaks[run_path] = torch.cuda.max_memory_allocated()
+        # read where PR 20 read it: through the checks above
+        peaks[run_path] = max(measured["path_peak"],
+                              torch.cuda.max_memory_allocated())
+        loop_against_graph(7, measure_path, family, "k-sweep", session,
+                           measured)
         del session
 
         half_path = ensemble_half_paths[family] = \
@@ -1999,6 +2110,108 @@ def main() -> int:
     del e, sessions
     phase_s[7] = time.perf_counter() - t0
 
+    # -- 8. the analysis front door: the Fig. 5/6 scan at full width ------
+    t0 = time.perf_counter()
+    from repro_torch import __main__ as cli
+    from repro_torch.analysis import figures
+    from repro_torch.api import describe
+    from repro_torch.perf.schema import validate_record
+    figure_path = (f"figures: multispin, sizes {figures.FULL_SIZES}, "
+                   f"{len(figures.TEMPS)} temperatures")
+    with tempfile.TemporaryDirectory() as tmp:
+        replays = measuring.DISPATCHES
+        figure = drive(figure_path, "multispin", "k-sweep",
+                       lambda: figures.main(["--out", tmp]))
+        replays = measuring.DISPATCHES - replays
+    tc, rel = figure["tc"], figure["rel_err"]
+    print(f"phase 8: {figure_path}: T_c {tc} (exact "
+          f"{observables.T_CRITICAL}, rel err {rel:.5f}); measure() "
+          + ", ".join(f"L={L} {s:.3f} s" for L, s in
+                      figure["measure_s"].items())
+          + f"; {replays} graph replays")
+    check(tc is not None and rel < figures.TC_TOLERANCE,
+          f"the figure's Binder-crossing T_c {tc} is not within 2% of "
+          f"{observables.T_CRITICAL}")
+    want = len(figures.FULL_SIZES) * (figures.FULL_SWEEP.n_measure - 1)
+    check(replays == want, f"the figure took {replays} graph replays, not "
+          f"{want}: one a sample after the first")
+    figure_rows = {}
+    for L, spec in figures.figure_specs(figures.FULL_SIZES,
+                                        figures.FULL_SWEEP,
+                                        "multispin").items():
+        path = f"figure multispin ensemble 13 x {L}^2 measure()"
+        session = Session.open(spec)
+        measured = drive(path, "multispin", "k-sweep",
+                         lambda: graph_measure(session))
+        same = all(np.array_equal(measured["traj"][k], figure["traj"][L][k])
+                   for k in measured["traj"])
+        check(same, f"{path}: not the figure's samples")
+        loop_against_graph(8, path, "multispin", "k-sweep", session,
+                           measured)
+        figure_rows[L] = graph_rows[path]
+        del session
+    # every counter-based engine on both tiers, single mode and an
+    # ensemble of 3: the graph's samples and digest are the loop's
+    parity_plan = SweepSpec(thermalize=7, measure_every=5, n_measure=20)
+    for engine, family in ENSEMBLE_ENGINES.items():
+        for tier in ("k-sweep", "half-sweep"):
+            for batch in (None, BatchSpec(CHECK_TEMPS, CHECK_SEEDS)):
+                spec = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N,
+                                                   init_p_up=0.5),
+                               engine=EngineSpec(engine), temperature=2.2,
+                               seed=SEED, batch=batch, sweep=parity_plan)
+                session = Session.open(spec,
+                                       resident_budget_bytes=budget(tier))
+                session.run(3)
+                path = (f"{engine} {SMALL_N}^2 {tier} "
+                        f"{'single' if batch is None else 'ensemble of 3'}"
+                        f" measure()")
+                measured = drive(path, family, tier,
+                                 lambda: graph_measure(session))
+                loop_against_graph(8, path, family, tier, session, measured)
+                print(f"phase 8: {path}: digest {session.state_digest()}, "
+                      f"the loop's planes equal")
+                del session
+    # the CLI on the card: a spec file with --record (validated), and
+    # --dry-run, which needs no card
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = figures.figure_specs(figures.FULL_SIZES[:1],
+                                    figures.FULL_SWEEP, "multispin")[
+            figures.FULL_SIZES[0]]
+        spec_file, record = Path(tmp) / "spec.json", Path(tmp) / "rec.json"
+        spec_file.write_text(spec.to_json(indent=1))
+        rc = drive("python -m repro_torch run spec.json --record",
+                   "multispin", "k-sweep", lambda: cli.main(
+                       ["run", str(spec_file), "--record", str(record)]))
+        rec = json.loads(record.read_text())
+        validate_record(rec)
+        meta = rec["meta"]
+        print(f"phase 8: run spec.json --record: exit {rc}, record rows "
+              f"{[r['name'] for r in rec['rows']]}, meta backend "
+              f"{meta['backend']}, {meta['device_count']} device(s), "
+              f"{meta['device_name']}, {meta['power_limit']}")
+        check(rc == 0 and meta["backend"] == "cuda"
+              and meta["device_name"] == torch.cuda.get_device_name(0)
+              and meta["spec"] == json.loads(spec.to_json()),
+              "the --record run or its record is wrong")
+        allocated = torch.cuda.memory_allocated()
+        rc = drive("python -m repro_torch run spec.json --dry-run", None,
+                   None, lambda: cli.main(["run", str(spec_file),
+                                           "--dry-run"]))
+        check(rc == 0 and torch.cuda.memory_allocated() == allocated,
+              "the dry run failed or took device memory")
+        hidden = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "run", str(spec_file),
+             "--dry-run"], capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(SRC),
+                 "CUDA_VISIBLE_DEVICES": ""})
+        check(hidden.returncode == 0 and json.loads(hidden.stdout)
+              == json.loads(json.dumps(describe(spec))),
+              f"the dry run with the card hidden failed: {hidden.stderr}")
+        print("phase 8: run spec.json --dry-run: the plan, no launch, no "
+              "device memory; with the card hidden too")
+    phase_s[8] = time.perf_counter() - t0
+
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}
 
@@ -2047,6 +2260,7 @@ def main() -> int:
         f"{p} {s:.1f}" for p, s in sorted(phase_s.items()))
         + f"; total {time.perf_counter() - t_start:.1f}")
     print("ensemble rates: " + json.dumps(ensemble_rates))
+    print("measure() graph against loop: " + json.dumps(graph_rows))
     print(json.dumps({"kernels": kernels}))
     print("peak device memory by main path: " + ", ".join(
         f"{p} {b} B" for p, b in peaks.items()))

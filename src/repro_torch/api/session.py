@@ -38,7 +38,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import distributed as dist
 from repro_torch.core import rng
-from repro_torch.core.engine import make_engine
+from repro_torch.core.engine import engine_class, make_engine
 from repro_torch.resilience import integrity
 
 from .spec import RunSpec
@@ -73,13 +73,24 @@ def _atomic_savez(path: str, **arrays) -> None:
         raise
 
 
+def _read_spec(z, path: str) -> RunSpec:
+    if "spec_json" not in z.files:
+        raise ValueError(f"{path}: not a checkpoint in the RunSpec "
+                         f"layout (no 'spec_json')")
+    return RunSpec.from_json(str(z["spec_json"]))
+
+
+def load_spec(path: str) -> RunSpec:
+    """The spec of a checkpoint of either package, and nothing else: the
+    state arrays stay on disk (an ``.npz`` reads an entry when asked)."""
+    with np.load(path, allow_pickle=False) as z:
+        return _read_spec(z, path)
+
+
 def _load_checkpoint(path: str):
     """Read a checkpoint: ``(spec, step_count, state arrays)``."""
     with np.load(path, allow_pickle=False) as z:
-        if "spec_json" not in z.files:
-            raise ValueError(f"{path}: not a checkpoint in the RunSpec "
-                             f"layout (no 'spec_json')")
-        spec = RunSpec.from_json(str(z["spec_json"]))
+        spec = _read_spec(z, path)
         step_count = int(z["step_count"])
         arrays = {k[len("state_"):]: z[k] for k in z.files
                   if k.startswith("state_")}
@@ -368,6 +379,61 @@ def _replica_mean(value: torch.Tensor) -> float:
                  if value.numel() > 1 else value)
 
 
+def describe(spec: RunSpec) -> dict:
+    """The validated dispatch plan of ``spec`` as one dict, with no
+    device work and no card needed: what ``python -m repro_torch run
+    --dry-run`` prints.  The keys are the JAX package's ``describe``'s;
+    ``"resident"`` is the k-sweep planner's decision for the lattice
+    (``kernels.resident.decision_attrs``) and ``"dist"``, for a mesh
+    spec, the shard planner's (``dist.planner.shard_decision_attrs``)."""
+    cls = engine_class(spec.engine.name)
+    resident = None
+    if cls.resident_family is not None:
+        from repro_torch.kernels.resident import decision_attrs
+        resident = decision_attrs(cls.resident_family, spec.lattice.n,
+                                  spec.lattice.m)
+    dist_plan = None
+    if spec.mesh is not None:
+        dist_plan = _shard_decision(cls, spec)
+    out = {
+        "mode": spec.mode,
+        "engine": spec.engine.name,
+        "engine_params": spec.engine.param_dict,
+        "counter_based": cls.counter_based,
+        "replicas": cls.replicas,
+        "dist_factory": cls.dist_factory,
+        "resident": resident,
+        "dist": dist_plan,
+        "lattice": [spec.lattice.n, spec.lattice.m],
+        "init_p_up": spec.lattice.init_p_up,
+        "batch_size": 1 if spec.batch is None else spec.batch.size,
+        "mesh": None if spec.mesh is None else spec.mesh.to_dict(),
+        "total_sweeps": None if spec.sweep is None
+        else spec.sweep.total_sweeps,
+        "spec": spec.to_dict(),
+    }
+    if spec.batch is not None:
+        out["members"] = [list(p) for p in spec.batch.members]
+    return out
+
+
+def _shard_decision(cls, spec: RunSpec) -> dict:
+    """The sharded tier of ``spec``'s mesh: rows over every mesh axis but
+    the last, columns over the last (``ShardGrid.of``'s default)."""
+    from repro_torch.dist.planner import (SMEM_BUDGET_BYTES,
+                                          shard_decision_attrs)
+    rows_devs = int(np.prod(spec.mesh.shape[:-1], dtype=np.int64))
+    cols_devs = spec.mesh.shape[-1]
+    if cls.shard_family is not None:
+        return shard_decision_attrs(cls.shard_family, spec.lattice.n,
+                                    spec.lattice.m, rows_devs, cols_devs)
+    return {"family": None, "grid": f"{rows_devs}x{cols_devs}",
+            "sharded_resident": False, "budget_bytes": SMEM_BUDGET_BYTES,
+            "reason": f"engine {spec.engine.name!r} has no sharded "
+                      f"resident tier: per-half-sweep distributed step "
+                      f"{cls.dist_factory!r}"}
+
+
 def _runner(spec: RunSpec, device, *, state=None, step_count: int = 0,
             resident_budget_bytes=None):
     """The runner of ``spec``'s mode."""
@@ -473,6 +539,10 @@ class Session:
                 raise ValueError("no plan: pass one or set RunSpec.sweep")
             plan = self.spec.sweep.plan()
         return self._runner.measure(plan)
+
+    def plan(self) -> dict:
+        """The dispatch plan of this session's spec (:func:`describe`)."""
+        return describe(self.spec)
 
     def trajectory(self, n_measure: int, sweeps_between: int,
                    thermalize: int = 0) -> np.ndarray:

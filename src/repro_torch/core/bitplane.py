@@ -22,6 +22,8 @@ uint32 values in int64.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import lattice as lat
@@ -255,14 +257,24 @@ def run_sweeps_bitplane(black_words, white_words, thresholds, n_sweeps: int,
 # -- per-replica observables -------------------------------------------------
 
 def bit_counts(words: torch.Tensor) -> torch.Tensor:
-    """(32,) int64: how many words of the plane have bit r set, a chunk
+    """(32,) int64: how many words of the tensor have bit r set, a chunk
     of words at a time (no (32, N, C) stack)."""
-    flat = words.reshape(-1)
+    return plane_bit_counts(words.reshape(1, -1))
+
+
+def plane_bit_counts(words: torch.Tensor) -> torch.Tensor:
+    """:func:`bit_counts` of each ``(n, w)`` plane of ``(..., n, w)``
+    words (an ensemble's: ``(B, 32)``), with chunks of about as many
+    words of all planes together."""
+    lead = words.shape[:-2]
+    flat = words.reshape(*lead, -1)
+    step = max(1, _COUNT_CHUNK // math.prod(lead))
     shifts = _shifts(words.device).to(words.dtype)
-    total = torch.zeros(N_REPLICAS, dtype=torch.int64, device=words.device)
-    for i in range(0, flat.numel(), _COUNT_CHUNK):
-        chunk = flat[i:i + _COUNT_CHUNK, None]
-        total += ((chunk >> shifts) & 1).sum(0, dtype=torch.int64)
+    total = torch.zeros((*lead, N_REPLICAS), dtype=torch.int64,
+                        device=words.device)
+    for i in range(0, flat.shape[-1], step):
+        chunk = flat[..., i:i + step, None]
+        total += ((chunk >> shifts) & 1).sum(-2, dtype=torch.int64)
     return total
 
 
@@ -270,11 +282,17 @@ def _means(total: torch.Tensor, count: int) -> torch.Tensor:
     return (total.to(torch.float64) / count).to(torch.float32)
 
 
+def _sites(words: torch.Tensor) -> int:
+    """Sites of one ``(..., n, w)`` word plane (of one member)."""
+    return words.shape[-2] * words.shape[-1]
+
+
 def replica_magnetizations(black_words, white_words) -> torch.Tensor:
     """(32,) float32: replica r's mean spin, ``(2 up_r - N) / N`` from
-    exact int64 counts, each rounded once to float32."""
-    count = black_words.numel() + white_words.numel()
-    up = bit_counts(black_words) + bit_counts(white_words)
+    exact int64 counts, each rounded once to float32; ``(B, 32)`` for an
+    ensemble's ``(B, n, w)`` planes."""
+    count = _sites(black_words) + _sites(white_words)
+    up = plane_bit_counts(black_words) + plane_bit_counts(white_words)
     return _means(2 * up - count, count)
 
 
@@ -283,18 +301,19 @@ def replica_energies(black_words, white_words) -> torch.Tensor:
     black site and one of its 4 white neighbours; it contributes
     ``1 - 2 (b xor w)``, so replica r's bond sum is ``2 N - 2 D_r`` with
     ``D_r`` the bonds whose ends disagree in bit r -- the same integer as
-    the sum over the merged lattice."""
-    count = black_words.numel() + white_words.numel()
-    disagree = torch.zeros(N_REPLICAS, dtype=torch.int64,
-                           device=black_words.device)
-    for nb in (torch.roll(white_words, 1, dims=0),
-               torch.roll(white_words, -1, dims=0), white_words,
+    the sum over the merged lattice.  ``(B, 32)`` for ``(B, n, w)``
+    planes."""
+    count = _sites(black_words) + _sites(white_words)
+    disagree = 0
+    for nb in (torch.roll(white_words, 1, dims=-2),
+               torch.roll(white_words, -1, dims=-2), white_words,
                lat.side_shift(white_words, is_black=True)):
-        disagree += bit_counts(black_words ^ nb)
+        disagree += plane_bit_counts(black_words ^ nb)
     return _means(-(2 * count - 2 * disagree), count)
 
 
 def replica_observables(black_words, white_words) -> dict:
-    """``{"m": (32,), "e": (32,)}`` float32, one value per replica."""
+    """``{"m": (32,), "e": (32,)}`` float32, one value per replica
+    (``(B, 32)`` each for an ensemble's planes)."""
     return {"m": replica_magnetizations(black_words, white_words),
             "e": replica_energies(black_words, white_words)}

@@ -33,6 +33,7 @@ shard's part of a fresh lattice.
 """
 from __future__ import annotations
 
+import functools
 from typing import ClassVar, Dict, Optional, Type
 
 import numpy as np
@@ -49,6 +50,21 @@ from . import rng
 from . import tensorcore as tc
 
 ENGINES: Dict[str, Type["Engine"]] = {}
+
+#: bytes of state planes in one chunk of an ensemble's observables
+#: (``CounterEngine.member_chunks``): one member of 8192^2 or more a
+#: chunk, every member of a 64^2 scan in one
+OBSERVABLE_CHUNK_BYTES = 1 << 24
+
+
+@functools.lru_cache(maxsize=1024)
+def host_table(make, inv_temp) -> torch.Tensor:
+    """``make(inv_temp)``, made once: a measured trajectory asks for every
+    member's table each block of sweeps.  The members of an ensemble are
+    a cycle of lookups, which an LRU cache serves only where they all fit:
+    1024 entries hold the largest launch's members (350) twice over.  The
+    tables are read, never written."""
+    return make(inv_temp)
 
 
 def register(cls: Type["Engine"]) -> Type["Engine"]:
@@ -93,6 +109,8 @@ class Engine:
     param_fields: ClassVar[tuple] = ()
     #: keys of :meth:`observables`
     observable_fields: ClassVar[tuple] = ("m", "e")
+    #: lattices one state advances (32 for the bitplane engines)
+    replicas: ClassVar[int] = 1
     #: the per-half-sweep distributed step that runs this engine on a
     #: mesh (``repro_torch.core.distributed``: "basic", "packed" or
     #: "bitplane"); ``None``: the engine takes no mesh
@@ -131,7 +149,9 @@ class Engine:
 
     def observables(self, state, inv_temp) -> dict:
         """``{"m": mean spin, "e": energy per spin}`` as 0-d float32
-        tensors on the device."""
+        tensors on the device; a counter-based engine's also of an
+        ensemble's ``(B, n, w)`` planes, as ``(B,)`` tensors (neither
+        depends on ``inv_temp``)."""
         raise NotImplementedError
 
     def sweeps(self, state, n_sweeps: int, step_count: int):
@@ -188,9 +208,9 @@ class CounterEngine(Engine):
 
     def sweep_context(self, inv_temp) -> torch.Tensor:
         """The acceptance table (float32 for the int8 planes, uint32
-        thresholds for word planes), computed once per call on the
-        host."""
-        return metro.acceptance_table(inv_temp)
+        thresholds for word planes), computed on the host once per
+        inverse temperature (:func:`host_table`)."""
+        return host_table(metro.acceptance_table, inv_temp)
 
     def sweep_fn_batched(self, states, inv_temps, seeds, start_offset,
                          n_sweeps: int):
@@ -258,27 +278,37 @@ class CounterEngine(Engine):
         """Member ``i``'s state: views of its planes."""
         return tuple(p[i] for p in states)
 
-    def each_member(self, fn, states) -> torch.Tensor:
-        """``fn(member state)`` of each member, stacked: the observables
-        of an ensemble, one member's planes at a time, so that no
-        temporary grows with the batch."""
-        return torch.stack([fn(self.member(states, i))
-                            for i in range(states[0].shape[0])])
+    def member_chunks(self, states):
+        """Consecutive members' planes (views), as many a chunk as hold
+        :data:`OBSERVABLE_CHUNK_BYTES` of state, at least one: the
+        observables of an ensemble run over a chunk at once, and their
+        temporaries, a fixed multiple of the chunk's state, stay below
+        those of one member of that size."""
+        members = states[0].shape[0]
+        member_bytes = sum(p[0].numel() * p.element_size() for p in states)
+        step = max(1, OBSERVABLE_CHUNK_BYTES // member_bytes)
+        return [tuple(p[lo:lo + step] for p in states)
+                for lo in range(0, members, step)]
 
     def magnetizations(self, states) -> torch.Tensor:
-        """(B,) float32: each member's :meth:`magnetization`."""
-        return self.each_member(self.magnetization, states)
+        """(B,) float32: each member's :meth:`magnetization`, a chunk of
+        members at a time."""
+        return torch.cat([self.magnetization(chunk)
+                          for chunk in self.member_chunks(states)])
 
     def full_lattices(self, states) -> torch.Tensor:
         """(B, N, M): each member's :meth:`full_lattice`."""
-        return self.each_member(self.full_lattice, states)
+        return torch.cat([self.full_lattice(chunk)
+                          for chunk in self.member_chunks(states)])
 
     def observables_batched(self, states, inv_temps) -> dict:
-        """Each member's :meth:`observables`, stacked: ``{field: (B,)}``,
-        or ``(B, 32)`` for the bitplane engines' per-replica values."""
-        per = [self.observables(self.member(states, i), beta)
-               for i, beta in enumerate(inv_temps)]
-        return {k: torch.stack([o[k] for o in per]) for k in per[0]}
+        """Each member's :meth:`observables`, a chunk of members at a
+        time: ``{field: (B,)}``, or ``(B, 32)`` for the bitplane engines'
+        per-replica values.  The sums are integers, so each member's
+        values are its single-mode ones bit for bit."""
+        chunks = [self.observables(chunk, None)
+                  for chunk in self.member_chunks(states)]
+        return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
 
 
 class _TwoPlaneEngine(CounterEngine):
@@ -384,7 +414,7 @@ class _WordPlanesEngine(_TwoPlaneEngine):
     plane_dtype = np.uint32
 
     def sweep_context(self, inv_temp) -> torch.Tensor:
-        return ms.acceptance_thresholds(inv_temp)
+        return host_table(ms.acceptance_thresholds, inv_temp)
 
 
 @register
@@ -480,6 +510,7 @@ class BitplaneEngine(_WordPlanesEngine):
     """
 
     name = "bitplane"
+    replicas = bp.N_REPLICAS
     resident_family = "bitplane"
     dist_factory = "bitplane"
     plane_keys = ("black_bits", "white_bits")
@@ -612,6 +643,6 @@ class TensorCoreEngine(CounterEngine):
 
 
 def _replica_mean(values: torch.Tensor) -> torch.Tensor:
-    """Mean of per-replica float32 values, taken in float64 and rounded
-    once to float32."""
-    return values.to(torch.float64).mean().to(torch.float32)
+    """Mean of per-replica float32 values (the last axis), taken in
+    float64 and rounded once to float32."""
+    return values.to(torch.float64).mean(-1).to(torch.float32)

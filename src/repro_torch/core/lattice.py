@@ -101,22 +101,26 @@ def split_checkerboard(lattice: torch.Tensor):
 
 
 def merge_checkerboard(black: torch.Tensor, white: torch.Tensor):
-    """Inverse of :func:`split_checkerboard`."""
-    n, half = black.shape
+    """Inverse of :func:`split_checkerboard`; ``(..., n, m/2)`` planes
+    give ``(..., n, m)`` lattices (an ensemble's, one a member)."""
+    n, half = black.shape[-2:]
     odd = (torch.arange(n, device=black.device) % 2 == 1)[:, None, None]
     even_pairs = torch.stack([black, white], dim=-1)
     odd_pairs = torch.stack([white, black], dim=-1)
-    return torch.where(odd, odd_pairs, even_pairs).reshape(n, 2 * half)
+    return torch.where(odd, odd_pairs, even_pairs).reshape(
+        *black.shape[:-2], n, 2 * half)
 
 
 def side_shift(op_plane: torch.Tensor, is_black: bool) -> torch.Tensor:
     """The 4th (same-row) neighbour of every target cell, in target
     coordinates, with periodic wrap.  For black targets odd rows take
-    ``(i, k+1)`` and even rows ``(i, k-1)``; reversed for white."""
-    odd = (torch.arange(op_plane.shape[0], device=op_plane.device)
+    ``(i, k+1)`` and even rows ``(i, k-1)``; reversed for white.  The
+    plane is ``(..., n, h)``: leading axes (an ensemble's members) are
+    independent planes."""
+    odd = (torch.arange(op_plane.shape[-2], device=op_plane.device)
            % 2 == 1)[:, None]
-    plus = torch.roll(op_plane, -1, dims=1)    # (i, k+1)
-    minus = torch.roll(op_plane, 1, dims=1)    # (i, k-1)
+    plus = torch.roll(op_plane, -1, dims=-1)    # (i, k+1)
+    minus = torch.roll(op_plane, 1, dims=-1)    # (i, k-1)
     if is_black:
         return torch.where(odd, plus, minus)
     return torch.where(odd, minus, plus)
@@ -162,11 +166,10 @@ def pack_nibbles(plane01: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_nibbles(words: torch.Tensor) -> torch.Tensor:
-    """(N, W) uint32 values -> (N, 8W) nibble values (int64)."""
-    n, w = words.shape
+    """(..., N, W) uint32 values -> (..., N, 8W) nibble values (int64)."""
     nib = (words_to_u32(words)[..., None]
            >> _nibble_shifts(words.device)) & 0xF
-    return nib.reshape(n, w * SPINS_PER_WORD)
+    return nib.reshape(*words.shape[:-1], words.shape[-1] * SPINS_PER_WORD)
 
 
 def align_side_word(center: torch.Tensor, is_black: bool) -> torch.Tensor:
@@ -174,9 +177,10 @@ def align_side_word(center: torch.Tensor, is_black: bool) -> torch.Tensor:
     same-row neighbours lie in the opposite plane's word at the same
     place, the 8th in the edge nibble of the word to the right (``k+1``)
     or the left (``k-1``).  A funnel shift of two words, masked to 32
-    bits, aligns them.  ``center`` holds uint32 values in int64."""
-    nxt = torch.roll(center, -1, dims=1)
-    prv = torch.roll(center, 1, dims=1)
+    bits, aligns them.  ``center`` holds uint32 values in int64, ``(...,
+    n, w)``."""
+    nxt = torch.roll(center, -1, dims=-1)
+    prv = torch.roll(center, 1, dims=-1)
     # toward k+1: nibble n <- nibble n+1; the next word's nibble 0 enters
     # at the top
     plus = (center >> NIBBLE_BITS) | ((nxt << (32 - NIBBLE_BITS))
@@ -184,7 +188,7 @@ def align_side_word(center: torch.Tensor, is_black: bool) -> torch.Tensor:
     # toward k-1
     minus = ((center << NIBBLE_BITS) & rng.MASK32) | (prv
                                                       >> (32 - NIBBLE_BITS))
-    odd = (torch.arange(center.shape[0], device=center.device)
+    odd = (torch.arange(center.shape[-2], device=center.device)
            % 2 == 1)[:, None]
     if is_black:
         return torch.where(odd, plus, minus)
@@ -195,8 +199,8 @@ def packed_neighbor_sums(op_words: torch.Tensor, is_black: bool
                          ) -> torch.Tensor:
     """Nibble-parallel four-neighbour sums: three adds per 8 spins.  Each
     nibble sum is at most 4 < 16, so no carry crosses a nibble.  Takes
-    and returns uint32 values in int64."""
+    and returns uint32 values in int64, ``(..., n, w)``."""
     op = words_to_u32(op_words)
-    up = torch.roll(op, 1, dims=0)
-    down = torch.roll(op, -1, dims=0)
+    up = torch.roll(op, 1, dims=-2)
+    down = torch.roll(op, -1, dims=-2)
     return up + down + op + align_side_word(op, is_black)

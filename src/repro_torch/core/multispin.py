@@ -13,9 +13,14 @@ This module is the plain version of both CUDA kernels of
 Word planes are ``torch.int32`` tensors holding the uint32 bits; the
 arithmetic runs on uint32 values widened to int64
 (``lattice.words_to_u32``).  Every function here takes and returns int32
-word planes.
+word planes.  The sweep functions also take an ensemble's ``(B, n, w)``
+planes with a ``(B, 10)`` threshold table and a sequence of B seeds, one
+a member, and update every member at once: member i's planes are those
+of its own single-plane update.
 """
 from __future__ import annotations
+
+from typing import Sequence, Union
 
 import torch
 
@@ -44,11 +49,27 @@ def acceptance_thresholds(inv_temp) -> torch.Tensor:
     return torch.where(p < 1.0, scaled, torch.full_like(scaled, rng.MASK32))
 
 
-def word_randoms(seed: int, word_index: torch.Tensor, offset: int):
+#: one seed, or a seed a member of ``(B, n, w)`` planes
+Seeds = Union[int, Sequence[int]]
+
+
+def _keys(seed: Seeds, device):
+    """The Philox key lanes of ``seed``: two ints, or for a sequence of
+    member seeds two ``(B, 1, 1)`` int64 tensors."""
+    if not isinstance(seed, (list, tuple)):
+        return rng.seed_keys(seed)
+    keys = torch.tensor([rng.seed_keys(s) for s in seed], dtype=torch.int64,
+                        device=device)
+    return keys[:, 0, None, None], keys[:, 1, None, None]
+
+
+def word_randoms(seed: Seeds, word_index: torch.Tensor, offset: int):
     """The 8 uint32 draws (int64) of each word: lanes of Philox at
     counters ``(2*offset, 0, widx, 0)`` and ``(2*offset + 1, 0, widx,
-    0)``, key ``seed_keys(seed)``; ``2*offset`` wraps modulo 2^32."""
-    k0, k1 = rng.seed_keys(seed)
+    0)``, key ``seed_keys(seed)``; ``2*offset`` wraps modulo 2^32.  A
+    sequence of B seeds gives ``(B, ...)`` draws, member i's keyed on
+    seed i."""
+    k0, k1 = _keys(seed, word_index.device)
     lo = rng.philox4x32((2 * int(offset)) & rng.MASK32, 0, word_index, 0,
                         k0, k1)
     hi = rng.philox4x32((2 * int(offset) + 1) & rng.MASK32, 0, word_index,
@@ -58,28 +79,36 @@ def word_randoms(seed: int, word_index: torch.Tensor, offset: int):
 
 def flip_words(target: torch.Tensor, nn_words: torch.Tensor, draws,
                thresholds: torch.Tensor) -> torch.Tensor:
-    """The flip word of each target word (uint32 values in int64)."""
+    """The flip word of each target word (uint32 values in int64); for
+    ``(B, n, w)`` words ``thresholds`` is ``(B, 10)``, a table a
+    member."""
     flip = torch.zeros_like(target)
+    base = 0
+    if thresholds.dim() == 2:
+        base = (torch.arange(thresholds.shape[0], device=target.device)
+                * metro.TABLE_SIZE)[:, None, None]
+    flat = thresholds.reshape(-1)
     for nib in range(lat.SPINS_PER_WORD):
         sh = nib * lat.NIBBLE_BITS
         s = (target >> sh) & 1
         nn = (nn_words >> sh) & 0xF
-        t = thresholds[s * 5 + nn]
+        t = flat[base + s * 5 + nn]
         flip |= (draws[nib] < t).to(torch.int64) << sh
     return flip
 
 
-def update_words(target_words, nn_words, thresholds, seed: int,
+def update_words(target_words, nn_words, thresholds, seed: Seeds,
                  offset: int, widx=None) -> torch.Tensor:
     """The new target word plane (int32) from its packed neighbour sums
     (uint32 values in int64).  Words are keyed on ``row * W + col`` or,
     where ``widx`` is given, on that plane of uint32 word indices (a
-    shard's)."""
-    n, w = target_words.shape
+    shard's).  ``(B, n, w)`` planes take a ``(B, 10)`` table and B
+    seeds."""
+    n, w = target_words.shape[-2:]
     target = lat.words_to_u32(target_words)
     thr = thresholds.to(device=target.device, dtype=torch.int64)
     out = torch.empty_like(target_words, dtype=torch.int32)
-    rows = max(1, _CHUNK_WORDS // w)
+    rows = max(1, _CHUNK_WORDS // (target[..., 0, 0].numel() * w))
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
         if widx is None:
@@ -88,13 +117,15 @@ def update_words(target_words, nn_words, thresholds, seed: int,
         else:
             index = widx[r0:r1].to(torch.int64)
         draws = word_randoms(seed, index & rng.MASK32, offset)
-        flip = flip_words(target[r0:r1], nn_words[r0:r1], draws, thr)
-        out[r0:r1] = lat.u32_to_words(target[r0:r1] ^ flip)
+        rows_of = (..., slice(r0, r1), slice(None))
+        flip = flip_words(target[rows_of], nn_words[rows_of], draws, thr)
+        out[rows_of] = lat.u32_to_words(target[rows_of] ^ flip)
     return out
 
 
 def update_color_packed(target_words, op_words, thresholds, is_black: bool,
-                        seed: int, offset: int, widx=None) -> torch.Tensor:
+                        seed: Seeds, offset: int, widx=None
+                        ) -> torch.Tensor:
     """One packed half-sweep: the new target word plane (int32), keyed as
     :func:`update_words`."""
     return update_words(target_words,
@@ -103,7 +134,7 @@ def update_color_packed(target_words, op_words, thresholds, is_black: bool,
 
 
 def run_sweeps_packed(black_words, white_words, thresholds, n_sweeps: int,
-                      seed: int, start_offset: int = 0):
+                      seed: Seeds, start_offset: int = 0):
     """``n_sweeps`` full sweeps (black, then white) at offsets
     ``half_sweep_offset(start_offset, i, colour)``."""
     for i in range(n_sweeps):
@@ -117,9 +148,12 @@ def run_sweeps_packed(black_words, white_words, thresholds, n_sweeps: int,
 
 
 def _row_chunks(plane: torch.Tensor):
-    rows = max(1, _PACK_CHUNK_SITES // max(1, plane.shape[1]))
-    for r0 in range(0, plane.shape[0], rows):
-        yield r0, min(plane.shape[0], r0 + rows)
+    """Row ranges of ``(..., n, c)`` planes, about
+    :data:`_PACK_CHUNK_SITES` sites of all leading planes together."""
+    n, c = plane.shape[-2:]
+    rows = max(1, _PACK_CHUNK_SITES // max(1, plane[..., 0, 0].numel() * c))
+    for r0 in range(0, n, rows):
+        yield r0, min(n, r0 + rows)
 
 
 def pack_plane(plane_pm1: torch.Tensor) -> torch.Tensor:
@@ -136,12 +170,14 @@ def pack_plane(plane_pm1: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_plane(words: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
-    """Inverse of :func:`pack_plane`."""
-    n, w = words.shape
-    out = torch.empty((n, w * lat.SPINS_PER_WORD), dtype=dtype,
+    """Inverse of :func:`pack_plane`; ``(..., n, w)`` word planes (an
+    ensemble's) give ``(..., n, 8 w)`` planes."""
+    out = torch.empty((*words.shape[:-1], words.shape[-1]
+                       * lat.SPINS_PER_WORD), dtype=dtype,
                       device=words.device)
     for r0, r1 in _row_chunks(out):
-        out[r0:r1] = lat.from_binary(lat.unpack_nibbles(words[r0:r1]), dtype)
+        out[..., r0:r1, :] = lat.from_binary(
+            lat.unpack_nibbles(words[..., r0:r1, :]), dtype)
     return out
 
 

@@ -5,7 +5,9 @@ spins in float32, which is exact only up to 2^24 spins.  Here the sums
 are integers (int64) and the quotient is taken in float64 and rounded
 once to float32: for lattices up to 2^24 spins that is the JAX value bit
 for bit, and at 2^30 spins the sum stays exact.  Results are 0-d float32
-tensors on the planes' device.
+tensors on the planes' device; the compact-plane functions also take an
+ensemble's ``(B, n, w)`` planes and give ``(B,)`` values, each equal to
+the member's own, since the sums are integers.
 """
 from __future__ import annotations
 
@@ -22,12 +24,19 @@ _SUM_CHUNK = 1 << 24
 
 
 def _int_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum of a 2-D integer tensor in int64, a block of rows at a time:
-    the int64 copy a whole-plane ``sum(dtype=int64)`` makes would take
-    4 GiB at 2^29 sites."""
-    rows = max(1, _SUM_CHUNK // max(1, t.shape[1]))
-    return sum(t[i:i + rows].sum(dtype=torch.int64)
-               for i in range(0, t.shape[0], rows))
+    """Sum over the last two axes of an integer tensor in int64, a block
+    of rows at a time (of every leading plane together): the int64 copy
+    a whole-plane ``sum(dtype=int64)`` makes would take 4 GiB at 2^29
+    sites.  A 2-D plane gives a 0-d sum, ``(B, n, w)`` planes ``(B,)``."""
+    n, w = t.shape[-2:]
+    rows = max(1, _SUM_CHUNK // max(1, t[..., 0, 0].numel() * w))
+    return sum(t[..., i:i + rows, :].sum(dim=(-2, -1), dtype=torch.int64)
+               for i in range(0, n, rows))
+
+
+def _sites(plane: torch.Tensor) -> int:
+    """Sites of one ``(..., n, w)`` plane (of one member)."""
+    return plane.shape[-2] * plane.shape[-1]
 
 
 def _mean(total: torch.Tensor, count: int) -> torch.Tensor:
@@ -37,7 +46,7 @@ def _mean(total: torch.Tensor, count: int) -> torch.Tensor:
 def magnetization(black: torch.Tensor, white: torch.Tensor) -> torch.Tensor:
     """Mean spin over the full lattice from the compact +-1 planes."""
     return _mean(_int_sum(black) + _int_sum(white),
-                 black.numel() + white.numel())
+                 _sites(black) + _sites(white))
 
 
 def magnetization_full(full: torch.Tensor) -> torch.Tensor:
@@ -62,9 +71,9 @@ def energy_per_spin(black: torch.Tensor, white: torch.Tensor) -> torch.Tensor:
     same integer as :func:`energy_per_spin_full` of the merged lattice.
     Products stay int8 (|s * nn| <= 4) and only the sum widens.
     """
-    nn = (torch.roll(white, 1, dims=0) + torch.roll(white, -1, dims=0)
+    nn = (torch.roll(white, 1, dims=-2) + torch.roll(white, -1, dims=-2)
           + white + lat.side_shift(white, is_black=True))
-    return _mean(-_int_sum(black * nn), black.numel() + white.numel())
+    return _mean(-_int_sum(black * nn), _sites(black) + _sites(white))
 
 
 def magnetization_planes(planes: dict) -> torch.Tensor:

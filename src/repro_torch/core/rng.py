@@ -45,7 +45,13 @@ def _u32(x, device=None) -> torch.Tensor:
 
 
 def _mulhilo32(a, b):
-    """32x32 -> (hi, lo) of uint32 values held in int64, via 16-bit limbs."""
+    """32x32 -> (hi, lo) of uint32 values held in int64, via 16-bit limbs;
+    where ``a`` is a Python int (a Philox multiplier) only ``b`` is split,
+    each 16 x 32-bit product fitting 48 bits."""
+    if isinstance(a, int):
+        p0 = (b & _LO16) * a
+        p1 = (b >> 16) * a
+        return (p1 + (p0 >> 16)) >> 16, (((p1 & _LO16) << 16) + p0) & MASK32
     a0 = a & _LO16
     a1 = a >> 16
     b0 = b & _LO16
@@ -67,15 +73,13 @@ def philox4x32(c0, c1, c2, c3, k0, k1, rounds: int = 10):
                    if isinstance(x, torch.Tensor)), None)
     c0, c1, c2, c3, k0, k1 = (_u32(x, device)
                               for x in (c0, c1, c2, c3, k0, k1))
-    m0 = torch.tensor(PHILOX_M0, dtype=torch.int64, device=device)
-    m1 = torch.tensor(PHILOX_M1, dtype=torch.int64, device=device)
     for r in range(rounds):
         if r > 0:
             # the key schedule adds W0/W1 before every round but the first
             k0 = (k0 + PHILOX_W0) & MASK32
             k1 = (k1 + PHILOX_W1) & MASK32
-        hi0, lo0 = _mulhilo32(m0, c0)
-        hi1, lo1 = _mulhilo32(m1, c2)
+        hi0, lo0 = _mulhilo32(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo32(PHILOX_M1, c2)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
     return c0, c1, c2, c3
 

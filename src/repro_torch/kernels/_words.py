@@ -10,12 +10,13 @@ thresholds an int64 tensor of 10 uint32 values
 multispin k-sweep and shard kernels take as the 16-entry
 :func:`key_table` and the bitplane kernels as :func:`accept_arg`: t4 and
 t8 where the table has a ferromagnet's three values, else all 10.  A
-launch of several members passes their tables one after another
-(:func:`members_arg`).
+launch of several members passes their tables one after another, an
+argument made once per member set (``_members_args``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -69,20 +70,20 @@ def check_resident_args(black, n_sweeps: int, plan) -> None:
                          f"are {tuple(black.shape)}")
 
 
-def thresholds_arg(thresholds: torch.Tensor):
-    """The 10 uint32 thresholds as a ctypes array (passed by value)."""
+def _values(thresholds: torch.Tensor) -> tuple:
+    """The 10 uint32 thresholds as a tuple of ints (the caches' key)."""
     if thresholds.numel() != N_CLASSES:
         raise ValueError(f"threshold table needs {N_CLASSES} entries, got "
                          f"{thresholds.numel()}")
-    values = [int(v) & rng.MASK32 for v in thresholds.flatten().tolist()]
-    return (ctypes.c_uint32 * N_CLASSES)(*values)
+    return tuple(int(v) & rng.MASK32 for v in thresholds.flatten().tolist())
 
 
-def three_thresholds(thresholds: torch.Tensor) -> Optional[tuple]:
-    """``(t4, t8)`` where the thresholds have a ferromagnet's layout
-    (:data:`ALWAYS`, :data:`T4_CLASSES`, :data:`T8_CLASSES`), which the
-    bitplane kernels' three-threshold accept takes; else ``None``."""
-    values = list(thresholds_arg(thresholds))
+def thresholds_arg(thresholds: torch.Tensor):
+    """The 10 uint32 thresholds as a ctypes array (passed by value)."""
+    return (ctypes.c_uint32 * N_CLASSES)(*_values(thresholds))
+
+
+def _three(values: tuple) -> Optional[tuple]:
     if any(values[i] != rng.MASK32 for i in ALWAYS):
         return None
     t4, t8 = (values[c[0]] for c in (T4_CLASSES, T8_CLASSES))
@@ -90,6 +91,13 @@ def three_thresholds(thresholds: torch.Tensor) -> Optional[tuple]:
             any(values[i] != t8 for i in T8_CLASSES):
         return None
     return t4, t8
+
+
+def three_thresholds(thresholds: torch.Tensor) -> Optional[tuple]:
+    """``(t4, t8)`` where the thresholds have a ferromagnet's layout
+    (:data:`ALWAYS`, :data:`T4_CLASSES`, :data:`T8_CLASSES`), which the
+    bitplane kernels' three-threshold accept takes; else ``None``."""
+    return _three(_values(thresholds))
 
 
 def accept_arg(thresholds: torch.Tensor) -> tuple:
@@ -100,15 +108,18 @@ def accept_arg(thresholds: torch.Tensor) -> tuple:
     return accept_args([thresholds])
 
 
+def _key_table(values: tuple) -> list:
+    return [values[(key >> 3) * 5 + (key & 7)] if key & 7 <= 4 else 0
+            for key in range(N_KEYS)]
+
+
 def key_table(thresholds: torch.Tensor) -> list:
     """The 16 uint32 entries that ``csrc/multispin.cu``'s k-sweep and
     shard kernels index by a word's key nibble ``s * 8 + c`` (spin s at
     bit 3, the count c <= 4 of up neighbours below it): entry ``s * 8 +
     c`` is threshold ``s * 5 + c``; entries 5-7 and 13-15, which no
     nibble takes, are 0."""
-    values = list(thresholds_arg(thresholds))
-    return [values[(key >> 3) * 5 + (key & 7)] if key & 7 <= 4 else 0
-            for key in range(N_KEYS)]
+    return _key_table(_values(thresholds))
 
 
 def key_table_arg(thresholds: torch.Tensor):
@@ -116,22 +127,36 @@ def key_table_arg(thresholds: torch.Tensor):
     return (ctypes.c_uint32 * N_KEYS)(*key_table(thresholds))
 
 
-def members_arg(arrays) -> ctypes.Array:
-    """The ctypes arrays of a launch's members, one after another."""
-    values = [v for a in arrays for v in a]
-    return (arrays[0]._type_ * len(values))(*values)
+def _u32_array(values) -> ctypes.Array:
+    return (ctypes.c_uint32 * len(values))(*values)
+
+
+@functools.lru_cache(maxsize=64)
+def _members_args(kind: str, members: tuple) -> tuple:
+    """The launch argument ``kind`` of the members' threshold values,
+    made once per member set (a launch only reads it)."""
+    if kind == "thresholds":
+        return (_u32_array([v for values in members for v in values]),)
+    if kind == "key_table":
+        return (_u32_array([v for values in members
+                            for v in _key_table(values)]),)
+    threes = [_three(values) for values in members]
+    if any(three is None for three in threes):
+        return (_u32_array([v for values in members for v in values]),
+                N_CLASSES)
+    return _u32_array([v for three in threes for v in three]), 2
 
 
 def thresholds_args(tables) -> tuple:
     """``multispin_update``'s threshold argument for the members'
     ``tables``: their :func:`thresholds_arg` one after another."""
-    return (members_arg([thresholds_arg(t) for t in tables]),)
+    return _members_args("thresholds", tuple(_values(t) for t in tables))
 
 
 def key_table_args(tables) -> tuple:
     """The multispin k-sweep kernel's argument: the members'
     :func:`key_table_arg` one after another."""
-    return (members_arg([key_table_arg(t) for t in tables]),)
+    return _members_args("key_table", tuple(_values(t) for t in tables))
 
 
 def accept_args(tables) -> tuple:
@@ -139,11 +164,7 @@ def accept_args(tables) -> tuple:
     ``(t4 and t8 of each, 2)`` where every table has a ferromagnet's
     layout (:func:`three_thresholds`), else ``(the 10 thresholds of each,
     10)``: the general accept for all members of the launch."""
-    threes = [three_thresholds(t) for t in tables]
-    if any(three is None for three in threes):
-        return members_arg([thresholds_arg(t) for t in tables]), N_CLASSES
-    values = [v for three in threes for v in three]
-    return (ctypes.c_uint32 * len(values))(*values), 2
+    return _members_args("accept", tuple(_values(t) for t in tables))
 
 
 #: the threshold arguments of each family's kernels for its members'

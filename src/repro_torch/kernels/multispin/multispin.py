@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import multispin as ms
 from repro_torch.kernels import _build
-from repro_torch.kernels._members import check_batch, per_member
+from repro_torch.kernels._members import check_batch
 from repro_torch.kernels._words import check_words, declare, launch_update
 
 
@@ -61,10 +61,11 @@ def multispin_update(target, op_words, thresholds, *, is_black: bool,
 
 def multispin_update_batched_plain(targets, ops, tables, *, is_black: bool,
                                    seeds, offset: int) -> torch.Tensor:
-    """The plain batched version: :func:`multispin_update_plain` of each
-    member (its table and seed), stacked."""
-    return per_member(multispin_update_plain, (targets, ops), tables, seeds,
-                      is_black=is_black, offset=offset)
+    """The plain batched version: the packed half-sweep of every member
+    at once (its table and seed), which gives each member's
+    :func:`multispin_update_plain`."""
+    return ms.update_color_packed(targets, ops, torch.stack(list(tables)),
+                                  is_black, [int(s) for s in seeds], offset)
 
 
 def multispin_update_batched(targets, ops, tables, *, is_black: bool,

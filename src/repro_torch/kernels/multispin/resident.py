@@ -19,8 +19,10 @@ its members.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import multispin as ms
-from repro_torch.kernels._members import check_batch, per_member
+from repro_torch.kernels._members import check_batch
 from repro_torch.kernels._words import (check_resident_args, check_words,
                                         launch_resident)
 
@@ -57,11 +59,12 @@ def multispin_sweeps_resident(black, white, thresholds, *, n_sweeps: int,
 def multispin_sweeps_resident_batched_plain(black, white, tables, *,
                                             n_sweeps: int, seeds,
                                             start_offset: int):
-    """The plain batched version: :func:`multispin_sweeps_resident_plain`
-    of each member (its table and seed), stacked."""
-    return per_member(multispin_sweeps_resident_plain, (black, white),
-                      tables, seeds, n_sweeps=n_sweeps,
-                      start_offset=start_offset)
+    """The plain batched version: the packed half-sweep pair of every
+    member at once (its table and seed), which gives each member's
+    :func:`multispin_sweeps_resident_plain`."""
+    return ms.run_sweeps_packed(black, white, torch.stack(list(tables)),
+                                n_sweeps, [int(s) for s in seeds],
+                                start_offset)
 
 
 def multispin_sweeps_resident_batched(black, white, tables, *,

@@ -178,3 +178,29 @@ def plan_resident(family: str, n: int, m: int,
                                 smem_bytes=need, budget_bytes=budget,
                                 threads=g.threads)
     return None
+
+
+def decision_attrs(family: str, n: int, m: int,
+                   budget_bytes: Optional[int] = None) -> dict:
+    """:func:`plan_resident`'s decision as one flat dict of JSON scalars
+    (``describe``'s ``"resident"``, what ``--dry-run`` prints): the
+    family, whether a tile fits the budget (``fits_smem``), the budget,
+    and the plan's k, tile, threads and shared memory, or else the
+    ``reason`` for the per-half-sweep tier."""
+    budget = SMEM_BUDGET_BYTES if budget_bytes is None else budget_bytes
+    plan = plan_resident(family, n, m, budget_bytes=budget)
+    attrs = {"family": family, "fits_smem": plan is not None,
+             "budget_bytes": budget}
+    if plan is not None:
+        attrs.update(k=plan.k, tile_rows=plan.tile_rows,
+                     tile_cols=plan.tile_cols, threads=plan.threads,
+                     smem_bytes=plan.smem_bytes)
+    else:
+        g = GEOMETRY[family]
+        need = smem_bytes(min(g.tile_rows, n), min(g.tile_cols,
+                                                   m // g.col_divisor),
+                          1, family)
+        attrs["reason"] = (f"the k = 1 tile needs {need} B of shared "
+                           f"memory, over the budget of {budget} B: "
+                           f"per-half-sweep tier")
+    return attrs

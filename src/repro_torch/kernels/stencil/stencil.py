@@ -102,8 +102,14 @@ def _device_bounds_members(values: tuple, device_type: str, index):
 
 def bounds_args(tables):
     """The k-sweep kernel's argument: the members' :func:`bounds_arg`
-    one after another (a ctypes array of 10 B uint64 values)."""
-    values = [v for t in tables for v in bounds_arg(t)]
+    one after another (a ctypes array of 10 B uint64 values), made once
+    per member set."""
+    return _bounds_args(tuple(_table_values(t) for t in tables))
+
+
+@functools.lru_cache(maxsize=64)
+def _bounds_args(members: tuple):
+    values = [v for table in members for v in _bounds_arg(table)]
     return (ctypes.c_uint64 * len(values))(*values)
 
 

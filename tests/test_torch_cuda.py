@@ -873,3 +873,116 @@ def test_ensemble_session_on_card_equals_cpu(cuda, engine, tier):
     assert getattr(pkg, name).launches - before == blocks
     for i in range(3):
         assert card.state_digest(member=i) == cpu.state_digest(member=i)
+
+
+# -- the measured trajectory: a sample's observables one captured graph -----
+
+GRAPH_PLAN = dict(thermalize=3, measure_every=3, n_measure=5)
+
+
+def graph_and_loop(spec, budget):
+    """A session's ``measure()`` (the graph) and the same plan as the loop
+    of launches on the card, each from 2 sweeps in: their trajectories
+    and final digests, and the graph replays of the ``measure()``: one a
+    sample after the first."""
+    from repro_torch.analysis import measure
+    graph = Session.open(spec, resident_budget_bytes=budget)
+    loop = Session.open(spec, resident_budget_bytes=budget)
+    for s in (graph, loop):
+        s.run(2)
+    before = measure.DISPATCHES
+    got = graph.measure()
+    replays = measure.DISPATCHES - before
+    runner, plan = loop._runner, spec.sweep.plan()
+    if spec.batch is None:
+        runner.state, want, runner.step_count = measure.measure_scan(
+            runner.engine, runner.state, plan, runner.step_count, loop=True)
+    else:
+        runner.state, want, runner.step_count = measure.measure_scan_batched(
+            runner.engine, runner.state, runner.inv_temps, runner.seeds,
+            plan, runner.step_count, loop=True)
+    assert measure.DISPATCHES - before == replays
+    return got, want, graph, loop, replays
+
+
+@pytest.mark.parametrize("engine", ["stencil_pallas", "multispin",
+                                    "multispin_pallas", "bitplane",
+                                    "bitplane_pallas"])
+@pytest.mark.parametrize("tier", ["k-sweep", "half-sweep"])
+@pytest.mark.parametrize("mode", ["single", "ensemble"])
+def test_graph_trajectory_equals_loop(cuda, engine, tier, mode):
+    """The graph's samples and final digest equal the loop's bit for bit,
+    and the CPU's; one replay a sample after the first."""
+    from repro_torch.api import BatchSpec, SweepSpec
+    spec = RunSpec(lattice=LatticeSpec(64, 96, init_p_up=0.5),
+                   engine=EngineSpec(engine), temperature=2.3,
+                   seed=2 ** 33 + 5, sweep=SweepSpec(**GRAPH_PLAN),
+                   batch=BatchSpec(ENSEMBLE_TEMPS, ENSEMBLE_SEEDS)
+                   if mode == "ensemble" else None)
+    got, want, graph, loop, replays = graph_and_loop(
+        spec, 0 if tier == "half-sweep" else None)
+    assert replays == GRAPH_PLAN["n_measure"] - 1
+    assert sorted(got) == sorted(want) == ["e", "m"]
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k])
+    cpu = Session.open(spec, device="cpu")
+    cpu.run(2)
+    on_cpu = cpu.measure()
+    for k in got:
+        np.testing.assert_array_equal(got[k], on_cpu[k])
+    assert graph.state_digest() == loop.state_digest() == cpu.state_digest()
+
+
+def test_graph_trajectory_at_the_figure_shape(cuda):
+    """The figure's 13 members of 64^2 (multispin), 2 samples 4 sweeps
+    apart after 6: graph and loop agree, the second sample one replay."""
+    from repro_torch.analysis.figures import TEMPS, size_spec
+    from repro_torch.api import SweepSpec
+    spec = size_spec(64, TEMPS, SweepSpec(thermalize=6, measure_every=4,
+                                          n_measure=2), "multispin", 1101)
+    got, want, graph, loop, replays = graph_and_loop(spec, None)
+    assert replays == 1 and got["m"].shape == (2, 13)
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k])
+    assert graph.state_digest() == loop.state_digest()
+
+
+def test_tensorcore_measure_keeps_its_loop(cuda):
+    """``tensorcore`` is not counter-based: no graph, no replay."""
+    from repro_torch.analysis import measure
+    from repro_torch.api import SweepSpec
+    spec = RunSpec(lattice=LatticeSpec(128, 128, init_p_up=1.0),
+                   engine=EngineSpec("tensorcore", {"tc_block": 64}),
+                   sweep=SweepSpec(measure_every=2, n_measure=3))
+    before = measure.DISPATCHES
+    got = Session.open(spec).measure()
+    assert measure.DISPATCHES == before and got["m"].shape == (3,)
+
+
+def test_graph_capture_failure_raises(cuda, monkeypatch):
+    """An observable that reads a device value on the host cannot be
+    captured: measure() raises, replays nothing and does not fall back
+    to the loop (the first sample's observables, outside the graph, read
+    it once)."""
+    from repro_torch.analysis import measure
+    from repro_torch.api import SweepSpec
+    spec = RunSpec(lattice=LatticeSpec(64, 64, init_p_up=1.0),
+                   engine=EngineSpec("multispin"),
+                   sweep=SweepSpec(measure_every=2, n_measure=3))
+    session = Session.open(spec)
+    engine = session.engine
+    real = engine.observables_batched
+    calls = []
+
+    def host_read(states, inv_temps):
+        out = real(states, inv_temps)
+        calls.append(float(out["m"][0].item()))
+        return out
+
+    monkeypatch.setattr(engine, "observables_batched", host_read)
+    before = measure.DISPATCHES
+    with pytest.raises(RuntimeError):
+        session.measure()
+    assert measure.DISPATCHES == before
+    assert len(calls) == 1          # the first sample's; the capture failed
+    torch.cuda.synchronize()
