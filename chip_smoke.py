@@ -11,8 +11,11 @@ uint32 word); and the fused tensor-core kernel ``tensorcore_update``
 (four int8 sublattice planes, banded products on the tensor cores).
 The six single-device kernels of the three families also take an
 ensemble's members as a grid axis (``BatchSpec``: B members' stacked
-planes in one launch).  Phases, each of which raises (and so exits
-non-zero) when it fails:
+planes in one launch).  The eleventh kernel, ``philox_fill``, replaces no
+TPU kernel: it draws the uniforms of the engines whose update is plain
+PyTorch (``basic_philox``, ``basic``, ``spinglass``, ``wolff`` and the 3D
+model).  Phases, each of which raises (and so exits non-zero) when it
+fails:
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA source of ``src/repro_torch/csrc`` with nvcc (one
@@ -64,6 +67,12 @@ non-zero) when it fails:
    an odd tile grid, for bitplane also a batch of a shuffled table and
    ferromagnet tables (the general accept for the whole launch), then
    at the ensemble main path's shape, with each one's time there;
+   ``philox_fill`` on row-major planes and index planes (random int32,
+   and a 3D slab's int64 global positions), 1 to 16 members of distinct
+   seeds, lanes 1 and 2, offsets near 2^31 and 2^32, the streams' c1 =
+   0, 2 and 3 with c3 > 0, and at the main path's (32768, 16384) plane,
+   timed there beside its plain version and (a note: another function)
+   ``torch.rand``;
 4. the Session at 512^2 for each engine: the card's k-sweep tier, its
    per-half-sweep tier (``resident_budget_bytes=0``) and the CPU plain
    versions give one ``state_digest``, and restore-continue equals the
@@ -72,7 +81,9 @@ non-zero) when it fails:
    (4, 1) and (2, 1, 2) (the sharded resident tier), ``multispin`` and
    ``bitplane`` on (2, 2) (the per-half-sweep distributed tier, plain
    PyTorch, no kernel), ``stencil_pallas`` on (2, 2) with no shard plan
-   (``resident_budget_bytes=0``): each the single-mode digest; saved on
+   (``resident_budget_bytes=0``: the "basic" distributed step, whose
+   draws launch ``philox_fill`` once a shard a half-sweep): each the
+   single-mode digest; saved on
    (2, 2) and restored on (4, 1) and in single mode, and a single-mode
    checkpoint restored on (2, 2): the same digest; ensembles of 3
    members of each of the five counter-based engines: every member's
@@ -120,10 +131,33 @@ non-zero) when it fails:
    after the first;
    each size's ``measure()`` again through the graph and as the loop,
    both equal to the figure's samples; each counter-based engine on both
-   tiers at 512^2, single mode and an ensemble of 3, graph against loop;
+   tiers at 512^2, single mode and an ensemble of 3, graph against loop,
+   ``basic_philox`` too on its one tier (its draws from ``philox_fill``);
    ``python -m repro_torch run spec.json --record`` on the card, the
    record validated by ``repro_torch.perf.schema``; ``--dry-run`` with no
-   launch and no device memory, and in a process that sees no card.
+   launch and no device memory, and in a process that sees no card;
+9. the engines of plain updates, one session at a time, each path
+   launching ``philox_fill`` and no other kernel (ms, flips/ns, peak
+   device memory beside the card): ``basic_philox`` at 32768^2 (T = 2.0,
+   ordered start, ``run(200)``: 400 launches), whose planes must be
+   phase 5's ``stencil_pallas`` planes after its ``run(200)`` (held on the
+   host and compared bit for bit: a CRC32C digest of 2^30 spins on the
+   host takes about a minute), and ``basic`` of the same spec, whose
+   planes must be ``basic_philox``'s; ``spinglass`` at 16384^2 (p_ferro
+   0.5, inverse temperature 2, hot start, ``run(200)``: the energy must
+   fall by more than 0.3 and |m| stay below 0.01) and at 8192^2 (p_ferro
+   1, T = 2.0, ordered), whose lattice must be ``basic_philox``'s;
+   ``wolff`` at 1024^2 (T = 1.8, ordered, 60 cluster flips: |m| > 0.80,
+   the mean cluster size printed) and at 512^2 (T = 2.269, 100 flips);
+   the 3D model at 512^3 (T = 3.5 from all up, 60 sweeps: |m| > 0.85;
+   T = 8: |m| < 0.2), and on 4 slabs of a (4, 1) mesh on the one card,
+   whose lattice must be the single device's; then at 512^2 each
+   engine's card digest must be the CPU's, ``basic_philox`` as an
+   ensemble of 3 (one launch a half-sweep for all members) and on a 2 x
+   2 mesh (one launch a shard a half-sweep) single mode's, a checkpoint
+   written by the JAX package (``tests/data/torch_port/``) must continue
+   to the JAX digest, and the
+   3D model at 32^3 the CPU's lattice, on one device and on slabs.
 
 Every counter-based ``measure()`` (phases 5, 7 and 8) launches its
 sweeps from the host and replays one captured CUDA graph of a sample's
@@ -135,8 +169,8 @@ be the graph's; the line ``measure() graph against loop`` holds both
 wall times, the graph's capture and instantiation seconds, its replays
 and the device memory each took above the planes.
 
-Every Session path is driven with all ten kernels' launch counts set to
-0 just before it and read just after it: each path must launch the
+Every Session path is driven with all eleven kernels' launch counts set
+to 0 just before it and read just after it: each path must launch the
 kernel of its tier and no other (a per-half-sweep distributed path
 none), and a bitplane path its kernel's three-threshold accept only.
 The last lines are the ensemble rates, the graph against the loop, the
@@ -235,6 +269,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 #:   bound's index: they start at 2^23 + 2^22 + 4 inside the mma, so no
 #:   float add); on the tensor pipe the banded products' FLOP at the
 #:   kernel's own tile (``tensorcore_flop_per_position``).
+#: * draws (``philox_fill``), per element of lane 0 at counter (offset,
+#:   c1, index, c3), offset, lanes and key the same for every element:
+#:   stencil's Philox, 16 wide multiplies, one low half and 17 XORs; 1
+#:   uint32 -> float conversion and 1 float multiply by 2^-32.  (All four
+#:   lanes would take 18 wide multiplies, 19 XORs and 4 conversions and
+#:   multiplies; the main path draws lane 0.)
 PIPE_OPS = {
     "stencil": {"wide": 16, "fma": 1, "alu": 21, "xu": 1},
     "multispin": {"wide": 2 + 2 * 16, "fma": 0,
@@ -242,6 +282,7 @@ PIPE_OPS = {
     "bitplane": {"wide": 18 / 4, "fma": 0, "alu": 19 / 4 + 5 + 4 + 3 * 2,
                  "xu": 0},
     "tensorcore": {"wide": 16, "fma": 1, "alu": 17 + 2 * 2, "xu": 0},
+    "draws": {"wide": 16, "fma": 1 + 1, "alu": 17, "xu": 1},
 }
 #: FMA-pipe slots of one wide multiply: ``python -m
 #: repro_torch.analysis.issue_rate`` times lane-0 Philox (16 wide
@@ -265,7 +306,7 @@ PIPE_PER_CLOCK_PER_SM = {"fma": 64, "alu": 64, "xu": 16, "tensor": 4096}
 #: four schedulers per SM, each dispatching one warp instruction per
 #: clock
 DISPATCH_PER_CLOCK_PER_SM = 4 * 32
-#: the seven kernels: family, tier, TPU kernel replaced
+#: the eleven kernels: family, tier, TPU kernel replaced
 KERNELS = {
     "stencil_update": ("stencil", "half-sweep",
                        "src/repro/kernels/stencil/stencil.py:76"),
@@ -287,6 +328,9 @@ KERNELS = {
                                "src/repro/dist/kernels.py:101"),
     "bitplane_shard_sweeps": ("bitplane", "shard",
                               "src/repro/dist/kernels.py:132"),
+    # not a TPU kernel: the draws the JAX package computes in jnp
+    "philox_fill": ("draws", "fill",
+                    "none: src/repro/core/rng.py:112 uniforms, in jnp"),
 }
 ENGINE_FAMILY = {"stencil_pallas": "stencil",
                  "multispin_pallas": "multispin",
@@ -398,6 +442,39 @@ SMALL_ENSEMBLE_MEMBERS = 64
 SMALL_ENSEMBLE_T = 2.269
 #: sweeps of the 512^2 ensemble parity checks
 ENSEMBLE_CHECK_SWEEPS = 20
+#: philox_fill's main-path shape: the lane-0 uniforms of one half-sweep
+#: of basic_philox at 32768^2, a (32768, 16384) plane
+FILL_SHAPE = (FULL_N, FULL_N // 2)
+#: philox_fill's checks: (members, shape or None for an index plane of
+#: INDEX_SHAPE, offset, c1, c3, lanes): a row-major plane of an odd
+#: element count, B = 16 members of distinct seeds, index planes, offsets
+#: near 2^31 and 2^32, the lanes c1 of the sweeps (0), Wolff (2) and the
+#: couplings (3) with c3 > 0, 1 and 2 lanes
+FILL_CASES = ((1, (1001, 1003), 5, 0, 0, 1),
+              (16, (64, 130), 2 ** 32 - 1, 0, 0, 1),
+              (16, None, 2 ** 32 - 2, 2, 5, 2),
+              (3, (33, 65), 2 ** 31, 3, 1, 2),
+              (4, (5, 7), 2 ** 31 - 1, 2, 7, 1),
+              (1, None, 2 ** 32 - 3, 0, 0, 1))
+FILL_INDEX_SHAPE = (77, 129)
+FILL_SEEDS = tuple([SEED] + [977 * i + 3 for i in range(1, 15)]
+                   + [2 ** 32 - 1])
+#: phase 9: the engines of plain updates at full size, one session at a
+#: time; then at 512^2 (32^3) the card against the CPU
+SPINGLASS_N = 16384
+SPINGLASS_FERRO_N = 8192
+WOLFF_N, WOLFF_T, WOLFF_FLIPS = 1024, 1.8, 60
+WOLFF_TC_N, WOLFF_TC_T, WOLFF_TC_FLIPS = 512, 2.269, 100
+CUBE_N = 512
+CUBE_SWEEPS = 60
+SMALL_CUBE_N = 32
+SMALL_SWEEPS = 20
+#: the temperature of phase 9's card-against-CPU Wolff check: small
+#: clusters, so the CPU's plain draws (a plane a BFS depth) stay quick
+SMALL_WOLFF_T, SMALL_WOLFF_FLIPS = 3.0, 4
+#: a basic_philox checkpoint written by the JAX package (its generator
+#: ``make_jax_checkpoint.py`` beside it) and its digests
+JAX_CHECKPOINT = ROOT / "tests" / "data" / "torch_port" / "basic_philox_512"
 
 
 def check(ok: bool, what: str) -> None:
@@ -1307,6 +1384,58 @@ def main() -> int:
         if family == "bitplane":
             check({"three", "general"} <= set(batched[sweeps]["by_accept"]),
                   "bitplane: an accept of the member axis was not held")
+
+    # philox_fill, the draws of the engines of plain updates: float32
+    # uniforms against the plain version's, 0 mismatches; row-major
+    # planes and index planes (random int32, and a 3D slab's global
+    # positions), 16 members, the streams' lanes, then the main path's
+    # plane, timed beside torch.rand (another function: a note)
+    fill = "philox_fill"
+    fill_stats = stats[fill]
+
+    def compare_fill(got, want, plain_ms=None):
+        fill_stats[0] += got.shape[0] * got.shape[1]
+        fill_stats[1] += int((got != want).sum())
+        fill_stats[2] = max(fill_stats[2],
+                            float((got - want).abs().max()))
+        if plain_ms is not None:
+            fill_stats[3] = plain_ms
+
+    for members, shape, offset, c1, c3, lanes in FILL_CASES:
+        seeds = list(FILL_SEEDS[:members])
+        kw = dict(c1=c1, c3=c3, lanes=lanes)
+        if shape is None and members == 1:
+            # slab 3 of a 32 x 16 x 16 lattice: global flat positions, int64
+            kw["index"] = (torch.arange(8 * 16 * 16, device="cuda")
+                           + 3 * 8 * 16 * 16).reshape(8, 16, 16)
+        elif shape is None:
+            kw["index"] = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                        FILL_INDEX_SHAPE, generator=gen,
+                                        device="cuda", dtype=torch.int32)
+        else:
+            kw.update(shape=shape, device="cuda")
+        got = wrappers[fill](seeds, offset, **kw)
+        torch.cuda.synchronize()
+        compare_fill(got, plains[fill](seeds, offset, **kw))
+        del got
+    want, plain_ms = plain_timed(lambda: plains[fill](
+        [SEED], 2 ** 32 - 1, shape=FILL_SHAPE, device="cuda"))
+    got = wrappers[fill]([SEED], 2 ** 32 - 1, shape=FILL_SHAPE,
+                         device="cuda")
+    torch.cuda.synchronize()
+    compare_fill(got, want, plain_ms)
+    del want, got
+    kernel_ms[fill] = timed_ms(lambda: wrappers[fill](
+        [SEED], 0, shape=FILL_SHAPE, device="cuda"), reps=20)
+    rand_ms = timed_ms(lambda: torch.rand(FILL_SHAPE, device="cuda"),
+                       reps=20)
+    print(f"phase 3: {fill}: {fill_stats[0]} plane comparisons with the "
+          f"plain version (lanes 1 and 2, c1 0, 2, 3, B up to 16, index "
+          f"planes), {fill_stats[1]} mismatches, max abs err "
+          f"{fill_stats[2]}; {kernel_ms[fill]:.4f} ms a launch at "
+          f"{FILL_SHAPE} (lane 0), plain version {plain_ms:.1f} ms; "
+          f"torch.rand of that shape (another function) {rand_ms:.4f} ms")
+    check(fill_stats[1] == 0, f"{fill} disagrees with its plain version")
     phase_s[3] = time.perf_counter() - t0
 
     # bounds at the full plane: bytes of each input read once and each
@@ -1341,6 +1470,11 @@ def main() -> int:
             family, 4 * size * elements,
             2 * batched[f"{family}_sweeps_resident"]["n_sweeps"] * elements,
             sm_clocks_per_s)
+
+    # philox_fill writes its float32 lane-0 plane and reads nothing
+    elements = FILL_SHAPE[0] * FILL_SHAPE[1]
+    bounds[fill] = bound("draws", 4 * elements, elements, sm_clocks_per_s)
+    full_plane["draws"] = FILL_SHAPE
 
     # -- 4. Session at 512^2, both tiers and the CPU -----------------------
     t0 = time.perf_counter()
@@ -1595,17 +1729,24 @@ def main() -> int:
                 return r
             check_digest(path, drive(path, family, "shard", restore_mesh)
                          .state_digest(), want)
-    # the per-half-sweep distributed tier: plain PyTorch, no kernel
+    # the per-half-sweep distributed tier: plain PyTorch, no kernel but
+    # the "basic" step's draws (philox_fill, once a shard a half-sweep)
     for engine, budget_bytes in (("multispin", None), ("bitplane", None),
                                  ("stencil_pallas", 0)):
         small = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N, init_p_up=0.5),
                         engine=EngineSpec(engine), temperature=2.2, seed=SEED)
         path = (f"{engine} {SMALL_N}^2 mesh (2, 2) per-half-sweep"
                 + (" (no shard plan)" if budget_bytes == 0 else ""))
-        s = drive(path, None, None, lambda: sharded(
+        draws_family = ("draws", "fill") if budget_bytes == 0 \
+            else (None, None)
+        s = drive(path, *draws_family, lambda: sharded(
             small, (2, 2), False, resident_budget_bytes=budget_bytes))
         check(s.halo_exchanges == 100, f"{path}: {s.halo_exchanges} "
               f"halo exchanges in 50 sweeps, not 100")
+        if budget_bytes == 0:
+            check(launches_by_path[path][fill] == 4 * 100,
+                  f"{path}: {launches_by_path[path][fill]} launches of "
+                  f"{fill}, not one a shard a half-sweep")
         check_digest(path, s.state_digest(),
                      small_digests[engine + ("" if "pallas" in engine
                                              else "_pallas")])
@@ -1727,6 +1868,10 @@ def main() -> int:
         session, open_s, run_ms, measured = drive(
             main_path, family, "k-sweep", main_run)
         traj, measure_s = measured["traj"], measured["seconds"]
+        if family == "stencil":
+            # its planes after run(200) on the host: phase 9's
+            # basic_philox must give them
+            stencil_after_200 = measured["before"]
         flips_per_ns = single_rates[family] = 200 * spins / (run_ms * 1e6)
         plan = session.engine.resident_plan
         print(f"phase 5: {main_path}: open {open_s:.2f} s; run(200) "
@@ -2152,26 +2297,37 @@ def main() -> int:
         del session
     # every counter-based engine on both tiers, single mode and an
     # ensemble of 3: the graph's samples and digest are the loop's
+    # (basic_philox: its one tier, the draws of philox_fill)
     parity_plan = SweepSpec(thermalize=7, measure_every=5, n_measure=20)
-    for engine, family in ENSEMBLE_ENGINES.items():
-        for tier in ("k-sweep", "half-sweep"):
-            for batch in (None, BatchSpec(CHECK_TEMPS, CHECK_SEEDS)):
-                spec = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N,
-                                                   init_p_up=0.5),
-                               engine=EngineSpec(engine), temperature=2.2,
-                               seed=SEED, batch=batch, sweep=parity_plan)
-                session = Session.open(spec,
-                                       resident_budget_bytes=budget(tier))
-                session.run(3)
-                path = (f"{engine} {SMALL_N}^2 {tier} "
-                        f"{'single' if batch is None else 'ensemble of 3'}"
-                        f" measure()")
-                measured = drive(path, family, tier,
-                                 lambda: graph_measure(session))
-                loop_against_graph(8, path, family, tier, session, measured)
-                print(f"phase 8: {path}: digest {session.state_digest()}, "
-                      f"the loop's planes equal")
-                del session
+    parity_tiers = [(engine, family, tier)
+                    for engine, family in ENSEMBLE_ENGINES.items()
+                    for tier in ("k-sweep", "half-sweep")]
+    for engine, family, tier in parity_tiers + [("basic_philox", "draws",
+                                                 "fill")]:
+        for batch in (None, BatchSpec(CHECK_TEMPS, CHECK_SEEDS)):
+            spec = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N,
+                                               init_p_up=0.5),
+                           engine=EngineSpec(engine), temperature=2.2,
+                           seed=SEED, batch=batch, sweep=parity_plan)
+            session = Session.open(spec,
+                                   resident_budget_bytes=budget(tier))
+            session.run(3)
+            path = (f"{engine} {SMALL_N}^2 {tier} "
+                    f"{'single' if batch is None else 'ensemble of 3'}"
+                    f" measure()")
+            measured = drive(path, family, tier,
+                             lambda: graph_measure(session))
+            loop_against_graph(8, path, family, tier, session, measured)
+            if tier == "fill":
+                half_sweeps = 2 * parity_plan.plan().total_sweeps
+                for run_path in (path, f"{path} as the loop"):
+                    got = launches_by_path[run_path][fill]
+                    check(got == half_sweeps,
+                          f"{run_path}: {got} launches of {fill}, not one "
+                          f"a half-sweep for all members")
+            print(f"phase 8: {path}: digest {session.state_digest()}, "
+                  f"the loop's planes equal")
+            del session
     # the CLI on the card: a spec file with --record (validated), and
     # --dry-run, which needs no card
     with tempfile.TemporaryDirectory() as tmp:
@@ -2212,13 +2368,276 @@ def main() -> int:
               "device memory; with the card hidden too")
     phase_s[8] = time.perf_counter() - t0
 
+    # -- 9. the engines of plain updates, their draws from philox_fill -----
+    t0 = time.perf_counter()
+    from repro_torch.core import ising3d
+    from repro_torch.resilience import integrity
+    fill_paths, plain_rows = {}, {}
+
+    def plain_run(path, spec, sweeps, before=None, spins=None):
+        """``Session.open(spec)`` and ``run(sweeps)`` as one path, which
+        must launch ``philox_fill`` and no other kernel; its time, rate
+        (``spins``: the spins flipped, default sweeps x sites), peak device
+        memory and launches printed beside the card.  ``before(session)``
+        runs after the open; returns ``(session, its value)``."""
+        def go():
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            session = Session.open(spec)
+            torch.cuda.synchronize()
+            open_s = time.perf_counter() - t1
+            seen = None if before is None else before(session)
+            ms = timed_ms(lambda: session.run(sweeps), reps=1, warmup=False)
+            return session, seen, open_s, ms
+        session, seen, open_s, ms = drive(path, "draws", "fill", go)
+        peak = torch.cuda.max_memory_allocated()
+        flipped = sweeps * spec.lattice.n * spec.lattice.m \
+            if spins is None else spins(session)
+        row = plain_rows[path] = {
+            "open_s": open_s, "ms": ms, "sweeps": sweeps,
+            "flips_per_ns": flipped / (ms * 1e6), "peak_bytes": peak,
+            "launches": launches_by_path[path][fill], "card": card_line}
+        print(f"phase 9: {path}: open {open_s:.2f} s; run({sweeps}) "
+              f"{ms:.1f} ms = {row['flips_per_ns']:.6g} flips/ns; peak "
+              f"device memory {peak} B; {row['launches']} launches of "
+              f"{fill}; {card_line}")
+        return session, seen
+
+    def spec_of(engine, n, temperature, p_up, **params):
+        return RunSpec(lattice=LatticeSpec(n, n, init_p_up=p_up),
+                       engine=EngineSpec(engine, params),
+                       temperature=temperature, seed=SEED)
+
+    def host_planes(session):
+        return [p.cpu() for p in session.state]
+
+    # basic_philox at the stencil main path's spec: its planes after
+    # run(200) are stencil_pallas's (phase 5, held on the host; a CRC32C
+    # digest of 2^30 spins on the host would take about a minute)
+    path = fill_paths["draws"] = f"basic_philox {FULL_N}^2"
+    spec = spec_of("basic_philox", FULL_N, TEMPERATURE, 1.0)
+    session, _ = plain_run(path, spec, 200)
+    check(plain_rows[path]["launches"] == 400,
+          f"{path}: {plain_rows[path]['launches']} launches of {fill}, "
+          f"not 2 a sweep")
+    basic_planes = host_planes(session)
+    same = all(torch.equal(a, b) for a, b in zip(basic_planes,
+                                                  stencil_after_200))
+    m = abs(session.magnetization())
+    print(f"phase 9: {path}: planes after run(200) equal to "
+          f"stencil_pallas's (phase 5) bit for bit: {same}; |m| {m:.5f} "
+          f"(Onsager {observables.onsager_magnetization(TEMPERATURE):.5f})")
+    check(same, f"{path}: not stencil_pallas's planes")
+    del session
+    path = f"basic {FULL_N}^2"
+    session, _ = plain_run(path, spec_of("basic", FULL_N, TEMPERATURE, 1.0),
+                           200)
+    same = all(torch.equal(a, b) for a, b in zip(host_planes(session),
+                                                  basic_planes))
+    print(f"phase 9: {path}: planes equal to basic_philox's: {same}")
+    check(same and plain_rows[path]["launches"] == 400,
+          f"{path}: not basic_philox's planes, or not 2 launches a sweep")
+    del session, basic_planes, stencil_after_200
+
+    # the spin glass: a quench at inverse temperature 2 from a hot start
+    path = f"spinglass {SPINGLASS_N}^2 p_ferro 0.5"
+    session, e0 = plain_run(
+        path, spec_of("spinglass", SPINGLASS_N, 0.5, 0.5, p_ferro=0.5), 200,
+        before=lambda s: s.energy())
+    e1, m = session.energy(), session.magnetization()
+    print(f"phase 9: {path}: e {e0:.5f} -> {e1:.5f} after run(200) at "
+          f"beta 2, m {m:.6f}")
+    check(e1 < e0 - 0.3 and abs(m) < 0.01,
+          f"{path}: the quench did not lower e by 0.3, or |m| >= 0.01")
+    check(plain_rows[path]["launches"] == 401,
+          f"{path}: not one launch for the couplings and 2 a sweep")
+    del session
+    # p_ferro = 1 is the ferromagnet: basic_philox's lattice
+    path = f"basic_philox {SPINGLASS_FERRO_N}^2"
+    session, _ = plain_run(path, spec_of("basic_philox", SPINGLASS_FERRO_N,
+                                         TEMPERATURE, 1.0), 200)
+    ferro = session.full_lattice().cpu()
+    del session
+    path = f"spinglass {SPINGLASS_FERRO_N}^2 p_ferro 1"
+    session, _ = plain_run(path, spec_of("spinglass", SPINGLASS_FERRO_N,
+                                         TEMPERATURE, 1.0, p_ferro=1.0), 200)
+    same = torch.equal(session.full_lattice().cpu(), ferro)
+    print(f"phase 9: {path}: lattice equal to basic_philox's: {same}")
+    check(same, f"{path}: not basic_philox's lattice")
+    del session, ferro
+
+    # Wolff: a "sweep" is one cluster flip
+    def cluster_spins(session):
+        return float(session.engine.mean_cluster_size) * session.step_count
+
+    for n, t, flips, p_up in ((WOLFF_N, WOLFF_T, WOLFF_FLIPS, 1.0),
+                              (WOLFF_TC_N, WOLFF_TC_T, WOLFF_TC_FLIPS, 0.5)):
+        path = f"wolff {n}^2 T={t}"
+        session, _ = plain_run(path, spec_of("wolff", n, t, p_up), flips,
+                               spins=cluster_spins)
+        size = float(session.engine.mean_cluster_size)
+        m = abs(session.magnetization())
+        plain_rows[path]["mean_cluster_size"] = size
+        print(f"phase 9: {path}: {flips} cluster flips, "
+              f"{plain_rows[path]['ms'] / flips:.3f} ms a flip, mean "
+              f"cluster size {size:.1f}, |m| {m:.5f} (Onsager "
+              f"{observables.onsager_magnetization(t):.5f})")
+        if t == WOLFF_T:
+            check(m > 0.80, f"{path}: |m| {m} <= 0.80")
+        del session
+
+    # the 3D model at 512^3: ordered at T = 3.5, disordered at T = 8;
+    # four slabs of a (4, 1) mesh on the one card give the single run
+    def cube_run(path, fn, sweeps):
+        torch.cuda.reset_peak_memory_stats()
+        out, ms = drive(path, "draws", "fill", lambda: plain_timed(fn))
+        peak = torch.cuda.max_memory_allocated()
+        m = float(ising3d.magnetization_3d(out))
+        row = plain_rows[path] = {
+            "ms": ms, "sweeps": sweeps, "ms_a_sweep": ms / sweeps,
+            "flips_per_ns": sweeps * CUBE_N ** 3 / (ms * 1e6),
+            "peak_bytes": peak, "launches": launches_by_path[path][fill],
+            "m": m, "card": card_line}
+        print(f"phase 9: {path}: {sweeps} sweeps {ms:.1f} ms = "
+              f"{row['ms_a_sweep']:.3f} ms a sweep, "
+              f"{row['flips_per_ns']:.4f} flips/ns; m {m:.5f}; peak device "
+              f"memory {peak} B; {row['launches']} launches of {fill}; "
+              f"{card_line}")
+        return out
+
+    ones = torch.ones((CUBE_N,) * 3, dtype=torch.int8, device="cuda")
+    cold = cube_run(f"ising3d {CUBE_N}^3 T=3.5", lambda: ising3d.run_sweeps_3d(
+        ones, ising3d.acceptance_table_3d(1 / 3.5), CUBE_SWEEPS, SEED),
+        CUBE_SWEEPS)
+    hot = cube_run(f"ising3d {CUBE_N}^3 T=8", lambda: ising3d.run_sweeps_3d(
+        ones, ising3d.acceptance_table_3d(1 / 8.0), CUBE_SWEEPS, SEED),
+        CUBE_SWEEPS)
+    check(abs(float(ising3d.magnetization_3d(cold))) > 0.85
+          and abs(float(ising3d.magnetization_3d(hot))) < 0.2,
+          "ising3d: not ordered at T = 3.5 or not disordered at T = 8")
+    del hot
+    slab_step, split, gather = ising3d.make_ising3d_step(
+        make_mesh((4, 1), ("data", "model")), n=CUBE_N, seed=SEED,
+        n_sweeps=CUBE_SWEEPS)
+    slabs = cube_run(f"ising3d {CUBE_N}^3 T=3.5 on 4 slabs",
+                     lambda: gather(slab_step(split(ones), 1 / 3.5, 0)),
+                     CUBE_SWEEPS)
+    same = torch.equal(slabs, cold)
+    print(f"phase 9: ising3d {CUBE_N}^3: the 4-slab mesh's lattice equals "
+          f"the single device's: {same}")
+    check(same, "ising3d: the slab run is not the single-device run")
+    del ones, cold, slabs, slab_step, split, gather
+
+    # at 512^2 (32^3): the card against the CPU, digest for digest
+    small_cases = {"basic_philox": (2.2, 0.5, {}), "basic": (2.2, 0.5, {}),
+             "spinglass": (2.2, 0.5, {"p_ferro": 0.5}),
+             "wolff": (SMALL_WOLFF_T, 0.5, {})}
+    single_digest = {}
+    for engine, (t, p_up, params) in small_cases.items():
+        sweeps = SMALL_WOLFF_FLIPS if engine == "wolff" else SMALL_SWEEPS
+        spec = spec_of(engine, SMALL_N, t, p_up, **params)
+        path = f"{engine} {SMALL_N}^2 card"
+
+        def card_run():
+            s = Session.open(spec)
+            s.run(sweeps)
+            return s.state_digest()
+        got = drive(path, "draws", "fill", card_run)
+        cpu = Session.open(spec, device="cpu")
+        cpu.run(sweeps)
+        want = single_digest[engine] = cpu.state_digest()
+        print(f"phase 9: {path}: digest {got}, the CPU's {want}")
+        check(got == want, f"{path}: the card's digest is not the CPU's")
+    # basic_philox as an ensemble of 3 (one launch a half-sweep for all
+    # members) and on a 2 x 2 mesh (the per-half-sweep distributed step,
+    # one launch a shard a half-sweep): single mode's digests
+    batch = BatchSpec(CHECK_TEMPS, CHECK_SEEDS)
+    spec = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N),
+                   engine=EngineSpec("basic_philox"), batch=batch)
+    path = f"basic_philox {SMALL_N}^2 ensemble of 3"
+
+    def ensemble_run():
+        s = Session.open(spec)
+        s.run(SMALL_SWEEPS)
+        return [s.state_digest(member=i) for i in range(batch.size)]
+    members = drive(path, "draws", "fill", ensemble_run)
+    check(launches_by_path[path][fill] == 2 * SMALL_SWEEPS,
+          f"{path}: not one launch a half-sweep for all members")
+    want = []
+    for t, sd in batch.members:
+        s = Session.open(RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N),
+                                 engine=EngineSpec("basic_philox"),
+                                 temperature=t, seed=sd))
+        s.run(SMALL_SWEEPS)
+        want.append(s.state_digest())
+    print(f"phase 9: {path}: member digests {members}, single mode's "
+          f"{want}")
+    check(members == want, f"{path}: a member is not its single-mode run")
+    spec = spec_of("basic_philox", SMALL_N, 2.2, 0.5)
+    path = f"basic_philox {SMALL_N}^2 mesh {MESH}"
+
+    def mesh_run():
+        s = Session.open(dataclasses.replace(
+            spec, mesh=MeshSpec(MESH, ("data", "model"))))
+        s.run(SMALL_SWEEPS)
+        return s.state_digest()
+    got = drive(path, "draws", "fill", mesh_run)
+    shards = MESH[0] * MESH[1]
+    print(f"phase 9: {path}: digest {got}, single mode's "
+          f"{single_digest['basic_philox']}; "
+          f"{launches_by_path[path][fill]} launches of {fill}")
+    check(got == single_digest["basic_philox"],
+          f"{path}: not the single-mode digest")
+    check(launches_by_path[path][fill] == 2 * shards * SMALL_SWEEPS,
+          f"{path}: not one launch a shard a half-sweep")
+    # a checkpoint written by the JAX package continues on the card
+    record = json.loads(JAX_CHECKPOINT.with_suffix(".json").read_text())
+    path = f"basic_philox {SMALL_N}^2 JAX checkpoint"
+
+    def jax_run():
+        s = Session.restore(str(JAX_CHECKPOINT.with_suffix(".npz")))
+        saved = s.state_digest()
+        s.run(record["sweeps"])
+        return saved, s.state_digest()
+    saved, got = drive(path, "draws", "fill", jax_run)
+    print(f"phase 9: {path}: restored {saved}, after {record['sweeps']} "
+          f"sweeps {got}; the JAX package's {record['saved_digest']}, "
+          f"{record['digest']}")
+    check((saved, got) == (record["saved_digest"], record["digest"]),
+          f"{path}: not the JAX package's digests")
+    # the 3D model at 32^3: the card's lattice against the CPU's, and
+    # the slabs of a 2 x 2 mesh against the single device
+    cube = (torch.arange(SMALL_CUBE_N ** 3) % 3 == 0).to(torch.int8) * 2 - 1
+    cube = cube.reshape((SMALL_CUBE_N,) * 3)
+    table = ising3d.acceptance_table_3d(1 / 4.0)
+    path = f"ising3d {SMALL_CUBE_N}^3 card"
+    got = drive(path, "draws", "fill", lambda: ising3d.run_sweeps_3d(
+        cube.cuda(), table, SMALL_SWEEPS, SEED, 2 ** 32 - 5).cpu())
+    want = ising3d.run_sweeps_3d(cube, table, SMALL_SWEEPS, SEED,
+                                 2 ** 32 - 5)
+    slab_step, split, gather = ising3d.make_ising3d_step(
+        make_mesh(MESH, ("data", "model")), n=SMALL_CUBE_N, seed=SEED,
+        n_sweeps=SMALL_SWEEPS)
+    slabs = drive(f"{path} on {MESH} slabs", "draws", "fill",
+                  lambda: gather(slab_step(split(cube.cuda()), 1 / 4.0,
+                                           2 ** 32 - 5)).cpu())
+    digests = [f"{integrity.crc32c(x.numpy().tobytes()):08x}"
+               for x in (got, want, slabs)]
+    print(f"phase 9: {path}: digest {digests[0]}, the CPU's {digests[1]}, "
+          f"the {MESH} slabs' {digests[2]}")
+    check(len(set(digests)) == 1 and torch.equal(got, want)
+          and torch.equal(slabs, want),
+          f"{path}: the card, the CPU and the slabs disagree")
+    print("phase 9 rows: " + json.dumps(plain_rows))
+    phase_s[9] = time.perf_counter() - t0
+
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}
 
     kernels = []
     for name, (family, tier, replaces) in KERNELS.items():
         path = {"k-sweep": main_paths, "half-sweep": half_paths,
-                "shard": shard_paths}[tier][family]
+                "shard": shard_paths, "fill": fill_paths}[tier][family]
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/csrc/{family}.cu",
                  "replaces": replaces,
@@ -2236,6 +2655,11 @@ def main() -> int:
             entry["n_sweeps"] = plans[family].k
         if tier == "shard":
             entry["n_sweeps"] = shard_plans[family].k
+        if tier == "fill":
+            # no PyTorch call draws these uniforms: torch.rand draws
+            # another function, timed as a note only
+            entry["lanes"] = 1
+            entry["note_torch_rand_ms"] = rand_ms
         if name in accept_stats:
             entry["accept_comparisons"] = accept_stats[name]
         if name in batched:

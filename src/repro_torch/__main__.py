@@ -26,6 +26,14 @@ either alone:
     python -m repro_torch run --engine tensorcore --tc-block 64 --n 1024 \\
         --init-p-up 1.0 --temperature 2.0 --sweeps 200
 
+    # the 2D +-J spin glass, 70 % of its bonds ferromagnetic; Wolff
+    # cluster flips (a "sweep" is one cluster); the basic engines
+    python -m repro_torch run --engine spinglass --p-ferro 0.7 --n 1024 \\
+        --temperature 1.5 --sweeps 200
+    python -m repro_torch run --engine wolff --n 512 --init-p-up 1.0 \\
+        --temperature 1.8 --sweeps 100
+    python -m repro_torch run --engine basic_philox --n 1024 --sweeps 200
+
     # an ensemble: 2 temperatures x 2 seeds (--grid; without it the two
     # lists zip), 4 members in one launch a block of sweeps; one line a
     # member
@@ -66,6 +74,8 @@ def _build_spec(args):
     params = {}
     if args.tc_block is not None:
         params["tc_block"] = args.tc_block
+    if args.p_ferro is not None:
+        params["p_ferro"] = args.p_ferro
     sweep = None
     if args.n_measure:
         sweep = SweepSpec(thermalize=args.thermalize,
@@ -246,6 +256,9 @@ def main(argv=None) -> int:
     run.add_argument("--tc-block", type=int, default=None,
                      help="tensorcore: block of the banded products "
                           "(default 128)")
+    run.add_argument("--p-ferro", type=float, default=None,
+                     help="spinglass: probability that a bond is "
+                          "ferromagnetic (default 0.5)")
     run.add_argument("--temperature", type=float, default=2.0)
     run.add_argument("--seed", type=int, default=1234)
     run.add_argument("--thermalize", type=int, default=0)

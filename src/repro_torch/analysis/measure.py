@@ -28,8 +28,9 @@ loop bit for bit: the same launches run in the same order, and every sum
 is an integer.  A capture that fails raises; it never falls back to the
 loop.  On the CPU (only where the caller asked for it) the plan runs as
 that loop, the plain version.  :func:`measure_scan` of a counter-based
-engine is the batch of one; ``tensorcore`` (not counter-based) keeps a
-loop on either device.  The times of the last graph are in
+engine is the batch of one; the engines that are not counter-based
+(``tensorcore``, ``basic``, ``spinglass``, ``wolff``) keep a loop on
+either device.  The times of the last graph are in
 :data:`GRAPH_STATS`.
 """
 from __future__ import annotations

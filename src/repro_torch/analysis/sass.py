@@ -61,18 +61,14 @@ def _functions(sass: str):
     """``(name, body)`` of each kernel; a template instance's name
     carries its arguments: kernelIaLi64ELi128EE -> <a,64,128> (a: int8,
     t: 16-bit bf16 pattern), kernelILb1EE -> <true>, kernelILb1ELb0EE ->
-    <true,false>."""
+    <true,false>, kernelILi4ELb0ELb1EE -> <4,false,true>."""
     for chunk in sass.split("Function : ")[1:]:
-        found = re.search(r"([a-z][a-z_]*_kernel)(?:E|I((?:Lb\dE)+)E|"
-                          r"I(\w)((?:Li\d+E)*)E)", chunk)
-        if found.group(2) is not None:
-            args = ["true" if b == "1" else "false"
-                    for b in re.findall(r"Lb(\d)E", found.group(2))]
-        elif found.group(3) is not None:
-            args = [found.group(3)] + re.findall(r"Li(\d+)E",
-                                                 found.group(4))
-        else:
-            args = []
+        found = re.search(r"([a-z][a-z_]*_kernel)"
+                          r"(?:I((?:Li\d+E|Lb\dE|[a-z])+)E)?", chunk)
+        args = [("true" if tok == "Lb1E" else "false") if tok[:2] == "Lb"
+                else tok[2:-1] if tok[:2] == "Li" else tok
+                for tok in re.findall(r"Li\d+E|Lb\dE|[a-z]",
+                                      found.group(2) or "")]
         yield found.group(1) + (f"<{','.join(args)}>" if args else ""), chunk
 
 

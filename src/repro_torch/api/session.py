@@ -497,14 +497,18 @@ class Session:
     @property
     def state(self):
         """The engine-native state, a pair of (black, white) planes:
-        ``stencil_pallas``: int8 +-1 planes ``(n, m/2)``;
+        ``basic``, ``basic_philox``, ``stencil_pallas``: int8 +-1 planes
+        ``(n, m/2)``;
         ``multispin``/``multispin_pallas``: int32 tensors ``(n, m/16)``
         holding uint32 words of 8 nibble spins (``black_words``,
         ``white_words`` in a checkpoint); ``bitplane``/
         ``bitplane_pallas``: int32 tensors ``(n, m/2)`` holding uint32
         words whose bit r is replica r (``black_bits``, ``white_bits``);
         ``tensorcore``: a dict of four int8 sublattice planes ``'00'``,
-        ``'01'``, ``'10'``, ``'11'`` of ``(n/2, m/2)`` (``plane_XX``).
+        ``'01'``, ``'10'``, ``'11'`` of ``(n/2, m/2)`` (``plane_XX``);
+        ``wolff``: the int8 ``(n, m)`` lattice (``lattice``);
+        ``spinglass``: ``(lattice, j_up, j_left)``, the lattice and its
+        int8 +-1 couplings.
         In ensemble mode each plane has the batch axis leading, ``(B, n,
         w)``, member i at index i.  In sharded mode each plane is a list
         of its shards, shard ``i`` at position ``i`` of the mesh in

@@ -27,10 +27,18 @@ def _positive_int(v, name: str) -> int:
     return v
 
 
+def _unit_float(v, name: str) -> float:
+    if isinstance(v, bool) or not isinstance(v, (int, float)) \
+            or not 0.0 <= float(v) <= 1.0:
+        raise ValueError(f"{name} must be a float in [0, 1], got {v!r}")
+    return float(v)
+
+
 #: validators of the engine params declared by ``Engine.param_fields``:
 #: each maps a JSON value to the normalized value or raises ValueError
 _PARAM_VALIDATORS = {
     "tc_block": lambda v: _positive_int(v, "tc_block"),
+    "p_ferro": lambda v: _unit_float(v, "p_ferro"),
 }
 
 

@@ -1,9 +1,11 @@
 """Carry a run's state between the JAX package and this one.
 
-The JAX engines' ``state_arrays()`` are dicts of two numpy planes:
-``black``/``white`` int8 for ``stencil_pallas``, ``black_words``/
-``white_words`` uint32 for the multispin engines, ``black_bits``/
-``white_bits`` uint32 for the bitplane engines; the ``tensorcore``
+The JAX engines' ``state_arrays()`` are dicts of numpy planes:
+``black``/``white`` int8 for ``basic``, ``basic_philox`` and
+``stencil_pallas``, ``black_words``/``white_words`` uint32 for the
+multispin engines, ``black_bits``/``white_bits`` uint32 for the bitplane
+engines; the whole int8 ``lattice`` for ``wolff``, and beside it the
+int8 couplings ``j_up``/``j_left`` for ``spinglass``; the ``tensorcore``
 engine's are four int8 planes ``plane_00`` ... ``plane_11``.  This
 package holds the int8 planes as int8 tensors and the uint32 planes as
 int32 tensors with the same bits (PyTorch has no uint32 arithmetic on
@@ -28,10 +30,10 @@ _HOLDER = {np.dtype(np.int8): np.int8, np.dtype(np.uint32): np.int32}
 
 def state_from_reference(arrays, device, keys=("black", "white"),
                          dtype=np.int8, batched: bool = False):
-    """Two named 2-D numpy planes of ``dtype`` (``batched``: an
-    ensemble's 3-D ``(B, n, w)`` planes) -> two tensors on ``device``
-    (always copies: the planes are updated in place later, and must not
-    alias the caller's arrays)."""
+    """Named 2-D numpy planes of ``dtype``, one a key (``batched``: an
+    ensemble's 3-D ``(B, n, w)`` planes) -> a tuple of tensors of one
+    shape on ``device`` (always copies: the planes are updated in place
+    later, and must not alias the caller's arrays)."""
     dtype = np.dtype(dtype)
     ndim = 3 if batched else 2
     planes = []
@@ -44,16 +46,17 @@ def state_from_reference(arrays, device, keys=("black", "white"),
                              f"got {a.dtype} {a.shape}")
         host = np.ascontiguousarray(a).view(_HOLDER[dtype])
         planes.append(torch.tensor(host, device=device))
-    if planes[0].shape != planes[1].shape:
-        raise ValueError(f"{keys[0]} {tuple(planes[0].shape)} and {keys[1]} "
-                         f"{tuple(planes[1].shape)} planes differ")
-    return planes[0], planes[1]
+    for key, p in zip(keys[1:], planes[1:]):
+        if p.shape != planes[0].shape:
+            raise ValueError(f"{keys[0]} {tuple(planes[0].shape)} and {key} "
+                             f"{tuple(p.shape)} planes differ")
+    return tuple(planes)
 
 
 def state_to_reference(state, keys=("black", "white"), dtype=np.int8) -> dict:
-    """Two tensors -> host numpy copies of ``dtype`` under ``keys``, the
-    JAX engine's ``state_arrays()`` layout (an ensemble's ``(B, n, w)``
-    planes as they are: the JAX ensemble's layout)."""
+    """Tensors, one a key -> host numpy copies of ``dtype`` under
+    ``keys``, the JAX engine's ``state_arrays()`` layout (an ensemble's
+    ``(B, n, w)`` planes as they are: the JAX ensemble's layout)."""
     return {k: p.detach().cpu().numpy().view(dtype).copy()
             for k, p in zip(keys, state)}
 

@@ -16,7 +16,10 @@ Each half-sweep of :func:`make_ising_step` ("basic", int8 planes),
 halo in each vertical and one column halo in each horizontal direction
 of the opposite-colour plane, and updates every shard with the plain
 PyTorch operations of the single-device plain versions, on the card
-too: the JAX package has no Pallas kernel here.  This is the tier that
+too: the JAX package has no Pallas kernel here.  The "basic" step draws
+its uniforms with ``repro_torch.kernels.draws`` (the kernel
+``philox_fill`` on the card, one launch a shard a half-sweep), as the
+single-device ``basic_philox`` engine does.  This is the tier that
 the ``multispin`` and ``bitplane`` engines run on a mesh, and the
 fallback of the others where no shard plan fits.  The draws are keyed
 on global positions, so the trajectory is the single-device one on any
@@ -182,7 +185,10 @@ def make_ising_step(mesh, *, n: int, m: int, seed: int = 0, row_axes=None,
     ``step(black, white, table, sweep0, n_sweeps)`` advances the lists of
     shards by ``n_sweeps`` sweeps at offsets ``half_sweep_offset(0, sweep0
     + j, colour)`` (``sweep0`` in sweep units, as in the JAX package) and
-    returns new lists; ``table`` is ``metropolis.acceptance_table``."""
+    returns new lists; ``table`` is ``metropolis.acceptance_table``.
+    Each shard's uniforms come from ``kernels.draws.index_uniforms`` at
+    its cells' global indices."""
+    from repro_torch.kernels.draws import index_uniforms
     grid = ShardGrid.of(mesh, n, m // 2, row_axes, col_axes)
 
     def update(i, target, op, taps, table, is_black, offset):
@@ -191,7 +197,7 @@ def make_ising_step(mesh, *, n: int, m: int, seed: int = 0, row_axes=None,
         rows, cols = grid.positions(i)
         gidx = (rows[:, None] * grid.width + cols[None, :]) & rng.MASK32
         return metro.accept_flips(
-            target, nn, metro.index_uniforms(gidx, seed, offset), table)
+            target, nn, index_uniforms(gidx, seed, offset), table)
 
     half_sweeps = _half_sweeps(update, grid)
 

@@ -1,12 +1,15 @@
 """Engine registry: one protocol for the update algorithms of the port.
 
-Counterpart of ``repro.core.engine``, as far as the port goes: the
-registry, the ``Engine`` protocol, the counter-based ``CounterEngine``
-with its two tiers, and the engines ``stencil_pallas``, ``multispin``,
-``multispin_pallas``, ``bitplane``, ``bitplane_pallas`` and
-``tensorcore``, registered under the JAX package's names so that a JAX
-checkpoint's spec resolves here.  Any other name raises and lists what
-is ported.
+Counterpart of ``repro.core.engine``: the registry, the ``Engine``
+protocol, the counter-based ``CounterEngine`` with its two tiers, and
+all ten of the JAX package's engines under its names, so that a JAX
+checkpoint's spec resolves here: ``basic``, ``basic_philox``,
+``stencil_pallas``, ``multispin``, ``multispin_pallas``, ``bitplane``,
+``bitplane_pallas``, ``tensorcore``, ``wolff`` and ``spinglass``.  Any
+other name raises and lists them.  The four whose update the JAX
+package leaves to ``jnp`` (``basic``, ``basic_philox``, ``spinglass``,
+``wolff``) update in plain PyTorch here too, and draw their uniforms on
+the card from the kernel ``philox_fill`` (``repro_torch.kernels.draws``).
 
 Protocol:
 
@@ -47,7 +50,9 @@ from . import metropolis as metro
 from . import multispin as ms
 from . import observables as obs
 from . import rng
+from . import spinglass as sg
 from . import tensorcore as tc
+from . import wolff as wolff_mod
 
 ENGINES: Dict[str, Type["Engine"]] = {}
 
@@ -81,8 +86,8 @@ def engine_class(name: str) -> Type["Engine"]:
         return ENGINES[name]
     except KeyError:
         raise ValueError(
-            f"engine {name!r} is not ported to repro_torch; ported "
-            f"engines: {sorted(ENGINES)}") from None
+            f"engine {name!r} is not ported to repro_torch; its engines "
+            f"(the JAX package's ten): {sorted(ENGINES)}") from None
 
 
 def make_engine(config, device,
@@ -104,6 +109,8 @@ class Engine:
     #: of (state, inverse temperature, seed, offset), so that an ensemble
     #: (``BatchSpec``) may batch it
     counter_based: ClassVar[bool] = False
+    #: planner family of the k-sweep tier; ``None``: no k-sweep kernel
+    resident_family: ClassVar[Optional[str]] = None
     #: engine-specific config knobs (``EngineSpec.params`` is checked
     #: against them)
     param_fields: ClassVar[tuple] = ()
@@ -131,7 +138,8 @@ class Engine:
                 f"engine {cls.name!r} needs even lattice dims for the "
                 f"checkerboard decomposition, got ({n}, {m})")
 
-    def __init__(self, config, device: torch.device):
+    def __init__(self, config, device: torch.device,
+                 resident_budget_bytes: Optional[int] = None):
         self.cfg = config
         self.device = device
 
@@ -184,8 +192,6 @@ class CounterEngine(Engine):
     """
 
     counter_based = True
-    #: planner family of the k-sweep tier; ``None``: no k-sweep kernel
-    resident_family: ClassVar[Optional[str]] = None
 
     def __init__(self, config, device: torch.device,
                  resident_budget_bytes: Optional[int] = None):
@@ -357,23 +363,9 @@ class _TwoPlaneEngine(CounterEngine):
         return black, white
 
 
-@register
-class StencilPallasEngine(_TwoPlaneEngine):
-    """The stencil kernel pair (paper S3.1): ``stencil_update`` per
-    half-sweep, ``stencil_sweeps_resident`` for k sweeps per launch; on
-    a mesh ``stencil_shard_sweeps`` (``repro_torch.dist``).
-
-    Keeps the JAX package's engine name.  Philox is keyed on the global
-    (row, col) index, so both tiers give one trajectory, and it is the
-    JAX engine's bit for bit from the same state wherever the two
-    acceptance tables decide flips alike (``metropolis.acceptance_table``).
-    The half-sweep tier updates the state planes in place.
-    """
-
-    name = "stencil_pallas"
-    resident_family = "stencil"
-    dist_factory = "basic"
-    shard_family = "stencil"
+class _Int8PlanesEngine(_TwoPlaneEngine):
+    """(black, white) int8 +-1 compact colour planes, ``(n, m/2)``: the
+    state of ``basic``, ``basic_philox`` and ``stencil_pallas``."""
 
     def init_block(self, rows, cols, device, seed=None):
         cfg = self.cfg
@@ -390,6 +382,71 @@ class StencilPallasEngine(_TwoPlaneEngine):
     def observables(self, state, inv_temp) -> dict:
         return {"m": obs.magnetization(*state),
                 "e": obs.energy_per_spin(*state)}
+
+
+@register
+class BasicPhiloxEngine(_Int8PlanesEngine):
+    """The basic checkerboard Metropolis engine with counter-based Philox
+    (paper S3.1; the JAX package's ``update_color_philox``): each
+    half-sweep draws lane 0 of Philox at ``(offset, 0, row*h + col, 0)``
+    for the whole target plane -- on the card with the kernel
+    ``philox_fill``, every member of an ensemble in one launch -- then
+    updates it in plain PyTorch (``metropolis.update_color``).  It has no
+    k-sweep tier; on a mesh it takes the per-half-sweep distributed step
+    "basic" (``distributed.make_ising_step``, its draws from
+    ``philox_fill`` too, one launch a shard).
+
+    It is the oracle the stencil kernels match: its trajectory is
+    ``stencil_pallas``'s bit for bit from the same state, in single mode,
+    in an ensemble and on any mesh.
+    """
+
+    name = "basic_philox"
+    dist_factory = "basic"
+
+    def color_update(self, targets, ops, tables, is_black, seeds, offset):
+        from repro_torch.kernels.draws import philox_fill
+        u = philox_fill(seeds, offset, shape=tuple(targets.shape[1:]),
+                        device=targets.device)[0]
+        nn = metro.neighbor_sums(ops, is_black)
+        return torch.stack([metro.accept_flips(t, c, v, table) for t, c, v,
+                            table in zip(targets, nn, u, tables)])
+
+
+@register
+class BasicEngine(BasicPhiloxEngine):
+    """Paper S3.1's basic path: each half-sweep first fills the whole
+    plane with uniforms (``philox_fill`` on the card), then updates it.
+    It is ``basic_philox``'s loop at ``basic_philox``'s counters, so its
+    trajectory is ``basic_philox``'s.
+
+    The JAX engine of this name draws from ``jax.random``, which this
+    package cannot reproduce; as there it is not counter-based (refused
+    in a ``BatchSpec``) and takes no mesh.
+    """
+
+    name = "basic"
+    counter_based = False
+    dist_factory = None
+
+
+@register
+class StencilPallasEngine(_Int8PlanesEngine):
+    """The stencil kernel pair (paper S3.1): ``stencil_update`` per
+    half-sweep, ``stencil_sweeps_resident`` for k sweeps per launch; on
+    a mesh ``stencil_shard_sweeps`` (``repro_torch.dist``).
+
+    Keeps the JAX package's engine name.  Philox is keyed on the global
+    (row, col) index, so both tiers give one trajectory, and it is the
+    JAX engine's bit for bit from the same state wherever the two
+    acceptance tables decide flips alike (``metropolis.acceptance_table``).
+    The half-sweep tier updates the state planes in place.
+    """
+
+    name = "stencil_pallas"
+    resident_family = "stencil"
+    dist_factory = "basic"
+    shard_family = "stencil"
 
     def color_update(self, targets, ops, tables, is_black, seeds,
                      offset):
@@ -646,3 +703,111 @@ def _replica_mean(values: torch.Tensor) -> torch.Tensor:
     """Mean of per-replica float32 values (the last axis), taken in
     float64 and rounded once to float32."""
     return values.to(torch.float64).mean(-1).to(torch.float32)
+
+
+class _LatticeEngine(Engine):
+    """Engines whose state holds the whole ``(n, m)`` int8 lattice
+    (``wolff``; ``spinglass`` beside its couplings), key-based as in the
+    JAX package: no ensemble, no mesh.  A fresh lattice is the
+    single-lattice init of the same spec (``stencil_pallas``'s
+    ``full_lattice``)."""
+
+    def fresh_lattice(self) -> torch.Tensor:
+        cfg = self.cfg
+        return lat.merge_checkerboard(*lat.init_planes(
+            cfg.n, cfg.m, cfg.init_p_up, cfg.seed, self.device))
+
+
+@register
+class WolffEngine(_LatticeEngine):
+    """Wolff cluster updates (paper S2): one "sweep" is one cluster flip
+    (``core.wolff``), cluster ``step_count + i`` drawn from Philox lane
+    c1 = 2 (``philox_fill`` on the card).  State: the lattice
+    (``lattice`` in a checkpoint).  The bond probability comes from
+    ``cfg.temperature``, not ``1 / inv_temp``, as in the JAX package.
+    The JAX engine of this name draws from ``jax.random``."""
+
+    name = "wolff"
+    #: mean cluster size of the last ``sweeps`` (a 0-d float32 tensor on
+    #: the device; ``None`` before the first)
+    mean_cluster_size = None
+
+    def init_state(self):
+        return self.fresh_lattice()
+
+    def full_lattice(self, state) -> torch.Tensor:
+        return state
+
+    def magnetization(self, state) -> torch.Tensor:
+        return obs.magnetization_full(state)
+
+    def observables(self, state, inv_temp) -> dict:
+        return {"m": obs.magnetization_full(state),
+                "e": obs.energy_per_spin_full(state)}
+
+    def scan_step(self, state, inv_temp, seed, step_count, n_sweeps: int):
+        state, self.mean_cluster_size = wolff_mod.run_wolff(
+            state, self.cfg.temperature, n_sweeps, seed, step_count)
+        return state
+
+    def state_arrays(self, state) -> dict:
+        return convert.state_to_reference((state,), ("lattice",))
+
+    def from_arrays(self, arrays: dict):
+        return _whole_planes(self, arrays, ("lattice",))[0]
+
+
+@register
+class SpinGlassEngine(_LatticeEngine):
+    """2D +-J Edwards-Anderson spin glass (paper S6's extension,
+    ``core.spinglass``).  State: ``(lattice, j_up, j_left)``, the
+    quenched couplings carried beside the lattice so that a checkpoint
+    restores the disorder sample.  The couplings are a pure function of
+    the seed and ``p_ferro`` (Philox lane c1 = 3), the sweeps draw as
+    ``basic_philox`` does (lane c1 = 0 at the compact colour-plane
+    index; ``philox_fill`` on the card), so at ``p_ferro = 1`` a run is
+    ``basic_philox``'s.  The observables weight every bond by its
+    coupling.  The JAX engine of this name draws from ``jax.random``."""
+
+    name = "spinglass"
+    param_fields = ("p_ferro",)
+
+    def init_state(self):
+        cfg = self.cfg
+        return (self.fresh_lattice(),
+                *sg.init_couplings(cfg.n, cfg.m, cfg.p_ferro, cfg.seed,
+                                   self.device))
+
+    def full_lattice(self, state) -> torch.Tensor:
+        return state[0]
+
+    def magnetization(self, state) -> torch.Tensor:
+        return obs.magnetization_full(state[0])
+
+    def observables(self, state, inv_temp) -> dict:
+        return {"m": obs.magnetization_full(state[0]),
+                "e": sg.energy_per_spin(*state)}
+
+    def scan_step(self, state, inv_temp, seed, step_count, n_sweeps: int):
+        table = host_table(metro.acceptance_table, inv_temp)
+        full = sg.run_sweeps(*state, table, n_sweeps, seed,
+                             (2 * int(step_count)) & rng.MASK32)
+        return (full, state[1], state[2])
+
+    def state_arrays(self, state) -> dict:
+        return convert.state_to_reference(state, ("lattice", "j_up",
+                                                  "j_left"))
+
+    def from_arrays(self, arrays: dict):
+        return _whole_planes(self, arrays, ("lattice", "j_up", "j_left"))
+
+
+def _whole_planes(engine, arrays: dict, keys) -> tuple:
+    """The int8 ``(n, m)`` planes ``keys`` of a checkpoint, on the
+    engine's device."""
+    planes = convert.state_from_reference(arrays, engine.device, keys)
+    want = (engine.cfg.n, engine.cfg.m)
+    if tuple(planes[0].shape) != want:
+        raise ValueError(f"state planes are {tuple(planes[0].shape)}, the "
+                         f"lattice needs {want}")
+    return planes

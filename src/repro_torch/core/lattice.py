@@ -19,10 +19,6 @@ import torch
 
 from . import rng
 
-#: Philox counter lane c1 of the init draws.  The sweeps keep c1 = 0, so
-#: the init stream never meets a sweep's stream.
-INIT_COUNTER_LANE = 1
-
 SPINS_PER_WORD = 8  # 4 bits per spin in a uint32 word
 NIBBLE_BITS = 4
 
@@ -55,7 +51,7 @@ def init_row_chunks(n: int, m: int, seed: int, device,
         r1 = min(i1, r0 + step)
         i = torch.arange(r0, r1, dtype=torch.int64, device=device)
         idx = (i[:, None] * m + cols_[None, :]) & rng.MASK32
-        yield r0, r1, [rng.philox4x32(0, INIT_COUNTER_LANE, idx, q, k0, k1)
+        yield r0, r1, [rng.philox4x32(0, rng.INIT_LANE, idx, q, k0, k1)
                        for q in range(replica_groups)]
 
 

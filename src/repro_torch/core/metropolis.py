@@ -2,9 +2,14 @@
 
 Counterpart of ``repro.core.metropolis``: two compact +-1 int8 colour
 planes, four-neighbour sums by rolls, and the Metropolis accept
-``u < exp(-2 beta nn s)``.  This module is the plain version of both
-CUDA kernels of ``repro_torch.kernels.stencil``, which must match it bit
-for bit.
+``u < exp(-2 beta nn s)`` (or the heat-bath rule's sigmoid).  This
+module is the plain version of both CUDA kernels of
+``repro_torch.kernels.stencil``, which must match it bit for bit; its
+:func:`philox_uniforms` and :func:`index_uniforms` are the plain version
+of ``repro_torch.kernels.draws.philox_fill``.  :data:`run_sweeps`, the
+``basic`` engine's loop, is :func:`run_sweeps_philox`: each half-sweep
+draws the whole plane, then updates it (the engines draw through
+``philox_fill`` instead).
 
 The accept is a lookup in a 10-entry float32 table
 (:func:`acceptance_table`), never a per-site ``exp``: ``torch.exp`` and
@@ -45,11 +50,20 @@ def acceptance_arguments(inv_temp) -> np.ndarray:
                     dtype=np.float32)
 
 
-def acceptance_table(inv_temp) -> torch.Tensor:
-    """The 10-entry float32 acceptance table on the host: ``exp`` of
-    :func:`acceptance_arguments` in float64, rounded once to float32."""
+#: the accept rules: Metropolis ``exp(arg)``, heat bath ``e^arg / (1 +
+#: e^arg)`` (paper S2); both satisfy detailed balance on the checkerboard
+RULES = ("metropolis", "heatbath")
+
+
+def acceptance_table(inv_temp, rule: str = "metropolis") -> torch.Tensor:
+    """The 10-entry float32 acceptance table on the host: ``exp`` (or, for
+    ``rule="heatbath"``, ``sigmoid``) of :func:`acceptance_arguments` in
+    float64, rounded once to float32."""
+    if rule not in RULES:
+        raise ValueError(f"rule must be one of {RULES}, got {rule!r}")
     args = torch.from_numpy(acceptance_arguments(inv_temp).astype(np.float64))
-    return torch.exp(args).to(torch.float32)
+    table = torch.sigmoid(args) if rule == "heatbath" else torch.exp(args)
+    return table.to(torch.float32)
 
 
 def draw_bounds(table) -> np.ndarray:
@@ -73,10 +87,11 @@ def draw_bounds(table) -> np.ndarray:
 
 def neighbor_sums(op_plane: torch.Tensor, is_black: bool) -> torch.Tensor:
     """Four-neighbour spin sums for every target cell, in int8
-    (|sum| <= 4, so the narrow type is exact)."""
+    (|sum| <= 4, so the narrow type is exact); ``(..., n, h)`` planes,
+    leading axes (an ensemble's members) independent."""
     op = op_plane.to(torch.int8)
-    up = torch.roll(op, 1, dims=0)
-    down = torch.roll(op, -1, dims=0)
+    up = torch.roll(op, 1, dims=-2)
+    down = torch.roll(op, -1, dims=-2)
     return up + down + op + lat.side_shift(op, is_black)
 
 
@@ -94,32 +109,48 @@ def update_color(target, op_plane, uniforms, table, is_black: bool):
                         table)
 
 
-def philox_uniforms(n: int, h: int, seed: int, offset: int, device):
+def _lanes(bits, lanes: int):
+    """The first ``lanes`` uint32 lanes of Philox calls as float32
+    uniforms: one plane, or ``lanes`` of them stacked."""
+    if lanes == 1:
+        return rng.u32_to_uniform(bits[0])
+    return torch.stack([rng.u32_to_uniform(b) for b in bits[:lanes]])
+
+
+def philox_uniforms(n: int, h: int, seed: int, offset: int, device, *,
+                    c1: int = 0, c3: int = 0, lanes: int = 1):
     """The (n, h) float32 uniforms of one half-sweep: lane 0 of Philox at
-    counter ``(offset, 0, row*h + col, 0)``, key ``seed_keys(seed)``."""
+    counter ``(offset, c1, row*h + col, c3)``, key ``seed_keys(seed)``;
+    ``lanes`` > 1 gives lanes 0 to ``lanes - 1`` of the same calls,
+    ``(lanes, n, h)``.  The sweeps draw at c1 = c3 = 0; the other streams
+    are in ``rng``'s table of lanes."""
     k0, k1 = rng.seed_keys(seed)
-    out = torch.empty((n * h,), dtype=torch.float32, device=device)
+    shape = (n * h,) if lanes == 1 else (lanes, n * h)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
     for s0 in range(0, n * h, _CHUNK_SITES):
         s1 = min(n * h, s0 + _CHUNK_SITES)
         idx = torch.arange(s0, s1, dtype=torch.int64, device=device)
-        bits = rng.philox4x32(offset, 0, idx & rng.MASK32, 0, k0, k1)[0]
-        out[s0:s1] = rng.u32_to_uniform(bits)
-    return out.reshape(n, h)
+        bits = rng.philox4x32(offset, c1, idx & rng.MASK32, c3, k0, k1)
+        out[..., s0:s1] = _lanes(bits, lanes)
+    return out.reshape(*shape[:-1], n, h)
 
 
-def index_uniforms(index: torch.Tensor, seed: int, offset: int):
-    """The float32 uniforms of lane 0 of Philox at counter ``(offset, 0,
-    index, 0)`` for a plane of uint32 site indices (held in int32 or
+def index_uniforms(index: torch.Tensor, seed: int, offset: int, *,
+                   c1: int = 0, c3: int = 0, lanes: int = 1):
+    """The float32 uniforms of lane 0 of Philox at counter ``(offset, c1,
+    index, c3)`` for a plane of uint32 site indices (held in int32 or
     int64), a chunk at a time: the draws of a plane whose sites are not
-    numbered row by row, as a halo-extended shard's are."""
+    numbered row by row, as a halo-extended shard's are; ``lanes`` as in
+    :func:`philox_uniforms`."""
     k0, k1 = rng.seed_keys(seed)
     flat = index.reshape(-1)
-    out = torch.empty(flat.shape, dtype=torch.float32, device=index.device)
+    shape = flat.shape if lanes == 1 else (lanes, *flat.shape)
+    out = torch.empty(shape, dtype=torch.float32, device=index.device)
     for s0 in range(0, flat.numel(), _CHUNK_SITES):
         idx = flat[s0:s0 + _CHUNK_SITES].to(torch.int64) & rng.MASK32
-        bits = rng.philox4x32(offset, 0, idx, 0, k0, k1)[0]
-        out[s0:s0 + _CHUNK_SITES] = rng.u32_to_uniform(bits)
-    return out.reshape(index.shape)
+        bits = rng.philox4x32(offset, c1, idx, c3, k0, k1)
+        out[..., s0:s0 + _CHUNK_SITES] = _lanes(bits, lanes)
+    return out.reshape(*shape[:-1], *index.shape)
 
 
 def update_color_philox(target, op_plane, table, is_black: bool, seed: int,
@@ -144,3 +175,9 @@ def run_sweeps_philox(black, white, table, n_sweeps: int, seed: int,
             white, black, table, False, seed,
             rng.half_sweep_offset(start_offset, i, 1))
     return black, white
+
+
+#: the ``basic`` engine's loop (paper S3.1's basic path): each half-sweep
+#: first fills a whole plane of uniforms, then updates the colour with
+#: them, which is what :func:`run_sweeps_philox` does
+run_sweeps = run_sweeps_philox

@@ -7,6 +7,27 @@ cuRAND skip-ahead layout: the kernels of this package draw with counter
 its own 128-bit block.  The CUDA device function in ``csrc/philox.cuh``
 computes the same bits.
 
+The counter's lane c1 names the stream, so that no two streams of the
+package can draw one block (key ``seed_keys(seed)`` in each):
+
+* c1 = 0: the sweeps of every Metropolis engine, 2D and 3D, at
+  ``(offset, 0, site, 0)``;
+* c1 = 1: the fresh init (``lattice.init_row_chunks``), at
+  ``(0, 1, site, q)``;
+* c1 = 2: Wolff.  Cluster ``c = step_count + i`` draws its seed site at
+  ``(c, 2, 0, 0)`` and its bond tests at BFS depth d at
+  ``(c, 2, site, d + 1)``;
+* c1 = 3: the spin glass's couplings at ``(0, 3, site, 0)``: lane 0
+  gives ``j_up``, lane 1 ``j_left``.
+
+``offset`` is ``half_sweep_offset``'s, ``site`` a flat index (in the
+compact colour plane for the 2D sweeps, the spin glass's too; in the
+whole lattice for the init, the couplings, Wolff and the 3D sweeps) and
+``q`` the init's replica group.  The JAX package
+draws ``basic``, ``spinglass``, ``wolff`` and the single-device 3D model
+from ``jax.random``, which this package cannot reproduce; it draws them
+from these lanes instead.
+
 uint32 values travel in int64 tensors masked with ``0xFFFFFFFF``:
 PyTorch on the CPU implements neither shifts, ``+`` nor ``<`` for
 ``torch.uint32``.  Products use 16-bit limbs, because the int64 product
@@ -23,6 +44,12 @@ PHILOX_W1 = 0xBB67AE85
 
 MASK32 = 0xFFFFFFFF
 _LO16 = 0xFFFF
+
+#: counter lane c1 of each stream (the table above)
+SWEEP_LANE = 0
+INIT_LANE = 1
+WOLFF_LANE = 2
+COUPLING_LANE = 3
 
 #: half-sweeps per full lattice sweep -- the unit of the Philox offset.
 #: Every sweep loop of the package, host-side and in-kernel, advances its

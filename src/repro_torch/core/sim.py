@@ -15,6 +15,8 @@ class SimConfig:
     # 0.5 = random (hot) start; 1.0 = ordered start, for steady-state
     # runs below Tc (cold random starts can stripe-lock)
     init_p_up: float = 0.5
+    # spin glass only: probability that a quenched bond is ferromagnetic
+    p_ferro: float = 0.5
 
     @property
     def inv_temp(self) -> float:

@@ -986,3 +986,67 @@ def test_graph_capture_failure_raises(cuda, monkeypatch):
     assert measure.DISPATCHES == before
     assert len(calls) == 1          # the first sample's; the capture failed
     torch.cuda.synchronize()
+
+
+# -- philox_fill and the engines of plain updates ----------------------------
+
+@pytest.mark.parametrize("members,shape,offset,c1,c3,lanes", [
+    (1, (1001, 1003), 5, 0, 0, 1), (16, (64, 130), 2 ** 32 - 1, 0, 0, 1),
+    (3, (33, 65), 2 ** 31, 3, 1, 2), (4, (5, 7), 2 ** 31 - 1, 2, 7, 1),
+    (2, (9, 8, 7), 2 ** 32 - 3, 2, 1, 2)])
+def test_philox_fill_matches_plain(cuda, members, shape, offset, c1, c3,
+                                   lanes):
+    from repro_torch.kernels import draws
+    seeds = [SEED + i * 7919 for i in range(members)]
+    kw = dict(shape=shape, c1=c1, c3=c3, lanes=lanes)
+    got = draws.philox_fill(seeds, offset, device=cuda, **kw)
+    want = draws.philox_fill_plain(seeds, offset, device=cuda, **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_philox_fill_index_plane_matches_plain(cuda, dtype):
+    from repro_torch.kernels import draws
+    g = torch.Generator(device="cuda").manual_seed(3)
+    index = torch.randint(-2 ** 31, 2 ** 31 - 1, (77, 129), generator=g,
+                          device=cuda, dtype=torch.int32).to(dtype)
+    seeds = [SEED, 5, 2 ** 32 - 1]
+    got = draws.philox_fill(seeds, 2 ** 32 - 2, index=index, c1=2, c3=5,
+                            lanes=2)
+    want = draws.philox_fill_plain(seeds, 2 ** 32 - 2, index=index, c1=2,
+                                   c3=5, lanes=2)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("engine,temperature,sweeps", [
+    ("basic_philox", 2.2, 6), ("basic", 2.2, 6), ("spinglass", 2.2, 6),
+    ("wolff", 3.0, 3)])
+def test_plain_update_session_on_card_equals_cpu(cuda, engine, temperature,
+                                                 sweeps):
+    from repro_torch.kernels import draws
+    params = {"p_ferro": 0.6} if engine == "spinglass" else {}
+    spec = RunSpec(lattice=LatticeSpec(64, 64),
+                   engine=EngineSpec(engine, params),
+                   temperature=temperature, seed=SEED)
+    draws.philox_fill.launches = 0
+    card = Session.open(spec, device=cuda)
+    card.run(sweeps)
+    assert draws.philox_fill.launches > 0
+    cpu = Session.open(spec, device="cpu")
+    cpu.run(sweeps)
+    assert card.state_digest() == cpu.state_digest()
+
+
+def test_ising3d_on_card_equals_cpu_and_slabs(cuda):
+    from repro_torch.core import ising3d
+    from repro_torch.launch.mesh import make_mesh
+    cube = (torch.arange(16 ** 3) % 3 == 0).to(torch.int8).reshape(
+        16, 16, 16) * 2 - 1
+    table = ising3d.acceptance_table_3d(1 / 4.0)
+    want = ising3d.run_sweeps_3d(cube, table, 5, SEED, 2 ** 32 - 5)
+    got = ising3d.run_sweeps_3d(cube.to(cuda), table, 5, SEED, 2 ** 32 - 5)
+    assert torch.equal(got.cpu(), want)
+    step, split, gather = ising3d.make_ising3d_step(
+        make_mesh((2, 2), ("data", "model")), n=16, seed=SEED, n_sweeps=5)
+    slabs = gather(step(split(cube.to(cuda)), 1 / 4.0, 2 ** 32 - 5))
+    assert torch.equal(slabs.cpu(), want)

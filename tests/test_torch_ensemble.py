@@ -249,7 +249,9 @@ def test_ensemble_trajectory_shape_and_offsets():
 
 
 @pytest.mark.parametrize("engine,match", [("tensorcore", "not counter-based"),
-                                          ("wolff", "not ported")])
+                                          ("wolff", "not counter-based"),
+                                          ("spinglass", "not counter-based"),
+                                          ("basic", "not counter-based")])
 def test_ensemble_rejects_key_based_engines(engine, match):
     with pytest.raises(ValueError, match=match):
         Ensemble(16, 16, [2.0], engine=engine, device="cpu")

@@ -285,11 +285,22 @@ def test_fresh_word_session_holds_the_single_lattice_init(engine):
 
 
 def test_unported_engine_checkpoint_raises(tmp_path):
+    """Every JAX engine is ported: a ``wolff`` checkpoint restores (its
+    lattice, its step count); a name that no package registers still
+    raises."""
     spec = jax_spec().to_dict()
     spec["engine"]["name"] = "wolff"
+    text = japi.RunSpec.from_dict(spec).to_json()
+    lattice = np.where(np.arange(N * M).reshape(N, M) % 3, 1, -1) \
+        .astype(np.int8)
     path = str(tmp_path / "wolff.npz")
-    np.savez(path, spec_json=japi.RunSpec.from_dict(spec).to_json(),
-             step_count=0, state_lattice=np.ones((N, M), np.int8))
+    np.savez(path, spec_json=text, step_count=4, state_lattice=lattice)
+    restored = Session.restore(path, device="cpu")
+    assert restored.step_count == 4
+    assert np.array_equal(restored.full_lattice().numpy(), lattice)
+    path = str(tmp_path / "potts.npz")
+    np.savez(path, spec_json=text.replace('"wolff"', '"potts"'),
+             step_count=0, state_lattice=lattice)
     with pytest.raises(ValueError, match="not ported"):
         Session.restore(path, device="cpu")
 

@@ -112,7 +112,7 @@ def test_bad_batch_is_rejected_while_parsing():
 
 
 @pytest.mark.parametrize("doc,match", [
-    (dict(FULL, engine={"name": "wolff", "params": {}}), "not ported"),
+    (dict(FULL, engine={"name": "potts", "params": {}}), "not ported"),
     (dict(FULL, lattice={"n": 7, "m": 8}), "even"),
     (dict(FULL, temperature=0.0), "positive"),
     (dict(FULL, seed=2 ** 64), "uint64"),
