@@ -157,7 +157,28 @@ fails:
    2 mesh (one launch a shard a half-sweep) single mode's, a checkpoint
    written by the JAX package (``tests/data/torch_port/``) must continue
    to the JAX digest, and the
-   3D model at 32^3 the CPU's lattice, on one device and on slabs.
+   3D model at 32^3 the CPU's lattice, on one device and on slabs;
+10. telemetry, resilience and the checkpointer (:func:`phase_10`): the
+   supervised ``multispin_pallas`` 32768^2 run (T = 2.0, ordered, 200
+   sweeps in chunks of 50, a checkpoint every 100) preempted at 150, its
+   step 150 corrupted, resumed from step 100 under an injected transient
+   fault and an injected demotion (one retry, one demotion, the rest on
+   the per-half-sweep tier) to the digest of an uninterrupted
+   ``run(200)``, each checkpoint's write and validation timed with the
+   host CRC32C's share; ``python -m repro_torch.resilience.chaos`` at
+   4096^2, an ensemble of 4 and a 2 x 2 mesh resumed on 1 x 2, exit 0;
+   ``stencil_pallas`` 32768^2 ``run(20)`` under a ballast that leaves
+   less free than the k-sweep tier's second copy of the planes: one
+   demotion for ``OutOfMemoryError``, the undisturbed run's planes, no
+   memory left over; a k-sweep tile over the card's opt-in shared memory
+   demoting on its first launch, the digest unchanged; the traced CLI
+   run (10 samples 10 apart at 32768^2): a valid trace whose counters
+   are the plan's (1 dispatch, 100 sweeps, 100 x 2^30 flips and draws,
+   9 graph replays, no recovery counter moved); ``run(200)`` untraced
+   (no host synchronization under sync debug mode "error") and traced,
+   its dispatch span at least its launches' CUDA-event time; the
+   weakscale rows of (D, 1) meshes, D = 1, 2, 4, whose halo counters are
+   their plans' exchanges and bytes.
 
 Every counter-based ``measure()`` (phases 5, 7 and 8) launches its
 sweeps from the host and replays one captured CUDA graph of a sample's
@@ -475,11 +496,390 @@ SMALL_WOLFF_T, SMALL_WOLFF_FLIPS = 3.0, 4
 #: a basic_philox checkpoint written by the JAX package (its generator
 #: ``make_jax_checkpoint.py`` beside it) and its digests
 JAX_CHECKPOINT = ROOT / "tests" / "data" / "torch_port" / "basic_philox_512"
+#: phase 10: the supervised main path (multispin_pallas at FULL_N^2):
+#: sweeps, chunk, checkpoint cadence, and the step whose chunk stops it
+SUPERVISE_SWEEPS, SUPERVISE_CHUNK, SUPERVISE_EVERY = 200, 50, 100
+SUPERVISE_STOP = 150
+#: the chaos drills through the CLI: lattice, engine, member temperatures
+#: and the drill's sweeps, cadence and chunk
+CHAOS_N = 4096
+CHAOS_ARGS = ("--engine", "multispin_pallas", "--sweeps", "256",
+              "--every", "64", "--chunk", "32")
+CHAOS_TEMPS = "1.8,2.0,2.2,2.4"
+#: the out-of-memory drill: stencil_pallas at FULL_N^2 (planes 2 x 512
+#: MiB); the device memory it leaves free: less than the k-sweep tier's
+#: second copy of the planes (1 GiB), more than the half-sweep tier needs
+OOM_SWEEPS = 20
+OOM_FREE_BYTES = 256 << 20
+#: the shared-memory drill: stencil_pallas at SMEM_N^2, its plan's tile
+#: rows raised to SMEM_TILE_ROWS (about 1 MB a block, over the card's
+#: 227 KB)
+SMEM_N, SMEM_SWEEPS, SMEM_TILE_ROWS = 4096, 4, 1024
+#: the traced main path: the CLI's measured trajectory, the in-process
+#: run's sweeps
+TRACE_MEASURE, TRACE_EVERY, TRACE_SWEEPS = 10, 10, 200
+#: weakscale rows: shard counts D of (D, 1) meshes, rows per shard,
+#: columns, sweeps a call, calls
+WEAKSCALE_SHARDS = (1, 2, 4)
+WEAKSCALE_BASE_N, WEAKSCALE_COLS = 2048, 8192
+WEAKSCALE_SWEEPS, WEAKSCALE_TRIALS = 4, 2
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def phase_10(drive, timed_ms) -> None:
+    """Telemetry, resilience and the checkpointer on the card: the
+    supervised main path at full size (preempted, its newest step
+    corrupted, resumed under an injected transient fault and an injected
+    demotion, to the uninterrupted digest), the chaos drill through the
+    CLI (an ensemble; a 2 x 2 mesh resumed on 1 x 2), a real
+    ``OutOfMemoryError`` and a shared-memory overflow demoting with the
+    trajectory unchanged, the traced CLI run's counters and the fence of
+    the ``dispatch`` span, and the weakscale rows' halo counters.
+    ``drive(path, family, tier, fn)`` is :func:`main`'s: each path
+    launches its tier's kernel and no other.  Raises on any failed
+    gate."""
+    import torch
+
+    import repro_torch.telemetry as tel
+    from repro_torch.api import EngineSpec, LatticeSpec, RunSpec, Session
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.dist import weakscale
+    from repro_torch.dist.planner import plan_shard_resident
+    from repro_torch.kernels import errors as kernel_errors
+    from repro_torch.kernels.stencil import stencil as stencil_kernels
+    from repro_torch.resilience import Supervisor, degrade, faults, integrity
+    from repro_torch.telemetry import diff_counters, validate_trace
+
+    def counters():
+        return tel.REGISTRY.snapshot()
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    spec = RunSpec(lattice=LatticeSpec(FULL_N, FULL_N, init_p_up=1.0),
+                   engine=EngineSpec("multispin_pallas"),
+                   temperature=TEMPERATURE, seed=SEED)
+    degrade.reset_demotions()
+
+    # -- 10.1 the supervised main path at full size -------------------------
+    t1 = time.perf_counter()
+    ref = Session.open(spec)
+    ref.run(SUPERVISE_SWEEPS)
+    t2 = time.perf_counter()
+    want = ref.state_digest()
+    digest_s = time.perf_counter() - t2
+    print(f"phase 10: uninterrupted run({SUPERVISE_SWEEPS}) of "
+          f"multispin_pallas {FULL_N}^2 digest {want}: the digest of "
+          f"{sum(a.nbytes for a in ref._runner.state_arrays().values())} "
+          f"B of planes took {digest_s:.2f} s on the host")
+    del ref
+    # the host CRC32C's share of each checkpoint write and validation
+    timings, crc_s = [], [0.0]
+    real = (integrity.crc32c, Checkpointer._write,
+            integrity.validate_step_dir, integrity.verify_arrays)
+
+    def timed_crc(data, value=0):
+        t = time.perf_counter()
+        try:
+            return real[0](data, value)
+        finally:
+            crc_s[0] += time.perf_counter() - t
+
+    def timed(kind, fn):
+        def wrapper(*args, **kwargs):
+            c, t = crc_s[0], time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                timings.append((kind, time.perf_counter() - t, crc_s[0] - c))
+        return wrapper
+
+    integrity.crc32c = timed_crc
+    Checkpointer._write = timed("write", real[1])
+    integrity.validate_step_dir = timed("validate", real[2])
+    integrity.verify_arrays = timed("verify arrays", real[3])
+    path = f"multispin_pallas {FULL_N}^2 supervised"
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            def stop(sup):
+                if sup.session.step_count >= SUPERVISE_STOP:
+                    sup.request_stop()
+
+            def first():
+                return Supervisor(spec, d, every_sweeps=SUPERVISE_EVERY,
+                                  chunk=SUPERVISE_CHUNK,
+                                  on_chunk=stop).run(SUPERVISE_SWEEPS)
+
+            t2 = time.perf_counter()
+            r1 = drive(f"{path} to preemption", "multispin", "k-sweep", first)
+            first_s = time.perf_counter() - t2
+            print(f"phase 10: {path}: {r1.status} at {r1.step_count} in "
+                  f"{first_s:.2f} s, checkpoints {r1.checkpoints_written}")
+            check(r1.status == "preempted"
+                  and r1.step_count == SUPERVISE_STOP
+                  and r1.checkpoints_written == [SUPERVISE_EVERY,
+                                                 SUPERVISE_STOP],
+                  f"{path}: not preempted at {SUPERVISE_STOP} with two "
+                  f"checkpoints")
+            faults.flip_byte(d, SUPERVISE_STOP)
+            base = counters()
+
+            def second():
+                plan = faults.FaultPlan(transient_dispatches=1,
+                                        resident_oom=1)
+                with faults.injected(plan):
+                    sup = Supervisor(spec, d, every_sweeps=SUPERVISE_EVERY,
+                                     chunk=SUPERVISE_CHUNK)
+                    return sup, sup.run(SUPERVISE_SWEEPS), plan
+
+            t2 = time.perf_counter()
+            sup, r2, plan = drive(f"{path} resumed", "multispin",
+                                  "half-sweep", second)
+            second_s = time.perf_counter() - t2
+            got = diff_counters(base, counters())
+            recovery = {k: got.get(k, 0) for k in (
+                "resilience.resume", "ckpt.quarantine", "resilience.retry",
+                "resident.demote")}
+            print(f"phase 10: {path} resumed: from step "
+                  f"{sup.resumed_from}, {r2.status} at {r2.step_count} in "
+                  f"{second_s:.2f} s, checkpoints {r2.checkpoints_written}, "
+                  f"faults fired {plan.fired}, counters {recovery}, digest "
+                  f"{r2.digest} (uninterrupted {want}); steps left "
+                  f"{sorted(os.listdir(d))}")
+            # the JAX supervisor skips a corrupt step without quarantining
+            # it (Checkpointer.latest_step, then an explicit load_arrays):
+            # ckpt.quarantine stays 0, as there
+            check(sup.resumed_from == SUPERVISE_EVERY
+                  and recovery == {"resilience.resume": 1,
+                                   "ckpt.quarantine": 0,
+                                   "resilience.retry": 1,
+                                   "resident.demote": 1},
+                  f"{path}: resumed from {sup.resumed_from}, counters "
+                  f"{recovery}")
+            check(sup.session.engine.resident_plan is None,
+                  f"{path}: the injected demotion left the k-sweep tier")
+            check(r2.completed and r2.digest == want,
+                  f"{path}: digest {r2.digest}, not the uninterrupted "
+                  f"{want}")
+            del sup
+    finally:
+        (integrity.crc32c, Checkpointer._write, integrity.validate_step_dir,
+         integrity.verify_arrays) = real
+        degrade.reset_demotions()
+    for kind, seconds, crc in timings:
+        print(f"phase 10: {path}: checkpoint {kind} {seconds:.2f} s, of it "
+              f"CRC32C {crc:.2f} s ({100 * crc / max(seconds, 1e-9):.1f} %)")
+    print(f"phase 10: {path}: host CRC32C {crc_s[0]:.2f} s in all (the "
+          f"digests' included)")
+
+    # -- 10.2 the chaos drill through the CLI --------------------------------
+    # the subprocesses need the card's memory that this one has cached
+    torch.cuda.empty_cache()
+    for drill, extra in (("ensemble", ("--temps", CHAOS_TEMPS)),
+                         ("mesh", ("--mesh", "2x2", "--resume-mesh",
+                                   "1x2"))):
+        with tempfile.TemporaryDirectory() as d:
+            t2 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.resilience.chaos",
+                 "--device", "cuda", "--n", str(CHAOS_N), "--workdir", d,
+                 *CHAOS_ARGS, *extra], env=env, capture_output=True,
+                text=True, timeout=900)
+            lines = proc.stdout.strip().splitlines()
+            print(f"phase 10: chaos drill ({drill}, {CHAOS_N}^2): exit "
+                  f"{proc.returncode} in {time.perf_counter() - t2:.2f} s; "
+                  + " | ".join(l for l in lines if l.startswith(
+                      ("supervised run", "# chaos run exit", "# resumed",
+                       "chaos drill"))))
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:] + proc.stderr[-4000:],
+                      file=sys.stderr)
+            check(proc.returncode == 0, f"chaos drill {drill} failed")
+
+    # -- 10.3 a real out-of-memory demotion, and a shared-memory one --------
+    oom_spec = dataclasses.replace(spec, engine=EngineSpec("stencil_pallas"))
+    ref = Session.open(oom_spec)
+    ref.run(OOM_SWEEPS)
+    session = Session.open(oom_spec)
+    check(session.engine.resident_plan is not None,
+          "stencil_pallas plans no k-sweep tier at full size")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    free = torch.cuda.mem_get_info()[0]
+    ballast = torch.empty(free - OOM_FREE_BYTES, dtype=torch.uint8,
+                          device="cuda")
+    free_left = torch.cuda.mem_get_info()[0]
+    base = counters()
+    path = f"stencil_pallas {FULL_N}^2 run({OOM_SWEEPS}) out of memory"
+    drive(path, "stencil", "half-sweep", lambda: session.run(OOM_SWEEPS))
+    demoted = diff_counters(base, counters())["resident.demote"]
+    reason = degrade.demotion_reason("stencil", FULL_N, FULL_N) or ""
+    del ballast
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - before
+    same = session.step_count == ref.step_count and all(
+        torch.equal(a, b) for a, b in zip(session.state, ref.state))
+    print(f"phase 10: {path}: {free_left} B free under the ballast; "
+          f"{demoted} demotion, reason {reason[:160]!r}; planes equal to "
+          f"an undisturbed run's at step {ref.step_count}: {same} (so "
+          f"its digest is theirs); device memory left above the planes "
+          f"after the ballast is freed: {left} B")
+    check(demoted == 1 and reason.startswith("OutOfMemoryError"),
+          f"{path}: {demoted} demotions, reason {reason!r}")
+    check(same, f"{path}: the demoted run's planes differ")
+    check(left < 1 << 20, f"{path}: {left} B left over")
+    del session, ref
+    degrade.reset_demotions()
+
+    smem_spec = dataclasses.replace(
+        oom_spec, lattice=LatticeSpec(SMEM_N, SMEM_N, init_p_up=1.0))
+    ref = Session.open(smem_spec)
+    ref.run(SMEM_SWEEPS)
+    session = Session.open(smem_spec)
+    lib = stencil_kernels.library()
+    plan = session.engine.resident_plan
+    need = lib.stencil_resident_smem_bytes(SMEM_TILE_ROWS, plan.tile_cols,
+                                           plan.k)
+    limit = kernel_errors.max_shared_memory(lib, session.device)
+    # a plan for a budget above the card's: the planner's own rule keeps
+    # the family's tile, so the tile is raised by hand
+    session.engine.resident_plan = dataclasses.replace(
+        plan, tile_rows=SMEM_TILE_ROWS, smem_bytes=need, budget_bytes=need)
+    base = counters()
+    path = f"stencil_pallas {SMEM_N}^2 run({SMEM_SWEEPS}) shared memory"
+    drive(path, "stencil", "half-sweep", lambda: session.run(SMEM_SWEEPS))
+    demoted = diff_counters(base, counters())["resident.demote"]
+    reason = degrade.demotion_reason("stencil", SMEM_N, SMEM_N) or ""
+    digests = (session.state_digest(), ref.state_digest())
+    print(f"phase 10: {path}: tile {SMEM_TILE_ROWS} x {plan.tile_cols} "
+          f"needs {need} B, the card's opt-in maximum {limit} B; "
+          f"{demoted} demotion, reason {reason[:160]!r}; digests {digests}")
+    check(need > limit and demoted == 1
+          and reason.startswith("SharedMemoryOverflow"),
+          f"{path}: {demoted} demotions, reason {reason!r}")
+    check(digests[0] == digests[1], f"{path}: digest differs")
+    del session, ref
+    degrade.reset_demotions()
+
+    # -- 10.4 the traced run -------------------------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        trace = os.path.join(d, "t.json")
+        t2 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "run", "--engine",
+             "multispin_pallas", "--n", str(FULL_N), "--init-p-up", "1.0",
+             "--temperature", str(TEMPERATURE), "--seed", str(SEED),
+             "--n-measure", str(TRACE_MEASURE), "--measure-every",
+             str(TRACE_EVERY), "--trace", trace], env=env,
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t2
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+        check(proc.returncode == 0, "the traced CLI run failed")
+        with open(trace) as f:
+            doc = json.load(f)
+        summary = subprocess.run(
+            [sys.executable, "-m", "repro_torch.telemetry", "summarize",
+             trace], env=env, capture_output=True, text=True, timeout=120)
+    validate_trace(doc)
+    got = doc["metrics"]["counters"]
+    sweeps = TRACE_MEASURE * TRACE_EVERY
+    spans = sorted({e["name"] for e in doc["traceEvents"]})
+    print(f"phase 10: traced CLI run ({cli_s:.2f} s): span types {spans}; "
+          f"counters {got}; summarize exit {summary.returncode}")
+    recovery = {k: v for k, v in got.items()
+                if k.startswith(("resilience.", "resident.", "ckpt."))}
+    check(got["dispatches"] == 1 and got["sweeps"] == sweeps
+          and got["spin_flips"] == got["philox_draws"] == sweeps * FULL_N ** 2
+          and got["measure.graph_replays"] == TRACE_MEASURE - 1
+          and got["halo_exchanges"] == got["halo_bytes"] == 0
+          and not any(recovery.values()),
+          f"traced CLI run: counters {got}")
+    check(summary.returncode == 0 and "dispatches" in summary.stdout,
+          "telemetry summarize failed on the trace")
+
+    session = Session.open(spec)
+    session.run(2)
+    path = f"multispin_pallas {FULL_N}^2 run({TRACE_SWEEPS})"
+    untraced_ms = drive(f"{path} untraced", "multispin", "k-sweep",
+                        lambda: timed_ms(lambda: session.run(TRACE_SWEEPS),
+                                         reps=1, warmup=False))
+
+    def sync_checked():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            session.run(TRACE_SWEEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    drive(f"{path} sync debug mode error", "multispin", "k-sweep",
+          sync_checked)
+    # CUDA events just before the dispatch's first launch and just after
+    # its last, both inside its span: the span must last at least as long
+    marks = []
+    launch = session.engine.resident_sweeps
+
+    def marked(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kwargs)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    session.engine.resident_sweeps = marked
+    tel.TRACER.clear()
+    tel.enable()
+    try:
+        traced_ms = drive(f"{path} traced", "multispin", "k-sweep",
+                          lambda: timed_ms(lambda: session.run(TRACE_SWEEPS),
+                                           reps=1, warmup=False))
+    finally:
+        tel.disable()
+        del session.engine.resident_sweeps
+    dispatches = [e for e in tel.TRACER.events if e["name"] == "dispatch"]
+    tel.TRACER.clear()
+    check(len(dispatches) == len(marks) == 1,
+          f"{path} traced: {len(dispatches)} dispatch spans, {len(marks)} "
+          f"marked launches")
+    span_ms = dispatches[0]["dur_us"] / 1e3
+    device_ms = marks[0][0].elapsed_time(marks[0][1])
+    print(f"phase 10: {path}: untraced {untraced_ms:.3f} ms, traced "
+          f"{traced_ms:.3f} ms; the dispatch span {span_ms:.3f} ms against "
+          f"its launches' CUDA-event time {device_ms:.3f} ms; no host "
+          f"synchronization under sync debug mode 'error' untraced")
+    check(span_ms >= device_ms,
+          f"{path}: the dispatch span ({span_ms} ms) closed before its "
+          f"launches finished ({device_ms} ms): the fence did not wait")
+    del session
+
+    # -- 10.5 weakscale rows: the halo counters against the plans ------------
+    for family, engine in weakscale.FAMILY_ENGINES.items():
+        rows = drive(f"weakscale {family}", family, "shard",
+                     lambda: weakscale.measure_rows(
+                         WEAKSCALE_SHARDS, base_n=WEAKSCALE_BASE_N,
+                         cols=WEAKSCALE_COLS, sweeps=WEAKSCALE_SWEEPS,
+                         trials=WEAKSCALE_TRIALS, families=(family,)))
+        for row in rows:
+            shards = row["derived"]["devices"]
+            plan = plan_shard_resident(family, WEAKSCALE_BASE_N * shards,
+                                       WEAKSCALE_COLS, shards, 1)
+            ex = plan.exchanges(WEAKSCALE_SWEEPS)
+            print(f"phase 10: weakscale row {row['name']}: {row['us']:.1f} "
+                  f"us a call, {row['derived']}; plan k = {plan.k}, "
+                  f"{ex} exchanges of {plan.halo_bytes_per_exchange} B")
+            check(row["derived"]["halo_exchanges_per_call"] == ex
+                  and row["derived"]["halo_kb_per_call"] == round(
+                      ex * plan.halo_bytes_per_exchange / 1024, 3),
+                  f"weakscale {row['name']}: halo counters against the "
+                  f"plan")
 
 
 def nvidia_smi(query: str) -> str:
@@ -2630,6 +3030,11 @@ def main() -> int:
           f"{path}: the card, the CPU and the slabs disagree")
     print("phase 9 rows: " + json.dumps(plain_rows))
     phase_s[9] = time.perf_counter() - t0
+
+    # -- 10. telemetry, resilience and the checkpointer ---------------------
+    t0 = time.perf_counter()
+    phase_10(drive, timed_ms)
+    phase_s[10] = time.perf_counter() - t0
 
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}

@@ -49,6 +49,14 @@ either alone:
     # (on the mesh it was saved on)
     python -m repro_torch run --restore ck.npz --sweeps 100
 
+    # supervised: verified checkpoints into DIR every 100 sweeps, chunks
+    # of 50 sweeps, SIGTERM/SIGINT-safe (exit 3 = preempted: run the same
+    # command again to resume from the newest valid step); a Chrome trace
+    # of spans and counters (python -m repro_torch.telemetry summarize)
+    python -m repro_torch run --engine multispin_pallas --n 32768 \
+        --init-p-up 1.0 --temperature 2.0 --sweeps 200 --supervise DIR \
+        --ckpt-every-sweeps 100 --chunk 50 --trace trace.json
+
 The paper's Fig. 5/6 temperature scan is
 ``python -m repro_torch.analysis.figures [--smoke]``.  Runs on the CUDA
 card unless ``--device cpu`` is given.
@@ -155,9 +163,53 @@ def _record(args, session, rows) -> None:
     print(f"# wrote record {rec.write_json(args.record)}")
 
 
+def _finish_trace(args, spec) -> None:
+    """Write the ``--trace`` file (validated first), if one was asked
+    for."""
+    if not args.trace:
+        return
+    import repro_torch.telemetry as tel
+    path = tel.export(args.trace,
+                      meta={"engine": spec.engine.name, "mode": spec.mode,
+                            "lattice": [spec.lattice.n, spec.lattice.m],
+                            "spec_json": spec.to_json()})
+    print(f"# wrote trace {path} (inspect: python -m "
+          f"repro_torch.telemetry summarize {path})", file=sys.stderr)
+
+
+def _cmd_supervise(args, spec, device) -> int:
+    """The ``--supervise DIR`` path: a preemption-safe supervised run with
+    periodic verified checkpoints and resume from the newest valid step.
+    Exit 0 on completion, 3 when preempted (progress checkpointed: run
+    the same command again to resume), 2 without ``--sweeps``."""
+    from repro_torch.resilience import Supervisor, faults
+    faults.install_from_env()  # chaos drill: a REPRO_FAULTS JSON plan
+    if not args.sweeps:
+        print("--supervise needs --sweeps N (the run target)",
+              file=sys.stderr)
+        return 2
+    sup = Supervisor(spec, args.supervise,
+                     every_sweeps=args.ckpt_every_sweeps,
+                     every_seconds=args.ckpt_every_seconds,
+                     chunk=args.chunk, keep=args.keep, device=device)
+    if sup.resumed_from is not None:
+        print(f"# resumed from step {sup.resumed_from} "
+              f"in {args.supervise}")
+    res = sup.run(args.sweeps)
+    print(f"supervised run {res.status} at sweep {res.step_count}/"
+          f"{args.sweeps}; checkpoints written: "
+          f"{res.checkpoints_written}")
+    print(f"final_state_digest={res.digest}")
+    _finish_trace(args, spec)
+    return 0 if res.completed else 3
+
+
 def cmd_run(args) -> int:
     from repro_torch.api import Session, describe, load_spec
     device = args.device or None
+    if args.trace:
+        import repro_torch.telemetry as tel
+        tel.enable()
     session = None
     if args.restore and not args.dry_run:
         session = Session.restore(args.restore, device=device)
@@ -172,13 +224,17 @@ def cmd_run(args) -> int:
             f.write(spec.to_json(indent=1) + "\n")
         print(f"# wrote spec {args.out_spec}")
 
+    plan = describe(spec)   # the spec.validate span, as the JAX CLI's
     if args.dry_run:
-        plan = describe(spec)
         print(json.dumps(plan, indent=1, sort_keys=True))
         print(f"# dry run OK: mode={plan['mode']} engine={plan['engine']} "
               f"lattice={plan['lattice'][0]}x{plan['lattice'][1]} "
               f"batch={plan['batch_size']}", file=sys.stderr)
+        _finish_trace(args, spec)
         return 0
+
+    if args.supervise:
+        return _cmd_supervise(args, spec, device)
 
     if session is None:
         session = Session.open(spec, device=device)
@@ -223,12 +279,14 @@ def cmd_run(args) -> int:
     if not rows:
         print("nothing to do: no sweep plan and --sweeps is 0 (use "
               "--dry-run to just validate)", file=sys.stderr)
+        _finish_trace(args, spec)
         return 2
     if args.save:
         session.save(args.save)
         print(f"# wrote checkpoint {args.save} (step {session.step_count})")
     if args.record is not None:
         _record(args, session, rows)
+    _finish_trace(args, spec)
     return 0
 
 
@@ -295,6 +353,27 @@ def main(argv=None) -> int:
                           "(a directory gets BENCH_<stamp>.json)")
     run.add_argument("--device", default="",
                      help="torch device, e.g. cpu (default: the CUDA card)")
+    # supervised (fault-tolerant) execution
+    run.add_argument("--supervise", default="", metavar="DIR",
+                     help="run under the resilience supervisor: periodic "
+                          "verified checkpoints into DIR, SIGTERM/SIGINT-"
+                          "safe, resume from the newest valid step (exit "
+                          "3 = preempted, rerun to resume)")
+    run.add_argument("--ckpt-every-sweeps", type=int, default=0,
+                     help="supervisor checkpoint cadence in sweeps "
+                          "(0: off)")
+    run.add_argument("--ckpt-every-seconds", type=float, default=0.0,
+                     help="supervisor checkpoint cadence in wall-clock "
+                          "seconds (0: off)")
+    run.add_argument("--chunk", type=int, default=64,
+                     help="supervisor sweep-chunk between control points "
+                          "(a fixed grid, as in the JAX package)")
+    run.add_argument("--keep", type=int, default=3,
+                     help="checkpoint steps the supervisor retains")
+    run.add_argument("--trace", default="", metavar="PATH",
+                     help="enable span tracing; write the Chrome trace "
+                          "(.json, Perfetto-loadable) or .jsonl stream and "
+                          "the metrics snapshot here")
     run.set_defaults(fn=cmd_run)
     args = ap.parse_args(argv)
     return args.fn(args)

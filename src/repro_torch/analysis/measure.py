@@ -14,8 +14,9 @@ the plan as one compiled ``lax.scan``: one dispatch a trajectory.  Here
    small launches, written into row ``i`` of preallocated
    ``(n_measure, B[, 32])`` device buffers, ``i`` a device counter the
    graph advances), captured once on the caller's planes and replayed
-   after each later sample's sweeps, each replay counted in
-   :data:`DISPATCHES`;
+   after each later sample's sweeps, each replay counted in the
+   telemetry counter ``measure.graph_replays`` (read as
+   :data:`DISPATCHES`);
 4. the samples to the host once, after the last replay; the graph and
    its memory pool freed.
 
@@ -32,9 +33,16 @@ engine is the batch of one; the engines that are not counter-based
 (``tensorcore``, ``basic``, ``spinglass``, ``wolff``) keep a loop on
 either device.  The times of the last graph are in
 :data:`GRAPH_STATS`.
+
+A measured trajectory is ONE dispatch in the telemetry counters, as the
+JAX package's one compiled scan is, inside a ``measure_scan`` span that
+holds its ``dispatch`` span.  Both are opened around the whole
+trajectory, never inside the graph's capture: a span's fence (an event
+synchronize) is illegal while a stream captures.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import time
@@ -43,10 +51,19 @@ from typing import Tuple
 import numpy as np
 import torch
 
-#: CUDA graph replays since the count was last set to 0: one per sample
-#: after the first of a measured trajectory on the card (the JAX
-#: package's ``DISPATCH_COUNT`` counts one a trajectory)
-DISPATCHES = 0
+import repro_torch.telemetry as tel
+
+#: CUDA graph replays: one per sample after the first of a measured
+#: trajectory on the card (module-held: survives ``REGISTRY.reset()``)
+GRAPH_REPLAYS = tel.REGISTRY.counter("measure.graph_replays")
+
+
+def __getattr__(name: str):
+    # ``DISPATCHES``: the replays so far, read from the registry (the
+    # JAX package reads its ``DISPATCH_COUNT`` from its counter likewise)
+    if name == "DISPATCHES":
+        return GRAPH_REPLAYS.value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 #: the last graph: seconds of its capture and its instantiation, and
 #: its replays
@@ -76,6 +93,26 @@ class MeasurementPlan:
         return self.thermalize + self.n_measure * self.sweeps_between
 
 
+@contextlib.contextmanager
+def _traced(engine, plan: MeasurementPlan, batch: int):
+    """The ``measure_scan`` span around a whole trajectory, its one
+    ``dispatch`` span inside (yielded: fence the samples on it), and the
+    trajectory's one dispatch in the counters once it has run."""
+    with tel.span("measure_scan", engine=engine.name,
+                  lattice=(engine.cfg.n, engine.cfg.m),
+                  n_measure=plan.n_measure,
+                  sweeps_between=plan.sweeps_between,
+                  thermalize=plan.thermalize, batch=batch,
+                  replicas=engine.replicas):
+        with tel.span("dispatch", engine=engine.name, k=plan.total_sweeps,
+                      batch=batch) as dsp:
+            yield dsp
+        tel.record_dispatch(n_sweeps=plan.total_sweeps,
+                            sites=engine.cfg.n * engine.cfg.m,
+                            replicas=engine.replicas, batch=batch,
+                            counter_based=engine.counter_based)
+
+
 def _check_fields(engine, plan: MeasurementPlan) -> None:
     missing = set(plan.fields) - set(engine.observable_fields)
     if missing:
@@ -103,18 +140,20 @@ def measure_scan(engine, state, plan: MeasurementPlan, step_count: int = 0,
         return (engine.member(states, 0), {k: v[:, 0] for k, v in
                                             traj.items()}, step)
     step = step_count
-    if plan.thermalize:
-        state = engine.scan_step(state, inv_temp, seed, step,
-                                 plan.thermalize)
-        step += plan.thermalize
-    samples = {k: [] for k in plan.fields}
-    for _ in range(plan.n_measure):
-        state = engine.scan_step(state, inv_temp, seed, step,
-                                 plan.sweeps_between)
-        step += plan.sweeps_between
-        o = engine.observables(state, inv_temp)
-        for k in plan.fields:
-            samples[k].append(o[k])
+    with _traced(engine, plan, 1) as dsp:
+        if plan.thermalize:
+            state = engine.scan_step(state, inv_temp, seed, step,
+                                     plan.thermalize)
+            step += plan.thermalize
+        samples = {k: [] for k in plan.fields}
+        for _ in range(plan.n_measure):
+            state = engine.scan_step(state, inv_temp, seed, step,
+                                     plan.sweeps_between)
+            step += plan.sweeps_between
+            o = engine.observables(state, inv_temp)
+            for k in plan.fields:
+                samples[k].append(o[k])
+        dsp.fence(samples)
     traj = {k: torch.stack(v).cpu().numpy().astype(np.float32)
             for k, v in samples.items()}
     return state, traj, step_count + plan.total_sweeps
@@ -146,10 +185,12 @@ def measure_scan_batched(engine, states, inv_temps, seeds,
     out = {k: torch.empty(shape, dtype=torch.float32, device=device)
            for k in plan.fields}
     args = (engine, inv_temps, seeds, plan, step_count, out)
-    if device.type == "cuda" and not loop:
-        states = _graph_trajectory(states, *args)
-    else:
-        states = _trajectory(states, *args)
+    with _traced(engine, plan, len(seeds)) as dsp:
+        if device.type == "cuda" and not loop:
+            states = _graph_trajectory(states, *args)
+        else:
+            states = _trajectory(states, *args)
+        dsp.fence(out)
     traj = {k: v.cpu().numpy() for k, v in out.items()}
     return states, traj, step_count + plan.total_sweeps
 
@@ -195,7 +236,6 @@ def _graph_trajectory(states, engine, inv_temps, seeds, plan, step, out):
     """:func:`_trajectory` with the observables of every sample after the
     first one replay of a graph captured on ``states``, which end each
     block of sweeps and which it returns, advanced."""
-    global DISPATCHES
     GRAPH_STATS.clear()
 
     def sweep(n_sweeps, step):
@@ -237,7 +277,7 @@ def _graph_trajectory(states, engine, inv_temps, seeds, plan, step, out):
     for _ in range(1, plan.n_measure):
         step = sweep(plan.sweeps_between, step)
         graph.replay()
-        DISPATCHES += 1
+        GRAPH_REPLAYS.inc()
     stream.synchronize()        # the pool's blocks are free once it is done
     graph.reset()
     del graph

@@ -25,6 +25,17 @@ mesh or none, and the digests of equal states are equal.
 The entry points run on CUDA unless the caller passes ``device="cpu"``;
 with no device named and no GPU present they raise.  They never move to
 the CPU on their own.
+
+Telemetry and recovery are the JAX package's: every runner's ``run`` is
+one dispatch through ``resilience.degrade.run_dispatch`` (counted in the
+canonical counters, a ``dispatch`` span when tracing is on, retried or
+demoted on the failures that allow it); the session adds the
+``session.open``, ``session.run``, ``session.measure``, ``ckpt.save``
+and ``ckpt.restore`` spans, the ``spec.validate`` span with its
+``planner.decide`` and ``planner.decide_shard`` instants in
+:func:`describe`, and the ``rolling_flips_per_ns`` gauge of traced runs.
+A sharded run's halo exchanges go into the ``halo_exchanges`` and
+``halo_bytes`` counters as well as ``Session.halo_exchanges``.
 """
 from __future__ import annotations
 
@@ -35,11 +46,12 @@ import tempfile
 import numpy as np
 import torch
 
+import repro_torch.telemetry as tel
 from repro_torch import convert
 from repro_torch.core import distributed as dist
 from repro_torch.core import rng
 from repro_torch.core.engine import engine_class, make_engine
-from repro_torch.resilience import integrity
+from repro_torch.resilience import degrade, integrity
 
 from .spec import RunSpec
 
@@ -196,12 +208,22 @@ class _EnsembleRunner:
         return int(self.temperatures.size)
 
     def run(self, n_sweeps: int) -> np.ndarray:
-        """Advance every member; returns the (B,) per-member
+        """Advance every member, as one dispatch through
+        ``degrade.run_dispatch``; returns the (B,) per-member
         magnetizations (at fixed seeds: the magnetization-vs-temperature
         curve)."""
-        self.state = self.engine.sweep_fn_batched(
-            self.state, self.inv_temps, self.seeds,
-            (2 * self.step_count) & rng.MASK32, n_sweeps)
+        engine = self.engine
+
+        def attempt():
+            with engine._dispatch(n_sweeps, batch=self.size,
+                                  **engine.resident_attrs) as sp:
+                out = engine.sweep_fn_batched(
+                    self.state, self.inv_temps, self.seeds,
+                    (2 * self.step_count) & rng.MASK32, n_sweeps)
+                sp.fence(out)
+            return out
+
+        self.state = degrade.run_dispatch(attempt, engine=engine)
         self.step_count += n_sweeps
         return self.magnetization()
 
@@ -248,10 +270,13 @@ class _ShardedRunner:
     The state is a pair of lists of shards, shard ``i`` (row-major over
     the mesh) on ``mesh.device_of(i)``; each shard makes its own part of
     a fresh lattice.  The draws are keyed on global positions on both
-    tiers, so the trajectory is the single-device engine's on any mesh.
-    ``halo_exchanges`` counts exchange events as the JAX package's
-    telemetry does: one per block of k sweeps on the resident tier, one
-    per half-sweep on the other.
+    tiers, so the trajectory is the single-device engine's on any mesh,
+    and a demotion (``_on_demote``) drops the shard plan for the
+    per-half-sweep step without forking it.  ``halo_exchanges`` counts
+    exchange events as the JAX package's telemetry does: one per block
+    of k sweeps on the resident tier, one per half-sweep on the other;
+    :meth:`_record_halo` adds them and their bytes to the telemetry
+    counters too.
     """
 
     def __init__(self, spec: RunSpec, device=None, state=None,
@@ -265,21 +290,19 @@ class _ShardedRunner:
         eng, cfg = self.engine, self.cfg
         self.grid = dist.ShardGrid.of(self.mesh, cfg.n,
                                       cfg.m // eng.col_divisor)
+        self._budget = resident_budget_bytes
         self.plan = None
         if eng.shard_family is not None:
             self.plan = plan_shard_resident(
                 eng.shard_family, cfg.n, cfg.m, self.grid.rows_devs,
                 self.grid.cols_devs, budget_bytes=resident_budget_bytes)
+        self._dist_attrs = self._decision()
         if self.plan is not None:
             self._step = make_resident_step(self.mesh, self.plan,
                                             seed=cfg.seed)
             self._offset_scale = 2
         else:
-            self._step = _DIST_FACTORIES[eng.dist_factory](
-                self.mesh, n=cfg.n, m=cfg.m, seed=cfg.seed)
-            # the basic step takes its start in sweep units, the others
-            # in half-sweep units (as in the JAX package)
-            self._offset_scale = 1 if eng.dist_factory == "basic" else 2
+            self._use_half_sweeps()
         self.halo_exchanges = 0
         self.step_count = step_count
         self.state = self._fresh_state() if state is None else state
@@ -296,14 +319,74 @@ class _ShardedRunner:
             white.append(w)
         return black, white
 
+    def _use_half_sweeps(self) -> None:
+        """Step with the per-half-sweep distributed factory of the
+        engine's ``dist_factory``."""
+        cfg, eng = self.cfg, self.engine
+        self._step = _DIST_FACTORIES[eng.dist_factory](
+            self.mesh, n=cfg.n, m=cfg.m, seed=cfg.seed)
+        # the basic step takes its start in sweep units, the others in
+        # half-sweep units (as in the JAX package)
+        self._offset_scale = 1 if eng.dist_factory == "basic" else 2
+
+    def _decision(self) -> dict:
+        """The shard planner's decision as span attributes."""
+        fam = self.engine.shard_family
+        if fam is None:
+            return {}
+        from repro_torch.dist import shard_decision_attrs
+        return shard_decision_attrs(fam, self.cfg.n, self.cfg.m,
+                                    self.grid.rows_devs,
+                                    self.grid.cols_devs,
+                                    budget_bytes=self._budget)
+
+    def _on_demote(self) -> None:
+        """A demotion (``degrade.run_dispatch``): drop to the
+        per-half-sweep distributed step -- the same trajectory, by the
+        shared global-position keying -- and refresh the span attributes
+        so that traces show the fallback and its reason."""
+        if self.plan is not None:
+            self.plan = None
+            self._use_half_sweeps()
+            self._dist_attrs = self._decision()
+
+    def _record_halo(self, n_sweeps: int) -> int:
+        """Count this dispatch's halo exchanges, here and in the telemetry
+        counters with the JAX package's byte count; returns the events."""
+        if self.plan is not None:
+            ex = self.plan.exchanges(n_sweeps)
+            per_event = self.plan.halo_bytes_per_exchange
+        else:
+            # one event a half-sweep, four 1-wide strips of the
+            # opposite-colour plane a shard (the JAX package's count)
+            grid = self.grid
+            cell = np.dtype(self.engine.plane_dtype).itemsize
+            ex = 2 * n_sweeps
+            per_event = (2 * grid.n_loc + 2 * grid.w_loc) * cell \
+                * self.mesh.size
+        self.halo_exchanges += ex
+        tel.record_halo_exchange(ex, ex * per_event)
+        return ex
+
     def run(self, n_sweeps: int) -> None:
-        if n_sweeps <= 0:
-            return
-        table = self.engine.sweep_context(self.cfg.inv_temp)
-        start = (self._offset_scale * self.step_count) & rng.MASK32
-        self.state = self._step(*self.state, table, start, n_sweeps)
-        self.halo_exchanges += self.plan.exchanges(n_sweeps) \
-            if self.plan is not None else 2 * n_sweeps
+        """Advance every shard, as one dispatch through
+        ``degrade.run_dispatch``."""
+        def attempt():
+            with self.engine._dispatch(
+                    n_sweeps, mesh=list(self.spec.mesh.shape),
+                    **self._dist_attrs) as sp:
+                state = self.state
+                if n_sweeps > 0:
+                    table = self.engine.sweep_context(self.cfg.inv_temp)
+                    start = (self._offset_scale * self.step_count) \
+                        & rng.MASK32
+                    state = self._step(*state, table, start, n_sweeps)
+                sp.set(halo_exchanges=self._record_halo(n_sweeps))
+                sp.fence(state)
+            return state
+
+        self.state = degrade.run_dispatch(attempt, engine=self.engine,
+                                          on_demote=self._on_demote)
         self.step_count += n_sweeps
 
     def observables(self, fields=("m", "e")) -> dict:
@@ -317,7 +400,8 @@ class _ShardedRunner:
         if missing:
             raise ValueError(f"plan fields {sorted(missing)} not in engine "
                              f"{self.engine.name!r} observables")
-        self.run(plan.thermalize)
+        if plan.thermalize:
+            self.run(plan.thermalize)
         samples = []
         for _ in range(plan.n_measure):
             self.run(plan.sweeps_between)
@@ -388,13 +472,20 @@ def describe(spec: RunSpec) -> dict:
     spec, the shard planner's (``dist.planner.shard_decision_attrs``)."""
     cls = engine_class(spec.engine.name)
     resident = None
-    if cls.resident_family is not None:
-        from repro_torch.kernels.resident import decision_attrs
-        resident = decision_attrs(cls.resident_family, spec.lattice.n,
-                                  spec.lattice.m)
     dist_plan = None
-    if spec.mesh is not None:
-        dist_plan = _shard_decision(cls, spec)
+    with tel.span("spec.validate", mode=spec.mode, engine=spec.engine.name,
+                  lattice=(spec.lattice.n, spec.lattice.m)):
+        if cls.resident_family is not None:
+            from repro_torch.kernels.resident import decision_attrs
+            # the one rendering of the decision: the --dry-run output and
+            # the planner.decide and dispatch attributes
+            resident = decision_attrs(cls.resident_family, spec.lattice.n,
+                                      spec.lattice.m)
+            tel.instant("planner.decide", **resident)
+        if spec.mesh is not None:
+            dist_plan = _shard_decision(cls, spec)
+            if cls.shard_family is not None:
+                tel.instant("planner.decide_shard", **dist_plan)
     out = {
         "mode": spec.mode,
         "engine": spec.engine.name,
@@ -465,8 +556,15 @@ class Session:
         ``resident_budget_bytes`` overrides the k-sweep planner's (or, in
         sharded mode, the shard planner's) shared memory budget per block
         (0: the per-half-sweep tier)."""
-        return cls(spec, _runner(spec, device,
-                                 resident_budget_bytes=resident_budget_bytes))
+        with tel.span("session.open", mode=spec.mode,
+                      engine=spec.engine.name,
+                      lattice=(spec.lattice.n, spec.lattice.m),
+                      batch=1 if spec.batch is None
+                      else spec.batch.size) as sp:
+            runner = _runner(spec, device,
+                             resident_budget_bytes=resident_budget_bytes)
+            sp.fence(runner.state)
+        return cls(spec, runner)
 
     @property
     def mode(self) -> str:
@@ -527,11 +625,27 @@ class Session:
     def step_count(self, value: int) -> None:
         self._runner.step_count = value
 
+    def _flip_rate(self, n_sweeps: int, duration_ns) -> None:
+        """Update the ``rolling_flips_per_ns`` gauge from a fenced span's
+        duration (only when tracing is on: otherwise there is no honest
+        device-complete duration to divide by)."""
+        if not duration_ns:
+            return
+        eng = self._runner.engine
+        batch = self._runner.size if self.mode == "ensemble" else 1
+        flips = n_sweeps * eng.cfg.n * eng.cfg.m * eng.replicas * batch
+        tel.REGISTRY.gauge("rolling_flips_per_ns").set(flips / duration_ns)
+
     def run(self, n_sweeps: int):
         """Advance ``n_sweeps`` full lattice sweeps (every member, in
         ensemble mode, which returns the (B,) per-member
         magnetizations)."""
-        return self._runner.run(n_sweeps)
+        with tel.span("session.run", mode=self.mode,
+                      engine=self.spec.engine.name, k=n_sweeps) as sp:
+            out = self._runner.run(n_sweeps)
+            sp.fence(self.state)
+        self._flip_rate(n_sweeps, sp.duration_ns)
+        return out
 
     def measure(self, plan=None) -> dict:
         """Run a measurement plan (default: ``spec.sweep``); returns
@@ -542,7 +656,15 @@ class Session:
             if self.spec.sweep is None:
                 raise ValueError("no plan: pass one or set RunSpec.sweep")
             plan = self.spec.sweep.plan()
-        return self._runner.measure(plan)
+        with tel.span("session.measure", mode=self.mode,
+                      engine=self.spec.engine.name,
+                      n_measure=plan.n_measure,
+                      sweeps_between=plan.sweeps_between,
+                      thermalize=plan.thermalize) as sp:
+            traj = self._runner.measure(plan)
+            sp.fence(self.state)
+        self._flip_rate(plan.total_sweeps, sp.duration_ns)
+        return traj
 
     def plan(self) -> dict:
         """The dispatch plan of this session's spec (:func:`describe`)."""
@@ -602,10 +724,12 @@ class Session:
     def save(self, path: str) -> None:
         """Atomic checkpoint: serialized spec, step count and the
         engine's named state arrays (batched in ensemble mode)."""
-        arrays = {f"state_{k}": v
-                  for k, v in self._runner.state_arrays().items()}
-        _atomic_savez(path, spec_json=self.spec.to_json(),
-                      step_count=self._runner.step_count, **arrays)
+        with tel.span("ckpt.save", path=path, mode=self.mode,
+                      step_count=self._runner.step_count):
+            arrays = {f"state_{k}": v
+                      for k, v in self._runner.state_arrays().items()}
+            _atomic_savez(path, spec_json=self.spec.to_json(),
+                          step_count=self._runner.step_count, **arrays)
 
     @classmethod
     def restore(cls, path: str, device=None, *, mesh=_KEEP,
@@ -616,9 +740,23 @@ class Session:
         reshard, ``None`` to continue in single mode): the draws are
         keyed on global positions, so the run continues bit for bit on
         any mesh.  ``resident_budget_bytes`` as for :meth:`open`."""
-        spec, step_count, arrays = _load_checkpoint(path)
-        if mesh is not _KEEP and mesh != spec.mesh:
-            spec = dataclasses.replace(spec, mesh=mesh)
+        with tel.span("ckpt.restore", path=path) as sp:
+            spec, step_count, arrays = _load_checkpoint(path)
+            if mesh is not _KEEP and mesh != spec.mesh:
+                spec = dataclasses.replace(spec, mesh=mesh)
+            sp.set(mode=spec.mode, engine=spec.engine.name,
+                   step_count=step_count)
+            return cls._from_arrays(
+                spec, arrays, step_count, device=device,
+                resident_budget_bytes=resident_budget_bytes)
+
+    @classmethod
+    def _from_arrays(cls, spec: RunSpec, arrays: dict, step_count: int, *,
+                     device=None, resident_budget_bytes=None) -> "Session":
+        """A session of ``spec`` at ``step_count`` from its named state
+        arrays (a checkpoint's, without the ``state_`` prefix; host numpy
+        arrays, placed here on ``device`` or the mesh): what
+        ``Session.restore`` and the supervisor's resume build."""
         runner = _runner(spec, device, state=_SENTINEL,
                          step_count=step_count,
                          resident_budget_bytes=resident_budget_bytes)

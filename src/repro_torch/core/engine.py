@@ -15,7 +15,11 @@ Protocol:
 
 * ``init_state()``            -- fresh engine-native state on the device;
 * ``sweeps(state, n, step)``  -- advance ``n`` full sweeps at the
-                                 config's own temperature and seed;
+                                 config's own temperature and seed: one
+                                 dispatch (``_dispatch``: the telemetry
+                                 counters and the ``dispatch`` span),
+                                 launched through
+                                 ``resilience.degrade.run_dispatch``;
 * ``scan_step(state, inv_temp, seed, step_count, n)`` -- the same with
   explicit arguments; ``measure_scan`` chains it;
 * ``full_lattice``, ``magnetization``, ``energy``, ``observables``;
@@ -36,13 +40,16 @@ shard's part of a fresh lattice.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import ClassVar, Dict, Optional, Type
 
 import numpy as np
 import torch
 
+import repro_torch.telemetry as tel
 from repro_torch import convert
+from repro_torch.resilience import degrade
 
 from . import bitplane as bp
 from . import lattice as lat
@@ -128,6 +135,10 @@ class Engine:
     #: the port's ``multispin`` and ``bitplane`` have a single-device
     #: k-sweep tier too
     shard_family: ClassVar[Optional[str]] = None
+    #: the k-sweep planner's decision as span attributes
+    #: (``kernels.resident.decision_attrs``: ``describe()``'s
+    #: ``"resident"``); empty for an engine with no k-sweep tier
+    resident_attrs: dict = {}
 
     @classmethod
     def validate_lattice(cls, n: int, m: int, **params) -> None:
@@ -162,10 +173,40 @@ class Engine:
         depends on ``inv_temp``)."""
         raise NotImplementedError
 
+    @contextlib.contextmanager
+    def _dispatch(self, n_sweeps: int, batch: int = 1, **attrs):
+        """Account and trace ONE dispatch: the canonical counters advance
+        at once (on the host, once a call, as in the JAX package), and
+        when tracing is on a ``dispatch`` span records the phase;
+        ``sp.fence(out)`` inside the ``with`` makes the span wait for the
+        card.  ``attrs`` are the planner's decision; its sweeps per
+        launch ``k`` become ``resident_k`` (the span's ``k`` is the
+        dispatch's sweeps, as in the JAX package)."""
+        attrs = {("resident_k" if key == "k" else key): v
+                 for key, v in attrs.items()}
+        tel.record_dispatch(n_sweeps=n_sweeps,
+                            sites=self.cfg.n * self.cfg.m,
+                            replicas=self.replicas, batch=batch,
+                            counter_based=self.counter_based)
+        with tel.span("dispatch", engine=self.name,
+                      lattice=(self.cfg.n, self.cfg.m), k=n_sweeps,
+                      replicas=self.replicas, batch=batch,
+                      **attrs) as sp:
+            yield sp
+
     def sweeps(self, state, n_sweeps: int, step_count: int):
-        """``scan_step`` at the config's own temperature and seed."""
-        return self.scan_step(state, self.cfg.inv_temp, self.cfg.seed,
-                              step_count, n_sweeps)
+        """``scan_step`` at the config's own temperature and seed, as ONE
+        dispatch, launched through ``resilience.degrade.run_dispatch``:
+        each (re)attempt is its own accounted dispatch, and a k-sweep
+        tier the card cannot hold demotes to the per-half-sweep tier."""
+        def attempt():
+            with self._dispatch(n_sweeps, **self.resident_attrs) as sp:
+                out = self.scan_step(state, self.cfg.inv_temp,
+                                     self.cfg.seed, step_count, n_sweeps)
+                sp.fence(out)
+            return out
+
+        return degrade.run_dispatch(attempt, engine=self)
 
     def scan_step(self, state, inv_temp, seed, step_count, n_sweeps: int):
         raise NotImplementedError
@@ -197,11 +238,30 @@ class CounterEngine(Engine):
                  resident_budget_bytes: Optional[int] = None):
         super().__init__(config, device)
         self.resident_plan = None
+        self._budget = resident_budget_bytes
         if self.resident_family is not None:
-            from repro_torch.kernels.resident import plan_resident
+            from repro_torch.kernels.resident import (decision_attrs,
+                                                      plan_resident)
             self.resident_plan = plan_resident(
                 self.resident_family, config.n, config.m,
                 budget_bytes=resident_budget_bytes)
+            self.resident_attrs = decision_attrs(
+                self.resident_family, config.n, config.m,
+                budget_bytes=resident_budget_bytes)
+
+    def _demote_resident(self, reason: str) -> None:
+        """Demote this (family, lattice) to the per-half-sweep tier for
+        the rest of the process: record it in the process-global registry
+        (so freshly built engines and ``--dry-run`` plans agree), drop
+        the plan and re-render the span attributes.  Both tiers draw the
+        same Philox stream, so the trajectory does not fork."""
+        from repro_torch.kernels.resident import decision_attrs
+        degrade.demote(self.resident_family, self.cfg.n, self.cfg.m,
+                       reason)
+        self.resident_plan = None
+        self.resident_attrs = decision_attrs(
+            self.resident_family, self.cfg.n, self.cfg.m,
+            budget_bytes=self._budget)
 
     def color_update(self, targets, ops, tables, is_black, seeds, offset):
         """One half-sweep of every member's target plane."""

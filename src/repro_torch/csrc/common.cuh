@@ -2,11 +2,11 @@
 // an index, the halo geometry of the k-sweep and shard tiles of
 // stencil.cu and multispin.cu, the uint32 threshold table of the word
 // families, the member records of an ensemble launch, and the error
-// string of the plain C interface.
+// string and shared-memory query of the plain C interface.
 //
 // Each .cu builds into a shared library of its own and includes this
-// header once, so the extern "C" function below is defined once in each
-// library.
+// header once, so the extern "C" functions below are defined once in
+// each library.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -125,4 +125,11 @@ inline int check_members(int members) {
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The dynamic shared memory one block may opt in to on `device`, in
+// *bytes; returns the CUDA error.
+extern "C" int device_smem_optin(int device, int* bytes) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
 }

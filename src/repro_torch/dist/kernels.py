@@ -55,8 +55,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._words import (accept_arg, check_words,
                                         count_launch, key_table_arg,
                                         table_argtypes)
-from repro_torch.kernels.stencil.stencil import (bounds_arg, check_planes,
-                                                 raise_on_error)
+from repro_torch.kernels.errors import check_shared_memory, raise_on_error
+from repro_torch.kernels.stencil.stencil import bounds_arg, check_planes
 
 from .planner import shard_tile
 
@@ -126,12 +126,16 @@ def _launch(family, wrapper, inputs, black, white, table: tuple, *,
             n_sweeps, seed, start_offset, tile):
     """Launch ``family``'s shard kernel once over ``n_sweeps`` sweeps of
     the extended planes with its threshold arguments ``table``, counting
-    the launch on ``wrapper``; returns new planes."""
+    the launch on ``wrapper``; returns new planes (a tile over the card's
+    shared memory raises ``SharedMemoryOverflow`` first)."""
     lib = library(family)
     n, w = black.shape
     tile_r, tile_c, threads = shard_tile(family, n, w) if tile is None \
         else tile
     k0, k1 = rng.seed_keys(seed)
+    check_shared_memory(lib, wrapper.__name__, black.device,
+                        f"{family}_shard_smem_bytes", tile_r, tile_c,
+                        n_sweeps)
     out_b, out_w = torch.empty_like(black), torch.empty_like(white)
     # a mesh's shards may live on several cards: launch on the shard's
     with torch.cuda.device(black.device):

@@ -12,7 +12,9 @@ on every side.  The rules are the JAX package's:
 * **parity**: ``n_loc`` even, so that the extended plane's first row
   has the global parity 0 and the kernels' local row parity is right;
 * the largest k up to the cap that passes them all, else ``None`` (the
-  per-half-sweep distributed tier, ``repro_torch.core.distributed``).
+  per-half-sweep distributed tier, ``repro_torch.core.distributed``);
+* ``None`` too for a (family, lattice) demoted in this process after a
+  dispatch the card could not hold (``repro_torch.resilience.degrade``).
 
 The JAX planner's VMEM fit (the whole extended shard in 8 MiB of TPU
 VMEM) has no Hopper counterpart.  As for the single-device k-sweep tier
@@ -25,9 +27,6 @@ indices; for bitplane, per 4-word group, the uint32 group index and an
 aligned flag as a byte), within the budget of one block.  By default k
 is capped at the family's ``max_k`` in ``GEOMETRY`` (the fastest k of
 its single-device kernel) as well as :data:`K_CAP`.
-
-Left out: the JAX planner's demotion hook (``resilience.degrade``),
-which is not ported.
 """
 from __future__ import annotations
 
@@ -37,6 +36,7 @@ from typing import Optional
 
 from repro_torch.kernels.resident import (GEOMETRY, SMEM_BUDGET_BYTES,
                                          col_halo, extended_tile)
+from repro_torch.resilience import degrade
 
 #: cap on sweeps per halo exchange: past it the redundant halo sweeps
 #: cost more than the exchanges they save
@@ -164,6 +164,8 @@ def plan_shard_resident(family: str, n: int, m: int, rows_devs: int,
     overlap = MAX_OVERLAP if max_overlap is None else max_overlap
     cap = min(K_CAP, g.max_k) if k_cap is None else k_cap
     width = m // g.col_divisor
+    if degrade.demotion_reason(family, n, m) is not None:
+        return None
     if n % rows_devs or width % cols_devs:
         return None
     n_loc, w_loc = n // rows_devs, width // cols_devs
@@ -198,11 +200,16 @@ def shard_decision_attrs(family: str, n: int, m: int, rows_devs: int,
                                budget_bytes=budget, k_cap=k_cap)
     attrs = {"family": family, "grid": f"{rows_devs}x{cols_devs}",
              "sharded_resident": plan is not None, "budget_bytes": budget}
+    demoted = degrade.demotion_reason(family, n, m)
     if plan is not None:
         attrs.update(halo_k=plan.k, halo_width=plan.halo, n_loc=plan.n_loc,
                      w_loc=plan.w_loc, tile_rows=plan.tile_rows,
                      tile_cols=plan.tile_cols, smem_bytes=plan.smem_bytes,
                      halo_bytes_per_exchange=plan.halo_bytes_per_exchange)
+    elif demoted is not None:
+        attrs["demoted"] = True
+        attrs["reason"] = (f"demoted to the per-half-sweep distributed "
+                           f"tier: {demoted}")
     elif n % rows_devs or (m // GEOMETRY[family].col_divisor) % cols_devs \
             or (n // rows_devs) % 2:
         attrs["reason"] = ("lattice does not tile the device grid "

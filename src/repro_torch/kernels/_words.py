@@ -23,8 +23,9 @@ import torch
 
 from repro_torch.core import rng
 from repro_torch.kernels._members import as_batch, keys_arg, member_chunks
+from repro_torch.kernels.errors import (check_shared_memory, note_in_place,
+                                        raise_on_error)
 from repro_torch.kernels.resident import GEOMETRY
-from repro_torch.kernels.stencil.stencil import raise_on_error
 
 #: entries of the threshold table
 N_CLASSES = 10
@@ -219,8 +220,8 @@ def launch_update(lib, family: str, wrapper, target, op_words, tables, *,
     """Launch ``family``'s half-sweep kernel on ``target`` in place: a
     ``(n, w)`` plane with one table and seed, or a ``(B, n, w)`` batch
     with a table and a seed a member, in ceil(B / limit) launches of the
-    member axis; each launch counted on ``wrapper``.  Returns
-    ``target``."""
+    member axis; each launch counted on ``wrapper`` (and, as it writes
+    the planes in place, noted).  Returns ``target``."""
     fn = getattr(lib, f"{family}_update_launch")
     targets, ops = as_batch(target), as_batch(op_words)
     members, n, w = targets.shape
@@ -231,6 +232,7 @@ def launch_update(lib, family: str, wrapper, target, op_words, tables, *,
                 int(is_black), *table, keys_arg(seeds[lo:hi]), hi - lo,
                 int(offset) & rng.MASK32, stream)
         raise_on_error(lib, rc, wrapper.__name__)
+        note_in_place()
         count_launch(wrapper, table)
     return target
 
@@ -241,7 +243,8 @@ def launch_resident(lib, family: str, wrapper, black, white, tables, *,
     member's ``(n, w)`` planes or a ``(B, n, w)`` batch's (a table and a
     seed a member) in launches of at most ``plan.k`` sweeps and of the
     library's limit of members, each counted on ``wrapper``; returns new
-    planes."""
+    planes and leaves the inputs as they were.  A tile over the card's
+    shared memory raises ``SharedMemoryOverflow`` before any launch."""
     fn = getattr(lib, f"{family}_sweeps_resident_launch")
     members, n, w = as_batch(black).shape
     chunks = [(lo, hi, TABLE_ARGS[family][1](tables[lo:hi]),
@@ -249,6 +252,9 @@ def launch_resident(lib, family: str, wrapper, black, white, tables, *,
               for lo, hi in member_chunks(lib, family, members)]
     stream = torch.cuda.current_stream(black.device).cuda_stream
     member_bytes = n * w * black.element_size()
+    check_shared_memory(lib, wrapper.__name__, black.device,
+                        f"{family}_resident_smem_bytes", plan.tile_rows,
+                        plan.tile_cols, min(plan.k, n_sweeps))
     for first in range(0, n_sweeps, plan.k):
         k = min(plan.k, n_sweeps - first)
         out_b, out_w = torch.empty_like(black), torch.empty_like(white)

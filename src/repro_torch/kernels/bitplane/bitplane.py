@@ -28,6 +28,7 @@ from repro_torch.core import bitplane as bp
 from repro_torch.kernels import _build
 from repro_torch.kernels._members import check_batch, per_member
 from repro_torch.kernels._words import check_words, declare, launch_update
+from repro_torch.kernels.errors import note_in_place
 
 
 def bitplane_update_plain(target, op_words, thresholds, *, is_black: bool,
@@ -58,9 +59,11 @@ def bitplane_update(target, op_words, thresholds, *, is_black: bool,
     planes launch the kernel.  Returns ``target``."""
     check_bit_planes(target, op_words)
     if target.device.type == "cpu":
-        return target.copy_(bitplane_update_plain(
+        target.copy_(bitplane_update_plain(
             target, op_words, thresholds, is_black=is_black, seed=seed,
             offset=offset))
+        note_in_place()
+        return target
     return launch_update(library(), "bitplane", bitplane_update, target,
                          op_words, [thresholds], is_black=is_black,
                          seeds=[seed], offset=offset)
@@ -83,9 +86,11 @@ def bitplane_update_batched(targets, ops, tables, *, is_black: bool, seeds,
     member's table has a ferromagnet's layout."""
     check_batch((targets, ops), tables, seeds, check_bit_planes)
     if targets.device.type == "cpu":
-        return targets.copy_(bitplane_update_batched_plain(
+        targets.copy_(bitplane_update_batched_plain(
             targets, ops, tables, is_black=is_black, seeds=seeds,
             offset=offset))
+        note_in_place()
+        return targets
     return launch_update(library(), "bitplane", bitplane_update, targets,
                          ops, list(tables), is_black=is_black,
                          seeds=list(seeds), offset=offset)

@@ -29,6 +29,7 @@ import torch
 from repro_torch.core import metropolis, rng
 from repro_torch.kernels import _build
 from repro_torch.kernels._members import keys_arg, member_chunks
+from repro_torch.kernels.errors import raise_on_error
 
 #: the most lanes a call draws: the couplings take 2, every other caller 1
 MAX_LANES = 2
@@ -132,10 +133,7 @@ def _launch_fill(out, index, seeds, offset: int, c1: int, c3: int):
             out[0, lo].data_ptr(), index_ptr, count, members * count, lanes,
             hi - lo, keys_arg(seeds[lo:hi]), int(offset) & rng.MASK32,
             int(c1) & rng.MASK32, int(c3) & rng.MASK32, stream)
-        if rc != 0:
-            msg = lib.cuda_error_string(rc).decode()
-            raise RuntimeError(f"philox_fill launch failed: CUDA error {rc} "
-                               f"({msg})")
+        raise_on_error(lib, rc, "philox_fill")
         philox_fill.launches += 1
     return out
 

@@ -29,6 +29,7 @@ from repro_torch.core import multispin as ms
 from repro_torch.kernels import _build
 from repro_torch.kernels._members import check_batch
 from repro_torch.kernels._words import check_words, declare, launch_update
+from repro_torch.kernels.errors import note_in_place
 
 
 def multispin_update_plain(target, op_words, thresholds, *, is_black: bool,
@@ -51,9 +52,11 @@ def multispin_update(target, op_words, thresholds, *, is_black: bool,
     launch the kernel.  Returns ``target``."""
     check_words(target, op_words)
     if target.device.type == "cpu":
-        return target.copy_(multispin_update_plain(
+        target.copy_(multispin_update_plain(
             target, op_words, thresholds, is_black=is_black, seed=seed,
             offset=offset))
+        note_in_place()
+        return target
     return launch_update(library(), "multispin", multispin_update, target,
                          op_words, [thresholds], is_black=is_black,
                          seeds=[seed], offset=offset)
@@ -76,9 +79,11 @@ def multispin_update_batched(targets, ops, tables, *, is_black: bool,
     kernel's member axis."""
     check_batch((targets, ops), tables, seeds, check_words)
     if targets.device.type == "cpu":
-        return targets.copy_(multispin_update_batched_plain(
+        targets.copy_(multispin_update_batched_plain(
             targets, ops, tables, is_black=is_black, seeds=seeds,
             offset=offset))
+        note_in_place()
+        return targets
     return launch_update(library(), "multispin", multispin_update, targets,
                          ops, list(tables), is_black=is_black,
                          seeds=list(seeds), offset=offset)

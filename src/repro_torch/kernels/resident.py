@@ -15,8 +15,10 @@ fastest k-sweep configuration measured on the card
 (``python -m repro_torch.analysis.tune_resident``, ``PERF.md``).  Rule:
 the family's tile, shrunk to the plane where the plane is smaller, with
 the largest k <= the cap whose extended tile fits the budget; no plan
-(the per-half-sweep tier) when not even k = 1 fits.  The budget is the
-one value that moves that boundary:
+(the per-half-sweep tier) when not even k = 1 fits, or when the
+(family, lattice) was demoted in this process after a k-sweep dispatch
+the card could not hold (``repro_torch.resilience.degrade``, as in the
+JAX package).  The budget is the one value that moves that boundary:
 ``Session.open(..., resident_budget_bytes=)`` passes it down to
 :func:`plan_resident`, so that tests and ``chip_smoke.py`` can send the
 same session through either tier.
@@ -34,6 +36,9 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+from repro_torch.resilience import degrade
+from repro_torch.telemetry import TRACER
 
 #: dynamic shared memory one block may use on an H100 (227 KB)
 SMEM_BUDGET_BYTES: int = 232448
@@ -161,11 +166,25 @@ def plan_resident(family: str, n: int, m: int,
                   budget_bytes: Optional[int] = None
                   ) -> Optional[ResidentPlan]:
     """The k-sweep plan for one (family, lattice), or ``None`` for the
-    per-half-sweep tier.  ``budget_bytes`` is one block's shared memory;
-    ``None`` means the card's, :data:`SMEM_BUDGET_BYTES`."""
+    per-half-sweep tier (also where the lattice was demoted).
+    ``budget_bytes`` is one block's shared memory; ``None`` means the
+    card's, :data:`SMEM_BUDGET_BYTES`.  With tracing on, the decision is
+    a ``planner.decide`` instant."""
     if family not in GEOMETRY:
         raise ValueError(f"unknown resident family {family!r}; "
                          f"ported: {sorted(GEOMETRY)}")
+    if TRACER.enabled:
+        TRACER.instant("planner.decide",
+                       **decision_attrs(family, n, m,
+                                        budget_bytes=budget_bytes))
+    if degrade.demotion_reason(family, n, m) is not None:
+        return None
+    return _fit(family, n, m, budget_bytes)
+
+
+def _fit(family: str, n: int, m: int,
+         budget_bytes: Optional[int]) -> Optional[ResidentPlan]:
+    """The plan of the budget alone (no demotion consulted)."""
     g = GEOMETRY[family]
     budget = SMEM_BUDGET_BYTES if budget_bytes is None else budget_bytes
     tile_rows = min(g.tile_rows, n)
@@ -183,19 +202,30 @@ def plan_resident(family: str, n: int, m: int,
 def decision_attrs(family: str, n: int, m: int,
                    budget_bytes: Optional[int] = None) -> dict:
     """:func:`plan_resident`'s decision as one flat dict of JSON scalars
-    (``describe``'s ``"resident"``, what ``--dry-run`` prints): the
+    (``describe``'s ``"resident"``, what ``--dry-run`` prints, and the
+    ``dispatch`` spans' and ``planner.decide`` instants' attributes): the
     family, whether a tile fits the budget (``fits_smem``), the budget,
-    and the plan's k, tile, threads and shared memory, or else the
-    ``reason`` for the per-half-sweep tier."""
+    and the plan's k, tile, threads and shared memory; for a demoted
+    lattice ``demoted`` and the ``reason`` (the failure that demoted
+    it), else where no tile fits the ``reason`` for the per-half-sweep
+    tier."""
+    if family not in GEOMETRY:
+        raise ValueError(f"unknown resident family {family!r}; "
+                         f"ported: {sorted(GEOMETRY)}")
     budget = SMEM_BUDGET_BYTES if budget_bytes is None else budget_bytes
-    plan = plan_resident(family, n, m, budget_bytes=budget)
+    plan = _fit(family, n, m, budget)
     attrs = {"family": family, "fits_smem": plan is not None,
              "budget_bytes": budget}
     if plan is not None:
         attrs.update(k=plan.k, tile_rows=plan.tile_rows,
                      tile_cols=plan.tile_cols, threads=plan.threads,
                      smem_bytes=plan.smem_bytes)
-    else:
+    demoted = degrade.demotion_reason(family, n, m)
+    if demoted is not None:
+        attrs["demoted"] = True
+        attrs["reason"] = (f"demoted to the per-half-sweep tier: "
+                           f"{demoted}")
+    elif plan is None:
         g = GEOMETRY[family]
         need = smem_bytes(min(g.tile_rows, n), min(g.tile_cols,
                                                    m // g.col_divisor),

@@ -28,8 +28,9 @@ import torch
 from repro_torch.core import metropolis, rng
 from repro_torch.kernels._members import (as_batch, check_batch, keys_arg,
                                           member_chunks, per_member)
+from repro_torch.kernels.errors import check_shared_memory, raise_on_error
 
-from .stencil import bounds_args, check_planes, library, raise_on_error
+from .stencil import bounds_args, check_planes, library
 
 
 def stencil_sweeps_resident_plain(black, white, table, *, n_sweeps: int,
@@ -53,12 +54,16 @@ def _launch(black, white, tables, *, n_sweeps: int, seeds,
     """The kernel over one member's ``(n, h)`` planes or a ``(B, n, h)``
     batch's: ceil(n_sweeps / k) blocks of sweeps, each in ceil(B /
     limit) launches of its member axis counted on
-    :func:`stencil_sweeps_resident`; returns new planes."""
+    :func:`stencil_sweeps_resident`; returns new planes.  A tile over the
+    card's shared memory raises ``SharedMemoryOverflow`` first."""
     lib = library()
     members, n, h = as_batch(black).shape
     chunks = [(lo, hi, bounds_args(tables[lo:hi]), keys_arg(seeds[lo:hi]))
               for lo, hi in member_chunks(lib, "stencil", members)]
     stream = torch.cuda.current_stream(black.device).cuda_stream
+    check_shared_memory(lib, "stencil_sweeps_resident", black.device,
+                        "stencil_resident_smem_bytes", plan.tile_rows,
+                        plan.tile_cols, min(plan.k, n_sweeps))
     for first in range(0, n_sweeps, plan.k):
         k = min(plan.k, n_sweeps - first)
         out_b, out_w = torch.empty_like(black), torch.empty_like(white)

@@ -27,6 +27,7 @@ from repro_torch.core import metropolis, rng
 from repro_torch.kernels import _build
 from repro_torch.kernels._members import (as_batch, check_batch, keys_arg,
                                           member_chunks, per_member)
+from repro_torch.kernels.errors import note_in_place, raise_on_error
 
 
 def stencil_update_plain(target, op_plane, table, *, is_black: bool,
@@ -113,12 +114,6 @@ def _bounds_args(members: tuple):
     return (ctypes.c_uint64 * len(values))(*values)
 
 
-def raise_on_error(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
-
-
 def library():
     """The compiled ``csrc/stencil.cu`` with its C signatures declared."""
     lib = _build.load("stencil")
@@ -159,6 +154,7 @@ def _launch_update(target, op_plane, tables, *, is_black: bool, seeds,
             keys_arg(seeds[lo:hi]), hi - lo,
             int(offset) & rng.MASK32, stream)
         raise_on_error(lib, rc, "stencil_update")
+        note_in_place()
         stencil_update.launches += 1
     return target
 
@@ -175,9 +171,11 @@ def stencil_update(target, op_plane, table, *, is_black: bool, seed: int,
     """
     check_planes(target, op_plane)
     if target.device.type == "cpu":
-        return target.copy_(stencil_update_plain(
+        target.copy_(stencil_update_plain(
             target, op_plane, table, is_black=is_black, seed=seed,
             offset=offset))
+        note_in_place()
+        return target
     return _launch_update(target, op_plane, [table], is_black=is_black,
                           seeds=[seed], offset=offset)
 
@@ -198,9 +196,11 @@ def stencil_update_batched(targets, ops, tables, *, is_black: bool, seeds,
     axis."""
     check_batch((targets, ops), tables, seeds, check_planes)
     if targets.device.type == "cpu":
-        return targets.copy_(stencil_update_batched_plain(
+        targets.copy_(stencil_update_batched_plain(
             targets, ops, tables, is_black=is_black, seeds=seeds,
             offset=offset))
+        note_in_place()
+        return targets
     return _launch_update(targets, ops, list(tables), is_black=is_black,
                           seeds=list(seeds), offset=offset)
 

@@ -36,7 +36,7 @@ import torch
 from repro_torch.core import metropolis, rng
 from repro_torch.core import tensorcore as tc
 from repro_torch.kernels import _build
-from repro_torch.kernels.stencil.stencil import raise_on_error
+from repro_torch.kernels.errors import note_in_place, raise_on_error
 
 DEFAULT_BLOCK = tc.BLOCK
 #: block sizes the CUDA kernel takes: multiples of the 16-deep mma step
@@ -166,11 +166,13 @@ def tensorcore_update(planes: dict, color: str, inv_temp, *, seed: int = 0,
                                       offset=offset, block=block)
         planes[t1k].copy_(new[t1k])
         planes[t2k].copy_(new[t2k])
+        note_in_place()
         return planes
     lib = library()
     raise_on_error(lib, lib.tensorcore_update_launch(*launch_args(
         planes, color, inv_temp, seed=seed, offset=offset, block=block)),
         "tensorcore_update")
+    note_in_place()
     tensorcore_update.launches += 1
     return planes
 

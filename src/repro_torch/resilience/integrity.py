@@ -1,13 +1,45 @@
-"""CRC32C (Castagnoli), numpy only: the checksum behind ``state_digest``.
+"""Checkpoint integrity: CRC32C, and manifests committed under DONE.
 
 Copied from the JAX package's ``resilience/integrity.py`` so that this
-package imports nothing of it: a slicing-by-8 table walk for short
-inputs and a vectorized GF(2) reduction ladder for long ones.  Both give
-the same value as the reference, which the tests check.
+package imports nothing of it.  CRC32C (Castagnoli), numpy only: a
+slicing-by-8 table walk for short inputs and a vectorized GF(2)
+reduction ladder for long ones, both giving the reference's values (the
+tests check them); it is the checksum behind ``Session.state_digest``
+and the checkpoint manifests.
+
+A checkpoint step that *looks* complete (its ``DONE`` marker exists) can
+still be unreadable: a torn write the marker outlived, a truncated
+``arrays.npz``, a flipped byte.  Every step of a
+``repro_torch.ckpt.Checkpointer`` has a ``manifest.json`` written
+*before* the DONE marker (so the atomic-rename commit covers it too), in
+the JAX package's format, so that either package validates the other's
+steps:
+
+* per **file** (``arrays.npz``, ``spec.json``): byte length + CRC32C,
+  the whole-file check run at discovery time;
+* per **array** (each npz key): CRC32C over the raw array bytes plus
+  shape and dtype, verified after deserialization so a restore can name
+  exactly which array went bad.
+
+The CRC runs on the host: its cost is paid once per checkpoint write
+and restore, never on the sweep path.  Verification is *reporting*, not
+raising: ``validate_step_dir`` and ``verify_arrays`` return a list of
+human-readable problems (empty = valid).
 """
 from __future__ import annotations
 
+import json
+import os
+from typing import Dict, List, Optional
+
 import numpy as np
+
+#: manifest schema version (the JAX package's)
+MANIFEST_FORMAT = 1
+MANIFEST_NAME = "manifest.json"
+DONE_NAME = "DONE"
+ARRAYS_NAME = "arrays.npz"
+SPEC_NAME = "spec.json"
 
 _POLY = 0x82F63B78  # CRC-32C (Castagnoli), reflected
 
@@ -143,3 +175,155 @@ def _crc32c_numpy(data, value: int = 0) -> int:
 
 def crc32c_hex(data, value: int = 0) -> str:
     return f"{crc32c(data, value):08x}"
+
+
+def file_crc32c(path: str, chunk_bytes: int = 1 << 20):
+    """``(crc32c, nbytes)`` of a file, streamed in ``chunk_bytes``."""
+    crc, n = 0, 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(chunk_bytes)
+            if not chunk:
+                break
+            crc = crc32c(chunk, crc)
+            n += len(chunk)
+    return crc, n
+
+
+def _array_record(a: np.ndarray) -> dict:
+    a = np.ascontiguousarray(a)
+    return {"crc32c": crc32c_hex(a.tobytes()),
+            "nbytes": int(a.nbytes),
+            "shape": list(a.shape),
+            "dtype": str(a.dtype)}
+
+
+def build_manifest(step: int, host: Dict[str, np.ndarray],
+                   step_dir: str) -> dict:
+    """The integrity manifest of one step: per-array CRCs from the
+    in-memory host snapshot (the exact bytes ``np.savez`` serialized),
+    per-file CRCs from the bytes on disk in ``step_dir``."""
+    files = {}
+    for name in (ARRAYS_NAME, SPEC_NAME):
+        path = os.path.join(step_dir, name)
+        if os.path.exists(path):
+            crc, nbytes = file_crc32c(path)
+            files[name] = {"crc32c": f"{crc:08x}", "nbytes": nbytes}
+    return {"format": MANIFEST_FORMAT,
+            "algo": "crc32c",
+            "step": int(step),
+            "files": files,
+            "arrays": {k: _array_record(np.asarray(v))
+                       for k, v in host.items()}}
+
+
+def write_manifest(step_dir: str, manifest: dict) -> str:
+    path = os.path.join(step_dir, MANIFEST_NAME)
+    with open(path, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+    return path
+
+
+def load_manifest(step_dir: str) -> Optional[dict]:
+    """The parsed manifest, or ``None`` when the step predates the
+    integrity format (legacy steps stay restorable)."""
+    path = os.path.join(step_dir, MANIFEST_NAME)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def validate_step_dir(step_dir: str,
+                      expect_step: Optional[int] = None) -> List[str]:
+    """File-level validation of one step directory; returns the list of
+    problems (empty = valid).  This is the discovery-time check: cheap
+    enough to run on every candidate while walking backwards for the
+    newest restorable step, yet strong enough to catch every crash
+    topology -- torn write (no DONE), stale DONE (missing arrays),
+    truncation, and bit corruption (file CRC mismatch).
+
+    A vanished directory (``keep``-pruning racing the validation) is
+    reported as a problem, never an exception: the caller just moves on
+    to the next candidate.
+    """
+    problems: List[str] = []
+    try:
+        if not os.path.isdir(step_dir):
+            return [f"step dir missing: {step_dir}"]
+        if not os.path.exists(os.path.join(step_dir, DONE_NAME)):
+            return ["no DONE marker (uncommitted/torn write)"]
+        arrays_path = os.path.join(step_dir, ARRAYS_NAME)
+        if not os.path.exists(arrays_path):
+            return [f"DONE present but {ARRAYS_NAME} missing "
+                    f"(stale marker)"]
+        try:
+            manifest = load_manifest(step_dir)
+        except (ValueError, OSError) as e:
+            return [f"unreadable {MANIFEST_NAME}: {e}"]
+        if manifest is None:
+            # legacy (pre-integrity) step: the zip container's own
+            # per-entry CRC32 is the only line of defense -- read every
+            # entry so truncation/corruption surfaces here, not mid-restore
+            try:
+                with np.load(arrays_path, allow_pickle=False) as z:
+                    for k in z.files:
+                        z[k]
+            except Exception as e:
+                problems.append(f"legacy step fails to load: "
+                                f"{type(e).__name__}: {e}")
+            return problems
+        if expect_step is not None \
+                and manifest.get("step") != expect_step:
+            problems.append(f"manifest step {manifest.get('step')!r} != "
+                            f"directory step {expect_step}")
+        for name, rec in manifest.get("files", {}).items():
+            path = os.path.join(step_dir, name)
+            if not os.path.exists(path):
+                problems.append(f"{name}: in manifest but missing on disk")
+                continue
+            size = os.path.getsize(path)
+            if size != rec["nbytes"]:
+                problems.append(f"{name}: {size} bytes on disk, manifest "
+                                f"says {rec['nbytes']} (truncated?)")
+                continue
+            crc, _ = file_crc32c(path)
+            if f"{crc:08x}" != rec["crc32c"]:
+                problems.append(f"{name}: CRC32C {crc:08x} != manifest "
+                                f"{rec['crc32c']} (corrupt)")
+    except (FileNotFoundError, NotADirectoryError) as e:
+        # the directory (or a file inside it) vanished mid-validation:
+        # a GC prune raced us -- this candidate is simply gone
+        problems.append(f"step vanished during validation: {e}")
+    return problems
+
+
+def verify_arrays(arrays: Dict[str, np.ndarray],
+                  manifest: Optional[dict]) -> List[str]:
+    """Per-array verification of a deserialized checkpoint against its
+    manifest: key set, shape, dtype, and CRC32C of the raw bytes.  The
+    problem strings NAME the offending array -- a corrupt restore must
+    say which key went bad, not just that something did."""
+    if manifest is None:
+        return []  # legacy step: nothing recorded to verify against
+    problems: List[str] = []
+    recorded = manifest.get("arrays", {})
+    missing = sorted(set(recorded) - set(arrays))
+    extra = sorted(set(arrays) - set(recorded))
+    if missing:
+        problems.append(f"arrays missing vs manifest: {missing}")
+    if extra:
+        problems.append(f"arrays not in manifest: {extra}")
+    for k in sorted(set(recorded) & set(arrays)):
+        a = np.ascontiguousarray(np.asarray(arrays[k]))
+        rec = recorded[k]
+        if list(a.shape) != rec["shape"] or str(a.dtype) != rec["dtype"]:
+            problems.append(
+                f"array {k!r}: shape/dtype {a.shape}/{a.dtype} != "
+                f"manifest {tuple(rec['shape'])}/{rec['dtype']}")
+            continue
+        got = crc32c_hex(a.tobytes())
+        if got != rec["crc32c"]:
+            problems.append(f"array {k!r}: CRC32C {got} != manifest "
+                            f"{rec['crc32c']} (corrupt)")
+    return problems

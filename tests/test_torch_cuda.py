@@ -1050,3 +1050,171 @@ def test_ising3d_on_card_equals_cpu_and_slabs(cuda):
         make_mesh((2, 2), ("data", "model")), n=16, seed=SEED, n_sweeps=5)
     slabs = gather(step(split(cube.to(cuda)), 1 / 4.0, 2 ** 32 - 5))
     assert torch.equal(slabs.cpu(), want)
+
+
+# -- telemetry and resilience on the card ------------------------------------
+
+RESILIENCE_ENGINES = ["stencil_pallas", "multispin_pallas", "bitplane_pallas"]
+
+
+def _resilience_spec(engine, n=512):
+    return RunSpec(lattice=LatticeSpec(n, n, init_p_up=1.0),
+                   engine=EngineSpec(engine), temperature=2.2, seed=SEED)
+
+
+@pytest.fixture
+def clean_resilience():
+    """No demotion, fault plan or memory limit leaks between tests."""
+    from repro_torch.resilience import degrade, faults
+    degrade.reset_demotions()
+    faults.clear()
+    yield
+    degrade.reset_demotions()
+    faults.clear()
+    torch.cuda.set_per_process_memory_fraction(1.0)
+
+
+def test_dispatch_span_fence_waits(cuda):
+    """The traced dispatch span lasts at least as long as its launches on
+    the card (CUDA events just before the first and just after the last,
+    inside the span); disabled, the span records nothing."""
+    import repro_torch.telemetry as tel
+    session = Session.open(_resilience_spec("multispin_pallas", 2048))
+    session.run(2)
+    marks = []
+    launch = session.engine.resident_sweeps
+
+    def marked(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kwargs)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    session.engine.resident_sweeps = marked
+    tel.TRACER.clear()
+    tel.enable()
+    try:
+        session.run(40)
+    finally:
+        tel.disable()
+    spans = [e for e in tel.TRACER.events if e["name"] == "dispatch"]
+    tel.TRACER.clear()
+    assert len(spans) == len(marks) == 1
+    assert spans[0]["dur_us"] / 1e3 >= marks[0][0].elapsed_time(marks[0][1])
+    session.run(2)
+    assert tel.TRACER.events == []
+
+
+def _fill_cached_blocks(device) -> list:
+    """Tensors that take every free block of 1 MiB or more the caching
+    allocator still holds on ``device`` (free tails of segments that live
+    tensors share), so that the next large allocation needs new device
+    memory."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    sizes = [block["size"] for segment in torch.cuda.memory_snapshot()
+             if segment["device"] == index
+             for block in segment["blocks"]
+             if block["state"] == "inactive" and block["size"] >= 1 << 20]
+    return [torch.empty(size, dtype=torch.uint8, device=device)
+            for size in sorted(sizes, reverse=True)]
+
+
+@pytest.mark.parametrize("engine", RESILIENCE_ENGINES)
+def test_real_out_of_memory_demotes_bit_exact(cuda, clean_resilience,
+                                              engine):
+    """The cache emptied, its free blocks of 1 MiB or more taken, and a
+    memory limit 3 MiB above what the card then holds: room for the
+    per-half-sweep tier's small tables, not for the k-sweep tier's second
+    copy of the planes (16 MiB or more at 8192^2).  The caching allocator
+    raises a real OutOfMemoryError, the run demotes to the per-half-sweep
+    tier and ends on the undisturbed run's digest."""
+    import repro_torch.telemetry as tel
+    from repro_torch.resilience import degrade
+    n = 8192
+    spec = _resilience_spec(engine, n)
+    ref = Session.open(spec)
+    ref.run(6)
+    want = ref.state_digest()
+    del ref
+    session = Session.open(spec)
+    assert session.engine.resident_plan is not None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fillers = _fill_cached_blocks(cuda)
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    limit = torch.cuda.memory_reserved() + (3 << 20)
+    before = tel.REGISTRY.counter("resident.demote").value
+    torch.cuda.set_per_process_memory_fraction(limit / total)
+    try:
+        session.run(6)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        del fillers
+    assert tel.REGISTRY.counter("resident.demote").value == before + 1
+    family = session.engine.resident_family
+    assert degrade.demotion_reason(family, n, n).startswith(
+        "OutOfMemoryError")
+    assert session.engine.resident_plan is None
+    assert session.state_digest() == want
+
+
+@pytest.mark.parametrize("engine", RESILIENCE_ENGINES)
+def test_shared_memory_overflow_demotes(cuda, clean_resilience, engine):
+    """A k-sweep tile over the card's opt-in shared memory: the launcher
+    raises SharedMemoryOverflow before any launch, and the run demotes
+    with its digest unchanged."""
+    from repro_torch.kernels import errors
+    from repro_torch.resilience import degrade
+    spec = _resilience_spec(engine)
+    ref = Session.open(spec)
+    ref.run(4)
+    session = Session.open(spec)
+    plan = session.engine.resident_plan
+    session.engine.resident_plan = dataclasses.replace(plan, tile_rows=2048)
+    family = plan.family
+    with pytest.raises(errors.SharedMemoryOverflow) as ei:
+        session.engine.resident_sweeps(
+            tuple(p[None] for p in session.state),
+            [session.engine.sweep_context(session.engine.cfg.inv_temp)],
+            [SEED], 0, 2)
+    assert ei.value.code == errors.INVALID_VALUE
+    assert ei.value.need > ei.value.limit
+    session.run(4)
+    assert degrade.demotion_reason(family, 512, 512).startswith(
+        "SharedMemoryOverflow")
+    assert session.state_digest() == ref.state_digest()
+
+
+@pytest.mark.parametrize("engine", RESILIENCE_ENGINES + ["tensorcore"])
+def test_half_sweep_dispatch_not_retried_after_first_launch(
+        cuda, clean_resilience, engine):
+    """A transient failure after the first in-place launch of a
+    per-half-sweep dispatch propagates: running the dispatch again would
+    apply that half-sweep twice."""
+    from repro_torch.resilience import TransientDispatchError, degrade
+    params = {"tc_block": 64} if engine == "tensorcore" else {}
+    spec = dataclasses.replace(_resilience_spec(engine),
+                               engine=EngineSpec(engine, params))
+    session = Session.open(spec, resident_budget_bytes=0)
+    before = [p.clone() for p in (session.state.values()
+                                  if engine == "tensorcore"
+                                  else session.state)]
+    retries = degrade.RETRIES.value
+    name = "sweep_fn" if engine == "tensorcore" else "color_update"
+    real = getattr(session.engine, name)
+
+    def fail_after(*args, **kwargs):
+        out = real(*args, **kwargs)
+        raise TransientDispatchError("after the first launch")
+
+    setattr(session.engine, name, fail_after)
+    with pytest.raises(TransientDispatchError):
+        session.run(3)
+    assert degrade.RETRIES.value == retries
+    after = list(session.state.values()) if engine == "tensorcore" \
+        else list(session.state)
+    assert any(not torch.equal(a, b) for a, b in zip(before, after))
