@@ -178,7 +178,29 @@ fails:
    (no host synchronization under sync debug mode "error") and traced,
    its dispatch span at least its launches' CUDA-event time; the
    weakscale rows of (D, 1) meshes, D = 1, 2, 4, whose halo counters are
-   their plans' exchanges and bytes.
+   their plans' exchanges and bytes;
+11. the sweep farm and the legacy entry point (:func:`phase_11`): the
+   farm's jobs (a bitplane_pallas 2048^2 x 32 job first, then 8
+   coalescible multispin_pallas 4096^2 jobs at T = 1.5 + 0.125 i, a
+   basic_philox 4096^2 job and a stencil_pallas 4096^2 job on a 2 x 2
+   mesh; 200 sweeps) run as direct ``Session`` references; the crash
+   drill through ``python -m repro_torch serve`` (chunks of 50, a
+   checkpoint every 100): SIGKILL once the coalesced batch has committed
+   its checkpoint, at least one acked job without a done record, the
+   restart resuming that batch (``resilience.resume``), every job
+   completed exactly once with its reference digest, no retry or
+   demotion; the same jobs through a ``SweepFarm`` in process (chunk =
+   sweeps), a batch a path: the coalesced batch ceil(200 / k) launches
+   of the multispin k-sweep kernel for all 8 members, the mesh job 4
+   ceil(200 / k) of the stencil shard kernel, one dispatch a batch, then
+   a second wave of the 8 jobs as one batch from the runner pool
+   (``serve.cache_hit``), batch, CRC32C and checkpoint seconds;
+   ``repro_torch.launch.simulate`` at 32768^2 (multispin, T = 2.0, 300
+   sweeps, m every 100) uninterrupted, then to 200 with ``--ckpt`` and
+   restored to 300: the same ``m=`` lines.  At the ensemble cells'
+   member size (8192^2) the host CRC32C of the farm's checkpoints and
+   digests takes phase 11 past its budget (PERF.md), so its lattice
+   side is halved.
 
 Every counter-based ``measure()`` (phases 5, 7 and 8) launches its
 sweeps from the host and replays one captured CUDA graph of a sample's
@@ -523,6 +545,22 @@ TRACE_MEASURE, TRACE_EVERY, TRACE_SWEEPS = 10, 10, 200
 WEAKSCALE_SHARDS = (1, 2, 4)
 WEAKSCALE_BASE_N, WEAKSCALE_COLS = 2048, 8192
 WEAKSCALE_SWEEPS, WEAKSCALE_TRIALS = 4, 2
+#: phase 11, the sweep farm: FARM_K coalescible multispin_pallas jobs of
+#: FARM_N^2 (T = 1.5 + 0.125 i, seeds 20 + i; ordered start), a
+#: bitplane_pallas job of FARM_BITPLANE_N^2 x 32 (T = 3.0, hot), a
+#: basic_philox job of FARM_N^2 and a stencil_pallas job of FARM_N^2 on
+#: a FARM_MESH mesh (T = 2.0, ordered); FARM_SWEEPS sweeps a job in
+#: chunks of FARM_CHUNK, a checkpoint every FARM_EVERY sweeps.  The
+#: ensemble cells' member size (8192^2, bitplane 4096^2) halved: at it
+#: the host CRC32C of the farm's checkpoints and digests took the phase
+#: past its budget (PERF.md)
+FARM_N, FARM_BITPLANE_N = 4096, 2048
+FARM_K = 8
+FARM_MESH = (2, 2)
+FARM_SWEEPS, FARM_CHUNK, FARM_EVERY = 200, 50, 100
+#: the legacy driver: multispin at SIM_N^2, T = 2.0, SIM_SWEEPS sweeps,
+#: m every SIM_EVERY; the checkpointed run stops at SIM_CKPT
+SIM_N, SIM_SWEEPS, SIM_EVERY, SIM_CKPT = 32768, 300, 100, 200
 
 
 def check(ok: bool, what: str) -> None:
@@ -880,6 +918,245 @@ def phase_10(drive, timed_ms) -> None:
                       ex * plan.halo_bytes_per_exchange / 1024, 3),
                   f"weakscale {row['name']}: halo counters against the "
                   f"plan")
+
+
+def farm_specs():
+    """Phase 11's jobs, each with the family and tier of the kernel its
+    batch launches, in the farm's batch order: the bitplane job first, so
+    that the coalescible jobs queue while it runs and form one batch
+    however fast they are submitted."""
+    from repro_torch.api import EngineSpec, LatticeSpec, MeshSpec, RunSpec
+    out = [(RunSpec(lattice=LatticeSpec(FARM_BITPLANE_N, FARM_BITPLANE_N),
+                    engine=EngineSpec("bitplane_pallas"),
+                    temperature=BITPLANE_TEMPERATURE, seed=91),
+            "bitplane", "k-sweep")]
+    out += [(RunSpec(lattice=LatticeSpec(FARM_N, FARM_N, init_p_up=1.0),
+                     engine=EngineSpec("multispin_pallas"),
+                     temperature=1.5 + 0.125 * i, seed=20 + i),
+             "multispin", "k-sweep") for i in range(FARM_K)]
+    out.append((RunSpec(lattice=LatticeSpec(FARM_N, FARM_N, init_p_up=1.0),
+                        engine=EngineSpec("basic_philox"),
+                        temperature=TEMPERATURE, seed=92), "draws", "fill"))
+    out.append((RunSpec(lattice=LatticeSpec(FARM_N, FARM_N, init_p_up=1.0),
+                        engine=EngineSpec("stencil_pallas"),
+                        temperature=TEMPERATURE, seed=93,
+                        mesh=MeshSpec(FARM_MESH, ("data", "model"))),
+                "stencil", "shard"))
+    return out
+
+
+def phase_11(drive, launches_by_path) -> None:
+    """The sweep farm and the legacy entry point on the card: direct
+    ``Session`` references of the farm's jobs; the crash drill through
+    ``python -m repro_torch serve`` (SIGKILL mid-batch, restart, every
+    job exactly once with its direct digest); the farm in process, a
+    batch a path (the coalesced batch one launch a block of sweeps for
+    all members, one dispatch a batch, a second wave from the runner
+    pool); ``repro_torch.launch.simulate`` restored to its uninterrupted
+    ``m=`` lines.  ``drive`` is :func:`main`'s, and ``launches_by_path``
+    the counts it reads.  Raises on any failed gate."""
+    import contextlib
+    import io
+
+    import torch
+
+    import repro_torch.telemetry as tel
+    from repro_torch.api import Session
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.launch import simulate
+    from repro_torch.resilience import degrade, integrity
+    from repro_torch.serve import SweepFarm, smoke
+    from repro_torch.telemetry import diff_counters
+
+    def counters():
+        return tel.REGISTRY.snapshot()
+
+    recovery_names = ("resilience.retry", "resident.demote")
+    degrade.reset_demotions()
+    jobs = farm_specs()
+    specs = [spec for spec, _, _ in jobs]
+    sizes = sorted({(s.engine.name, s.lattice.n) for s in specs})
+    print(f"phase 11: the farm's jobs: {FARM_K} coalescible of "
+          f"{FARM_N}^2 and {len(specs) - FARM_K} solo ({sizes}); "
+          f"{FARM_SWEEPS} sweeps, chunk {FARM_CHUNK}, a checkpoint every "
+          f"{FARM_EVERY}")
+
+    # -- 11.1 direct references ----------------------------------------------
+    t1 = time.perf_counter()
+    refs = []
+    for i, (spec, family, tier) in enumerate(jobs):
+        def direct(spec=spec):
+            s = Session.open(spec)
+            s.run(FARM_SWEEPS)
+            return s
+        s = drive(f"farm reference {i} {spec.engine.name} "
+                  f"{spec.lattice.n}^2", family, tier, direct)
+        refs.append(s.state_digest())
+        del s
+    ref_s = time.perf_counter() - t1
+    print(f"phase 11: direct references in {ref_s:.2f} s: {refs}")
+
+    # -- 11.2 the crash drill through the CLI ---------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        drill = smoke.crash_drill(os.path.join(d, "crash"), specs, refs,
+                                  FARM_SWEEPS, chunk=FARM_CHUNK,
+                                  every=FARM_EVERY, max_batch=FARM_K,
+                                  min_jobs=FARM_K, timeout=600)
+        drill_s = time.perf_counter() - t1
+    records = drill["records"]
+    submitted = {r["job"]: r["t"] for r in records if r["kind"] == "submit"}
+    done = {r["job"]: r["t"] for r in records if r["kind"] == "done"}
+    latency = {j: round(done[j] - t, 3) for j, t in submitted.items()}
+    batches = []
+    for r in records:
+        if r["kind"] == "start":
+            batches.append((r["batch"], len(r["jobs"]),
+                            round(max(done[j] for j in r["jobs"]) - r["t"],
+                                  3)))
+    got = drill["counters"]
+    unplanned = {k: got.get(k, 0) for k in recovery_names}
+    print(f"phase 11: crash drill in {drill_s:.2f} s: start-up "
+          f"{[round(x, 2) for x in drill['startup_s']]} s, jobs without a "
+          f"done record at the kill {drill['outstanding']}; submit to done "
+          f"(s) {latency}; batches (id, jobs, s from the start record to "
+          f"its jobs' last done: a batch killed and resumed has two) "
+          f"{batches}; the restarted server's "
+          f"resilience.resume {got.get('resilience.resume', 0)}, "
+          f"serve.completed {got.get('serve.completed', 0)}, {unplanned}")
+    check(got.get("resilience.resume", 0) >= 1,
+          "crash drill: the restart resumed no batch from its checkpoint")
+    check(not any(unplanned.values()),
+          f"crash drill: unplanned recovery {unplanned}")
+
+    # -- 11.3 the farm in process: a batch a path, the runner pool -----------
+    timings, crc_s = [], [0.0]
+    real = (integrity.crc32c, Checkpointer._write)
+
+    def timed_crc(data, value=0):
+        t = time.perf_counter()
+        try:
+            return real[0](data, value)
+        finally:
+            crc_s[0] += time.perf_counter() - t
+
+    def timed_write(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return real[1](*args, **kwargs)
+        finally:
+            timings.append(time.perf_counter() - t)
+
+    integrity.crc32c = timed_crc
+    Checkpointer._write = timed_write
+    rows = []
+
+    def run_batches(farm, wave, ids, want, groups):
+        """Drive each batch of ``groups`` (job index ranges, the farm's
+        batch order) as its own path; every job must complete with its
+        direct digest."""
+        for lo, hi in groups:
+            _, family, tier = jobs[lo]
+            crc0, ckpt0, c0 = crc_s[0], len(timings), counters()
+            t1 = time.perf_counter()
+            path = (f"farm wave {wave} batch of {hi - lo} "
+                    f"{specs[lo].engine.name} {specs[lo].lattice.n}^2")
+            check(drive(path, family, tier, farm.step),
+                  f"{path}: no batch ran")
+            batch_s = time.perf_counter() - t1
+            rows.append({"path": path, "batch_s": round(batch_s, 3),
+                         "crc_s": round(crc_s[0] - crc0, 3),
+                         "checkpoint_s": round(sum(timings[ckpt0:]), 3),
+                         "dispatches": diff_counters(c0, counters()).get(
+                             "dispatches", 0),
+                         "launches": sum(launches_by_path[path].values())})
+            for jid, digest in zip(ids[lo:hi], want[lo:hi]):
+                job = farm.job(jid)
+                check(job["status"] == "completed"
+                      and job["digest"] == digest,
+                      f"{path}: {jid} {job['status']} {job['digest']} "
+                      f"{job['error']}, want {digest}")
+
+    base = counters()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            farm = SweepFarm(d, max_batch=FARM_K, chunk=FARM_SWEEPS,
+                             ckpt_every_sweeps=FARM_EVERY)
+            ids = [farm.submit({"spec": s.to_dict(), "sweeps": FARM_SWEEPS})
+                   for s in specs]
+            coalesced = (1, 1 + FARM_K)
+            run_batches(farm, 0, ids, refs, [(0, 1), coalesced] + [
+                (i, i + 1) for i in range(1 + FARM_K, len(jobs))])
+            # the second wave: the coalesced jobs again, one batch on the
+            # pooled runner
+            ids = [None] + [farm.submit({"spec": s.to_dict(),
+                                         "sweeps": FARM_SWEEPS})
+                            for s in specs[1:1 + FARM_K]]
+            run_batches(farm, 1, ids, refs, [coalesced])
+            farm.close()
+            starts = [r for r in farm.journal.records
+                      if r["kind"] == "start"]
+    finally:
+        integrity.crc32c, Checkpointer._write = real
+    got = diff_counters(base, counters())
+    pool = {k: got.get(k, 0) for k in ("serve.cache_hit", "serve.cache_miss",
+                                       "serve.coalesced", "serve.batches")}
+    unplanned = {k: got.get(k, 0) for k in recovery_names}
+    print(f"phase 11: the farm in process: {json.dumps(rows)}; start "
+          f"records {[len(r['jobs']) for r in starts]}; dispatches "
+          f"{got.get('dispatches', 0)}; {pool}; {unplanned}")
+    check([len(r["jobs"]) for r in starts] == [1, FARM_K, 1, 1, FARM_K],
+          f"farm: batches of {[len(r['jobs']) for r in starts]}")
+    check(got.get("dispatches", 0) == len(starts)
+          and all(r["dispatches"] == 1 for r in rows),
+          f"farm: {got.get('dispatches', 0)} dispatches for {len(starts)} "
+          f"batches at chunk >= sweeps")
+    # every batch of coalescible jobs asks the pool (a lone job too, as
+    # an ensemble of one): the first wave's miss, the second wave's hit
+    asked = sum(1 for r in starts if r["key"] is not None)
+    check(pool["serve.cache_hit"] == 1
+          and pool["serve.cache_miss"] == asked - 1,
+          f"farm: runner pool {pool} for {asked} coalescible batches")
+    check(not any(unplanned.values()), f"farm: unplanned recovery "
+          f"{unplanned}")
+    blocks = math.ceil(FARM_SWEEPS / 2)
+    want_launches = [blocks, blocks, 2 * FARM_SWEEPS,
+                     math.prod(FARM_MESH) * blocks, blocks]   # k = 2
+    check([r["launches"] for r in rows] == want_launches,
+          f"farm: launches {[r['launches'] for r in rows]}, want "
+          f"{want_launches} (k = 2)")
+
+    # -- 11.4 the legacy driver ------------------------------------------------
+    torch.cuda.empty_cache()
+    sim_rows = []
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "ck.npz")
+        argv = ["--size", str(SIM_N), "--temp", str(TEMPERATURE),
+                "--measure-every", str(SIM_EVERY), "--engine", "multispin"]
+        for label, extra in (
+                ("uninterrupted", ["--sweeps", str(SIM_SWEEPS)]),
+                ("checkpointed", ["--sweeps", str(SIM_CKPT), "--ckpt", ck]),
+                ("restored", ["--sweeps", str(SIM_SWEEPS), "--ckpt", ck,
+                              "--restore"])):
+            out = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = drive(f"simulate {SIM_N}^2 {label}", "multispin",
+                           "k-sweep", lambda: simulate.main(argv + extra))
+            lines = out.getvalue().splitlines()
+            sim_rows.append((label, rc, time.perf_counter() - t1, lines))
+    for label, rc, seconds, lines in sim_rows:
+        print(f"phase 11: simulate {SIM_N}^2 {label} ({seconds:.2f} s, exit "
+              f"{rc}): " + " | ".join(lines))
+    m_lines = [[l for l in lines if l.startswith("sweep")]
+               for _, _, _, lines in sim_rows]
+    check(all(rc == 0 for _, rc, _, _ in sim_rows),
+          "simulate: a run failed")
+    check(len(m_lines[0]) == SIM_SWEEPS // SIM_EVERY
+          and m_lines[1] + m_lines[2] == m_lines[0],
+          f"simulate: restored m lines {m_lines[1:]} against "
+          f"{m_lines[0]}")
 
 
 def nvidia_smi(query: str) -> str:
@@ -3035,6 +3312,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_10(drive, timed_ms)
     phase_s[10] = time.perf_counter() - t0
+
+    # -- 11. the sweep farm and the legacy entry point -----------------------
+    t0 = time.perf_counter()
+    phase_11(drive, launches_by_path)
+    phase_s[11] = time.perf_counter() - t0
+    print(f"phase 11: {phase_s[11]:.1f} s")
 
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}

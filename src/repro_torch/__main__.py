@@ -1,4 +1,5 @@
-"""``python -m repro_torch run`` -- single, ensemble and sharded runs.
+"""``python -m repro_torch run`` -- single, ensemble and sharded runs;
+``python -m repro_torch serve`` -- the sweep farm.
 
 One command drives every mode from one ``RunSpec``: pass a spec JSON
 file (written by either package), or build one from flags.  The record
@@ -56,6 +57,11 @@ either alone:
     python -m repro_torch run --engine multispin_pallas --n 32768 \
         --init-p-up 1.0 --temperature 2.0 --sweeps 200 --supervise DIR \
         --ckpt-every-sweeps 100 --chunk 50 --trace trace.json
+
+    # the sweep farm: a server that takes RunSpec jobs over HTTP and runs
+    # them exactly once, compatible jobs fused into one ensemble
+    # (python -m repro_torch.serve.smoke is its crash drill)
+    python -m repro_torch serve DIR --drain-on-idle
 
 The paper's Fig. 5/6 temperature scan is
 ``python -m repro_torch.analysis.figures [--smoke]``.  Runs on the CUDA
@@ -375,6 +381,15 @@ def main(argv=None) -> int:
                           "(.json, Perfetto-loadable) or .jsonl stream and "
                           "the metrics snapshot here")
     run.set_defaults(fn=cmd_run)
+
+    from repro_torch.serve.__main__ import add_serve_args, run_server
+    srv = sub.add_parser(
+        "serve", help="run the fault-tolerant sweep-farm server "
+                      "(exit 0 done / 3 drained-preempted)",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    add_serve_args(srv)
+    srv.set_defaults(fn=run_server)
+
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -20,7 +20,9 @@ The checkpoint is the JAX package's layout -- an atomically renamed
 (the whole planes in single and sharded mode, batched along axis 0 for
 an ensemble) -- and ``state_digest`` frames the state as the JAX package
 does, so a run saved by either package restores in the other, on any
-mesh or none, and the digests of equal states are equal.
+mesh or none, and the digests of equal states are equal.  A file of the
+single-simulation layout that came before the spec (``config_json``
+and no ``spec_json``) restores too, its config lifted into a spec.
 
 The entry points run on CUDA unless the caller passes ``device="cpu"``;
 with no device named and no GPU present they raise.  They never move to
@@ -40,8 +42,10 @@ A sharded run's halo exchanges go into the ``halo_exchanges`` and
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import tempfile
+from typing import Optional
 
 import numpy as np
 import torch
@@ -85,28 +89,38 @@ def _atomic_savez(path: str, **arrays) -> None:
         raise
 
 
-def _read_spec(z, path: str) -> RunSpec:
-    if "spec_json" not in z.files:
-        raise ValueError(f"{path}: not a checkpoint in the RunSpec "
-                         f"layout (no 'spec_json')")
-    return RunSpec.from_json(str(z["spec_json"]))
+def _read_spec(z, path: str):
+    """``(spec, legacy config dict or None)`` of an open checkpoint: its
+    ``spec_json``, or else the ``config_json`` of the single-simulation
+    layout that came before the spec (lifted into a spec)."""
+    legacy = None
+    if "config_json" in z.files:
+        legacy = json.loads(str(z["config_json"]))
+    if "spec_json" in z.files:
+        return RunSpec.from_json(str(z["spec_json"])), legacy
+    if legacy is not None:
+        from repro_torch.core.sim import SimConfig
+        return RunSpec.from_sim_config(SimConfig(**legacy)), legacy
+    raise ValueError(f"{path}: not a checkpoint in the RunSpec layout (no "
+                     f"'spec_json' and no 'config_json')")
 
 
 def load_spec(path: str) -> RunSpec:
     """The spec of a checkpoint of either package, and nothing else: the
     state arrays stay on disk (an ``.npz`` reads an entry when asked)."""
     with np.load(path, allow_pickle=False) as z:
-        return _read_spec(z, path)
+        return _read_spec(z, path)[0]
 
 
 def _load_checkpoint(path: str):
-    """Read a checkpoint: ``(spec, step_count, state arrays)``."""
+    """Read a checkpoint: ``(spec, step_count, state arrays, legacy config
+    dict or None)``."""
     with np.load(path, allow_pickle=False) as z:
-        spec = _read_spec(z, path)
+        spec, legacy = _read_spec(z, path)
         step_count = int(z["step_count"])
         arrays = {k[len("state_"):]: z[k] for k in z.files
                   if k.startswith("state_")}
-    return spec, step_count, arrays
+    return spec, step_count, arrays, legacy
 
 
 class _SingleRunner:
@@ -183,7 +197,7 @@ class _EnsembleRunner:
         """Re-point this runner at a new (temperature, seed) batch of the
         same shape (engine and params, lattice, batch size): the same
         engine object and plan, no new build or load of a library; fresh
-        states at step 0."""
+        states at step 0, written into the planes the runner holds."""
         if spec.mode != "ensemble":
             raise ValueError(
                 f"rebind needs an ensemble spec, got mode={spec.mode!r}")
@@ -200,7 +214,7 @@ class _EnsembleRunner:
                 f"B{new.batch.size}")
         self.spec = spec
         self._set_members(spec)
-        self.state = self._fresh_states()
+        self.state = self.engine.init_states(self.seeds, out=self.state)
         self.step_count = 0
 
     @property
@@ -721,15 +735,18 @@ class Session:
             crc = integrity.crc32c(a.tobytes(), crc)
         return f"{crc:08x}"
 
-    def save(self, path: str) -> None:
+    def save(self, path: str, extra: Optional[dict] = None) -> None:
         """Atomic checkpoint: serialized spec, step count and the
-        engine's named state arrays (batched in ensemble mode)."""
+        engine's named state arrays (batched in ensemble mode).
+        ``extra`` adds scalar or string fields (``Simulation.save``
+        passes its ``config_json`` through it)."""
         with tel.span("ckpt.save", path=path, mode=self.mode,
                       step_count=self._runner.step_count):
             arrays = {f"state_{k}": v
                       for k, v in self._runner.state_arrays().items()}
             _atomic_savez(path, spec_json=self.spec.to_json(),
-                          step_count=self._runner.step_count, **arrays)
+                          step_count=self._runner.step_count,
+                          **(extra or {}), **arrays)
 
     @classmethod
     def restore(cls, path: str, device=None, *, mesh=_KEEP,
@@ -741,7 +758,7 @@ class Session:
         keyed on global positions, so the run continues bit for bit on
         any mesh.  ``resident_budget_bytes`` as for :meth:`open`."""
         with tel.span("ckpt.restore", path=path) as sp:
-            spec, step_count, arrays = _load_checkpoint(path)
+            spec, step_count, arrays, _ = _load_checkpoint(path)
             if mesh is not _KEEP and mesh != spec.mesh:
                 spec = dataclasses.replace(spec, mesh=mesh)
             sp.set(mode=spec.mode, engine=spec.engine.name,

@@ -338,6 +338,21 @@ class RunSpec:
                          init_p_up=self.lattice.init_p_up,
                          **self.engine.param_dict)
 
+    @classmethod
+    def from_sim_config(cls, cfg, sweep: Optional[SweepSpec] = None,
+                        batch: Optional[BatchSpec] = None,
+                        mesh: Optional[MeshSpec] = None) -> "RunSpec":
+        """Lift a legacy ``SimConfig`` into a spec.  Only the params the
+        engine declares (``param_fields``) are carried; the other config
+        knobs are defaults the engine ignores."""
+        fields = _engine_cls(cfg.engine).param_fields
+        params = {k: getattr(cfg, k) for k in fields}
+        return cls(lattice=LatticeSpec(n=cfg.n, m=cfg.m,
+                                       init_p_up=cfg.init_p_up),
+                   engine=EngineSpec(name=cfg.engine, params=params),
+                   temperature=cfg.temperature, seed=cfg.seed,
+                   sweep=sweep, batch=batch, mesh=mesh)
+
     def to_dict(self) -> dict:
         return {
             "version": SPEC_VERSION,

@@ -320,10 +320,11 @@ class CounterEngine(Engine):
 
     # -- ensembles: (B, n, w) planes, one member a leading index --------
 
-    def init_states(self, seeds):
+    def init_states(self, seeds, out=None):
         """Every member's fresh state, stacked: member i's is the
-        single-mode fresh state of seed i, made one member at a time."""
-        stacked = None
+        single-mode fresh state of seed i, made one member at a time
+        (into ``out``'s planes where given, a state of as many members)."""
+        stacked = out
         for i, seed in enumerate(seeds):
             member = self.init_member(int(seed))
             if stacked is None:

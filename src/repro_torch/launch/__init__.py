@@ -1,1 +1,2 @@
-"""repro_torch.launch: the device mesh of sharded runs."""
+"""repro_torch.launch: the device mesh of sharded runs, the ``simulate``
+driver and the retired ``serve`` stub."""

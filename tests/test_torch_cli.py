@@ -160,10 +160,16 @@ def test_load_spec_of_a_jax_checkpoint(tmp_path, mode, monkeypatch,
 
 
 def test_load_spec_refuses_a_checkpoint_without_a_spec(tmp_path):
-    path = str(tmp_path / "legacy.npz")
-    np.savez(path, config_json="{}", step_count=0)
+    """A file with neither a spec nor the config of the layout before the
+    spec is refused; one with that config alone reads as JAX's
+    ``load_spec`` reads it."""
+    path = str(tmp_path / "nospec.npz")
+    np.savez(path, step_count=0)
     with pytest.raises(ValueError, match="spec_json"):
         load_spec(path)
+    legacy = str(tmp_path / "legacy.npz")
+    np.savez(legacy, config_json="{}", step_count=0)
+    assert load_spec(legacy).to_dict() == jax_load_spec(legacy).to_dict()
 
 
 @pytest.mark.parametrize("mode", ["single", "ensemble"])

@@ -1218,3 +1218,87 @@ def test_half_sweep_dispatch_not_retried_after_first_launch(
     after = list(session.state.values()) if engine == "tensorcore" \
         else list(session.state)
     assert any(not torch.equal(a, b) for a, b in zip(before, after))
+
+
+# ---------------------------------------------------------------------------
+# the sweep farm and the legacy entry point on the card
+# ---------------------------------------------------------------------------
+
+def _farm_jobs():
+    """Three coalescible multispin_pallas jobs, a bitplane_pallas job and
+    a stencil_pallas job on a (2, 2) mesh (four shards on the card)."""
+    def spec(engine, n, t, seed, **kw):
+        return RunSpec(lattice=LatticeSpec(n, n, init_p_up=1.0),
+                       engine=EngineSpec(engine), temperature=t, seed=seed,
+                       **kw)
+    return ([spec("multispin_pallas", 256, t, 20 + i)
+             for i, t in enumerate((1.8, 2.2, 2.5))]
+            + [spec("bitplane_pallas", 128, 3.0, 91),
+               spec("stencil_pallas", 256, 2.0, 93,
+                    mesh=MeshSpec((2, 2), ("data", "model")))])
+
+
+def test_farm_on_card_equals_cpu(cuda, tmp_path, clean_resilience):
+    """The farm on the card (no device named): every job completes with
+    the digest of its CPU run, the coalesced batch in one launch of the
+    member-axis k-sweep kernel a block of sweeps, no retry, no
+    demotion."""
+    import repro_torch.telemetry as tel
+    from repro_torch.serve import SweepFarm
+    jobs = _farm_jobs()
+    want = []
+    for spec in jobs:
+        s = Session.open(spec, device="cpu")
+        s.run(40)
+        want.append(s.state_digest())
+    base = tel.REGISTRY.snapshot()
+    farm = SweepFarm(str(tmp_path / "farm"), chunk=20, ckpt_every_sweeps=20)
+    jids = [farm.submit({"spec": s.to_dict(), "sweeps": 40}) for s in jobs]
+    multispin_sweeps_resident.launches = 0
+    assert farm.step()        # the coalesced batch
+    plan = resident.plan_resident("multispin", 256, 256)
+    assert multispin_sweeps_resident.launches == 2 * -(-20 // plan.k)
+    assert farm.run_until_idle() == 2
+    for jid, digest in zip(jids, want):
+        job = farm.job(jid)
+        assert job["status"] == "completed", job["error"]
+        assert job["digest"] == digest
+    got = tel.diff_counters(base, tel.REGISTRY.snapshot())
+    assert got["serve.completed"] == len(jobs)
+    assert got.get("resilience.retry", 0) == got.get(
+        "resident.demote", 0) == 0
+    farm.close()
+
+
+def test_simulation_on_card_equals_cpu(cuda, tmp_path):
+    from repro_torch.core.sim import SimConfig, Simulation
+    cfg = SimConfig(n=256, m=256, temperature=2.2, seed=SEED,
+                    engine="multispin")
+    card, cpu = Simulation(cfg), Simulation(cfg, device="cpu")
+    assert card._session.device.type == "cuda"
+    for sim in (card, cpu):
+        sim.run(30)
+    assert card.magnetization() == cpu.magnetization()
+    path = str(tmp_path / "sim.npz")
+    card.save(path)
+    back = Simulation.restore(path)
+    assert back.config == cfg and back._session.device.type == "cuda"
+    back.run(10)
+    cpu.run(10)
+    assert back._session.state_digest() == cpu._session.state_digest()
+
+
+def test_simulate_restore_on_card(cuda, tmp_path, capsys):
+    from repro_torch.launch import simulate
+    args = ["--size", "512", "--temp", "2.0", "--measure-every", "20"]
+    assert simulate.main(args + ["--sweeps", "60"]) == 0
+    whole = capsys.readouterr().out.splitlines()
+    ck = str(tmp_path / "ck.npz")
+    assert simulate.main(args + ["--sweeps", "40", "--ckpt", ck]) == 0
+    first = capsys.readouterr().out.splitlines()
+    assert simulate.main(args + ["--sweeps", "60", "--ckpt", ck,
+                                 "--restore"]) == 0
+    second = capsys.readouterr().out.splitlines()
+    m_lines = [[l for l in out if l.startswith("sweep")]
+               for out in (whole, first, second)]
+    assert len(m_lines[0]) == 3 and m_lines[1] + m_lines[2] == m_lines[0]

@@ -348,6 +348,17 @@ s = Session.open(RunSpec(lattice=LatticeSpec(8, 8),
                  device="cpu")
 s.run(2)
 print(s.state_digest())
+assert {"repro_torch.serve.server", "repro_torch.serve.smoke",
+        "repro_torch.serve.client", "repro_torch.launch.simulate",
+        "repro_torch.launch.serve"} <= set(sys.modules)
+import tempfile
+from repro_torch.serve import SweepFarm
+with tempfile.TemporaryDirectory() as d:
+    farm = SweepFarm(d, chunk=2, device="cpu")
+    jid = farm.submit({"spec": s.spec.to_dict(), "sweeps": 2})
+    assert farm.run_until_idle() == 1
+    assert farm.job(jid)["digest"] == s.state_digest()
+    farm.close()
 leaked = [m for m, v in sys.modules.items() if v is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "repro"))]
 assert not leaked, leaked
@@ -368,5 +379,9 @@ def test_no_jax_or_reference_imports_in_port_sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
+             if f.name != "chip_smoke.py"}
+    assert {"serve/server.py", "serve/journal.py", "serve/smoke.py",
+            "launch/simulate.py", "launch/serve.py", "core/sim.py"} <= names
     for f in files:
         assert not pattern.search(f.read_text()), f
