@@ -200,7 +200,25 @@ fails:
    restored to 300: the same ``m=`` lines.  At the ensemble cells'
    member size (8192^2) the host CRC32C of the farm's checkpoints and
    digests takes phase 11 past its budget (PERF.md), so its lattice
-   side is halved.
+   side is halved;
+12. the performance contract (:func:`phase_12`): ``python -m
+   repro_torch.dist.weakscale --devices 1,2,4 --base-n 8192 --cols 32768
+   --sweeps 20 --trials 5 --json`` twice, as subprocesses, every row's
+   ``pct_of_roofline`` (``repro_torch.launch.roofline``'s H100 row, whose
+   ``H100_*`` figures the bounds here read too) in (0, 100]; the readings
+   of phase 5's four single-mode ``run(200)`` rates beside their
+   predictions; ``repro_torch.perf.gate`` on the card's records: the
+   first against itself under its ``--init-budgets`` floors exit 0,
+   under floors at ``--safety 2.0`` exit 1 with every throughput row
+   ``budget``, ``--advisory`` exit 0, then the second record against the
+   first printed (the run-to-run noise, not asserted); the three raw
+   sweep wrappers (``repro_torch.kernels.<family>.ops``) at 512^2, 3
+   sweeps: 6 launches of the family's half-sweep kernel, the CPU's
+   planes; the four ``repro_torch.examples`` in process on the card with their
+   assertions: ``quickstart``'s raw kernel part 200 launches of
+   ``multispin_update`` for 100 sweeps, ``phase_transition``'s |m| at T =
+   1.5 within 0.02 of Onsager's, ``bitplane_replicas``' replica gates,
+   ``multipod_sim`` bit-exact on a 2 x 2 mesh of shards on the card.
 
 Every counter-based ``measure()`` (phases 5, 7 and 8) launches its
 sweeps from the host and replays one captured CUDA graph of a sample's
@@ -260,7 +278,10 @@ TC_TILE_PLANES = tuple(((r, c), (h, w))
                        for r, h in ((64, 128), (32, 96), (16, 80))
                        for c, w in ((128, 256), (64, 192), (32, 160),
                                     (16, 144)))
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+#: the card's figures (SMs, clocks, per-clock pipe rates, HBM bandwidth)
+#: are ``repro_torch.launch.roofline``'s ``H100_*`` constants, which the
+#: roofline's "cuda" row is derived from too; the bounds below read them
+#: there.
 #: instructions per element update that no implementation of the
 #: kernels' algorithm avoids, by the SM pipe that executes them (the
 #: pipes run concurrently).  Integer multiplies run on the FMA pipe: a
@@ -340,15 +361,6 @@ FMA_WIDE_SLOTS = 2
 #: Philox and the multispin accept take the sum of their times, not the
 #: larger: as if a wide multiply also took an ALU slot
 WIDE_ALU_SLOTS = 1
-#: results per clock per SM on compute capability 9.0 (CUDA C++
-#: Programming Guide, arithmetic instruction throughput): 32-bit integer
-#: multiply 64, add, logic and compare 64, type conversions 16; dense bf16
-#: FLOP on the tensor cores 4096 (989 TFLOP/s on the H100 SXM data sheet
-#: is 4096 per clock on each of 132 SMs at its 1830 MHz boost clock)
-PIPE_PER_CLOCK_PER_SM = {"fma": 64, "alu": 64, "xu": 16, "tensor": 4096}
-#: four schedulers per SM, each dispatching one warp instruction per
-#: clock
-DISPATCH_PER_CLOCK_PER_SM = 4 * 32
 #: the eleven kernels: family, tier, TPU kernel replaced
 KERNELS = {
     "stencil_update": ("stencil", "half-sweep",
@@ -561,6 +573,24 @@ FARM_SWEEPS, FARM_CHUNK, FARM_EVERY = 200, 50, 100
 #: the legacy driver: multispin at SIM_N^2, T = 2.0, SIM_SWEEPS sweeps,
 #: m every SIM_EVERY; the checkpointed run stops at SIM_CKPT
 SIM_N, SIM_SWEEPS, SIM_EVERY, SIM_CKPT = 32768, 300, 100, 200
+#: phase 12, the performance contract: two weakscale records of (D, 1)
+#: meshes, D in WEAKSCALE_SHARDS, PERF_BASE_N rows a shard, PERF_COLS
+#: columns, PERF_SWEEPS sweeps a call, PERF_TRIALS calls
+PERF_BASE_N, PERF_COLS = 8192, 32768
+PERF_SWEEPS, PERF_TRIALS = 20, 5
+#: the roofline readings (%) predicted from PERF.md's single-mode rates
+#: before the phase first ran (k = 2, tensorcore k = 1)
+ROOFLINE_PREDICTED = {"stencil": 13.95, "multispin": 19.43,
+                      "bitplane": 57.0, "tensorcore": 62.6}
+#: the engine of each main path's family
+FAMILY_ENGINE = {"stencil": "stencil_pallas",
+                 "multispin": "multispin_pallas",
+                 "bitplane": "bitplane_pallas", "tensorcore": "tensorcore"}
+#: sweeps of each raw sweep wrapper (``kernels.<family>.ops``) at SMALL_N^2
+RAW_SWEEPS = 3
+#: phase_transition's |m| at T = 1.5 from its ordered start: within this
+#: of Onsager's 0.9865
+EXAMPLE_M_TOLERANCE = 0.02
 
 
 def check(ok: bool, what: str) -> None:
@@ -1159,6 +1189,171 @@ def phase_11(drive, launches_by_path) -> None:
           f"{m_lines[0]}")
 
 
+def phase_12(wrappers, launches_by_path, rates) -> None:
+    """The performance contract: weakscale records with their roofline
+    readings, the main paths' readings, the gate on the card's records
+    and the four Ising examples on the card.  ``rates`` maps each main
+    path's family to its single-mode ``run(200)`` flips/ns and k."""
+    import contextlib
+    import io
+
+    import torch
+
+    import numpy as np
+
+    from repro_torch.core import multispin, observables
+    from repro_torch.examples import (bitplane_replicas, multipod_sim,
+                                      phase_transition, quickstart)
+    from repro_torch.kernels.bitplane import run_sweeps_bitplane_kernel
+    from repro_torch.kernels.multispin import run_sweeps_multispin
+    from repro_torch.kernels.stencil import run_sweeps_stencil
+    from repro_torch.launch import roofline
+    from repro_torch.perf import gate as perf_gate
+
+    def quiet(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = perf_gate.main(argv)
+        return code, out.getvalue().strip().splitlines()[-1]
+
+    # -- 12.1 weakscale records: every row's reading in (0, 100] -----------
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for i in range(2):
+            path = os.path.join(d, f"weakscale_{i}.json")
+            t1 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.dist.weakscale",
+                 "--devices", ",".join(map(str, WEAKSCALE_SHARDS)),
+                 "--base-n", str(PERF_BASE_N), "--cols", str(PERF_COLS),
+                 "--sweeps", str(PERF_SWEEPS), "--trials", str(PERF_TRIALS),
+                 "--json", path], env=env, capture_output=True, text=True,
+                timeout=600)
+            seconds = time.perf_counter() - t1
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:] + proc.stderr[-4000:],
+                      file=sys.stderr)
+            check(proc.returncode == 0,
+                  f"weakscale record {i}: exit {proc.returncode}")
+            with open(path) as f:
+                record = json.load(f)
+            check(record["meta"]["backend"] == "cuda",
+                  f"weakscale record {i}: backend {record['meta']}")
+            for row in record["rows"]:
+                dv = row["derived"]
+                pct = dv.get("pct_of_roofline")
+                peak = roofline.roofline_flips_per_ns(dv["engine"], "cuda",
+                                                      k=dv["halo_k"])
+                print(f"phase 12: weakscale record {i} ({seconds:.2f} s): "
+                      f"{row['name']} k = {dv['halo_k']}: "
+                      f"{dv['flips_per_ns']:.2f} flips/ns, {pct} % of "
+                      f"{peak:.1f}")
+                check(pct is not None and 0.0 < pct <= 100.0,
+                      f"weakscale {row['name']}: pct_of_roofline {pct}")
+            paths.append(path)
+
+        # -- 12.2 the main paths' readings -----------------------------------
+        for family, (rate, k) in rates.items():
+            engine = FAMILY_ENGINE[family]
+            pct = roofline.pct_of_roofline(rate, engine, "cuda", k=k)
+            print(f"phase 12: roofline {engine} run(200) {rate:.2f} "
+                  f"flips/ns at k = {k}: {pct:.2f} % of "
+                  f"{roofline.roofline_flips_per_ns(engine, 'cuda', k=k):.1f}"
+                  f" (predicted {ROOFLINE_PREDICTED[family]} %)")
+            check(0.0 < pct <= 100.0, f"{engine}: reading {pct} %")
+
+        # -- 12.3 the gate on the card's records -----------------------------
+        first, second = paths
+        low, high = (os.path.join(d, f"budgets_{x}.json")
+                     for x in ("low", "high"))
+        steps = [("init budgets", ["--init-budgets", low, first], 0),
+                 ("first against itself, its budgets",
+                  [first, first, "--budgets", low], 0),
+                 ("init budgets at 2.0", ["--init-budgets", high, first,
+                                          "--safety", "2.0"], 0),
+                 ("first against itself, budgets at 2.0",
+                  [first, first, "--budgets", high], 1),
+                 ("the same, advisory",
+                  [first, first, "--budgets", high, "--advisory"], 0)]
+        for what, argv, want in steps:
+            code, last = quiet(argv)
+            print(f"phase 12: gate {what}: exit {code} ({last})")
+            check(code == want, f"gate {what}: exit {code}, want {want}")
+        with open(first) as f:
+            record = json.load(f)
+        verdicts = perf_gate.gate(record, record,
+                                  perf_gate.load_budgets(high))
+        timed = sorted(r["name"] for r in record["rows"]
+                       if perf_gate.throughput(r)[1] is not None)
+        check(sorted(v.name for v in verdicts.by_status("budget")) == timed,
+              "gate: not every throughput row under budgets at 2.0 is "
+              "'budget'")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = perf_gate.main([first, second, "--advisory"])
+        print("phase 12: the second record against the first (run-to-run "
+              f"noise, advisory, exit {code}):")
+        print(out.getvalue().rstrip())
+
+    # -- 12.4 the raw sweeps on the card against the CPU ----------------------
+    for run, update, planes in (
+            (run_sweeps_stencil, "stencil_update",
+             lambda g: (g.integers(0, 2, (SMALL_N, SMALL_N // 2)) * 2 - 1)
+             .astype(np.int8)),
+            (run_sweeps_multispin, "multispin_update",
+             lambda g: multispin.pack_plane(torch.from_numpy(
+                 (g.integers(0, 2, (SMALL_N, SMALL_N // 2)) * 2 - 1)
+                 .astype(np.int8))).numpy()),
+            (run_sweeps_bitplane_kernel, "bitplane_update",
+             lambda g: g.integers(-2 ** 31, 2 ** 31,
+                                  (SMALL_N, SMALL_N // 2), dtype=np.int32))):
+        g = np.random.default_rng(12)
+        host = [torch.from_numpy(planes(g)) for _ in range(2)]
+        card = [p.cuda() for p in host]
+        wrappers[update].launches = 0
+        run(*card, 1 / TEMPERATURE, RAW_SWEEPS, seed=SEED, start_offset=7)
+        torch.cuda.synchronize()
+        launched = wrappers[update].launches
+        run(*host, 1 / TEMPERATURE, RAW_SWEEPS, seed=SEED, start_offset=7)
+        same = all(torch.equal(c.cpu(), h) for c, h in zip(card, host))
+        print(f"phase 12: {run.__name__} {SMALL_N}^2, {RAW_SWEEPS} sweeps: "
+              f"{launched} launches of {update}; the CPU's planes: {same}")
+        check(same and launched == 2 * RAW_SWEEPS,
+              f"{run.__name__}: card against CPU {same}, {launched} "
+              f"launches")
+
+    # -- 12.5 the four examples on the card ----------------------------------
+    examples = {}
+    for name, module in (("quickstart", quickstart),
+                         ("phase_transition", phase_transition),
+                         ("bitplane_replicas", bitplane_replicas),
+                         ("multipod_sim", multipod_sim)):
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            examples[name] = module.main([])
+        torch.cuda.synchronize()
+        path = f"example {name}"
+        launches_by_path[path] = {n: w.launches for n, w in wrappers.items()}
+        print(f"phase 12: {path} ({time.perf_counter() - t1:.2f} s): "
+              + " | ".join(out.getvalue().splitlines()))
+        print(f"launches on path {path!r}: {launches_by_path[path]}")
+    launched = examples["quickstart"]["kernel_launches"]
+    check(launched == 2 * quickstart.KERNEL_SWEEPS,
+          f"quickstart: {launched} launches of multispin_update for "
+          f"{quickstart.KERNEL_SWEEPS} sweeps")
+    onsager = observables.onsager_magnetization(1.5)
+    i = phase_transition.TEMPS.index(1.5)
+    for size, (m, _) in examples["phase_transition"].items():
+        check(abs(m[i] - onsager) < EXAMPLE_M_TOLERANCE,
+              f"phase_transition L={size}: |m| {m[i]} at T = 1.5")
+    check(examples["multipod_sim"]["same"], "multipod_sim: not bit-exact")
+
+
 def nvidia_smi(query: str) -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -1187,19 +1382,22 @@ def clocks_per_element(family: str) -> float:
     """SM clocks per element update at the busiest pipe, or at the
     dispatch rate (of the pipes other than the tensor cores' FLOP) where
     that is lower."""
+    from repro_torch.launch import roofline
     ops = dict(PIPE_OPS[family])
     wide = ops.pop("wide")
     ops["fma"] += FMA_WIDE_SLOTS * wide
     ops["alu"] += WIDE_ALU_SLOTS * wide
-    pipes = max(ops[p] / PIPE_PER_CLOCK_PER_SM[p] for p in ops)
+    pipes = max(ops[p] / roofline.H100_PIPE_PER_CLOCK_PER_SM[p]
+                for p in ops)
     issued = wide + sum(v for p, v in PIPE_OPS[family].items()
                         if p not in ("tensor", "wide"))
-    return max(pipes, issued / DISPATCH_PER_CLOCK_PER_SM)
+    return max(pipes, issued / roofline.H100_DISPATCH_PER_CLOCK_PER_SM)
 
 
 def bound(family: str, bytes_moved: float, updates: float,
           sm_clocks_per_s: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    from repro_torch.launch import roofline
+    t_bytes = bytes_moved / roofline.H100_HBM_BYTES_PER_S
     t_ops = updates * clocks_per_element(family) / sm_clocks_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -1316,6 +1514,7 @@ def main() -> int:
     from repro_torch.kernels import _build, resident
     from repro_torch.kernels.tensorcore.tensorcore import (CUDA_BLOCKS,
                                                            kernel_geometry)
+    from repro_torch.launch import roofline
     from repro_torch.launch.mesh import make_mesh
 
     t_start = time.perf_counter()
@@ -1335,7 +1534,10 @@ def main() -> int:
     sm_clocks_per_s = props.multi_processor_count * max_sm_mhz * 1e6
     print(f"phase 1: card {card_line}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}; "
-          f"{props.multi_processor_count} SMs at max {max_sm_mhz:.0f} MHz; "
+          f"{props.multi_processor_count} SMs at max {max_sm_mhz:.0f} MHz "
+          f"(the roofline's figures: {roofline.H100_SMS} SMs, boost "
+          f"{roofline.H100_BOOST_MHZ} MHz, HBM "
+          f"{roofline.H100_HBM_BYTES_PER_S:.4g} B/s); "
           "bound: SM clocks per element update " + ", ".join(
               f"{f} {clocks_per_element(f):.6f} (ops by pipe {PIPE_OPS[f]})"
               for f in PIPE_OPS))
@@ -2516,6 +2718,7 @@ def main() -> int:
     # -- 5. main paths at full size, on each tier ----------------------------
     t0 = time.perf_counter()
     main_paths, half_paths, peaks, single_rates = {}, {}, {}, {}
+    single_k = {"tensorcore": 1}
     for engine, family in ENGINE_FAMILY.items():
         bitplane = family == "bitplane"
         n = BITPLANE_N if bitplane else FULL_N
@@ -2551,6 +2754,7 @@ def main() -> int:
             stencil_after_200 = measured["before"]
         flips_per_ns = single_rates[family] = 200 * spins / (run_ms * 1e6)
         plan = session.engine.resident_plan
+        single_k[family] = plan.k
         print(f"phase 5: {main_path}: open {open_s:.2f} s; run(200) "
               f"{run_ms:.1f} ms = {flips_per_ns:.2f} flips/ns (k = {plan.k},"
               f" tile {plan.tile_rows} x {plan.tile_cols}); measure() "
@@ -2632,8 +2836,9 @@ def main() -> int:
     launched = launches_by_path[main_path][tc_update]
     m = abs(session.magnetization())
     onsager = observables.onsager_magnetization(TEMPERATURE)
+    single_rates["tensorcore"] = 200 * FULL_N ** 2 / (run_ms * 1e6)
     print(f"phase 5: {main_path}: open {open_s:.2f} s; run(200) "
-          f"{run_ms:.1f} ms = {200 * FULL_N ** 2 / (run_ms * 1e6):.2f} "
+          f"{run_ms:.1f} ms = {single_rates['tensorcore']:.2f} "
           f"flips/ns; measure() {spec.sweep.total_sweeps} sweeps + "
           f"{spec.sweep.n_measure} samples {measure_s:.3f} s; "
           f"{launched} launches; |m| {m:.5f} (Onsager {onsager:.5f}), "
@@ -3318,6 +3523,14 @@ def main() -> int:
     phase_11(drive, launches_by_path)
     phase_s[11] = time.perf_counter() - t0
     print(f"phase 11: {phase_s[11]:.1f} s")
+
+    # -- 12. the performance contract ----------------------------------------
+    t0 = time.perf_counter()
+    phase_12(wrappers, launches_by_path,
+             {family: (single_rates[family], single_k[family])
+              for family in ROOFLINE_PREDICTED})
+    phase_s[12] = time.perf_counter() - t0
+    print(f"phase 12: {phase_s[12]:.1f} s")
 
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}

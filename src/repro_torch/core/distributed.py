@@ -104,6 +104,17 @@ class ShardGrid:
             plane[r0:r0 + self.n_loc, c0:c0 + self.w_loc] = x.to(device)
         return plane
 
+    def split(self, plane: torch.Tensor) -> list:
+        """The whole plane -> its shards (copies), shard ``i`` on
+        ``mesh.device_of(i)``: the inverse of :meth:`gather`."""
+        shards = []
+        for i in range(self.mesh.size):
+            r0, c0 = self.origin(i)
+            block = plane[r0:r0 + self.n_loc, c0:c0 + self.w_loc]
+            shards.append(block.to(self.mesh.device_of(i)).clone(
+                memory_format=torch.contiguous_format))
+        return shards
+
     def positions(self, i: int, h: int = 0):
         """Global (row, column) int64 vectors of shard ``i``'s cells,
         extended by ``h`` on each side, modulo the plane (the periodic

@@ -3,7 +3,8 @@
 
 One row per (family, shard count D): a ``(D, 1)`` mesh with ``base_n *
 D`` lattice rows -- per-shard work is constant along the axis.  Every
-row records the sweep throughput (flips/ns), the shard planner's
+row records the sweep throughput (flips/ns) and its percentage of the
+backend's roofline (``launch.roofline``, at the row's k), the shard planner's
 decision (``halo_k``, ``sharded_resident``), the MEASURED halo traffic
 per call (deltas of the telemetry counters ``halo_exchanges`` and
 ``halo_bytes`` -- the evidence that the resident tier exchanges once per
@@ -125,17 +126,22 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch.analysis.recorder import RunRecorder
-    on_cpu = args.device == "cpu"
+    from repro_torch.launch import roofline as rl
+    backend = "cpu" if args.device == "cpu" else "cuda"
     rec = RunRecorder(echo=True, meta={
         "stamp": time.strftime("%Y%m%d_%H%M%S"),
-        "backend": "cpu" if on_cpu else "cuda",
-        "device_count": 1 if on_cpu else torch.cuda.device_count(),
+        "backend": backend,
+        "device_count": 1 if backend == "cpu" else torch.cuda.device_count(),
         "only": "dist", "trials": args.trials})
     for row in measure_rows(shards, base_n=args.base_n, cols=args.cols,
                             sweeps=args.sweeps, trials=args.trials,
                             device=args.device or None):
         derived = dict(row["derived"])
         derived["engine"] = row["engine"]
+        pct = rl.pct_of_roofline(derived["flips_per_ns"], row["engine"],
+                                 backend, k=row["k"])
+        if pct is not None:
+            derived["pct_of_roofline"] = round(pct, 4)
         rec.record(row["name"], row["us"], spec=row["spec"],
                    times_us=[t * 1e6 for t in row["times_s"]],
                    **derived)

@@ -2,6 +2,7 @@
 per launch, each also over an ensemble's members in one launch."""
 from .bitplane import (bitplane_update, bitplane_update_batched,
                        bitplane_update_batched_plain, bitplane_update_plain)
+from .ops import run_sweeps_bitplane_kernel
 from .resident import (bitplane_sweeps_resident,
                        bitplane_sweeps_resident_batched,
                        bitplane_sweeps_resident_batched_plain,
@@ -11,4 +12,5 @@ __all__ = ["bitplane_update", "bitplane_update_plain",
            "bitplane_update_batched", "bitplane_update_batched_plain",
            "bitplane_sweeps_resident", "bitplane_sweeps_resident_plain",
            "bitplane_sweeps_resident_batched",
-           "bitplane_sweeps_resident_batched_plain"]
+           "bitplane_sweeps_resident_batched_plain",
+           "run_sweeps_bitplane_kernel"]

@@ -671,3 +671,41 @@ def test_cli_mesh_prints_the_single_mode_magnetization(capsys, tmp_path):
     r = Session.restore(path, device="cpu")
     assert r.spec.mesh.axis_names == ("data", "model")
     assert r.step_count == 6
+
+
+def test_weakscale_rows_carry_pct_of_roofline_with_jax_keys(tmp_path):
+    """``python -m repro_torch.dist.weakscale --json`` rows carry
+    ``pct_of_roofline`` (the record's backend's roofline at the row's k)
+    and the same keys as a JAX weakscale row, in a record that both
+    packages' schemas accept."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro.perf.schema import validate_record as jax_validate
+    from repro_torch.dist import weakscale
+    from repro_torch.launch import roofline
+    args = ["--devices", "1,2", "--sweeps", "1", "--trials", "1"]
+    jax_path, port_path = tmp_path / "jax.json", tmp_path / "port.json"
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro.dist.weakscale", *args, "--json",
+         str(jax_path)], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert weakscale.main([*args, "--device", "cpu", "--json",
+                           str(port_path)]) == 0
+    jrec, prec = (json.loads(p.read_text()) for p in (jax_path, port_path))
+    jax_validate(prec)
+    assert prec["meta"]["backend"] == jrec["meta"]["backend"] == "cpu"
+    assert [r["name"] for r in prec["rows"]] == \
+        [r["name"] for r in jrec["rows"]]
+    for p, j in zip(prec["rows"], jrec["rows"]):
+        assert sorted(p) == sorted(j)
+        assert sorted(p["derived"]) == sorted(j["derived"])
+        d = p["derived"]
+        assert d["pct_of_roofline"] == round(roofline.pct_of_roofline(
+            d["flips_per_ns"], d["engine"], "cpu", k=d["halo_k"]), 4)
+        assert d["pct_of_roofline"] > 0

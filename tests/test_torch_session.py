@@ -382,6 +382,11 @@ def test_no_jax_or_reference_imports_in_port_sources():
     names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
              if f.name != "chip_smoke.py"}
     assert {"serve/server.py", "serve/journal.py", "serve/smoke.py",
-            "launch/simulate.py", "launch/serve.py", "core/sim.py"} <= names
+            "launch/simulate.py", "launch/serve.py", "core/sim.py",
+            "launch/roofline.py", "perf/gate.py", "kernels/stencil/ops.py",
+            "kernels/multispin/ops.py", "kernels/bitplane/ops.py",
+            "examples/quickstart.py", "examples/phase_transition.py",
+            "examples/bitplane_replicas.py",
+            "examples/multipod_sim.py"} <= names
     for f in files:
         assert not pattern.search(f.read_text()), f
