@@ -47,14 +47,16 @@ fails:
    plane, halos wider than the plane, and the cold check; each kernel's
    time and its plain version's at the full plane, and both sweep
    tiers' times;
-   ``tensorcore_update`` at every block it takes on small ragged planes
-   (also at T = 0.05 from all-up planes, where no spin may flip), at
+   ``tensorcore_update`` at blocks 8 to 128 (8 and 24: the element-wise
+   form) on small ragged planes (also at T = 0.05 from all-up planes, where no spin may flip), at
    planes of 512^2 with blocks 16 and 64 (int8 and bf16) and at the main
    path's 16384^2 planes with block 128, both colours; on planes of one
    tile more than a multiple of its persistent grid; at block 128 on a
    512^2 lattice, both colours and types, with a hot table (every entry
    1) and the cold one from all-up planes; at every tile it takes; a
-   block of 8 must raise; each shard kernel on whole extended planes,
+   block that does not tile the planes must raise, and sessions at the
+   JAX engine's blocks (64^2 at 8, 48^2 at 24 and 8) must give the CPU's
+   digest after 10 sweeps; each shard kernel on whole extended planes,
    with random planes and random index planes and with the driver's own
    wrapped index planes (at 512^2 and at the main path's shard),
    ``n_sweeps`` 1, 2 and 3, and its time at the main path's shard; the
@@ -218,7 +220,22 @@ fails:
    assertions: ``quickstart``'s raw kernel part 200 launches of
    ``multispin_update`` for 100 sweeps, ``phase_transition``'s |m| at T =
    1.5 within 0.02 of Onsager's, ``bitplane_replicas``' replica gates,
-   ``multipod_sim`` bit-exact on a 2 x 2 mesh of shards on the card.
+   ``multipod_sim`` bit-exact on a 2 x 2 mesh of shards on the card;
+13. the LM stack's inference path (:func:`phase_13`), driven as one path
+   that launches none of the eleven kernels: every architecture of
+   ``repro_torch.configs.ARCH_IDS`` at its ``smoke_config()`` width on the
+   card and on the CPU from one initialisation copied across: ``forward``
+   logits (max absolute and relative-RMS error within ``LM_REL_RMS``),
+   8 greedy ``make_serve_step`` tokens teacher-forced with the CPU's
+   (equal wherever the CPU's top-2 logit margin exceeds ``LM_MARGIN``),
+   prefill against decode on the card; the ring cache against the full
+   cache, ``moe_block``'s two layouts against each other; then
+   ``internlm2-1.8b`` at its full width (24 layers, about 1.7 G
+   parameters from the port's own init): ``make_prefill_step`` on
+   ``make_batch`` at 8 x 512, 32 greedy ``make_serve_step`` tokens from a
+   cache of ``max_len`` 1024, one prefill at 1 x 8192 (``sdpa_chunked``
+   at its threshold), their CUDA-event times, tokens/s and peak device
+   memory, and the full width against the CPU at 2 layers, 1 x 16 tokens.
 
 Every counter-based ``measure()`` (phases 5, 7 and 8) launches its
 sweeps from the host and replays one captured CUDA graph of a sample's
@@ -269,6 +286,15 @@ HALF_SWEEP_CHECK = 10       # sweeps of the full-size half-sweep-tier paths
 TC_BLOCK = 128              # tensorcore main path's block (the default)
 TC_SMALL_PLANE = 512        # plane side of the small tensorcore checks
 TC_COLD_T = 0.05            # a temperature whose table holds exact zeros
+#: the blocks checked on (2B, 3B) planes: any block that tiles the planes
+#: (the JAX engine's rule); sides that are multiples of 16 take the tiled
+#: kernel, 8 and 24 the element-wise one
+TC_BLOCKS = (8, 16, 24, 32, 48, 64, 80, 96, 112, 128)
+#: lattices whose tensorcore trajectory on the card must equal the CPU's
+#: (side, tc_block): JAX's quickstart's 64^2 at 8, and 48^2, whose 24 x 24
+#: planes take the element-wise kernel, at 24 and 8
+TC_JAX_BLOCKS = ((64, 8), (48, 24), (48, 8))
+TC_JAX_SWEEPS = 10
 #: tensorcore planes of 5 x 53 tiles of the kernel's 64 x 128: one more
 #: than a grid of 2 x 132 blocks (or 132), so a block takes one tile more
 TC_RAGGED = (320, 6784)
@@ -591,6 +617,28 @@ RAW_SWEEPS = 3
 #: phase_transition's |m| at T = 1.5 from its ordered start: within this
 #: of Onsager's 0.9865
 EXAMPLE_M_TOLERANCE = 0.02
+#: phase 13, the LM stack's inference path: the smoke configs' batch, their
+#: greedy tokens, the card against the CPU as the logits' relative RMS
+#: error (bf16 activations summed in another order: about 1 % against the
+#: JAX package on the CPU, tests/test_torch_lm.py; MoE routing can take
+#: another expert at a near-tie, so the MoE archs run dropless and get
+#: LM_MOE_REL_RMS), the top-2 margin above which the greedy tokens must
+#: agree, prefill against decode (tests/test_models.py's 0.05)
+LM_SMOKE_BATCH, LM_SMOKE_TOKENS = 2, 16
+LM_SERVE_STEPS = 8
+LM_REL_RMS, LM_MOE_REL_RMS = 0.03, 0.15
+LM_MARGIN = 0.05
+LM_CONSISTENCY_TOL = 0.05
+LM_RING_WINDOW, LM_RING_STEPS = 4, 10
+#: the full width: internlm2-1.8b, prefill at LM_PREFILL (batch, tokens)
+#: from make_batch, LM_DECODE greedy tokens from a cache of LM_MAX_LEN,
+#: one prefill at LM_LONG (sdpa_chunked's threshold); against the CPU at
+#: LM_CPU_LAYERS layers and LM_CPU_TOKENS
+LM_ARCH = "internlm2-1.8b"
+LM_PREFILL, LM_LONG = (8, 512), (1, 8192)
+LM_DECODE, LM_MAX_LEN = 32, 1024
+LM_CPU_LAYERS, LM_CPU_TOKENS = 2, (1, 16)
+LM_PREFILL_TRIALS = 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -1354,6 +1402,304 @@ def phase_12(wrappers, launches_by_path, rates) -> None:
     check(examples["multipod_sim"]["same"], "multipod_sim: not bit-exact")
 
 
+def lm_errors(got, want) -> tuple:
+    """(max absolute error, relative RMS error) of card logits against
+    the CPU's, both as f32 on the host."""
+    got, want = got.float().cpu(), want.float()
+    diff = got - want
+    rel = float(diff.pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+    return float(diff.abs().max()), rel
+
+
+def lm_smoke_batch(torch, cfg, seed: int) -> dict:
+    """A smoke batch from numpy (seed): tokens, and the stub frontends'
+    frames or patch embeddings."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    text = LM_SMOKE_TOKENS - (cfg.prefix_len if cfg.family == "vlm" else 0)
+    batch = {"tokens": torch.tensor(r.integers(
+        0, cfg.vocab, (LM_SMOKE_BATCH, text)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.tensor(r.standard_normal(
+            (LM_SMOKE_BATCH, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["patch_emb"] = torch.tensor(r.standard_normal(
+            (LM_SMOKE_BATCH, cfg.prefix_len, cfg.d_model)).astype(
+                np.float32))
+    return batch
+
+
+def phase_13() -> dict:
+    """The LM stack's inference path on the card: every architecture at
+    smoke width against the CPU, then internlm2-1.8b at full width.
+    Returns the full width's numbers."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config, \
+        get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_model)
+    from repro_torch.models import moe as lm_moe
+    from repro_torch.models.model import encode_audio, param_count
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    card = torch.device("cuda")
+    cpu = torch.device("cpu")
+
+    def on(params, device):
+        return copy.deepcopy(params).to(device)
+
+    def to(batch, device):
+        return {k: v.to(device) for k, v in batch.items()}
+
+    def new_cache(cfg, params, batch, b, max_len, device, **kw):
+        enc = None
+        if cfg.family == "audio":
+            with torch.no_grad():
+                enc = encode_audio(cfg, params, batch["frames"].to(device))
+        return init_cache(cfg, b, max_len, enc_out=enc,
+                          params=params if enc is not None else None,
+                          device=device, **kw)
+
+    # -- 13.1 every architecture at smoke width, the card against the CPU
+    rows = {}
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_smoke_config(arch)
+        moe = cfg.family == "moe"
+        params_cpu = init_model(cfg, 100 + i, device=cpu)
+        params_card = on(params_cpu, card)
+        batch = lm_smoke_batch(torch, cfg, 200 + i)
+        with torch.no_grad():
+            want, _ = forward(cfg, params_cpu, batch, remat=False,
+                              dropless_moe=moe)
+            got, _ = forward(cfg, params_card, to(batch, card), remat=False,
+                             dropless_moe=moe)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{arch}: card logits "
+              "not finite")
+        fwd_err, fwd_rel = lm_errors(got, want)
+        limit = LM_MOE_REL_RMS if moe else LM_REL_RMS
+        check(fwd_rel <= limit, f"{arch}: card forward logits off the "
+              f"CPU's by {fwd_rel:.4g} relative RMS (limit {limit})")
+        # greedy serve steps on one pair of caches, decode_step's logits
+        # on another, all four fed the CPU's tokens
+        step = make_serve_step(cfg)
+        caches = {(where, kind): new_cache(cfg, p, batch, LM_SMOKE_BATCH,
+                                           LM_SERVE_STEPS, d)
+                  for where, d, p in (("cpu", cpu, params_cpu),
+                                      ("card", card, params_card))
+                  for kind in ("logits", "serve")}
+        tok = batch["tokens"][:, :1]
+        compared = agreed = 0
+        dec_err = dec_rel = 0.0
+        for _ in range(LM_SERVE_STEPS):
+            logits_cpu, _ = decode_step(cfg, params_cpu,
+                                        caches["cpu", "logits"], tok)
+            logits_card, _ = decode_step(cfg, params_card,
+                                         caches["card", "logits"],
+                                         tok.to(card))
+            nxt_cpu, _ = step(params_cpu, caches["cpu", "serve"], tok)
+            nxt_card, _ = step(params_card, caches["card", "serve"],
+                               tok.to(card))
+            e, r = lm_errors(logits_card, logits_cpu)
+            dec_err, dec_rel = max(dec_err, e), max(dec_rel, r)
+            top2 = logits_cpu[:, -1].float().topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > LM_MARGIN
+            compared += int(sure.sum())
+            agreed += int((nxt_card.cpu()[:, 0] == nxt_cpu[:, 0])[sure].sum())
+            check(torch.equal(nxt_cpu, logits_cpu[:, -1].argmax(
+                -1, keepdim=True).to(nxt_cpu.dtype)), f"{arch}: the serve "
+                "step's token is not decode_step's argmax")
+            tok = nxt_cpu
+        check(dec_rel <= limit, f"{arch}: card decode logits off the CPU's "
+              f"by {dec_rel:.4g} relative RMS (limit {limit})")
+        check(agreed == compared, f"{arch}: {compared - agreed} of "
+              f"{compared} sure greedy tokens differ on the card")
+        # prefill against decode on the card (teacher-forced, dropless);
+        # not the vlm, whose decode has no patch prefix in its cache (as
+        # in JAX)
+        consistency = None
+        if cfg.family != "vlm":
+            prefix = {k: v[:, :LM_SERVE_STEPS] if k == "tokens" else v
+                      for k, v in batch.items()}
+            with torch.no_grad():
+                full, _ = forward(cfg, params_card, to(prefix, card),
+                                  remat=False, dropless_moe=True)
+            c = new_cache(cfg, params_card, batch, LM_SMOKE_BATCH,
+                          LM_SERVE_STEPS, card)
+            outs = []
+            for t in range(LM_SERVE_STEPS):
+                lg, c = decode_step(cfg, params_card, c,
+                                    prefix["tokens"][:, t:t + 1].to(card))
+                outs.append(lg[:, 0])
+            dec = torch.stack(outs, dim=1)
+            consistency = float((dec - full).abs().max())
+            check(torch.allclose(dec, full, rtol=LM_CONSISTENCY_TOL,
+                                 atol=LM_CONSISTENCY_TOL),
+                  f"{arch}: prefill and decode disagree on the card")
+        rows[arch] = {"forward_max_abs": fwd_err, "forward_rel_rms": fwd_rel,
+                      "decode_max_abs": dec_err, "decode_rel_rms": dec_rel,
+                      "greedy_sure": compared,
+                      "prefill_decode_max_abs": consistency}
+        del params_card, caches
+    print("phase 13: smoke archs, card against CPU: " + json.dumps(rows))
+
+    # -- 13.2 the ring cache and the two MoE layouts on the card ------------
+    cfg = get_smoke_config(LM_ARCH)
+    params = init_model(cfg, 7, device=card)
+    toks = torch.randint(0, cfg.vocab, (LM_SMOKE_BATCH, LM_RING_STEPS),
+                         generator=torch.Generator().manual_seed(7)).to(card)
+    full = init_cache(cfg, LM_SMOKE_BATCH, LM_RING_STEPS, device=card)
+    ring = init_cache(cfg, LM_SMOKE_BATCH, LM_RING_STEPS,
+                      window=LM_RING_WINDOW, device=card)
+    check(ring["kv"]["k"].shape[2] == LM_RING_WINDOW, "ring cache size")
+    ring_err = 0.0
+    for t in range(LM_RING_STEPS):
+        lf, full = decode_step(cfg, params, full, toks[:, t:t + 1],
+                               sliding_window=LM_RING_WINDOW)
+        lr, ring = decode_step(cfg, params, ring, toks[:, t:t + 1],
+                               sliding_window=LM_RING_WINDOW)
+        ring_err = max(ring_err, float((lf - lr).abs().max()))
+        check(torch.allclose(lr, lf, rtol=2e-2, atol=2e-2),
+              f"ring cache against full cache at step {t}")
+    mcfg = get_smoke_config("deepseek-moe-16b")
+    mparams = init_model(mcfg, 8, device=card)["moe_blocks"][0]["moe"]
+    x = torch.randn((LM_SMOKE_BATCH, LM_SMOKE_TOKENS, mcfg.d_model),
+                    generator=torch.Generator().manual_seed(8)).to(
+                        card, torch.bfloat16)
+    dropless = float(mcfg.n_routed)
+    with torch.no_grad():
+        y_global, a_global = lm_moe.moe_block(mparams, x, top_k=mcfg.top_k,
+                                              capacity_factor=dropless)
+        y_seq, a_seq = lm_moe._moe_per_sequence(mparams, x,
+                                                top_k=mcfg.top_k,
+                                                capacity_factor=dropless)
+    moe_err = float((y_global.float() - y_seq.float()).abs().max())
+    check(moe_err <= 1e-2 * float(y_seq.float().abs().max())
+          and abs(float(a_global) - float(a_seq)) < 1e-6,
+          f"moe_block's layouts disagree dropless: {moe_err}")
+    print(f"phase 13: ring cache (window {LM_RING_WINDOW}, "
+          f"{LM_RING_STEPS} steps) against full: max abs {ring_err:.4g}; "
+          f"moe_block global against per-sequence (dropless): max abs "
+          f"{moe_err:.4g}")
+    del params, mparams
+
+    # -- 13.3 internlm2-1.8b at full width ---------------------------------
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, 11, device=card)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    weights_bytes = torch.cuda.memory_allocated()
+
+    def events(fn, trials=1):
+        """fn() run trials times between two CUDA events: (ms a run,
+        last result)."""
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(trials):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / trials, out
+
+    prefill = make_prefill_step(cfg)
+    b, s = LM_PREFILL
+    batch = make_batch(cfg, SHAPES["prefill_32k"], batch_override=b,
+                       seq_override=s, device=card)
+    events(lambda: prefill(params, batch))                  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms, logits = events(lambda: prefill(params, batch),
+                                LM_PREFILL_TRIALS)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (b, s, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"full-width prefill logits {tuple(logits.shape)} not finite")
+    del logits
+
+    serve = make_serve_step(cfg)
+    tok = batch["tokens"][:, :1]
+    cache = init_cache(cfg, b, LM_MAX_LEN, device=card)
+    events(lambda: serve(params, cache, tok))               # warm-up
+    cache = init_cache(cfg, b, LM_MAX_LEN, device=card)
+    torch.cuda.reset_peak_memory_stats()
+    generated = []
+
+    def decode_all():
+        nonlocal tok
+        for _ in range(LM_DECODE):
+            tok, _ = serve(params, cache, tok)
+            generated.append(tok)
+        return tok
+
+    decode_ms, _ = events(decode_all)
+    decode_peak = torch.cuda.max_memory_allocated()
+    check(cache["length"] == LM_DECODE, "decode cache length")
+    gen = torch.cat(generated, dim=1)
+    check(tuple(gen.shape) == (b, LM_DECODE) and bool(
+        ((gen >= 0) & (gen < cfg.vocab)).all()), "decoded tokens")
+    del cache
+
+    b2, s2 = LM_LONG
+    long_batch = make_batch(cfg, SHAPES["prefill_32k"], batch_override=b2,
+                            seq_override=s2, device=card)
+    events(lambda: prefill(params, long_batch))             # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    long_ms, logits = events(lambda: prefill(params, long_batch))
+    long_peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (b2, s2, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          "full-width 8192-token prefill logits not finite")
+    del logits, params
+
+    # the full width against the CPU at LM_CPU_LAYERS layers
+    shallow = cfg.with_overrides(n_layers=LM_CPU_LAYERS)
+    params_cpu = init_model(shallow, 12, device=cpu)
+    params_card = on(params_cpu, card)
+    b3, s3 = LM_CPU_TOKENS
+    small = make_batch(shallow, SHAPES["prefill_32k"], batch_override=b3,
+                       seq_override=s3, device=cpu)
+    want = make_prefill_step(shallow)(params_cpu, small)
+    got = make_prefill_step(shallow)(params_card, to(small, card))
+    width_err, width_rel = lm_errors(got, want)
+    check(width_rel <= LM_REL_RMS, f"full width at {LM_CPU_LAYERS} layers: "
+          f"card logits off the CPU's by {width_rel:.4g} relative RMS")
+    del params_card, params_cpu
+
+    out = {"arch": LM_ARCH, "params": n_params,
+           "weights_bytes": weights_bytes, "init_s": init_s,
+           "prefill": {"batch": b, "tokens": s, "ms": prefill_ms,
+                       "tokens_per_s": b * s / prefill_ms * 1e3,
+                       "peak_bytes": prefill_peak},
+           "decode": {"batch": b, "max_len": LM_MAX_LEN,
+                      "tokens": LM_DECODE,
+                      "ms_per_token": decode_ms / LM_DECODE,
+                      "tokens_per_s": b * LM_DECODE / decode_ms * 1e3,
+                      "peak_bytes": decode_peak},
+           "long_prefill": {"batch": b2, "tokens": s2, "ms": long_ms,
+                            "tokens_per_s": b2 * s2 / long_ms * 1e3,
+                            "peak_bytes": long_peak},
+           "cpu_check": {"layers": LM_CPU_LAYERS, "tokens": list(
+               LM_CPU_TOKENS), "max_abs": width_err, "rel_rms": width_rel}}
+    print(f"phase 13: {LM_ARCH} full width ({n_params} parameters, "
+          f"{weights_bytes} B, init {init_s:.2f} s): prefill {b} x {s} "
+          f"{prefill_ms:.3f} ms ({out['prefill']['tokens_per_s']:.1f} "
+          f"tokens/s, peak {prefill_peak} B); decode {LM_DECODE} tokens "
+          f"at batch {b} from a cache of {LM_MAX_LEN}: "
+          f"{out['decode']['ms_per_token']:.3f} ms a token "
+          f"({out['decode']['tokens_per_s']:.1f} tokens/s, peak "
+          f"{decode_peak} B); prefill {b2} x {s2} {long_ms:.3f} ms (peak "
+          f"{long_peak} B); {LM_CPU_LAYERS} layers against the CPU: max "
+          f"abs {width_err:.4g}, relative RMS {width_rel:.4g}")
+    return out
+
+
 def nvidia_smi(query: str) -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -1512,8 +1858,7 @@ def main() -> int:
     from repro_torch.dist import driver as shard_driver
     from repro_torch.dist import planner as shard_planner
     from repro_torch.kernels import _build, resident
-    from repro_torch.kernels.tensorcore.tensorcore import (CUDA_BLOCKS,
-                                                           kernel_geometry)
+    from repro_torch.kernels.tensorcore.tensorcore import kernel_geometry
     from repro_torch.launch import roofline
     from repro_torch.launch.mesh import make_mesh
 
@@ -1828,10 +2173,10 @@ def main() -> int:
     tc_update = "tensorcore_update"
     tc_plane = (FULL_N // 2, FULL_N // 2)
     tc_beta = 1.0 / TEMPERATURE
-    # every block the kernel takes, on (2B, 3B) planes, both types and
-    # colours: at TEMPERATURE from random planes, and at TC_COLD_T from
-    # all-up planes, where the table's -8 beta entries underflow to 0
-    for block in CUDA_BLOCKS:
+    # blocks of TC_BLOCKS on (2B, 3B) planes, both types and colours: at
+    # TEMPERATURE from random planes, and at TC_COLD_T from all-up planes,
+    # where the table's -8 beta entries underflow to 0
+    for block in TC_BLOCKS:
         for dtype in (torch.int8, torch.bfloat16):
             for color in ("black", "white"):
                 for temp, up in ((TEMPERATURE, False), (TC_COLD_T, True)):
@@ -1919,7 +2264,8 @@ def main() -> int:
           f"{ragged['tile_rows']} x {ragged['tile_cols']}, {ragged['tiles']} "
           f"tiles on {ragged['blocks']} blocks; hot and cold tables, every "
           f"tile of {[t for t, _ in TC_TILE_PLANES]} checked")
-    planes = tc_random_planes(torch, 64, torch.int8, 1)
+    # a block that does not tile the planes raises and launches nothing
+    planes = tc_random_planes(torch, 12, torch.int8, 1)
     before = wrappers[tc_update].launches
     try:
         wrappers[tc_update](planes, "black", tc_beta, block=8)
@@ -1927,10 +2273,25 @@ def main() -> int:
     except ValueError:
         raised = True
     check(raised and wrappers[tc_update].launches == before,
-          "tensorcore_update took a block of 8 on the card")
+          "tensorcore_update took a block of 8 on 12 x 12 planes")
+    # the JAX engine's blocks in a session: the CPU's trajectory
+    for side, block in TC_JAX_BLOCKS:
+        spec = RunSpec(lattice=LatticeSpec(side, side),
+                       engine=EngineSpec("tensorcore", {"tc_block": block}),
+                       temperature=2.2, seed=SEED)
+        digests = []
+        for device in ("cpu", "cuda"):
+            session = Session.open(spec, device)
+            session.run(TC_JAX_SWEEPS)
+            digests.append(session.state_digest())
+        check(digests[0] == digests[1], f"tensorcore {side}^2 at block "
+              f"{block}: card digest {digests[1]}, CPU {digests[0]}")
+        print(f"phase 3: tensorcore session {side}^2 at tc_block {block}: "
+              f"{TC_JAX_SWEEPS} sweeps, card digest {digests[1]} = CPU's")
     cases, bad, err, _ = stats[tc_update]
     print(f"phase 3: {tc_update}: {cases} plane comparisons with the plain "
-          f"version, {bad} mismatches, max abs err {err}; block 8 raises")
+          f"version, {bad} mismatches, max abs err {err}; a block that "
+          f"does not tile the planes raises")
     check(bad == 0, f"{tc_update} disagrees with its plain version")
     tc_geometry = kernel_geometry(*tc_plane)
     PIPE_OPS["tensorcore"]["tensor"] = tensorcore_flop_per_position(
@@ -3531,6 +3892,12 @@ def main() -> int:
               for family in ROOFLINE_PREDICTED})
     phase_s[12] = time.perf_counter() - t0
     print(f"phase 12: {phase_s[12]:.1f} s")
+
+    # -- 13. the LM stack's inference path -----------------------------------
+    t0 = time.perf_counter()
+    lm = drive("lm inference", None, None, phase_13)
+    phase_s[13] = time.perf_counter() - t0
+    print(f"phase 13: {phase_s[13]:.1f} s; " + json.dumps({"lm": lm}))
 
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}

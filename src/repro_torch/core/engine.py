@@ -727,9 +727,6 @@ class TensorCoreEngine(CounterEngine):
                  resident_budget_bytes: Optional[int] = None):
         super().__init__(config, device, resident_budget_bytes)
         self.block = config.tc_block
-        if device.type == "cuda":
-            from repro_torch.kernels.tensorcore.tensorcore import check_block
-            check_block(self.block)
 
     def init_state(self):
         cfg = self.cfg

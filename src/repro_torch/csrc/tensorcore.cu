@@ -78,6 +78,14 @@
 // The kernel is a template on the plane type -- int8 (the engine's state)
 // and bf16 (the TPU kernel's contract), held as its 16-bit pattern -- and
 // on its tile.
+//
+// Planes whose sides are not both multiples of 16 (a 48^2 lattice's 24 x
+// 24 planes) have no tile of whole 16-byte rows and mma steps; they take
+// tensorcore_sites_kernel, one thread a plane position: the same four
+// neighbours a sum, the same draws and the same accept, without the
+// products.  Such planes are small, so it is written for being right,
+// not fast.  The caller's tc_block is then any block that tiles the
+// planes, as it is for the TPU kernel.
 
 #include <cuda_runtime.h>
 
@@ -603,6 +611,57 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// The spin +-1 of an element, and the element with its spin flipped
+__device__ __forceinline__ int spin_of(int8_t v) { return v; }
+__device__ __forceinline__ int spin_of(uint16_t v) {
+  return (v & 0x8000u) ? -1 : 1;
+}
+__device__ __forceinline__ int8_t flipped(int8_t v) {
+  return static_cast<int8_t>(-v);
+}
+__device__ __forceinline__ uint16_t flipped(uint16_t v) {
+  return static_cast<uint16_t>(v ^ 0x8000u);
+}
+
+// The half-sweep one plane position a thread (grid-stride), for planes
+// the tiles do not fit: nn1 = a[i, j] + a[i, j - 1] + b[i, j] + b's row
+// above (black) or below (white); nn2 = b[i, j] + b[i, j + 1] + a[i, j] +
+// a's row below (black) or above (white), periodic; lane 0 of the draw
+// at site i w + j decides t1, lane 1 t2.  t1 and t2 are neither read for
+// a sum nor written by another thread, so the update is in place.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+    tensorcore_sites_kernel(T* __restrict__ t1, T* __restrict__ t2,
+                            const T* __restrict__ a,
+                            const T* __restrict__ b, int h, int w,
+                            int is_black, DrawBounds bounds,
+                            const repro_torch::HoistedPhilox philox) {
+  const int64_t n = static_cast<int64_t>(h) * w;
+  const int down1 = is_black ? h - 1 : 1;  // nn1's row of b, mod h
+  const int down2 = h - down1;             // nn2's row of a, mod h
+  for (int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       p < n; p += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int i = static_cast<int>(p / w), j = static_cast<int>(p % w);
+    const int64_t row = static_cast<int64_t>(i) * w;
+    const int left = j == 0 ? w - 1 : j - 1;
+    const int right = j + 1 == w ? 0 : j + 1;
+    const int sa = spin_of(a[p]), sb = spin_of(b[p]);
+    const int nn1 = sa + spin_of(a[row + left]) + sb +
+                    spin_of(b[static_cast<int64_t>((i + down1) % h) * w + j]);
+    const int nn2 = sb + spin_of(b[row + right]) + sa +
+                    spin_of(a[static_cast<int64_t>((i + down2) % h) * w + j]);
+    const uint2 d = philox.lanes01(static_cast<uint32_t>(p));
+    const T s1 = t1[p], s2 = t2[p];
+    if (d.x < bounds.v[(spin_of(s1) > 0) * 5 + (nn1 + 4) / 2]) {
+      t1[p] = flipped(s1);
+    }
+    if (d.y < bounds.v[(spin_of(s2) > 0) * 5 + (nn2 + 4) / 2]) {
+      t2[p] = flipped(s2);
+    }
+  }
+}
+
 // The kernel's tile for (h, w): the largest of 64, 32, 16 rows dividing h
 // and of 128, 64, 32, 16 columns dividing w.
 inline int tile_rows(int h) {
@@ -711,6 +770,23 @@ int dispatch(int rows, int cols, const Args& x, int* grid) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// tensorcore_sites_kernel over (h, w) planes whose sides are not both
+// multiples of 16
+template <class T>
+int launch_sites(const Args& x) {
+  const int64_t n = static_cast<int64_t>(x.h) * x.w;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  const repro_torch::HoistedPhilox philox(x.offset, x.key, 0u);
+  tensorcore_sites_kernel<T>
+      <<<static_cast<int>(blocks < 4096 ? blocks : 4096), kThreads, 0,
+         x.stream>>>(static_cast<T*>(x.t1), static_cast<T*>(x.t2),
+                     static_cast<const T*>(x.a), static_cast<const T*>(x.b),
+                     x.h, x.w, x.is_black, x.bounds, philox);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool tiled(int h, int w) { return h % 16 == 0 && w % 16 == 0; }
+
 int run(int rows, int cols, int elem_bytes, const Args& x, int* grid) {
   if (rows <= 0 || cols <= 0 || x.h % rows != 0 || x.w % cols != 0 ||
       (elem_bytes != 1 && elem_bytes != 2)) {
@@ -732,8 +808,7 @@ Args make_args(void* t1, void* t2, const void* a, const void* b, int h,
 }
 
 bool valid_block(int h, int w, int block) {
-  return block >= 16 && block <= 128 && block % 16 == 0 && h % block == 0 &&
-         w % block == 0;
+  return h > 0 && w > 0 && block > 0 && h % block == 0 && w % block == 0;
 }
 
 }  // namespace
@@ -741,27 +816,32 @@ bool valid_block(int h, int w, int block) {
 extern "C" {
 
 // One fused half-sweep, t1 and t2 updated in place.  elem_bytes 1: int8
-// planes, 2: bf16 planes.  block (the caller's tc_block) a multiple of 16
-// in [16, 128] dividing h and w; every plane 16-byte aligned.  The kernel
-// takes its own tile (tensorcore_geometry).  Returns a cudaError_t (0:
-// launched).
+// planes, 2: bf16 planes.  block (the caller's tc_block) any positive
+// block dividing h and w; every plane 16-byte aligned.  Planes whose
+// sides are multiples of 16 take the tiled kernel at its own tile
+// (tensorcore_geometry), the others tensorcore_sites_kernel.  Returns a
+// cudaError_t (0: launched).
 int tensorcore_update_launch(void* t1, void* t2, const void* a,
                              const void* b, int h, int w, int block,
                              int is_black, int elem_bytes,
                              const uint64_t* draw_bounds, uint32_t key,
                              uint32_t offset, void* stream) {
-  if (!valid_block(h, w, block)) {
+  if (!valid_block(h, w, block) || (elem_bytes != 1 && elem_bytes != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return run(tile_rows(h), tile_cols(w), elem_bytes,
-             make_args(t1, t2, a, b, h, w, is_black, draw_bounds, key,
-                       offset, stream),
-             nullptr);
+  const Args x = make_args(t1, t2, a, b, h, w, is_black, draw_bounds, key,
+                           offset, stream);
+  if (!tiled(h, w)) {
+    return elem_bytes == 1 ? launch_sites<int8_t>(x)
+                           : launch_sites<uint16_t>(x);
+  }
+  return run(tile_rows(h), tile_cols(w), elem_bytes, x, nullptr);
 }
 
-// The kernel's geometry for (h, w) planes of elem_bytes: out[0], out[1]
-// its tile rows and columns, out[2] the tiles, out[3] the blocks of its
-// persistent grid.  Returns a cudaError_t.
+// The tiled kernel's geometry for (h, w) planes of elem_bytes, sides
+// multiples of 16: out[0], out[1] its tile rows and columns, out[2] the
+// tiles, out[3] the blocks of its persistent grid.  Returns a
+// cudaError_t.
 int tensorcore_geometry(int h, int w, int elem_bytes, int* out) {
   const int rows = tile_rows(h), cols = tile_cols(w);
   if (h <= 0 || w <= 0 || h % 16 != 0 || w % 16 != 0) {

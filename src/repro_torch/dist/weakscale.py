@@ -127,7 +127,9 @@ def main(argv=None) -> int:
 
     from repro_torch.analysis.recorder import RunRecorder
     from repro_torch.launch import roofline as rl
-    backend = "cpu" if args.device == "cpu" else "cuda"
+    # the record's backend is the device type the rows ran on ("cpu:0"
+    # too), so a CPU run never reads the card's roofline or count
+    backend = torch.device(args.device or "cuda").type
     rec = RunRecorder(echo=True, meta={
         "stamp": time.strftime("%Y%m%d_%H%M%S"),
         "backend": backend,

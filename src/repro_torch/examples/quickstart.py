@@ -2,11 +2,6 @@
 validated against Onsager's exact solution, plus the raw per-half-sweep
 kernel path (counterpart of the JAX package's ``examples/quickstart.py``).
 
-``tensorcore`` runs with ``tc_block`` 16, not the JAX script's 8: the
-card's kernel takes blocks that are multiples of 16 (``kernels.
-tensorcore.tensorcore.CUDA_BLOCKS``), and 16 is the least of them that
-tiles the 64^2 lattice's 32 x 32 sublattice planes.
-
 Run:  python -m repro_torch.examples.quickstart [--device cpu]
 """
 from __future__ import annotations
@@ -26,7 +21,7 @@ from repro_torch.kernels.multispin.ops import run_sweeps_multispin
 T = 1.8  # below Tc = 2.269: the lattice must order
 N = 64
 ENGINES = ("basic", "basic_philox", "multispin", "tensorcore")
-TC_BLOCK = 16
+TC_BLOCK = 8
 ENGINE_SWEEPS, KERNEL_SWEEPS = 300, 100
 
 

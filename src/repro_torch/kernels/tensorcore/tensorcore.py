@@ -16,7 +16,11 @@ four 16384^2 int8 planes on an H100 SXM at its 1980 MHz clock
 (``PERF.md``).  The kernel's tile is its own, the largest of 64, 32, 16
 rows and of 128, 64, 32, 16 columns that divide the planes
 (:func:`kernel_geometry`): the sums are exact whatever the tile, so
-``block`` (the engine's ``tc_block``) only has to tile the planes.  The
+``block`` (the engine's ``tc_block``) only has to tile the planes, any
+positive block that divides both sides, as for the TPU kernel.  Planes
+whose sides are not both multiples of 16 (a 48^2 lattice's 24 x 24
+planes) have no such tile: they take the source's element-wise kernel,
+one thread a plane position, with the same sums, draws and accept.  The
 target planes are updated in place, by the kernel and, on the CPU, by the
 wrapper.
 
@@ -39,10 +43,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.errors import note_in_place, raise_on_error
 
 DEFAULT_BLOCK = tc.BLOCK
-#: block sizes the CUDA kernel takes: multiples of the 16-deep mma step
-#: up to 128, the TPU kernel's contract (the kernel's own tile is at most
-#: 64 x 128)
-CUDA_BLOCKS = tuple(range(16, 129, 16))
 _DTYPES = {torch.int8: 1, torch.bfloat16: 2}
 
 
@@ -56,14 +56,6 @@ def tensorcore_update_plain(planes: dict, color: str, inv_temp, *,
     u = tc.philox_uniform_pair(h, w, seed, offset, planes["00"].device)
     return tc.update_color_tc(planes, color, u,
                               metropolis.acceptance_table(inv_temp), block)
-
-
-def check_block(block: int) -> None:
-    """Raise ``ValueError`` unless the CUDA kernel takes ``block``."""
-    if block not in CUDA_BLOCKS:
-        raise ValueError(f"the CUDA tensorcore kernel takes a block of "
-                         f"{CUDA_BLOCKS[0]} to {CUDA_BLOCKS[-1]} in steps "
-                         f"of 16, got {block}")
 
 
 def check_planes(planes: dict, block: int) -> None:
@@ -119,9 +111,10 @@ def library(csrc_dir=_build.CSRC_DIR):
 
 
 def kernel_geometry(h: int, w: int, dtype=torch.int8) -> dict:
-    """The CUDA kernel's geometry on (h, w) planes of ``dtype``: its tile
-    (``tile_rows``, ``tile_cols``), the ``tiles`` of the planes and the
-    ``blocks`` of its persistent grid on the current card."""
+    """The tiled CUDA kernel's geometry on (h, w) planes of ``dtype``,
+    sides multiples of 16: its tile (``tile_rows``, ``tile_cols``), the
+    ``tiles`` of the planes and the ``blocks`` of its persistent grid on
+    the current card."""
     lib = library()
     out = (ctypes.c_int * 4)()
     raise_on_error(lib, lib.tensorcore_geometry(h, w, _DTYPES[dtype], out),
@@ -132,9 +125,7 @@ def kernel_geometry(h: int, w: int, dtype=torch.int8) -> dict:
 def launch_args(planes: dict, color: str, inv_temp, *, seed: int = 0,
                 offset: int = 0, block: int = DEFAULT_BLOCK) -> tuple:
     """The arguments of ``tensorcore_update_launch`` for a half-sweep of
-    CUDA ``planes`` that :func:`check_planes` takes; raises unless the
-    kernel takes ``block``."""
-    check_block(block)
+    CUDA ``planes`` that :func:`check_planes` takes at ``block``."""
     t1k, t2k = tc.COLOR_PLANES[color]
     is_black = color == "black"
     ak, bk = ("01", "10") if is_black else ("11", "00")
@@ -154,8 +145,8 @@ def tensorcore_update(planes: dict, color: str, inv_temp, *, seed: int = 0,
 
     ``seed`` keys Philox on its low 32 bits only, as the TPU kernel does;
     ``offset`` is the uint32 Philox offset of this half-sweep.  CPU
-    planes take the plain version; CUDA planes launch the kernel, whose
-    ``block`` must be in :data:`CUDA_BLOCKS`.
+    planes take the plain version; CUDA planes launch the kernel.
+    ``block`` is any positive block that tiles the planes.
     """
     if color not in tc.COLOR_PLANES:
         raise ValueError(f"color must be 'black' or 'white', got {color!r}")

@@ -1,0 +1,338 @@
+"""Model assembly: ArchConfig -> init / forward.
+
+Counterpart of ``repro.models.model``.  Families: dense, moe (GQA or MLA),
+hybrid (Mamba2 + one shared attention block), ssm (xLSTM), vlm (a stub
+patch-embedding prefix + dense backbone), audio (whisper-style
+encoder-decoder with a stub conv frontend).
+
+JAX stacks each family's layers and runs ``lax.scan`` over them; here a
+stack is an ``nn.ModuleList`` (one :class:`Params` a layer) and a loop.
+The hybrid family's shared block is one ``Params`` that the loop runs
+after every ``attn_every``-th Mamba2 block, chosen by the layer's index.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from repro_torch.api.session import resolve_device
+from repro_torch.configs.base import ArchConfig
+
+from . import layers as L
+from . import moe as M
+from . import ssm as S
+from .layers import Init, Params
+
+
+def _norm_init(cfg):
+    return (L.init_rmsnorm if cfg.norm == "rms" else L.init_layernorm)
+
+
+def _norm_apply(cfg):
+    return (L.rms_norm if cfg.norm == "rms" else L.layer_norm)
+
+
+# ---------------------------------------------------------------------------
+# per-kind block init
+# ---------------------------------------------------------------------------
+
+def _init_attn(cfg: ArchConfig, init: Init) -> Params:
+    if cfg.mla:
+        return L.init_mla(init, cfg.d_model, cfg.n_heads, cfg.kv_lora,
+                          cfg.qk_nope, cfg.qk_rope, cfg.head_dim)
+    return L.init_gqa(init, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.head_dim, cfg.attn_bias)
+
+
+def _init_attn_block(cfg: ArchConfig, init: Init,
+                     cross: bool = False) -> Params:
+    p = Params({"norm1": _norm_init(cfg)(init, cfg.d_model),
+                "norm2": _norm_init(cfg)(init, cfg.d_model),
+                "attn": _init_attn(cfg, init)})
+    if cross:
+        p["norm_x"] = _norm_init(cfg)(init, cfg.d_model)
+        p["xattn"] = L.init_gqa(init, cfg.d_model, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.head_dim, cfg.attn_bias)
+    if cfg.d_ff:
+        p["mlp"] = L.init_mlp(init, cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+    return p
+
+
+def _init_moe_block(cfg: ArchConfig, init: Init) -> Params:
+    return Params({"norm1": _norm_init(cfg)(init, cfg.d_model),
+                   "norm2": _norm_init(cfg)(init, cfg.d_model),
+                   "attn": _init_attn(cfg, init),
+                   "moe": M.init_moe(init, cfg.d_model, cfg.d_ff_expert,
+                                     cfg.n_routed, cfg.n_shared, cfg.top_k)})
+
+
+def _init_mamba_block(cfg: ArchConfig, init: Init) -> Params:
+    return Params({"norm1": _norm_init(cfg)(init, cfg.d_model),
+                   "mamba": S.init_mamba2(init, cfg.d_model, cfg.ssm_state,
+                                          cfg.mamba_expand,
+                                          cfg.mamba_head_dim)})
+
+
+# ---------------------------------------------------------------------------
+# per-kind block apply (cache=None for train/prefill)
+# ---------------------------------------------------------------------------
+
+def _apply_attn_block(cfg, p, x, positions, cache=None, *, causal=True,
+                      sliding_window=0, enc_kv=None, ring=False):
+    na = _norm_apply(cfg)
+    h = na(p["norm1"], x)
+    if cfg.mla:
+        y, new_attn = L.mla_attention(p["attn"], h, positions=positions,
+                                      qk_nope=cfg.qk_nope,
+                                      qk_rope=cfg.qk_rope,
+                                      rope_theta=cfg.rope_theta,
+                                      cache=None if cache is None
+                                      else cache["attn"])
+    else:
+        y, new_attn = L.gqa_attention(
+            p["attn"], h, positions=positions, causal=causal,
+            rotary_frac=cfg.rotary_frac if cfg.use_rope else 0.0,
+            rope_theta=cfg.rope_theta, sliding_window=sliding_window,
+            cache=None if cache is None else cache["attn"], ring=ring)
+    x = x + y
+    new_cache = None if cache is None else {"attn": new_attn}
+    if enc_kv is not None:
+        h = na(p["norm_x"], x)
+        # cross attention against precomputed encoder k/v
+        q = L.project_heads(h, p["xattn"]["wq"])
+        if "bq" in p["xattn"]:
+            q = q + p["xattn"]["bq"].to(q.dtype)
+        y = L.sdpa(q, enc_kv["k"], enc_kv["v"], causal=False)
+        x = x + L.merge_heads(y, p["xattn"]["wo"], x.dtype)
+    if cfg.d_ff and "mlp" in p:
+        x = x + L.mlp(p["mlp"], na(p["norm2"], x), act=L.ACTS[cfg.act])
+    return x, new_cache
+
+
+def _apply_moe_block(cfg, p, x, positions, cache=None, dropless=False,
+                     per_sequence=False, shard_axes=None):
+    na = _norm_apply(cfg)
+    h = na(p["norm1"], x)
+    if cfg.mla:
+        y, new_attn = L.mla_attention(p["attn"], h, positions=positions,
+                                      qk_nope=cfg.qk_nope,
+                                      qk_rope=cfg.qk_rope,
+                                      rope_theta=cfg.rope_theta,
+                                      cache=None if cache is None
+                                      else cache["attn"])
+    else:
+        y, new_attn = L.gqa_attention(p["attn"], h, positions=positions,
+                                      causal=True,
+                                      rotary_frac=cfg.rotary_frac,
+                                      rope_theta=cfg.rope_theta,
+                                      cache=None if cache is None
+                                      else cache["attn"])
+    x = x + y
+    # decode uses dropless capacity (cap >= T * top_k): per-step batches
+    # are tiny and token drops would make decode diverge from prefill
+    cf = float(cfg.n_routed) if (cache is not None or dropless) else 1.25
+    y, aux = M.moe_block(p["moe"], na(p["norm2"], x), top_k=cfg.top_k,
+                         capacity_factor=cf,
+                         per_sequence=per_sequence or cache is not None,
+                         shard_axes=shard_axes)
+    x = x + y
+    new_cache = None if cache is None else {"attn": new_attn}
+    return x, aux, new_cache
+
+
+# ---------------------------------------------------------------------------
+# model init
+# ---------------------------------------------------------------------------
+
+def xlstm_kinds(cfg: ArchConfig):
+    """Static block-kind pattern for the ssm family (not stored in params)."""
+    return ["slstm" if cfg.slstm_every and
+            (i % cfg.slstm_every == cfg.slstm_every - 1) else "mlstm"
+            for i in range(cfg.n_layers)]
+
+
+def init_model(cfg: ArchConfig, key=0, *, device=None) -> Params:
+    """The parameter tree of ``cfg`` with JAX's layout and distributions,
+    drawn from ``key``: a ``torch.Generator`` on ``device`` or a seed for
+    one.  ``device`` defaults to the CUDA card (raises without one);
+    ``"meta"`` makes shapes only.  Not JAX's values for the same seed:
+    carry those with :func:`repro_torch.models.convert.params_from_jax`.
+    """
+    device = resolve_device(device)
+    if device.type == "meta":
+        generator = None
+    elif isinstance(key, torch.Generator):
+        generator = key
+    else:
+        generator = torch.Generator(device=device).manual_seed(int(key))
+    init = Init(generator, device)
+    params = Params({"embed": L.init_embed(init, cfg.vocab, cfg.d_model),
+                     "final_norm": _norm_init(cfg)(init, cfg.d_model)})
+
+    def stack(init_fn, n):
+        return nn.ModuleList([init_fn() for _ in range(n)])
+
+    if cfg.family in ("dense", "vlm"):
+        params["blocks"] = stack(lambda: _init_attn_block(cfg, init),
+                                 cfg.n_layers)
+    elif cfg.family == "moe":
+        params["dense_blocks"] = stack(lambda: _init_attn_block(cfg, init),
+                                       cfg.first_dense)
+        params["moe_blocks"] = stack(lambda: _init_moe_block(cfg, init),
+                                     cfg.n_layers - cfg.first_dense)
+    elif cfg.family == "hybrid":
+        params["blocks"] = stack(lambda: _init_mamba_block(cfg, init),
+                                 cfg.n_layers)
+        params["shared_attn"] = _init_attn_block(cfg, init)
+    elif cfg.family == "ssm":
+        blocks = []
+        for kind in xlstm_kinds(cfg):
+            cell = (S.init_slstm(init, cfg.d_model, cfg.n_heads)
+                    if kind == "slstm" else
+                    S.init_mlstm(init, cfg.d_model, cfg.n_heads,
+                                 cfg.head_dim))
+            blocks.append(Params({"norm1": _norm_init(cfg)(init,
+                                                           cfg.d_model),
+                                  "cell": cell}))
+        params["blocks_list"] = nn.ModuleList(blocks)
+    elif cfg.family == "audio":
+        params["enc_blocks"] = stack(lambda: _init_attn_block(cfg, init),
+                                     cfg.enc_layers)
+        params["dec_blocks"] = stack(
+            lambda: _init_attn_block(cfg, init, cross=True), cfg.n_layers)
+        params["enc_norm"] = _norm_init(cfg)(init, cfg.d_model)
+    else:
+        raise ValueError(cfg.family)
+    return params
+
+
+def param_count(params: nn.Module) -> int:
+    """The number of parameters of a tree (on any device, meta too)."""
+    return sum(p.numel() for p in params.parameters())
+
+
+# ---------------------------------------------------------------------------
+# sinusoidal positions (whisper)
+# ---------------------------------------------------------------------------
+
+def _sinusoid(positions, d_model):
+    half = d_model // 2
+    step = torch.log(torch.tensor(10000.0, device=positions.device)) \
+        / (half - 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) * step)
+    ang = positions[:, None].float() * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill): batch -> logits, aux
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, remat: bool = True, sliding_window: int = 0,
+            act_sharding=None, dropless_moe: bool = False,
+            remat_policy: str = "none", scan_unroll: int = 1):
+    """batch -> (logits (B, S, V) f32, aux f32 scalar), on the device of
+    ``params`` and ``batch``.
+
+    ``remat``, ``remat_policy``, ``act_sharding`` and ``scan_unroll`` are
+    JAX's compile and sharding knobs (rematerialization, sequence
+    sharding, the scan's unroll) and change nothing here, but for one
+    thing JAX's forward also takes from ``remat``: the MoE dispatch
+    layout, the global buffer when ``remat`` (training) and the
+    per-sequence one for inference (``remat=False``), which drop
+    different tokens at capacity.
+    """
+    na = _norm_apply(cfg)
+    if cfg.family == "audio":
+        return _forward_audio(cfg, params, batch)
+
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patch_emb"].to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if cfg.family in ("dense", "vlm"):
+        for p in params["blocks"]:
+            x, _ = _apply_attn_block(cfg, p, x, positions,
+                                     sliding_window=sliding_window)
+
+    elif cfg.family == "moe":
+        for p in params["dense_blocks"]:
+            x, _ = _apply_attn_block(cfg, p, x, positions)
+        for p in params["moe_blocks"]:
+            # inference (remat=False) uses the batch-local dispatch
+            # layout; training keeps the global buffer
+            x, aux_l, _ = _apply_moe_block(cfg, p, x, positions,
+                                           dropless=dropless_moe,
+                                           per_sequence=not remat)
+            aux = aux + aux_l
+
+    elif cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        every = cfg.attn_every
+        for idx, p in enumerate(params["blocks"]):
+            h2, _ = S.mamba2_block(p["mamba"], na(p["norm1"], x),
+                                   d_state=cfg.ssm_state,
+                                   expand=cfg.mamba_expand,
+                                   head_dim=cfg.mamba_head_dim)
+            x = x + h2
+            if idx % every == every - 1:
+                x, _ = _apply_attn_block(cfg, shared, x, positions,
+                                         sliding_window=sliding_window)
+
+    elif cfg.family == "ssm":
+        for p, kind in zip(params["blocks_list"], xlstm_kinds(cfg)):
+            h = na(p["norm1"], x)
+            if kind == "slstm":
+                y, _ = S.slstm_block(p["cell"], h)
+            else:
+                y, _ = S.mlstm_block(p["cell"], h, n_heads=cfg.n_heads,
+                                     head_dim=cfg.head_dim)
+            x = x + y
+
+    x = na(params["final_norm"], x)
+    logits = L.unembed(params["embed"], x)
+    return logits, aux
+
+
+def encode_audio(cfg, params, frames):
+    """Encoder-only forward (serving: run once, then cached decode)."""
+    na = _norm_apply(cfg)
+    enc = frames.to(torch.bfloat16)
+    enc_pos = torch.arange(enc.shape[1], device=enc.device)
+    enc = enc + _sinusoid(enc_pos, cfg.d_model).to(enc.dtype)
+    for p in params["enc_blocks"]:
+        enc, _ = _apply_attn_block(cfg, p, enc, enc_pos, causal=False)
+    return na(params["enc_norm"], enc)
+
+
+def _forward_audio(cfg, params, batch):
+    """Whisper-style: frames (stub frontend output) -> encoder; tokens ->
+    causal decoder with cross attention."""
+    na = _norm_apply(cfg)
+    enc = encode_audio(cfg, params, batch["frames"])
+
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
+    for p in params["dec_blocks"]:
+        # per-layer cross k/v from the shared encoder output
+        k = L.project_heads(enc, p["xattn"]["wk"])
+        v = L.project_heads(enc, p["xattn"]["wv"])
+        if "bk" in p["xattn"]:
+            k = k + p["xattn"]["bk"].to(k.dtype)
+            v = v + p["xattn"]["bv"].to(v.dtype)
+        x, _ = _apply_attn_block(cfg, p, x, positions,
+                                 enc_kv={"k": k, "v": v})
+
+    x = na(params["final_norm"], x)
+    return L.unembed(params["embed"], x), torch.zeros(
+        (), dtype=torch.float32, device=x.device)

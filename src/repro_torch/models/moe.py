@@ -1,0 +1,158 @@
+"""Fine-grained MoE with shared experts (DeepSeekMoE-style).
+
+Counterpart of ``repro.models.moe``: capacity-based dispatch, top-k
+routing, per-expert capacity, scatter into a capacity buffer, dense
+expert products, gather-combine weighted by the router gates; dropped
+tokens skip the routed path (shared experts always apply); Switch-style
+auxiliary load-balance loss.
+
+Two dispatch layouts, as in JAX:
+
+* ``per_sequence=False`` (the training default): one global (E, C, d)
+  buffer, capacity positions from a cumsum over the flattened (token, k)
+  order of the whole batch;
+* ``per_sequence=True`` (inference, and every decode step): each batch
+  element owns an (E, C_seq, d) buffer, positions from a cumsum over its
+  own (token, k) order.
+
+The two give different results where capacity drops tokens; the order
+of the cumsum (token-major, then the k picks in ``topk``'s descending
+order) is JAX's, so the same tokens are dropped.  The scatter adds each
+kept token once into an empty slot (a dropped one adds 0), so the bf16
+buffer holds the tokens exactly whatever order the card adds in.
+"""
+from __future__ import annotations
+
+import torch
+from torch.nn import functional as F
+
+from .layers import Init, Params, mm, silu
+
+
+def init_moe(init: Init, d_model, d_ff_expert, n_routed, n_shared,
+             top_k) -> Params:
+    p = Params({
+        "router": init.dense((d_model, n_routed), d_model),
+        "wi": init.dense((n_routed, d_model, d_ff_expert), d_model),
+        "wg": init.dense((n_routed, d_model, d_ff_expert), d_model),
+        "wo": init.dense((n_routed, d_ff_expert, d_model), d_ff_expert),
+    })
+    if n_shared:
+        d_sh = d_ff_expert * n_shared
+        p["shared_wi"] = init.dense((d_model, d_sh), d_model)
+        p["shared_wg"] = init.dense((d_model, d_sh), d_model)
+        p["shared_wo"] = init.dense((d_sh, d_model), d_sh)
+    return p
+
+
+def _expert_ffn(params, buf3, out_dtype):
+    """(E, C, d) capacity buffer -> expert SwiGLU -> (E, C, d) f32."""
+    h = mm(buf3, params["wi"])
+    g = mm(buf3, params["wg"])
+    h = (silu(g) * h).to(out_dtype)
+    return mm(h, params["wo"])
+
+
+def _shared_path(params, xf, out_dtype):
+    sh_h = mm(xf, params["shared_wi"])
+    sh_g = mm(xf, params["shared_wg"])
+    sh = (silu(sh_g) * sh_h).to(out_dtype)
+    return mm(sh, params["shared_wo"], out=out_dtype)
+
+
+def _aux_loss(experts, probs, e):
+    lead = tuple(range(experts.dim() - 1))
+    density = torch.mean(F.one_hot(experts[..., 0], e).float(), dim=lead)
+    router_mean = torch.mean(probs, dim=tuple(range(probs.dim() - 1)))
+    return e * torch.sum(density * router_mean)
+
+
+def _route(params, x, top_k):
+    """Router probabilities (f32 x f32, as in JAX), the top-k experts in
+    descending order and their renormalised gates."""
+    probs = torch.softmax(x.float() @ params["router"], dim=-1)
+    gates, experts = torch.topk(probs, top_k, dim=-1)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    return probs, gates, experts
+
+
+def _positions(experts, e):
+    """Capacity positions of each (token, k) pick within its expert: a
+    cumsum over the (..., token * k) order of the picks."""
+    lead = experts.shape[:-2]
+    flat = F.one_hot(experts, e).reshape(*lead, -1, e)
+    pos = torch.cumsum(flat, dim=-2) * flat - 1
+    return pos.amax(dim=-1).reshape(experts.shape)
+
+
+def moe_block(params, x, *, top_k: int, capacity_factor: float = 1.25,
+              per_sequence: bool = False, shard_axes=None):
+    """x: (B, S, D). Returns (y, aux_loss).  ``shard_axes`` is accepted
+    for JAX's signature and does nothing here."""
+    b, s, d = x.shape
+    e = params["router"].shape[1]
+
+    if per_sequence:
+        return _moe_per_sequence(params, x, top_k=top_k,
+                                 capacity_factor=capacity_factor)
+
+    t = b * s
+    xt = x.reshape(t, d)
+    cap = int((top_k * t * capacity_factor) / e) + 1
+
+    probs, gates, experts = _route(params, xt, top_k)      # (t, k)
+    pos = _positions(experts, e)
+    keep = pos < cap
+
+    eidx = experts.reshape(-1)
+    pidx = torch.where(keep, pos, cap - 1).reshape(-1)
+    wgt = keep.float().reshape(-1)
+
+    buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=x.device)
+    xk = xt[:, None, :].expand(t, top_k, d).reshape(-1, d)
+    buf.index_put_((eidx, pidx), xk * wgt[:, None].to(xt.dtype),
+                   accumulate=True)
+
+    out_buf = _expert_ffn(params, buf, x.dtype)
+    gathered = out_buf[eidx, pidx]                         # (t*k, d)
+    gathered = gathered * (gates.reshape(-1) * wgt)[:, None]
+    y = gathered.reshape(t, top_k, d).sum(dim=1).to(x.dtype)
+
+    if "shared_wi" in params:
+        y = y + _shared_path(params, xt, x.dtype)
+    return y.reshape(b, s, d), _aux_loss(experts, probs, e)
+
+
+def _moe_per_sequence(params, x, *, top_k: int, capacity_factor: float):
+    """Inference dispatch: batch-local capacity buffers."""
+    b, s, d = x.shape
+    e = params["router"].shape[1]
+    cap = int((top_k * s * capacity_factor) / e) + 1
+
+    probs, gates, experts = _route(params, x, top_k)       # (b, s, k)
+    pos = _positions(experts, e)                    # per sequence
+    keep = pos < cap
+
+    eidx = experts.reshape(b, -1)
+    pidx = torch.where(keep, pos, cap - 1).reshape(b, -1)
+    wgt = keep.float().reshape(b, -1)
+    bidx = torch.arange(b, device=x.device)[:, None].expand(eidx.shape)
+
+    xk = x[:, :, None, :].expand(b, s, top_k, d).reshape(b, -1, d)
+    buf = torch.zeros((b, e, cap, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((bidx, eidx, pidx), xk * wgt[..., None].to(x.dtype),
+                   accumulate=True)
+
+    buf3 = buf.permute(1, 0, 2, 3).reshape(e, b * cap, d)
+    out3 = _expert_ffn(params, buf3, x.dtype)
+    out_buf = out3.reshape(e, b, cap, d).permute(1, 0, 2, 3)
+
+    gathered = out_buf[bidx, eidx, pidx]
+    gathered = gathered * (gates.reshape(b, -1) * wgt)[..., None]
+    y = gathered.reshape(b, s, top_k, d).sum(dim=2).to(x.dtype)
+
+    if "shared_wi" in params:
+        y = y.reshape(b * s, d) + _shared_path(params, x.reshape(b * s, d),
+                                               x.dtype)
+        y = y.reshape(b, s, d)
+    return y, _aux_loss(experts, probs, e)

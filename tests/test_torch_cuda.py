@@ -27,11 +27,14 @@ from repro_torch.kernels.stencil import (stencil_sweeps_resident,
                                          stencil_sweeps_resident_plain,
                                          stencil_update,
                                          stencil_update_plain)
-from repro_torch.kernels.tensorcore.tensorcore import CUDA_BLOCKS
 
 pytestmark = pytest.mark.cuda
 
 SEED = 2 ** 40 + 11
+
+#: tensorcore blocks on (2B, 3B) planes: the multiples of 16 take the
+#: tiled kernel, 8 and 24 (sides not multiples of 16) the element-wise one
+TC_BLOCKS = (8, 16, 24, 32, 48, 64, 80, 96, 112, 128)
 
 
 @pytest.fixture
@@ -426,7 +429,7 @@ def tc_kernel_matches_plain(planes, color, inv_temp, block):
 
 @pytest.mark.parametrize("n,w,block", [(64, None, 16), (128, None, 64),
                                        (256, None, 128), (384, None, 128)]
-                         + [(2 * b, 3 * b, b) for b in CUDA_BLOCKS])
+                         + [(2 * b, 3 * b, b) for b in TC_BLOCKS])
 @pytest.mark.parametrize("color", ["black", "white"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 def test_tensorcore_kernel_matches_plain(cuda, n, w, block, color, dtype):
@@ -435,7 +438,7 @@ def test_tensorcore_kernel_matches_plain(cuda, n, w, block, color, dtype):
 
 
 @pytest.mark.parametrize("temperature", [0.05, 0.02])
-@pytest.mark.parametrize("block", CUDA_BLOCKS)
+@pytest.mark.parametrize("block", TC_BLOCKS)
 @pytest.mark.parametrize("color", ["black", "white"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 def test_tensorcore_kernel_matches_plain_where_the_table_is_zero(
@@ -507,16 +510,36 @@ def test_tensorcore_kernel_hot_table_flips_nearly_all(cuda, color, dtype):
 
 
 def test_tensorcore_kernel_rejects_block_8(cuda):
+    """A block of 8 where it does not tile the planes (12 x 12); where it
+    does, the card takes it (below), as the JAX engine does."""
     from repro_torch.kernels.tensorcore import tensorcore_update
-    planes = tc_planes(32, torch.int8, 0, cuda)
+    planes = tc_planes(12, torch.int8, 0, cuda)
     before = tensorcore_update.launches
     with pytest.raises(ValueError, match="block"):
         tensorcore_update(planes, "black", 0.5, block=8)
     assert tensorcore_update.launches == before
-    spec = RunSpec(lattice=LatticeSpec(64, 64),
-                   engine=EngineSpec("tensorcore", {"tc_block": 8}))
     with pytest.raises(ValueError, match="block"):
-        Session.open(spec)
+        Session.open(RunSpec(lattice=LatticeSpec(24, 24),
+                             engine=EngineSpec("tensorcore",
+                                               {"tc_block": 8})))
+
+
+@pytest.mark.parametrize("n,block", [(64, 8), (48, 24), (48, 8), (64, 32)])
+def test_tensorcore_session_at_jax_blocks_on_card_equals_cpu(cuda, n, block):
+    """Every block the JAX engine takes runs on the card with the CPU's
+    trajectory: 8 (the JAX quickstart's) on 64^2, 24 and 8 on 48^2, whose
+    24 x 24 planes take the element-wise kernel."""
+    from repro_torch.kernels.tensorcore import tensorcore_update
+    spec = RunSpec(lattice=LatticeSpec(n, n),
+                   engine=EngineSpec("tensorcore", {"tc_block": block}),
+                   temperature=2.2, seed=SEED)
+    cpu = Session.open(spec, device="cpu")
+    cpu.run(10)
+    before = tensorcore_update.launches
+    card = Session.open(spec)
+    card.run(10)
+    assert tensorcore_update.launches == before + 20
+    assert card.state_digest() == cpu.state_digest()
 
 
 def test_tensorcore_session_on_card_equals_cpu(cuda):
@@ -1302,3 +1325,70 @@ def test_simulate_restore_on_card(cuda, tmp_path, capsys):
     m_lines = [[l for l in out if l.startswith("sweep")]
                for out in (whole, first, second)]
     assert len(m_lines[0]) == 3 and m_lines[1] + m_lines[2] == m_lines[0]
+
+
+# -- the LM stack's inference path -------------------------------------------
+
+#: the card against the CPU: the logits' RMS error over their RMS (bf16
+#: activations summed in another order; chip_smoke.py's LM_REL_RMS)
+LM_REL_RMS = 0.03
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "chatglm3-6b",
+                                  "zamba2-1.2b", "xlstm-125m",
+                                  "whisper-large-v3"])
+def test_lm_forward_and_decode_on_card_equal_cpu(cuda, arch):
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_model)
+    from repro_torch.models.model import encode_audio
+    cfg = get_smoke_config(arch)
+    cpu = init_model(cfg, 3, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    r = np.random.default_rng(3)
+    batch = {"tokens": torch.tensor(r.integers(0, cfg.vocab, (2, 8)).astype(
+        np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.tensor(r.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+
+    def rel(got, want):
+        got = got.float().cpu()
+        return float((got - want).pow(2).mean().sqrt()
+                     / want.pow(2).mean().sqrt())
+
+    want, _ = forward(cfg, cpu, batch, remat=False)
+    got, _ = forward(cfg, card, {k: v.to(cuda) for k, v in batch.items()},
+                     remat=False)
+    assert got.device.type == "cuda" and rel(got, want) <= LM_REL_RMS
+    caches = []
+    for params, device in ((cpu, "cpu"), (card, cuda)):
+        enc = None
+        if cfg.family == "audio":
+            enc = encode_audio(cfg, params, batch["frames"].to(device))
+        caches.append(init_cache(cfg, 2, 8, enc_out=enc, params=params
+                                 if enc is not None else None,
+                                 device=device))
+    for t in range(8):
+        tok = batch["tokens"][:, t:t + 1]
+        want, _ = decode_step(cfg, cpu, caches[0], tok)
+        got, _ = decode_step(cfg, card, caches[1], tok.to(cuda))
+        assert rel(got, want) <= LM_REL_RMS, t
+
+
+def test_lm_batch_and_init_on_card(cuda):
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import init_model
+    cfg = get_smoke_config("internvl2-26b")
+    got = make_batch(cfg, SHAPES["prefill_32k"], step=3, seed=5,
+                     batch_override=2, seq_override=16)
+    want = make_batch(cfg, SHAPES["prefill_32k"], step=3, seed=5,
+                      batch_override=2, seq_override=16, device="cpu")
+    assert got["tokens"].device.type == "cuda"
+    assert torch.equal(got["tokens"].cpu(), want["tokens"])
+    assert torch.equal(got["labels"].cpu(), want["labels"])
+    params = init_model(cfg, 4)
+    assert all(p.device.type == "cuda" for p in params.parameters())

@@ -709,3 +709,23 @@ def test_weakscale_rows_carry_pct_of_roofline_with_jax_keys(tmp_path):
         assert d["pct_of_roofline"] == round(roofline.pct_of_roofline(
             d["flips_per_ns"], d["engine"], "cpu", k=d["halo_k"]), 4)
         assert d["pct_of_roofline"] > 0
+
+
+def test_weakscale_labels_its_record_by_the_device_type(tmp_path):
+    """``--device cpu:0`` runs on the CPU and says so: backend "cpu", one
+    device, each row's reading against the CPU row of the roofline."""
+    import json
+
+    from repro_torch.dist import weakscale
+    from repro_torch.launch import roofline
+    path = tmp_path / "cpu0.json"
+    assert weakscale.main(["--devices", "1", "--sweeps", "1", "--trials",
+                           "1", "--device", "cpu:0", "--json",
+                           str(path)]) == 0
+    rec = json.loads(path.read_text())
+    assert rec["meta"]["backend"] == "cpu"
+    assert rec["meta"]["device_count"] == 1
+    for row in rec["rows"]:
+        d = row["derived"]
+        assert d["pct_of_roofline"] == round(roofline.pct_of_roofline(
+            d["flips_per_ns"], d["engine"], "cpu", k=d["halo_k"]), 4)

@@ -13,7 +13,6 @@ from repro.core import observables as jobs
 from repro_torch.api import RunSpec
 from repro_torch.examples import (bitplane_replicas, multipod_sim,
                                   phase_transition, quickstart)
-from repro_torch.kernels.tensorcore.tensorcore import CUDA_BLOCKS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,11 +29,8 @@ def test_quickstart(capsys):
     onsager = float(jobs.onsager_magnetization(quickstart.T))
     assert abs(out["kernel_m"] - onsager) < 0.03
     assert out["kernel_launches"] == 0             # the CPU launches none
-    # block 16: the least block the card takes that tiles 64^2's 32 x 32
-    # sublattice planes (the JAX script's 8 is not one)
-    assert 8 not in CUDA_BLOCKS
-    assert quickstart.TC_BLOCK == min(
-        b for b in CUDA_BLOCKS if (quickstart.N // 2) % b == 0)
+    # the JAX script's block, which the card takes as well
+    assert quickstart.TC_BLOCK == 8
 
 
 def test_phase_transition_orders_at_low_t(capsys):
