@@ -235,7 +235,27 @@ fails:
    ``make_batch`` at 8 x 512, 32 greedy ``make_serve_step`` tokens from a
    cache of ``max_len`` 1024, one prefill at 1 x 8192 (``sdpa_chunked``
    at its threshold), their CUDA-event times, tokens/s and peak device
-   memory, and the full width against the CPU at 2 layers, 1 x 16 tokens.
+   memory, and the full width against the CPU at 2 layers, 1 x 16 tokens;
+14. the LM stack's training path (:func:`phase_14`), driven as one path
+   that launches none of the eleven kernels: ``layers.mm``'s backward on
+   the card (its cotangent rounded to bf16 for the tensor cores) against
+   the CPU's plain f32 product at a 2-D, a batched and a broadcast layout
+   (within ``LM_MM_TOL``); every architecture's ``make_train_step`` at
+   smoke width on the card and on the CPU from one initialisation and
+   batch: loss, ``grad_norm`` and every gradient (taken by its
+   ``grad_sync``) within ``LM_TRAIN_LOSS``, ``LM_TRAIN_GNORM``,
+   ``LM_GRAD_TREE`` and ``LM_GRAD_LEAF`` (MoE archs dropless, on the
+   positions routed alike); ``internlm2-1.8b`` at full width with remat:
+   5 steps on one 8 x 512 batch (the loss must fall), each on CUDA
+   events and the host's time to return, the median of steps 2-5,
+   tokens/s, peak device memory, the AdamW update timed alone, a step in
+   4 microbatches against the full batch from one state (loss 1e-4,
+   ``grad_norm`` 1e-3 relative), one step at 2 x 4096 in 2 microbatches
+   (time, peak; no full-width checkpoint: the host CRC32C of 27 GB would
+   not fit); ``python -m repro_torch.launch.train --smoke
+   --deterministic`` (``CUBLAS_WORKSPACE_CONFIG`` set) as subprocesses:
+   ``--die-at`` exits 42, the rerun restores and exits 0, and its final
+   checkpoint equals a straight run's bit for bit.
 
 Every counter-based ``measure()`` (phases 5, 7 and 8) launches its
 sweeps from the host and replays one captured CUDA graph of a sample's
@@ -639,6 +659,39 @@ LM_PREFILL, LM_LONG = (8, 512), (1, 8192)
 LM_DECODE, LM_MAX_LEN = 32, 1024
 LM_CPU_LAYERS, LM_CPU_TOKENS = 2, (1, 16)
 LM_PREFILL_TRIALS = 3
+#: phase 14, the LM stack's training path.  The product's backward on the
+#: card against its CPU plain version at LM_MM_LAYOUTS ((a, b) shapes:
+#: 2-D, batched, b broadcast over a's leading axis): each gradient's
+#: largest error within LM_MM_TOL of its largest value (the card rounds
+#: the cotangent to bf16, 2^-9 relative, and sums in another order).  The
+#: smoke archs' train step (LM_SMOKE_OPT) on the card against the CPU:
+#: the gradient tree's relative RMS error within LM_GRAD_TREE, a leaf's
+#: within LM_GRAD_LEAF (a key bias's, whose gradient is 0 in exact
+#: arithmetic, against the tree's RMS), the loss within LM_TRAIN_LOSS
+#: relative, grad_norm within LM_TRAIN_GNORM; MoE archs dropless, their
+#: loss over the positions whose routing the card and the CPU share
+LM_MM_LAYOUTS = (((512, 2048), (2048, 1024)),
+                 ((16, 256, 128), (16, 128, 256)),
+                 ((4, 16, 256, 128), (16, 128, 256)))
+LM_MM_TOL = 2 ** -6
+LM_SMOKE_OPT = {"lr": 1e-2, "warmup": 0, "total_steps": 10}
+LM_GRAD_TREE, LM_GRAD_LEAF = 0.03, 0.05
+LM_TRAIN_LOSS, LM_TRAIN_GNORM = 1e-3, 1e-2
+#: the full width, remat on: LM_TRAIN_STEPS steps at LM_TRAIN (batch,
+#: tokens, phase 13's prefill batch) on one batch (the loss must fall),
+#: the median of steps 2 on; LM_ADAM_TRIALS updates timed alone; one step
+#: in LM_MICRO microbatches against the full batch from one state (loss
+#: within 1e-4 relative, grad_norm 1e-3); one step at LM_TRAIN_LONG
+#: (train_4k's sequence) in LM_LONG_MICRO microbatches
+LM_TRAIN_OPT = {"lr": 1e-3, "warmup": 0, "total_steps": 100}
+LM_TRAIN, LM_TRAIN_STEPS, LM_ADAM_TRIALS = (8, 512), 5, 3
+LM_MICRO, LM_MICRO_LOSS, LM_MICRO_GNORM = 4, 1e-4, 1e-3
+LM_TRAIN_LONG, LM_LONG_MICRO = (2, 4096), 2
+#: launch.train's restart at smoke width: LM_RESTART_STEPS steps, a
+#: checkpoint every LM_RESTART_EVERY, the failure after LM_DIE_AT; under
+#: --deterministic the restarted run's final checkpoint must equal a
+#: straight run's bit for bit
+LM_RESTART_STEPS, LM_RESTART_EVERY, LM_DIE_AT = 6, 2, 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -1598,25 +1651,15 @@ def phase_13() -> dict:
     n_params = param_count(params)
     weights_bytes = torch.cuda.memory_allocated()
 
-    def events(fn, trials=1):
-        """fn() run trials times between two CUDA events: (ms a run,
-        last result)."""
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
-        start.record()
-        for _ in range(trials):
-            out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / trials, out
-
     prefill = make_prefill_step(cfg)
     b, s = LM_PREFILL
     batch = make_batch(cfg, SHAPES["prefill_32k"], batch_override=b,
                        seq_override=s, device=card)
-    events(lambda: prefill(params, batch))                  # warm-up
+    cuda_events(torch, lambda: prefill(params, batch))      # warm-up
     torch.cuda.reset_peak_memory_stats()
-    prefill_ms, logits = events(lambda: prefill(params, batch),
-                                LM_PREFILL_TRIALS)
+    prefill_ms, logits = cuda_events(torch,
+                                     lambda: prefill(params, batch),
+                                     LM_PREFILL_TRIALS)
     prefill_peak = torch.cuda.max_memory_allocated()
     check(tuple(logits.shape) == (b, s, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
@@ -1626,7 +1669,7 @@ def phase_13() -> dict:
     serve = make_serve_step(cfg)
     tok = batch["tokens"][:, :1]
     cache = init_cache(cfg, b, LM_MAX_LEN, device=card)
-    events(lambda: serve(params, cache, tok))               # warm-up
+    cuda_events(torch, lambda: serve(params, cache, tok))   # warm-up
     cache = init_cache(cfg, b, LM_MAX_LEN, device=card)
     torch.cuda.reset_peak_memory_stats()
     generated = []
@@ -1638,7 +1681,7 @@ def phase_13() -> dict:
             generated.append(tok)
         return tok
 
-    decode_ms, _ = events(decode_all)
+    decode_ms, _ = cuda_events(torch, decode_all)
     decode_peak = torch.cuda.max_memory_allocated()
     check(cache["length"] == LM_DECODE, "decode cache length")
     gen = torch.cat(generated, dim=1)
@@ -1649,9 +1692,10 @@ def phase_13() -> dict:
     b2, s2 = LM_LONG
     long_batch = make_batch(cfg, SHAPES["prefill_32k"], batch_override=b2,
                             seq_override=s2, device=card)
-    events(lambda: prefill(params, long_batch))             # warm-up
+    cuda_events(torch, lambda: prefill(params, long_batch))  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    long_ms, logits = events(lambda: prefill(params, long_batch))
+    long_ms, logits = cuda_events(torch,
+                                  lambda: prefill(params, long_batch))
     long_peak = torch.cuda.max_memory_allocated()
     check(tuple(logits.shape) == (b2, s2, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
@@ -1697,6 +1741,324 @@ def phase_13() -> dict:
           f"{decode_peak} B); prefill {b2} x {s2} {long_ms:.3f} ms (peak "
           f"{long_peak} B); {LM_CPU_LAYERS} layers against the CPU: max "
           f"abs {width_err:.4g}, relative RMS {width_rel:.4g}")
+    return out
+
+
+def cuda_events(torch, fn, trials=1):
+    """fn() run trials times between two CUDA events: (ms a run, last
+    result).  ``cuda_events.host_ms`` holds the host's ms a run to the
+    last return, before the wait for the card: near the events' time
+    where the host, not the card, sets the pace."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(trials):
+        out = fn()
+    end.record()
+    cuda_events.host_ms = (time.perf_counter() - t0) * 1e3 / trials
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / trials, out
+
+
+def grad_errors(names, got, want) -> tuple:
+    """(the gradient tree's relative RMS error, the worst leaf's, that
+    leaf's name) of two lists of gradients on the host; a key bias
+    (``bk``: 0 in exact arithmetic) against the tree's RMS."""
+    sq = sum(float((g - w).pow(2).sum()) for g, w in zip(got, want))
+    norm = sum(float(w.pow(2).sum()) for w in want)
+    tree_rms = math.sqrt(norm / sum(w.numel() for w in want))
+    worst, worst_name = 0.0, None
+    for name, g, w in zip(names, got, want):
+        scale = tree_rms if name.endswith(".bk") else float(
+            w.pow(2).mean().sqrt())
+        err = float((g - w).pow(2).mean().sqrt()) / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    return math.sqrt(sq / norm), worst, worst_name
+
+
+def phase_14() -> dict:
+    """The LM stack's training path on the card: the product's backward
+    against its CPU plain version, every architecture's train step at
+    smoke width against the CPU, internlm2-1.8b training at full width,
+    and ``launch.train``'s restart.  Returns the full width's numbers."""
+    import copy
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config, \
+        get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import forward, init_model
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import moe as lm_moe
+    from repro_torch.train import (OptConfig, cross_entropy, make_loss_fn,
+                                   make_train_step, opt_init)
+    from repro_torch.train import optim as lm_optim
+
+    card = torch.device("cuda")
+    cpu = torch.device("cpu")
+    out = {}
+
+    # -- 14.1 the product's backward, card against the CPU plain version
+    gen = torch.Generator().manual_seed(14)
+    mm_rows = []
+    for a_shape, b_shape in LM_MM_LAYOUTS:
+        a0 = torch.randn(a_shape, generator=gen).to(torch.bfloat16)
+        w0 = torch.randn(b_shape, generator=gen)       # an f32 parameter
+        grads = []                                     # cpu, card
+        for where in (cpu, card):
+            a = a0.to(where, copy=True).requires_grad_(True)
+            w = w0.to(where, copy=True).requires_grad_(True)
+            y = lm_layers.mm(a, w)
+            g = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+                15)).to(where)
+            y.backward(g)
+            grads.append((a.grad.float().cpu(), w.grad.cpu()))
+        errs = []
+        for got, want in zip(grads[1], grads[0]):
+            errs.append(float((got - want).abs().max()
+                              / want.abs().max()))
+        check(max(errs) <= LM_MM_TOL, f"mm backward at {a_shape} x "
+              f"{b_shape}: card off the CPU by {errs} (limit {LM_MM_TOL})")
+        mm_rows.append({"a": list(a_shape), "b": list(b_shape),
+                        "rel_max_err_a": errs[0], "rel_max_err_b": errs[1]})
+    print("phase 14: mm backward, card against CPU: " + json.dumps(mm_rows))
+    out["mm_backward"] = mm_rows
+
+    # -- 14.2 every architecture's train step at smoke width ---------------
+    def routes(fn):
+        calls, route = [], lm_moe._route
+
+        def recording(params, x, top_k):
+            probs, gates, experts = route(params, x, top_k)
+            calls.append(experts.cpu())
+            return probs, gates, experts
+        lm_moe._route = recording
+        try:
+            fn()
+        finally:
+            lm_moe._route = route
+        return calls
+
+    def masked_loss(cfg, where, aux_weight):
+        def loss_fn(params, batch):
+            logits, aux = forward(cfg, params, batch, dropless_moe=True)
+            mask = where.to(logits.device)
+            loss = cross_entropy(logits[mask][None],
+                                 batch["labels"][mask][None])
+            return loss + aux_weight * aux, (loss, aux)
+        return loss_fn
+
+    rows = {}
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_smoke_config(arch)
+        params_cpu = init_model(cfg, 300 + i, device=cpu)
+        params_card = copy.deepcopy(params_cpu).to(card)
+        batch = lm_smoke_batch(torch, cfg, 400 + i)
+        batch["labels"] = torch.tensor(np.random.default_rng(500 + i).integers(
+            0, cfg.vocab, (LM_SMOKE_BATCH, LM_SMOKE_TOKENS)).astype(np.int32))
+        loss_fn, compared = None, LM_SMOKE_BATCH * LM_SMOKE_TOKENS
+        if cfg.family == "moe":
+            with torch.no_grad():
+                on_cpu = routes(lambda: forward(cfg, params_cpu, batch,
+                                                dropless_moe=True))
+                on_card = routes(lambda: forward(
+                    cfg, params_card, {k: v.to(card) for k, v in
+                                       batch.items()}, dropless_moe=True))
+            same = torch.ones((LM_SMOKE_BATCH, LM_SMOKE_TOKENS),
+                              dtype=torch.bool)
+            for a, b in zip(on_cpu, on_card):
+                same &= (a.sort(-1).values == b.sort(-1).values).all(
+                    -1).reshape(same.shape)
+            where = torch.cummin(same.int(), dim=1).values.bool()
+            compared = int(where.sum())
+            check(compared >= LM_SMOKE_TOKENS, f"{arch}: the card routes "
+                  f"{compared} positions as the CPU does")
+            loss_fn = masked_loss(cfg, where, 0.01 if bool(where.all())
+                                  else 0.0)
+        got = {}
+        for name, params in (("cpu", params_cpu), ("card", params_card)):
+            saved = []
+
+            def keep(grads):
+                saved.append([g.detach().float().cpu().clone()
+                              for g in grads])
+                return grads
+            step = make_train_step(cfg, OptConfig(**LM_SMOKE_OPT),
+                                   grad_sync=keep, loss_fn=loss_fn)
+            b = {k: v.to(params["embed"]["table"].device)
+                 for k, v in batch.items()}
+            _, _, m = step(params, opt_init(params), b)
+            got[name] = ({k: float(v) for k, v in m.items()}, saved[0])
+        names = [n for n, _ in params_cpu.named_parameters()]
+        tree_err, leaf_err, leaf = grad_errors(names, got["card"][1],
+                                               got["cpu"][1])
+        (mc, _), (mg, _) = got["cpu"], got["card"]
+        loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+        gnorm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+        check(math.isfinite(mg["loss"]) and loss_rel <= LM_TRAIN_LOSS,
+              f"{arch}: card loss {mg['loss']} against the CPU's "
+              f"{mc['loss']}")
+        check(gnorm_rel <= LM_TRAIN_GNORM, f"{arch}: card grad_norm "
+              f"{mg['grad_norm']} against the CPU's {mc['grad_norm']}")
+        check(tree_err <= LM_GRAD_TREE and leaf_err <= LM_GRAD_LEAF,
+              f"{arch}: card gradients off the CPU's: tree {tree_err:.4g}, "
+              f"leaf {leaf} {leaf_err:.4g}")
+        rows[arch] = {"loss": mg["loss"], "loss_rel": loss_rel,
+                      "aux": mg["aux"], "grad_norm_rel": gnorm_rel,
+                      "grad_rel_rms": tree_err, "worst_leaf": leaf,
+                      "worst_leaf_rel_rms": leaf_err,
+                      "positions": compared}
+        del params_card
+    print("phase 14: smoke archs' train step, card against CPU: "
+          + json.dumps(rows))
+    out["smoke"] = rows
+
+    # -- 14.3 internlm2-1.8b at full width, remat on ----------------------
+    cfg = get_config(LM_ARCH)
+    ocfg = OptConfig(**LM_TRAIN_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, 13, device=card)
+    opt = opt_init(params)
+    state_bytes = torch.cuda.memory_allocated()
+    b, s = LM_TRAIN
+    batch = make_batch(cfg, SHAPES["train_4k"], batch_override=b,
+                       seq_override=s, device=card)
+    step = make_train_step(cfg, ocfg, remat=True)
+    losses, step_ms, host_ms = [], [], []
+    for _ in range(LM_TRAIN_STEPS):
+        ms, (params, opt, m) = cuda_events(torch, lambda: step(params, opt,
+                                                                batch))
+        step_ms.append(ms)
+        host_ms.append(cuda_events.host_ms)
+        losses.append(float(m["loss"]))
+    train_peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"full-width training: the loss did not fall: {losses}")
+    median_ms = statistics.median(step_ms[1:])
+
+    # the optimizer update alone, on this batch's gradients
+    plist = list(params.parameters())
+    total, _ = make_loss_fn(cfg)(params, batch)
+    total.backward()
+    grads = [p.grad for p in plist]
+    adam_ms = statistics.median(
+        cuda_events(torch, lambda: lm_optim.update(ocfg, grads, params,
+                                                   opt))[0]
+        for _ in range(LM_ADAM_TRIALS))
+    for p in plist:
+        p.grad = None
+    del grads, total
+
+    # microbatches against the full batch, from one state
+    twin, twin_opt = copy.deepcopy(params), copy.deepcopy(opt)
+    full_ms, (_, _, mf) = cuda_events(torch, lambda: step(params, opt,
+                                                          batch))
+    micro_step = make_train_step(cfg, ocfg, remat=True,
+                                 microbatches=LM_MICRO)
+    micro_ms, (_, _, mm_) = cuda_events(torch, lambda: micro_step(
+        twin, twin_opt, batch))
+    micro_host_ms = cuda_events.host_ms
+    mf = {k: float(v) for k, v in mf.items()}
+    mm_ = {k: float(v) for k, v in mm_.items()}
+    micro_loss = abs(mf["loss"] - mm_["loss"]) / abs(mf["loss"])
+    micro_gnorm = abs(mf["grad_norm"] - mm_["grad_norm"]) / mf["grad_norm"]
+    check(micro_loss <= LM_MICRO_LOSS and micro_gnorm <= LM_MICRO_GNORM,
+          f"microbatches {LM_MICRO} against the full batch: loss "
+          f"{mm_['loss']} / {mf['loss']}, grad_norm {mm_['grad_norm']} / "
+          f"{mf['grad_norm']}")
+    del twin, twin_opt
+
+    # one step at train_4k's sequence in microbatches (JAX's H9 lever)
+    b2, s2 = LM_TRAIN_LONG
+    long_batch = make_batch(cfg, SHAPES["train_4k"], batch_override=b2,
+                            seq_override=s2, device=card)
+    long_step = make_train_step(cfg, ocfg, remat=True,
+                                microbatches=LM_LONG_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    long_ms, (_, _, ml) = cuda_events(torch, lambda: long_step(
+        params, opt, long_batch))
+    long_host_ms = cuda_events.host_ms
+    long_peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(float(ml["loss"])), "the 2 x 4096 step's loss")
+    del params, opt, batch, long_batch
+    torch.cuda.empty_cache()
+
+    tokens = b * s
+    full = {"arch": LM_ARCH, "batch": b, "tokens": s,
+            "state_bytes": state_bytes, "losses": losses,
+            "step_ms": step_ms, "host_ms": host_ms, "median_ms": median_ms,
+            "tokens_per_s": tokens / median_ms * 1e3,
+            "peak_bytes": train_peak, "adamw_ms": adam_ms,
+            "micro": {"microbatches": LM_MICRO, "ms": micro_ms,
+                      "host_ms": micro_host_ms,
+                      "full_ms": full_ms, "loss_rel": micro_loss,
+                      "grad_norm_rel": micro_gnorm},
+            "long": {"batch": b2, "tokens": s2,
+                     "microbatches": LM_LONG_MICRO, "ms": long_ms,
+                     "host_ms": long_host_ms,
+                     "tokens_per_s": b2 * s2 / long_ms * 1e3,
+                     "peak_bytes": long_peak, "loss": float(ml["loss"])}}
+    print(f"phase 14: {LM_ARCH} full width training, remat, {b} x {s}: "
+          f"losses {[round(x, 4) for x in losses]}; step ms "
+          f"{[round(x, 3) for x in step_ms]} (host to return "
+          f"{[round(x, 3) for x in host_ms]}), median of 2-{LM_TRAIN_STEPS} "
+          f"{median_ms:.3f} ({full['tokens_per_s']:.1f} tokens/s); AdamW "
+          f"alone {adam_ms:.3f} ms; peak {train_peak} B (state {state_bytes}"
+          f" B); {LM_MICRO} microbatches {micro_ms:.3f} ms (host "
+          f"{micro_host_ms:.3f}) against "
+          f"{full_ms:.3f} (loss rel {micro_loss:.3g}, grad_norm rel "
+          f"{micro_gnorm:.3g}); {b2} x {s2} in {LM_LONG_MICRO} "
+          f"microbatches {long_ms:.3f} ms (host {long_host_ms:.3f}), peak "
+          f"{long_peak} B")
+    out["full"] = full
+
+    # -- 14.4 launch.train's restart, as subprocesses --------------------
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=str(SRC) + os.pathsep + os.environ.get(
+                   "PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        def train(ckpt_dir, *extra):
+            return subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+                 "--steps", str(LM_RESTART_STEPS), "--batch", "2", "--seq",
+                 "16", "--ckpt-dir", os.path.join(tmp, ckpt_dir),
+                 "--ckpt-every", str(LM_RESTART_EVERY), "--log-every", "1",
+                 "--deterministic", *extra], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+
+        t0 = time.perf_counter()
+        straight = train("straight")
+        died = train("restarted", "--die-at", str(LM_DIE_AT))
+        codes = [died.wait(), straight.wait()]
+        logs = [died.stdout.read(), straight.stdout.read()]
+        rerun = train("restarted")
+        codes.append(rerun.wait())
+        logs.append(rerun.stdout.read())
+        restart_s = time.perf_counter() - t0
+        check(codes == [42, 0, 0], f"launch.train exits {codes}: "
+              + "\n".join(logs))
+        check(f"restored checkpoint at step "
+              f"{LM_DIE_AT - LM_DIE_AT % LM_RESTART_EVERY}" in logs[2],
+              "the rerun did not restore: " + logs[2])
+        from repro_torch.ckpt import Checkpointer
+        arrays = [Checkpointer(os.path.join(tmp, d)).load_arrays(
+            LM_RESTART_STEPS)[1] for d in ("straight", "restarted")]
+        check(sorted(arrays[0]) == sorted(arrays[1]), "checkpoint keys")
+        differ = [k for k in arrays[0]
+                  if not np.array_equal(arrays[0][k], arrays[1][k])]
+        check(not differ, f"the restarted run's parameters differ from the "
+              f"straight run's at {differ}")
+    print(f"phase 14: launch.train --smoke --deterministic: --die-at "
+          f"{LM_DIE_AT} exit {codes[0]}, rerun exit {codes[2]}, straight "
+          f"exit {codes[1]}; {len(arrays[0])} arrays of the final "
+          f"checkpoint equal bit for bit ({restart_s:.2f} s)")
+    out["restart"] = {"codes": codes, "arrays": len(arrays[0]),
+                      "seconds": restart_s}
     return out
 
 
@@ -3898,6 +4260,13 @@ def main() -> int:
     lm = drive("lm inference", None, None, phase_13)
     phase_s[13] = time.perf_counter() - t0
     print(f"phase 13: {phase_s[13]:.1f} s; " + json.dumps({"lm": lm}))
+
+    # -- 14. the LM stack's training path ------------------------------------
+    t0 = time.perf_counter()
+    lm_train = drive("lm training", None, None, phase_14)
+    phase_s[14] = time.perf_counter() - t0
+    print(f"phase 14: {phase_s[14]:.1f} s; "
+          + json.dumps({"lm_training": lm_train["full"]}))
 
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}

@@ -1,4 +1,4 @@
-"""The JAX package's four Ising examples on the port (``examples/`` there),
+"""The JAX package's examples on the port (``examples/`` there),
 each ``python -m repro_torch.examples.<name> [--device cpu]``:
 
 * ``quickstart``        -- one ``RunSpec`` + ``Session`` an engine against
@@ -9,11 +9,14 @@ each ``python -m repro_torch.examples.<name> [--device cpu]``:
 * ``bitplane_replicas`` -- 32 replicas from one simulation: replica
   averaging above T_c, coalescence below it;
 * ``multipod_sim``      -- the per-half-sweep distributed step on a 2 x 2
-  mesh, bit for bit the single-device ``run_sweeps_philox``.
+  mesh, bit for bit the single-device ``run_sweeps_philox``;
+* ``train_lm``          -- the LM stack's training loop
+  (``launch.train`` on internlm2-1.8b's smoke config, 60 steps, with
+  checkpoints and restore).
 
 They run on the CUDA card unless ``--device cpu`` is given, at the JAX
-scripts' sizes and settings.  A fresh lattice is the port's own Philox
-draw and the acceptance table its own (``ROADMAP.md`` Queue 3), so the
-printed values agree with the JAX scripts' in their physics, not digit
-for digit.
+scripts' sizes and settings.  In the four Ising examples a fresh lattice
+is the port's own Philox draw and the acceptance table its own
+(``ROADMAP.md`` Queue 3), so the printed values agree with the JAX
+scripts' in their physics, not digit for digit.
 """

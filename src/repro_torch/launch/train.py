@@ -1,0 +1,119 @@
+"""End-to-end LM training driver with fault tolerance (counterpart of
+``repro.launch.train``).
+
+``python -m repro_torch.launch.train --arch internlm2-1.8b --smoke --steps 200``
+
+Runs the train step on one device, the CUDA card unless ``--device``
+names another (``--device cpu``), with: deterministic restart-exact data
+skip, periodic async checkpoints, auto-restore from the latest
+checkpoint, and optional simulated preemption (``--die-at``, exit 42) to
+demonstrate the restart path end-to-end.  Checkpoints hold ``{"params",
+"opt"}`` in the JAX package's layout (``params_to_jax``,
+``opt_to_jax``), so either package resumes the other's.  There is no
+mesh and no parameter sharding: the sharded form (JAX's
+``train/sharding.py``) is not ported yet.
+
+``--deterministic`` runs under ``torch.use_deterministic_algorithms``
+(on the card set ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the environment
+first), so that a restarted run's parameters equal a straight run's bit
+for bit there too.
+"""
+import argparse
+import time
+
+import torch
+
+from repro_torch.api.session import resolve_device
+from repro_torch.ckpt import Checkpointer
+from repro_torch.configs import SHAPES, get_config, get_smoke_config
+from repro_torch.data import DataIterator
+from repro_torch.models import init_model
+from repro_torch.models.convert import params_from_jax, params_to_jax
+from repro_torch.train import OptConfig, make_train_step, opt_init
+from repro_torch.train.optim import opt_from_jax, opt_to_jax
+
+
+def state_tree(cfg, params, opt_state) -> dict:
+    """The checkpointed tree, in JAX's layout."""
+    return {"params": params_to_jax(cfg, params),
+            "opt": opt_to_jax(cfg, opt_state)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--die-at", type=int, default=0,
+                    help="simulate a node failure after this step")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="torch.use_deterministic_algorithms(True)")
+    args = ap.parse_args(argv)
+
+    if args.deterministic:
+        torch.use_deterministic_algorithms(True)
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(
+        args.arch)
+    print(f"arch={cfg.name} mesh={{'data': 1, 'model': 1}} devices=1")
+
+    params = init_model(cfg, args.seed, device=device)
+    opt_state = opt_init(params)
+
+    ocfg = OptConfig(lr=args.lr, warmup=min(20, args.steps // 5 + 1),
+                     total_steps=args.steps)
+    step_fn = make_train_step(cfg, ocfg)
+
+    start_step = 0
+    ckpt = None
+    if args.ckpt_dir:
+        ckpt = Checkpointer(args.ckpt_dir)
+        if ckpt.latest_step() is not None:
+            start_step, restored = ckpt.restore(
+                state_tree(cfg, params, opt_state))
+            params = params_from_jax(cfg, restored["params"], device=device)
+            opt_state = opt_from_jax(cfg, restored["opt"], device=device)
+            print(f"restored checkpoint at step {start_step}")
+
+    it = DataIterator(cfg, SHAPES["train_4k"], seed=args.seed,
+                      batch_override=args.batch, seq_override=args.seq,
+                      device=device)
+    it.skip_to(start_step)
+
+    t0 = time.time()
+    for _ in range(start_step, args.steps):
+        step, batch = next(it)
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if (step + 1) % args.log_every == 0 or step == start_step:
+            print(f"step {step + 1:5d} loss={float(metrics['loss']):.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"lr={float(metrics['lr']):.2e} "
+                  f"({(time.time() - t0):.1f}s)")
+        if ckpt and (step + 1) % args.ckpt_every == 0:
+            ckpt.save_async(step + 1, state_tree(cfg, params, opt_state))
+        if args.die_at and step + 1 == args.die_at:
+            if ckpt:
+                ckpt.wait()
+            print(f"simulated failure at step {step + 1}; restart me")
+            return 42
+    if ckpt:
+        # the last save_async may be writing this very step: JAX's driver
+        # saves over it unwaited, and the two writers collide
+        ckpt.wait()
+        ckpt.save(args.steps, state_tree(cfg, params, opt_state))
+    print("done")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

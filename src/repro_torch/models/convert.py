@@ -80,16 +80,22 @@ def _leaves(tree):
             yield v
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy (on the CPU too: not a view of a tensor that a
+    training step updates in place)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 def _tree(node) -> dict:
     if isinstance(node, nn.ModuleList):
         return [_tree(x) for x in node]
     return {k: _tree(node[k]) if isinstance(node[k], nn.Module)
-            else node[k].detach().cpu().numpy() for k in node.keys()}
+            else _host(node[k]) for k in node.keys()}
 
 
 def params_to_jax(cfg: ArchConfig, params: Params) -> dict:
-    """The JAX layout of the port's tree: nested dicts of numpy arrays,
-    each stack's layers stacked on a leading axis."""
+    """The JAX layout of the port's tree: nested dicts of numpy arrays
+    (host copies), each stack's layers stacked on a leading axis."""
     out = {}
     for key in params.keys():
         node = params[key]
@@ -98,7 +104,7 @@ def params_to_jax(cfg: ArchConfig, params: Params) -> dict:
             out[key] = _stack(layers)
         else:
             out[key] = _tree(node) if isinstance(node, nn.Module) \
-                else node.detach().cpu().numpy()
+                else _host(node)
     if set(_stack_sizes(cfg)) != {k for k in out if k in STACKED}:
         raise ValueError(f"not a {cfg.family} tree: {sorted(out)}")
     return out

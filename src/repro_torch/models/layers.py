@@ -11,7 +11,8 @@ use; activations are bf16.  Every product takes bf16 operands and sums
 in f32 (:func:`mm`): on the card ``torch.mm``/``torch.bmm`` with
 ``out_dtype=torch.float32`` (bf16 on the tensor cores, f32 sums), on the
 CPU the bf16-rounded operands as f32 (their products exact) in an f32
-product.  Where JAX casts a product to the activations' dtype
+product; both have JAX's gradient (:class:`CardProduct` on the card).
+Where JAX casts a product to the activations' dtype
 (``.astype(x.dtype)``), the caller passes ``out=x.dtype`` and the f32
 sum is rounded once; where JAX keeps the f32 result (the attention
 logits, the gated MLP's ``act(g) * h``, the logits, the expert outputs,
@@ -44,7 +45,9 @@ class Params(nn.Module):
     """A node of the parameter tree: the JAX package's dict of arrays as a
     module whose parameters (f32 tensors) and children (``Params`` or an
     ``nn.ModuleList`` where JAX stacks layers) are read by key.  The
-    parameters do not require gradients: this path only infers."""
+    parameters are made without ``requires_grad``, so inference builds
+    no autograd graph; :func:`repro_torch.train.make_train_step` turns
+    it on for the tree it trains."""
 
     def __init__(self, entries: Optional[dict] = None):
         super().__init__()
@@ -103,21 +106,66 @@ def cast_c(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16)
 
 
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 ``a @ b`` with f32 sums as f32, on the card: ``a`` (..., m,
+    k), ``b`` (k, n) or (..., k, n) broadcasting over the batch."""
+    if b.dim() == 2:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b3 = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    return torch.bmm(a3, b3, out_dtype=torch.float32).reshape(
+        *batch, a.shape[-2], b.shape[-1])
+
+
+class CardProduct(torch.autograd.Function):
+    """:func:`_product` with JAX's gradient.  ``torch.mm``/``bmm`` with
+    ``out_dtype`` have no derivative of their own.
+
+    JAX differentiates a bf16 ``einsum`` with ``preferred_element_type
+    =float32`` by a ``dot_general`` of the f32 cotangent with the other
+    bf16 operand (f32 sums), then a ``convert_element_type`` to bf16.
+    Here each operand's gradient is the cotangent times the other
+    operand, f32 sums, summed in f32 over the batch dims that operand
+    was broadcast along, then rounded to bf16; the callers' casts carry
+    it back to the f32 parameter.  The tensor cores take bf16 operands,
+    so the cotangent is rounded to bf16 first: one bf16 pass, as JAX's
+    own target (the TPU) multiplies f32 by bf16 at default precision.
+    On the CPU :func:`mm`'s f32 product keeps the f32 cotangent (JAX's
+    CPU semantics); it is the plain version this backward is held
+    against."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _product(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _product(g, b.transpose(-1, -2))
+            ga = ga.sum_to_size(a.shape).to(torch.bfloat16)
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2:
+                gb = _product(a.reshape(-1, a.shape[-1]).t(),
+                              g.reshape(-1, g.shape[-1]))
+            else:
+                gb = _product(a.transpose(-1, -2), g).sum_to_size(b.shape)
+            gb = gb.to(torch.bfloat16)
+        return ga, gb
+
+
 def mm(a: torch.Tensor, b: torch.Tensor, out=torch.float32) -> torch.Tensor:
     """``a @ b`` with bf16 operands and f32 sums, as ``out``: ``a`` (...,
-    m, k), ``b`` (k, n) or (..., k, n) broadcasting over the batch."""
+    m, k), ``b`` (k, n) or (..., k, n) broadcasting over the batch.
+    Differentiable on either device with JAX's rule (:class:`CardProduct`)."""
     a, b = cast_c(a), cast_c(b)
     if a.device.type == "cuda":
-        if b.dim() == 2:
-            y = torch.mm(a.reshape(-1, a.shape[-1]), b,
-                         out_dtype=torch.float32)
-            y = y.reshape(*a.shape[:-1], b.shape[-1])
-        else:
-            batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
-            a3 = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
-            b3 = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
-            y = torch.bmm(a3, b3, out_dtype=torch.float32).reshape(
-                *batch, a.shape[-2], b.shape[-1])
+        y = CardProduct.apply(a, b)
     else:
         y = torch.matmul(a.float(), b.float())
     return y.to(out)

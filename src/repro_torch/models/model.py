@@ -16,6 +16,7 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.api.session import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -231,6 +232,16 @@ def _sinusoid(positions, d_model):
 # forward (train / prefill): batch -> logits, aux
 # ---------------------------------------------------------------------------
 
+def _checkpointed(remat: bool):
+    """JAX's ``ck``: with ``remat`` and autograd on, ``f(*args)`` keeps
+    none of its activations and recomputes them in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant); else ``f`` itself."""
+    if not (remat and torch.is_grad_enabled()):
+        return lambda f, *args: f(*args)
+    return lambda f, *args: _checkpoint.checkpoint(f, *args,
+                                                   use_reentrant=False)
+
+
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, remat: bool = True, sliding_window: int = 0,
             act_sharding=None, dropless_moe: bool = False,
@@ -238,17 +249,22 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     """batch -> (logits (B, S, V) f32, aux f32 scalar), on the device of
     ``params`` and ``batch``.
 
-    ``remat``, ``remat_policy``, ``act_sharding`` and ``scan_unroll`` are
-    JAX's compile and sharding knobs (rematerialization, sequence
-    sharding, the scan's unroll) and change nothing here, but for one
-    thing JAX's forward also takes from ``remat``: the MoE dispatch
-    layout, the global buffer when ``remat`` (training) and the
-    per-sequence one for inference (``remat=False``), which drop
-    different tokens at capacity.
+    ``remat`` is JAX's rematerialization: in training (autograd on) each
+    layer's body -- the bodies JAX's ``ck`` wraps, and the xLSTM cells
+    too -- keeps no activations and is recomputed in the backward pass.
+    Under ``torch.no_grad`` it changes nothing.  ``remat_policy="dots"``
+    (JAX saves the products' outputs) is the same as ``"none"`` here:
+    nothing is saved.  ``remat`` also sets what JAX's forward takes from
+    it: the MoE dispatch layout, the global buffer when ``remat``
+    (training) and the per-sequence one for inference (``remat=False``),
+    which drop different tokens at capacity.  ``act_sharding`` and
+    ``scan_unroll`` are JAX's sharding and compile knobs and change
+    nothing on one device.
     """
     na = _norm_apply(cfg)
+    ck = _checkpointed(remat)
     if cfg.family == "audio":
-        return _forward_audio(cfg, params, batch)
+        return _forward_audio(cfg, params, batch, remat=remat)
 
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens)
@@ -259,79 +275,101 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.family in ("dense", "vlm"):
+        def body(p, h):
+            return _apply_attn_block(cfg, p, h, positions,
+                                     sliding_window=sliding_window)[0]
         for p in params["blocks"]:
-            x, _ = _apply_attn_block(cfg, p, x, positions,
-                                     sliding_window=sliding_window)
+            x = ck(body, p, x)
 
     elif cfg.family == "moe":
-        for p in params["dense_blocks"]:
-            x, _ = _apply_attn_block(cfg, p, x, positions)
-        for p in params["moe_blocks"]:
+        def dense_body(p, h):
+            return _apply_attn_block(cfg, p, h, positions)[0]
+
+        def moe_body(p, h):
             # inference (remat=False) uses the batch-local dispatch
             # layout; training keeps the global buffer
-            x, aux_l, _ = _apply_moe_block(cfg, p, x, positions,
-                                           dropless=dropless_moe,
-                                           per_sequence=not remat)
+            return _apply_moe_block(cfg, p, h, positions,
+                                    dropless=dropless_moe,
+                                    per_sequence=not remat)[:2]
+        for p in params["dense_blocks"]:
+            x = ck(dense_body, p, x)
+        for p in params["moe_blocks"]:
+            x, aux_l = ck(moe_body, p, x)
             aux = aux + aux_l
 
     elif cfg.family == "hybrid":
         shared = params["shared_attn"]
         every = cfg.attn_every
-        for idx, p in enumerate(params["blocks"]):
-            h2, _ = S.mamba2_block(p["mamba"], na(p["norm1"], x),
+
+        def mamba_body(p, h, with_attn):
+            h2, _ = S.mamba2_block(p["mamba"], na(p["norm1"], h),
                                    d_state=cfg.ssm_state,
                                    expand=cfg.mamba_expand,
                                    head_dim=cfg.mamba_head_dim)
-            x = x + h2
-            if idx % every == every - 1:
-                x, _ = _apply_attn_block(cfg, shared, x, positions,
+            h = h + h2
+            if with_attn:
+                h, _ = _apply_attn_block(cfg, shared, h, positions,
                                          sliding_window=sliding_window)
+            return h
+        for idx, p in enumerate(params["blocks"]):
+            x = ck(mamba_body, p, x, idx % every == every - 1)
 
     elif cfg.family == "ssm":
-        for p, kind in zip(params["blocks_list"], xlstm_kinds(cfg)):
-            h = na(p["norm1"], x)
+        def cell_body(p, h, kind):
+            hn = na(p["norm1"], h)
             if kind == "slstm":
-                y, _ = S.slstm_block(p["cell"], h)
+                y, _ = S.slstm_block(p["cell"], hn)
             else:
-                y, _ = S.mlstm_block(p["cell"], h, n_heads=cfg.n_heads,
+                y, _ = S.mlstm_block(p["cell"], hn, n_heads=cfg.n_heads,
                                      head_dim=cfg.head_dim)
-            x = x + y
+            return h + y
+        for p, kind in zip(params["blocks_list"], xlstm_kinds(cfg)):
+            x = ck(cell_body, p, x, kind)
 
     x = na(params["final_norm"], x)
     logits = L.unembed(params["embed"], x)
     return logits, aux
 
 
-def encode_audio(cfg, params, frames):
-    """Encoder-only forward (serving: run once, then cached decode)."""
+def encode_audio(cfg, params, frames, *, remat: bool = False):
+    """Encoder-only forward (serving: run once, then cached decode);
+    ``remat`` as :func:`forward`'s."""
     na = _norm_apply(cfg)
+    ck = _checkpointed(remat)
     enc = frames.to(torch.bfloat16)
     enc_pos = torch.arange(enc.shape[1], device=enc.device)
     enc = enc + _sinusoid(enc_pos, cfg.d_model).to(enc.dtype)
+
+    def enc_body(p, h):
+        return _apply_attn_block(cfg, p, h, enc_pos, causal=False)[0]
     for p in params["enc_blocks"]:
-        enc, _ = _apply_attn_block(cfg, p, enc, enc_pos, causal=False)
+        enc = ck(enc_body, p, enc)
     return na(params["enc_norm"], enc)
 
 
-def _forward_audio(cfg, params, batch):
+def _forward_audio(cfg, params, batch, *, remat=True):
     """Whisper-style: frames (stub frontend output) -> encoder; tokens ->
     causal decoder with cross attention."""
     na = _norm_apply(cfg)
-    enc = encode_audio(cfg, params, batch["frames"])
+    ck = _checkpointed(remat)
+    enc = encode_audio(cfg, params, batch["frames"], remat=remat)
 
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
-    for p in params["dec_blocks"]:
+
+    def dec_body(p, h, enc):
         # per-layer cross k/v from the shared encoder output
         k = L.project_heads(enc, p["xattn"]["wk"])
         v = L.project_heads(enc, p["xattn"]["wv"])
         if "bk" in p["xattn"]:
             k = k + p["xattn"]["bk"].to(k.dtype)
             v = v + p["xattn"]["bv"].to(v.dtype)
-        x, _ = _apply_attn_block(cfg, p, x, positions,
-                                 enc_kv={"k": k, "v": v})
+        return _apply_attn_block(cfg, p, h, positions,
+                                 enc_kv={"k": k, "v": v})[0]
+    for p in params["dec_blocks"]:
+        x = ck(dec_body, p, x, enc)
 
     x = na(params["final_norm"], x)
     return L.unembed(params["embed"], x), torch.zeros(

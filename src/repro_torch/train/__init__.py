@@ -1,3 +1,6 @@
-"""The LM stack's step builders (counterpart of ``repro.train``): the
-inference steps."""
-from .step import make_prefill_step, make_serve_step  # noqa: F401
+"""The LM stack's step builders and optimizer (counterpart of
+``repro.train``): the train, prefill and serve steps, AdamW, and the
+int8 error-feedback compression (``repro_torch.train.compress``)."""
+from .optim import OptConfig, init as opt_init, update as opt_update  # noqa: F401
+from .step import (cross_entropy, make_loss_fn, make_prefill_step,  # noqa: F401
+                   make_serve_step, make_train_step)

@@ -1392,3 +1392,83 @@ def test_lm_batch_and_init_on_card(cuda):
     assert torch.equal(got["labels"].cpu(), want["labels"])
     params = init_model(cfg, 4)
     assert all(p.device.type == "cuda" for p in params.parameters())
+
+
+# -- the LM stack's training path ---------------------------------------------
+
+#: (a's shape, b's shape) of ``layers.mm``: 2-D weights, batched, b
+#: broadcast over a's leading axis
+MM_LAYOUTS = [((64, 96), (96, 80)), ((4, 32, 48), (4, 48, 40)),
+              ((3, 4, 32, 48), (4, 48, 40))]
+
+
+@pytest.mark.parametrize("a_shape,b_shape", MM_LAYOUTS)
+def test_mm_backward_on_card_equals_cpu_plain(cuda, a_shape, b_shape):
+    """``layers.mm``'s gradient on the card (``CardProduct``: the
+    cotangent rounded to bf16 for the tensor cores, each operand's
+    gradient rounded to bf16 as JAX's transpose does) against the CPU's
+    plain f32 product under autograd: within 2^-6 of the largest
+    gradient (the cotangent's rounding, 2^-9 relative, over the sums)."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator().manual_seed(len(a_shape) + len(b_shape))
+    a0 = torch.randn(a_shape, generator=gen).to(torch.bfloat16)
+    w0 = torch.randn(b_shape, generator=gen)
+    grads = []
+    for device in ("cpu", cuda):
+        a = a0.to(device, copy=True).requires_grad_(True)
+        w = w0.to(device, copy=True).requires_grad_(True)
+        y = L.mm(a, w)
+        assert y.dtype == torch.float32
+        y.backward(torch.randn(y.shape, generator=torch.Generator(
+            ).manual_seed(1)).to(device))
+        assert a.grad.dtype == torch.bfloat16 and w.grad.dtype == \
+            torch.float32
+        grads.append((a.grad.float().cpu(), w.grad.cpu()))
+    for got, want in zip(grads[1], grads[0]):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 2 ** -6 * float(
+            want.abs().max())
+        # the parameter's gradient is a bf16 value carried to f32
+        assert torch.equal(got, got.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b",
+                                  "xlstm-125m"])
+def test_lm_train_step_on_card_equals_cpu(cuda, arch):
+    """One ``make_train_step`` on the card and on the CPU from one
+    initialisation and batch: loss within 1e-3 relative, grad_norm 1e-2,
+    the gradient tree's relative RMS error within 3 % (chip_smoke.py's
+    LM_GRAD_TREE)."""
+    import copy
+
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import init_model
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    cfg = get_smoke_config(arch)
+    cpu = init_model(cfg, 5, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    batch = make_batch(cfg, SHAPES["train_4k"], step=1, seed=6,
+                       batch_override=2, seq_override=16, device="cpu")
+    out = []
+    for params in (cpu, card):
+        saved = []
+
+        def keep(grads):
+            saved.append([g.detach().cpu().clone() for g in grads])
+            return grads
+        step = make_train_step(cfg, OptConfig(lr=1e-2, warmup=0,
+                                              total_steps=10),
+                               grad_sync=keep)
+        device = next(params.parameters()).device
+        got, _, m = step(params, opt_init(params),
+                         {k: v.to(device) for k, v in batch.items()})
+        assert got is params
+        out.append(({k: float(v) for k, v in m.items()}, saved[0]))
+    (mc, gc), (mg, gg) = out
+    assert mg["loss"] == pytest.approx(mc["loss"], rel=1e-3)
+    assert mg["grad_norm"] == pytest.approx(mc["grad_norm"], rel=1e-2)
+    sq = sum(float((a - b).pow(2).sum()) for a, b in zip(gg, gc))
+    norm = sum(float(b.pow(2).sum()) for b in gc)
+    assert (sq / norm) ** 0.5 <= 0.03
+    assert all(p.device.type == "cuda" for p in card.parameters())

@@ -350,7 +350,8 @@ s.run(2)
 print(s.state_digest())
 assert {"repro_torch.serve.server", "repro_torch.serve.smoke",
         "repro_torch.serve.client", "repro_torch.launch.simulate",
-        "repro_torch.launch.serve"} <= set(sys.modules)
+        "repro_torch.launch.serve", "repro_torch.launch.train",
+        "repro_torch.train.compress"} <= set(sys.modules)
 import tempfile
 from repro_torch.serve import SweepFarm
 with tempfile.TemporaryDirectory() as d:
@@ -403,6 +404,8 @@ def test_no_jax_or_reference_imports_in_port_sources():
             "configs/base.py", "configs/internlm2_1p8b.py",
             "models/layers.py", "models/moe.py", "models/ssm.py",
             "models/model.py", "models/decode.py", "models/convert.py",
-            "data/pipeline.py", "train/step.py"} <= names
+            "data/pipeline.py", "train/step.py", "train/optim.py",
+            "train/compress.py", "launch/train.py",
+            "examples/train_lm.py"} <= names
     for f in files:
         assert not pattern.search(f.read_text()), f
