@@ -161,7 +161,7 @@ fails:
    to the JAX digest, and the
    3D model at 32^3 the CPU's lattice, on one device and on slabs;
 10. telemetry, resilience and the checkpointer (:func:`phase_10`): the
-   supervised ``multispin_pallas`` 32768^2 run (T = 2.0, ordered, 200
+   supervised ``multispin_pallas`` 16384^2 run (T = 2.0, ordered, 200
    sweeps in chunks of 50, a checkpoint every 100) preempted at 150, its
    step 150 corrupted, resumed from step 100 under an injected transient
    fault and an injected demotion (one retry, one demotion, the rest on
@@ -255,7 +255,20 @@ fails:
    not fit); ``python -m repro_torch.launch.train --smoke
    --deterministic`` (``CUBLAS_WORKSPACE_CONFIG`` set) as subprocesses:
    ``--die-at`` exits 42, the rerun restores and exits 0, and its final
-   checkpoint equals a straight run's bit for bit.
+   checkpoint equals a straight run's bit for bit;
+15. the dry-run (:func:`phase_15`): ``repro_torch.launch.dryrun``'s cells
+   on the host, on the meta device, each "ok" (status, FLOPs and bytes a
+   device, dominant roofline term, argument bytes a device printed):
+   ``internlm2-1.8b`` ``train_4k`` and ``xlstm-125m`` ``decode_32k`` at
+   full width and the three Ising engines on both lattices, each on the
+   (16, 16) and (2, 16, 16) production meshes; ``internlm2-1.8b`` at 8 x
+   512 on a one-device mesh: the parameter and AdamW bytes counted from
+   the specs within 1 % of what ``opt_init`` leaves allocated on the
+   card, and one train step's FLOPs counted on meta equal to those the
+   same counter reads around the step on the card; then one launch of
+   each family's shard kernel at the plan and extended shard the
+   dry-run reports for ``lat_256k`` on (2, 16, 16), each its own path,
+   0 mismatches against its plain version.
 
 Every counter-based ``measure()`` (phases 5, 7 and 8) launches its
 sweeps from the host and replays one captured CUDA graph of a sample's
@@ -576,8 +589,11 @@ SMALL_WOLFF_T, SMALL_WOLFF_FLIPS = 3.0, 4
 #: a basic_philox checkpoint written by the JAX package (its generator
 #: ``make_jax_checkpoint.py`` beside it) and its digests
 JAX_CHECKPOINT = ROOT / "tests" / "data" / "torch_port" / "basic_philox_512"
-#: phase 10: the supervised main path (multispin_pallas at FULL_N^2):
+#: phase 10: the supervised main path (multispin_pallas at SUPERVISE_N^2,
+#: the main path's FULL_N halved: at FULL_N the host CRC32C of its 512 MiB
+#: checkpoints and digests took most of the script's margin, PERF.md):
 #: sweeps, chunk, checkpoint cadence, and the step whose chunk stops it
+SUPERVISE_N = FULL_N // 2
 SUPERVISE_SWEEPS, SUPERVISE_CHUNK, SUPERVISE_EVERY = 200, 50, 100
 SUPERVISE_STOP = 150
 #: the chaos drills through the CLI: lattice, engine, member temperatures
@@ -692,6 +708,23 @@ LM_TRAIN_LONG, LM_LONG_MICRO = (2, 4096), 2
 #: --deterministic the restarted run's final checkpoint must equal a
 #: straight run's bit for bit
 LM_RESTART_STEPS, LM_RESTART_EVERY, LM_DIE_AT = 6, 2, 3
+#: phase 15, the dry-run (``repro_torch.launch.dryrun``) on the host, on
+#: meta: DRYRUN_LM_CELLS at full width and the Ising engines
+#: DRYRUN_ISING on each shape, each on both production meshes.  Then
+#: LM_ARCH at LM_TRAIN on a one-device mesh: the parameter and AdamW
+#: bytes counted from the specs within DRYRUN_STATE_TOL of what
+#: opt_init leaves allocated on the card, the FLOPs of one train step
+#: counted on meta equal to those counted around the same step on the
+#: card.  Then the 512-chip Ising cell DRYRUN_SHARD_CELL: one launch of
+#: each family's shard kernel at the plan and extended shard that the
+#: dry-run reports there (shard DRYRUN_SHARD_INDEX's index planes), 0
+#: mismatches against its plain version
+DRYRUN_LM_CELLS = (("internlm2-1.8b", "train_4k"),
+                   ("xlstm-125m", "decode_32k"))
+DRYRUN_ISING = ("multispin", "bitplane", "basic")
+DRYRUN_STATE_TOL = 0.01
+DRYRUN_SHARD_CELL = ("lat_256k", "multi")
+DRYRUN_SHARD_INDEX = 511
 
 
 def check(ok: bool, what: str) -> None:
@@ -701,7 +734,7 @@ def check(ok: bool, what: str) -> None:
 
 def phase_10(drive, timed_ms) -> None:
     """Telemetry, resilience and the checkpointer on the card: the
-    supervised main path at full size (preempted, its newest step
+    supervised main path at half its side (preempted, its newest step
     corrupted, resumed under an injected transient fault and an injected
     demotion, to the uninterrupted digest), the chaos drill through the
     CLI (an ensemble; a 2 x 2 mesh resumed on 1 x 2), a real
@@ -732,15 +765,17 @@ def phase_10(drive, timed_ms) -> None:
                    temperature=TEMPERATURE, seed=SEED)
     degrade.reset_demotions()
 
-    # -- 10.1 the supervised main path at full size -------------------------
+    # -- 10.1 the supervised main path ---------------------------------------
+    sup_spec = dataclasses.replace(
+        spec, lattice=LatticeSpec(SUPERVISE_N, SUPERVISE_N, init_p_up=1.0))
     t1 = time.perf_counter()
-    ref = Session.open(spec)
+    ref = Session.open(sup_spec)
     ref.run(SUPERVISE_SWEEPS)
     t2 = time.perf_counter()
     want = ref.state_digest()
     digest_s = time.perf_counter() - t2
     print(f"phase 10: uninterrupted run({SUPERVISE_SWEEPS}) of "
-          f"multispin_pallas {FULL_N}^2 digest {want}: the digest of "
+          f"multispin_pallas {SUPERVISE_N}^2 digest {want}: the digest of "
           f"{sum(a.nbytes for a in ref._runner.state_arrays().values())} "
           f"B of planes took {digest_s:.2f} s on the host")
     del ref
@@ -769,7 +804,7 @@ def phase_10(drive, timed_ms) -> None:
     Checkpointer._write = timed("write", real[1])
     integrity.validate_step_dir = timed("validate", real[2])
     integrity.verify_arrays = timed("verify arrays", real[3])
-    path = f"multispin_pallas {FULL_N}^2 supervised"
+    path = f"multispin_pallas {SUPERVISE_N}^2 supervised"
     try:
         with tempfile.TemporaryDirectory() as d:
             def stop(sup):
@@ -777,7 +812,7 @@ def phase_10(drive, timed_ms) -> None:
                     sup.request_stop()
 
             def first():
-                return Supervisor(spec, d, every_sweeps=SUPERVISE_EVERY,
+                return Supervisor(sup_spec, d, every_sweeps=SUPERVISE_EVERY,
                                   chunk=SUPERVISE_CHUNK,
                                   on_chunk=stop).run(SUPERVISE_SWEEPS)
 
@@ -799,7 +834,8 @@ def phase_10(drive, timed_ms) -> None:
                 plan = faults.FaultPlan(transient_dispatches=1,
                                         resident_oom=1)
                 with faults.injected(plan):
-                    sup = Supervisor(spec, d, every_sweeps=SUPERVISE_EVERY,
+                    sup = Supervisor(sup_spec, d,
+                                     every_sweeps=SUPERVISE_EVERY,
                                      chunk=SUPERVISE_CHUNK)
                     return sup, sup.run(SUPERVISE_SWEEPS), plan
 
@@ -2059,6 +2095,171 @@ def phase_14() -> dict:
           f"checkpoint equal bit for bit ({restart_s:.2f} s)")
     out["restart"] = {"codes": codes, "arrays": len(arrays[0]),
                       "seconds": restart_s}
+    return out
+
+
+def phase_15(drive, wrappers, plains, tables) -> dict:
+    """The dry-run: its cells on meta, its counts against the card, and
+    the 512-chip Ising cell's shard kernels at its plan.  ``drive`` is
+    :func:`main`'s (a shard-kernel dispatch is its own path); returns
+    the phase's numbers."""
+    import torch
+
+    from repro_torch.analysis.tune_resident import random_planes
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import distributed
+    from repro_torch.data import make_batch
+    from repro_torch.dist import driver as shard_driver
+    from repro_torch.dist import planner as shard_planner
+    from repro_torch.kernels import resident
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_debug_mesh, \
+        make_production_mesh
+    from repro_torch.models import init_model
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    from repro_torch.train.sharding import param_shardings, place
+
+    out = {}
+
+    # -- 15.1 the dry-run's cells on meta ------------------------------------
+    t0 = time.perf_counter()
+    cells = [(arch, shape) for arch, shape in DRYRUN_LM_CELLS] + [
+        (f"ising-{e}", s) for e in DRYRUN_ISING for s in dryrun.ISING_SHAPES]
+    records = {}
+    for arch, shape in cells:
+        for mesh_kind in ("single", "multi"):
+            rec = dryrun.run_cell(arch, shape, mesh_kind, verbose=False)
+            records[arch, shape, mesh_kind] = rec
+            error = f" {rec['error']}" if "error" in rec else ""
+            print(f"phase 15: dry-run {arch} x {shape} x {mesh_kind}: "
+                  f"{rec['status']}{error}, "
+                  f"chips {rec['chips']}, flops {rec.get('flops', 0):.4e}, "
+                  f"bytes {rec.get('bytes', 0):.4e} a device (counts, not "
+                  f"times), dominant {rec.get('dominant')}, argument bytes "
+                  f"{rec.get('memory', {}).get('argument_size_in_bytes')}"
+                  f" a device, collectives {rec.get('collectives')}, "
+                  f"{rec.get('compile_s')} s"
+                  + (f"; shard {rec['shard']}, plan {rec['plan']}"
+                     if arch.startswith("ising") else ""))
+            check(rec["status"] == "ok",
+                  f"dry-run {arch} x {shape} x {mesh_kind}: {rec['status']} "
+                  f"{rec.get('error', rec.get('skip_reason'))}")
+    out["cells_s"] = time.perf_counter() - t0
+    out["cells"] = {" ".join(k): {x: r.get(x) for x in (
+        "status", "flops", "bytes", "dominant", "memory")}
+        for k, r in records.items()}
+
+    # -- 15.2 the counts against the card ------------------------------------
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    meta_mesh = make_debug_mesh(n_devices=1, device="meta")
+    card_mesh = make_debug_mesh(n_devices=1, device="cuda")
+    step_of = {}
+    for where, mesh in (("meta", meta_mesh), ("cuda", card_mesh)):
+        step_of[where] = make_train_step(cfg, OptConfig(**LM_TRAIN_OPT),
+                                         remat=True, mesh=mesh)
+    params = init_model(cfg, device="meta")
+    opt = opt_init(params)
+    shardings = param_shardings(cfg, params, meta_mesh)
+    leaves = dict(params.named_parameters())
+    counted = sum(sh.shard_bytes(leaves[p.replace("/", ".")])
+                  for p, sh in shardings.items()) * 3 \
+        + opt["count"].element_size()
+    batch = make_batch(cfg, SHAPES["train_4k"], abstract=True,
+                       batch_override=LM_TRAIN[0], seq_override=LM_TRAIN[1])
+    meta_count = roofline.OpCounter()
+    with meta_count:
+        step_of["meta"](params, opt, batch)
+    del params, opt, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = init_model(cfg, 0, device="cuda")
+    params = place(params, param_shardings(cfg, params, card_mesh))
+    opt = opt_init(params)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    state_err = abs(counted - allocated) / allocated
+    batch = make_batch(cfg, SHAPES["train_4k"], batch_override=LM_TRAIN[0],
+                       seq_override=LM_TRAIN[1], device="cuda")
+    card_count = roofline.OpCounter()
+    with card_count:
+        step_of["cuda"](params, opt, batch)
+    torch.cuda.synchronize()
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    print(f"phase 15: {LM_ARCH} at {LM_TRAIN[0]} x {LM_TRAIN[1]} on a "
+          f"one-device mesh: parameter and AdamW state counted from the "
+          f"specs {counted} B, allocated on the card by opt_init "
+          f"{allocated} B ({100 * state_err:.4f} %); one train step's "
+          f"count on meta {meta_count.flops} FLOP, {meta_count.bytes} B, "
+          f"{meta_count.ops} ops; on the card {card_count.flops} FLOP, "
+          f"{card_count.bytes} B, {card_count.ops} ops")
+    if meta_count.by_op != card_count.by_op:
+        print("phase 15: ops that differ (meta, card): " + json.dumps({
+            op: (meta_count.by_op.get(op), card_count.by_op.get(op))
+            for op in set(meta_count.by_op) | set(card_count.by_op)
+            if meta_count.by_op.get(op) != card_count.by_op.get(op)}))
+    check(state_err <= DRYRUN_STATE_TOL,
+          f"the counted state {counted} B is not within "
+          f"{100 * DRYRUN_STATE_TOL} % of the allocated {allocated} B")
+    check(meta_count.flops == card_count.flops,
+          f"one step's FLOPs on meta {meta_count.flops} are not the card's "
+          f"{card_count.flops}")
+    out["state"] = {"counted_bytes": counted, "allocated_bytes": allocated,
+                    "relative_error": state_err}
+    out["step"] = {"meta_flops": meta_count.flops,
+                   "card_flops": card_count.flops,
+                   "meta_bytes": meta_count.bytes,
+                   "card_bytes": card_count.bytes,
+                   "meta_ops": meta_count.ops, "card_ops": card_count.ops}
+    out["counts_s"] = time.perf_counter() - t0
+
+    # -- 15.3 the 512-chip cell's shard kernels at its plan ------------------
+    t0 = time.perf_counter()
+    shape, mesh_kind = DRYRUN_SHARD_CELL
+    n, m = dryrun.ISING_SHAPES[shape]
+    mesh = make_production_mesh(multi_pod=mesh_kind == "multi",
+                                device="cuda")
+    out["shards"] = {}
+    for engine in DRYRUN_ISING:
+        rec = records[f"ising-{engine}", shape, mesh_kind]
+        family = dryrun.ISING_ENGINES[engine][3]
+        name = f"{family}_shard_sweeps"
+        grid = distributed.ShardGrid.of(
+            mesh, n, m // resident.GEOMETRY[family].col_divisor)
+        plan = shard_planner.plan_shard_resident(family, n, m,
+                                                 grid.rows_devs,
+                                                 grid.cols_devs)
+        ext = [plan.n_loc + 2 * plan.halo, plan.w_loc + 2 * plan.halo]
+        tile = (plan.tile_rows, plan.tile_cols, plan.threads)
+        check(rec["plan"] is not None and ext == rec["plan"]["extended"]
+              and plan.k == rec["plan"]["k"]
+              and list(tile) == rec["plan"]["tile"]
+              and [plan.n_loc, plan.w_loc] == rec["shard"],
+              f"{name}: the plan {plan} is not the dry-run's {rec['plan']}")
+        index = shard_driver.index_planes(plan, grid, DRYRUN_SHARD_INDEX)
+        b, w = random_planes(family, *ext, 15)
+        path = (f"dry-run {family} shard {DRYRUN_SHARD_INDEX} of "
+                f"{shape} on {mesh_kind}")
+        got = drive(path, family, "shard", lambda: wrappers[name](
+            b, w, tables[family], *index, n_sweeps=plan.k, seed=SEED,
+            start_offset=2 ** 32 - 3, tile=tile))
+        want = plains[name](b, w, tables[family], *index, n_sweeps=plan.k,
+                            seed=SEED, start_offset=2 ** 32 - 3)
+        bad = sum(int((x != y).sum()) for x, y in zip(got, want))
+        print(f"phase 15: {name} at the dry-run's plan of {shape} on "
+              f"{mesh.shape} (k {plan.k}, extended {ext[0]} x {ext[1]}, "
+              f"tile {tile}): shard {DRYRUN_SHARD_INDEX}, "
+              f"{wrappers[name].launches} launch, {bad} mismatches "
+              f"against the plain version")
+        check(bad == 0, f"{name} at the dry-run's plan disagrees with its "
+              f"plain version")
+        out["shards"][name] = {"path": path, "extended": ext, "k": plan.k,
+                               "mismatches": bad}
+        del b, w, got, want, index
+    torch.cuda.empty_cache()
+    out["shards_s"] = time.perf_counter() - t0
     return out
 
 
@@ -4267,6 +4468,13 @@ def main() -> int:
     phase_s[14] = time.perf_counter() - t0
     print(f"phase 14: {phase_s[14]:.1f} s; "
           + json.dumps({"lm_training": lm_train["full"]}))
+
+    # -- 15. the dry-run ------------------------------------------------------
+    t0 = time.perf_counter()
+    dry = phase_15(drive, wrappers, plains, tables)
+    phase_s[15] = time.perf_counter() - t0
+    print(f"phase 15: {phase_s[15]:.1f} s; " + json.dumps(
+        {"dryrun": {k: v for k, v in dry.items() if k != "cells"}}))
 
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}

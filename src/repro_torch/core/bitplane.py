@@ -211,7 +211,7 @@ def update_bits(target_words, counts, thresholds, draws_of):
     n, w = target_words.shape
     n0, n1, n2 = counts
     out = torch.empty_like(target_words)
-    rows = max(1, 4 * _CHUNK_GROUPS // w)
+    rows = max(1, 4 * rng.chunk_limit(_CHUNK_GROUPS, out.device) // w)
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
         t = target_words[r0:r1]

@@ -127,8 +127,9 @@ def philox_uniforms(n: int, h: int, seed: int, offset: int, device, *,
     k0, k1 = rng.seed_keys(seed)
     shape = (n * h,) if lanes == 1 else (lanes, n * h)
     out = torch.empty(shape, dtype=torch.float32, device=device)
-    for s0 in range(0, n * h, _CHUNK_SITES):
-        s1 = min(n * h, s0 + _CHUNK_SITES)
+    chunk = rng.chunk_limit(_CHUNK_SITES, out.device)
+    for s0 in range(0, n * h, chunk):
+        s1 = min(n * h, s0 + chunk)
         idx = torch.arange(s0, s1, dtype=torch.int64, device=device)
         bits = rng.philox4x32(offset, c1, idx & rng.MASK32, c3, k0, k1)
         out[..., s0:s1] = _lanes(bits, lanes)
@@ -146,10 +147,11 @@ def index_uniforms(index: torch.Tensor, seed: int, offset: int, *,
     flat = index.reshape(-1)
     shape = flat.shape if lanes == 1 else (lanes, *flat.shape)
     out = torch.empty(shape, dtype=torch.float32, device=index.device)
-    for s0 in range(0, flat.numel(), _CHUNK_SITES):
-        idx = flat[s0:s0 + _CHUNK_SITES].to(torch.int64) & rng.MASK32
+    chunk = rng.chunk_limit(_CHUNK_SITES, index.device)
+    for s0 in range(0, flat.numel(), chunk):
+        idx = flat[s0:s0 + chunk].to(torch.int64) & rng.MASK32
         bits = rng.philox4x32(offset, c1, idx, c3, k0, k1)
-        out[..., s0:s0 + _CHUNK_SITES] = _lanes(bits, lanes)
+        out[..., s0:s0 + chunk] = _lanes(bits, lanes)
     return out.reshape(*shape[:-1], *index.shape)
 
 

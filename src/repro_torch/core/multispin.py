@@ -108,7 +108,8 @@ def update_words(target_words, nn_words, thresholds, seed: Seeds,
     target = lat.words_to_u32(target_words)
     thr = thresholds.to(device=target.device, dtype=torch.int64)
     out = torch.empty_like(target_words, dtype=torch.int32)
-    rows = max(1, _CHUNK_WORDS // (target[..., 0, 0].numel() * w))
+    rows = max(1, rng.chunk_limit(_CHUNK_WORDS, target.device)
+               // (target[..., 0, 0].numel() * w))
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
         if widx is None:

@@ -57,6 +57,13 @@ COUPLING_LANE = 3
 HALF_SWEEPS_PER_SWEEP = 2
 
 
+def chunk_limit(limit: int, device) -> int:
+    """Elements a chunk of a plain version's Philox temporaries: ``limit``,
+    or the whole plane on the meta device, which holds no memory (the
+    dry-run counts the same work in one chunk's ops)."""
+    return 1 << 62 if torch.device(device).type == "meta" else limit
+
+
 def half_sweep_offset(start_offset: int, sweep: int, color: int) -> int:
     """Philox offset of half-sweep ``color`` (0 = black, 1 = white) of
     full sweep ``sweep`` past a cumulative ``start_offset`` (in

@@ -101,11 +101,13 @@ def philox_fill(seeds, offset: int, *, shape=None, index=None, device=None,
     ``(offset, c1, index, c3)``, one member a seed of ``seeds``: of the
     row-major ``shape`` on ``device`` (index = flat position), or of the
     int32/int64 index plane ``index`` (on its device, shared by the
-    members; ``shape`` its shape).  CPU tensors take the plain version;
-    on the card each launch (ceil(B / limit) of them) is counted."""
+    members; ``shape`` its shape).  CPU tensors take the plain version,
+    and so do meta tensors (shapes only: the dry-run counts its ops in
+    the kernel's place); on the card each launch (ceil(B / limit) of
+    them) is counted."""
     _check(seeds, lanes, shape, index)
     device = torch.device(index.device if index is not None else device)
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         return philox_fill_plain(seeds, offset, shape=shape, index=index,
                                  device=device, c1=c1, c3=c3, lanes=lanes)
     if device.type != "cuda":

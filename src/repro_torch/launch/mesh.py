@@ -7,6 +7,11 @@ machine puts several shards on one device, where the JAX package would
 refuse it.  That changes no result, since the draws are keyed on global
 lattice positions; it lets a sharded run be tested on one card, as the
 JAX package's tests force several host devices.
+
+:func:`make_production_mesh` and :func:`make_debug_mesh` are the JAX
+package's factories, functions and not module constants: importing
+this module builds no mesh.  The dry-run puts the production mesh's
+512 shards on the meta device.
 """
 from __future__ import annotations
 
@@ -72,3 +77,28 @@ def make_mesh(shape, axis_names, device=None) -> Mesh:
     else:
         devices = (torch.device(device),)
     return Mesh(tuple(int(d) for d in shape), tuple(axis_names), devices)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The JAX package's production mesh: one pod (16, 16) with axes
+    ``("data", "model")``, or two, (2, 16, 16) with ``("pod", "data",
+    "model")``, where ``pod`` is an outer data-parallel ring.  Every
+    shard sits on ``device`` (``"meta"`` for the dry-run, which counts
+    a step's work without memory); ``device=None`` spreads the shards
+    over the CUDA cards, as :func:`make_mesh`."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_debug_mesh(n_devices: int = 0, model: int = 2,
+                    device=None) -> Mesh:
+    """A small ``("data", "model")`` mesh of ``n_devices`` shards (0:
+    one a CUDA card, or one on ``device``), ``model`` of them (at most
+    ``n_devices``) on the model axis."""
+    if not n_devices:
+        n_devices = (torch.cuda.device_count() if device is None
+                     and torch.cuda.is_available() else 1)
+    model = min(model, n_devices)
+    return make_mesh((n_devices // model, model), ("data", "model"),
+                     device)

@@ -9,9 +9,10 @@ skip, periodic async checkpoints, auto-restore from the latest
 checkpoint, and optional simulated preemption (``--die-at``, exit 42) to
 demonstrate the restart path end-to-end.  Checkpoints hold ``{"params",
 "opt"}`` in the JAX package's layout (``params_to_jax``,
-``opt_to_jax``), so either package resumes the other's.  There is no
-mesh and no parameter sharding: the sharded form (JAX's
-``train/sharding.py``) is not ported yet.
+``opt_to_jax``), so either package resumes the other's.  The mesh is
+``make_debug_mesh(n_devices=1)`` on the device, and the parameters are
+placed through ``param_shardings`` on it, as JAX's driver places them
+on its debug mesh: the port runs the LM step on one card.
 
 ``--deterministic`` runs under ``torch.use_deterministic_algorithms``
 (on the card set ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the environment
@@ -27,10 +28,12 @@ from repro_torch.api.session import resolve_device
 from repro_torch.ckpt import Checkpointer
 from repro_torch.configs import SHAPES, get_config, get_smoke_config
 from repro_torch.data import DataIterator
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import init_model
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.train import OptConfig, make_train_step, opt_init
 from repro_torch.train.optim import opt_from_jax, opt_to_jax
+from repro_torch.train.sharding import param_shardings, place
 
 
 def state_tree(cfg, params, opt_state) -> dict:
@@ -65,14 +68,17 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
-    print(f"arch={cfg.name} mesh={{'data': 1, 'model': 1}} devices=1")
+    mesh = make_debug_mesh(n_devices=1, device=device)
+    print(f"arch={cfg.name} mesh={dict(zip(mesh.axis_names, mesh.shape))} "
+          f"devices={len(mesh.devices)}")
 
     params = init_model(cfg, args.seed, device=device)
+    params = place(params, param_shardings(cfg, params, mesh))
     opt_state = opt_init(params)
 
     ocfg = OptConfig(lr=args.lr, warmup=min(20, args.steps // 5 + 1),
                      total_steps=args.steps)
-    step_fn = make_train_step(cfg, ocfg)
+    step_fn = make_train_step(cfg, ocfg, mesh=mesh)
 
     start_step = 0
     ckpt = None

@@ -162,9 +162,11 @@ class CardProduct(torch.autograd.Function):
 def mm(a: torch.Tensor, b: torch.Tensor, out=torch.float32) -> torch.Tensor:
     """``a @ b`` with bf16 operands and f32 sums, as ``out``: ``a`` (...,
     m, k), ``b`` (k, n) or (..., k, n) broadcasting over the batch.
-    Differentiable on either device with JAX's rule (:class:`CardProduct`)."""
+    Differentiable on either device with JAX's rule (:class:`CardProduct`).
+    Meta tensors take the card's route, so that a step run on them (the
+    dry-run's count) runs the card's ops."""
     a, b = cast_c(a), cast_c(b)
-    if a.device.type == "cuda":
+    if a.device.type in ("cuda", "meta"):
         y = CardProduct.apply(a, b)
     else:
         y = torch.matmul(a.float(), b.float())

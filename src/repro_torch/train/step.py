@@ -3,9 +3,11 @@
 loss's gradient (autograd), ``make_prefill_step`` the forward-only
 prefill, ``make_serve_step`` one KV-cached decode iteration.  The last
 two run without autograd.  All run on the device of the parameters
-they are given; the port runs one device, so JAX's ``mesh`` and ``sp``
-are accepted and do nothing (the sharded form is JAX's
-``train/sharding.py``, not ported yet).
+they are given.  The port runs the LM step on one card: ``mesh`` and
+``sp`` are JAX's, and a mesh of one shard constrains nothing, as JAX's
+constraints do nothing there; a larger mesh raises ValueError (its
+specs are ``repro_torch.train.sharding``'s, and the dry-run counts its
+cells on the meta device: ``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -35,11 +37,23 @@ def cross_entropy(logits, labels):
     return (lse - gold).mean()
 
 
+def one_shard(mesh) -> None:
+    """Raises ValueError unless ``mesh`` is None or has one shard."""
+    if mesh is not None and mesh.size != 1:
+        shape = dict(zip(mesh.axis_names, mesh.shape))
+        raise ValueError(f"a mesh of {mesh.size} shards {shape}: the port "
+                         f"runs the LM step on one card (a mesh of one "
+                         f"shard)")
+
+
 def make_loss_fn(cfg: ArchConfig, *, remat: bool = True,
                  sliding_window: int = 0, aux_weight: float = 0.01,
                  mesh=None, sp: bool = False):
     """``loss_fn(params, batch) -> (loss + aux_weight * aux, (loss,
-    aux))``.  ``mesh`` and ``sp`` change nothing on one device."""
+    aux))``.  ``mesh``: None or one shard (:func:`one_shard`); ``sp``
+    then changes nothing."""
+    one_shard(mesh)
+
     def loss_fn(params, batch):
         logits, aux = forward(cfg, params, batch, remat=remat,
                               sliding_window=sliding_window)
@@ -57,7 +71,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: optim.OptConfig, *,
     ``params`` and ``opt_state`` in place and returns the same objects;
     ``metrics`` holds ``loss``, ``aux``, ``total``, ``grad_norm`` and
     ``lr`` as 0-d tensors on the device (read them when needed: no step
-    waits for the card).
+    waits for the card).  ``mesh``: None or a mesh of one shard
+    (:func:`one_shard`).
 
     grad_sync: optional fn(grads) -> grads on the list of gradients (the
     parameters' order) before the update, e.g. a compressed
@@ -70,6 +85,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: optim.OptConfig, *,
     microbatch (JAX's H9 lever for the train_4k cells); ``loss``,
     ``aux`` and ``total`` are the parts' means.
     """
+    one_shard(mesh)
     if loss_fn is None:
         loss_fn = make_loss_fn(cfg, remat=remat,
                                sliding_window=sliding_window,

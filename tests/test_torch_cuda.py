@@ -1472,3 +1472,95 @@ def test_lm_train_step_on_card_equals_cpu(cuda, arch):
     norm = sum(float(b.pow(2).sum()) for b in gc)
     assert (sq / norm) ** 0.5 <= 0.03
     assert all(p.device.type == "cuda" for p in card.parameters())
+
+
+def test_param_shardings_and_place_on_card(cuda):
+    """``param_shardings`` on a one-device mesh of the card: every spec
+    fits its leaf whole, and ``place`` leaves the tree on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_model
+    from repro_torch.train.sharding import param_shardings, place
+    cfg = get_smoke_config("internlm2-1.8b")
+    mesh = make_debug_mesh(n_devices=1, device="cuda")
+    assert mesh.devices == (torch.device("cuda"),)
+    params = init_model(cfg, 0, device="cuda")
+    sh = param_shardings(cfg, params, mesh)
+    assert len(sh) == len(list(params.parameters()))
+    for path, s in sh.items():
+        leaf = params.get_parameter(path.replace("/", "."))
+        assert s.shard_shape(leaf.shape) == tuple(leaf.shape)
+    assert place(params, sh) is params
+    assert all(p.device.type == "cuda" for p in params.parameters())
+
+
+def test_launch_train_on_card_mesh(cuda, capsys):
+    """``launch.train`` with no ``--device``: the card, its one-device
+    debug mesh printed as JAX's driver prints its mesh."""
+    from repro_torch.launch import train
+    assert train.main(["--smoke", "--steps", "2", "--batch", "2", "--seq",
+                       "16", "--log-every", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "mesh={'data': 1, 'model': 1} devices=1" in out
+    assert "done" in out
+
+
+def test_dryrun_count_equals_card_count(cuda):
+    """One smoke train step counted on meta and around the same step on
+    the card: the same FLOPs, op for op."""
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.roofline import OpCounter
+    from repro_torch.models import init_model
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    cfg = get_smoke_config("internlm2-1.8b")
+    step = make_train_step(cfg, OptConfig())
+    counts = []
+    for device in ("meta", "cuda"):
+        params = init_model(cfg, 0, device=device)
+        batch = make_batch(cfg, SHAPES["train_4k"], batch_override=2,
+                           seq_override=16, abstract=device == "meta",
+                           device=None if device == "meta" else device)
+        with OpCounter() as c:
+            step(params, opt_init(params), batch)
+        counts.append(c)
+    torch.cuda.synchronize()
+    assert counts[0].by_op == counts[1].by_op
+    assert counts[0].flops == counts[1].flops > 0
+
+
+@pytest.mark.parametrize("engine", ["multispin", "bitplane", "basic"])
+def test_shard_kernel_at_dryrun_plan(cuda, engine):
+    """One dispatch of the family's shard kernel at the plan and extended
+    shard that the dry-run reports for lat_256k on the (2, 16, 16) mesh
+    (the last shard's index planes), against its plain version."""
+    from repro_torch.analysis.tune_resident import acceptance, random_planes
+    from repro_torch.core.distributed import ShardGrid
+    from repro_torch.dist import driver
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    rec = dryrun.run_cell(f"ising-{engine}", "lat_256k", "multi",
+                          verbose=False)
+    assert rec["status"] == "ok"
+    family = dryrun.ISING_ENGINES[engine][3]
+    n, m = dryrun.ISING_SHAPES["lat_256k"]
+    grid = ShardGrid.of(make_production_mesh(multi_pod=True, device="cuda"),
+                        n, m // resident.GEOMETRY[family].col_divisor)
+    plan = shard_planner.plan_shard_resident(family, n, m, grid.rows_devs,
+                                             grid.cols_devs)
+    ext = [plan.n_loc + 2 * plan.halo, plan.w_loc + 2 * plan.halo]
+    assert ext == rec["plan"]["extended"] and plan.k == rec["plan"]["k"]
+    index = driver.index_planes(plan, grid, 511)
+    b, w = random_planes(family, *ext, 15)
+    name = f"{family}_shard_sweeps"
+    kernel, plain = getattr(dk, name), getattr(dk, f"{name}_plain")
+    table = acceptance(family)
+    before = kernel.launches
+    got = kernel(b, w, table, *index, n_sweeps=plan.k, seed=SEED,
+                 start_offset=2 ** 32 - 3,
+                 tile=(plan.tile_rows, plan.tile_cols, plan.threads))
+    assert kernel.launches == before + 1
+    want = plain(b, w, table, *index, n_sweeps=plan.k, seed=SEED,
+                 start_offset=2 ** 32 - 3)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)

@@ -302,7 +302,12 @@ def test_philox_fill_launch_loop_as_the_card_runs_it(monkeypatch, limit,
 
 def test_philox_fill_raises_on_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
-        draws.philox_fill([1], 0, shape=(2, 2), device="meta")
+        draws.philox_fill([1], 0, shape=(2, 2), device="xpu")
+    # meta tensors take the plain version (shapes only, the dry-run's)
+    before = draws.philox_fill.launches
+    out = draws.philox_fill([1, 2], 0, shape=(2, 3), device="meta")
+    assert out.device.type == "meta" and out.shape == (1, 2, 2, 3)
+    assert draws.philox_fill.launches == before
 
 
 # -- registry and front door -----------------------------------------------

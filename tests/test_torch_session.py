@@ -351,7 +351,8 @@ print(s.state_digest())
 assert {"repro_torch.serve.server", "repro_torch.serve.smoke",
         "repro_torch.serve.client", "repro_torch.launch.simulate",
         "repro_torch.launch.serve", "repro_torch.launch.train",
-        "repro_torch.train.compress"} <= set(sys.modules)
+        "repro_torch.train.compress", "repro_torch.train.sharding",
+        "repro_torch.launch.dryrun"} <= set(sys.modules)
 import tempfile
 from repro_torch.serve import SweepFarm
 with tempfile.TemporaryDirectory() as d:
