@@ -726,6 +726,40 @@ DRYRUN_STATE_TOL = 0.01
 DRYRUN_SHARD_CELL = ("lat_256k", "multi")
 DRYRUN_SHARD_INDEX = 511
 
+#: phase 16, the LM train step on a mesh of several shards
+#: (``repro_torch.train.sharding.place``: each shard holds its
+#: ``NamedSharding.index`` pieces; each layer gathered whole on a shard,
+#: its gradient cut back onto the pieces).  LM_MESH's four shards share
+#: the card.  The smoke archs' one step (LM_SMOKE_OPT, make_batch's
+#: LM_MESH_SMOKE rows x tokens) on the mesh against the card's one-shard
+#: step from the same weights and batch: loss within LM_TRAIN_LOSS
+#: relative, grad_norm LM_TRAIN_GNORM, each parameter within 2.1 lr and
+#: LM_MESH_NEAR of them within 1e-4 (Adam's first update is about lr x
+#: sign(g): a near-zero gradient rounded to the other sign moves its
+#: parameter by 2 lr).  Then LM_ARCH at full width from phase 14's
+#: weights and batch, LM_TRAIN_STEPS steps on LM_MESH: each step's loss
+#: within LM_MESH_FOLLOW relative of phase 14's one-shard loss, the
+#: median of steps 2 on, peak memory, each shard's state against
+#: memory_per_device's count.  Before those steps, the first step's
+#: gradients at full width from the same weights and batch: the mesh's
+#: against one shard's, the global norm within LM_MESH_GNORM relative,
+#: with the tree's relative RMS difference and the share of elements
+#: whose sign differs (Adam's first update, about lr x sign(g), moves
+#: each of those by 2 lr: where the losses part).  Then a planted fault,
+#: shard LM_MESH_FAULT's gradient dropped (its logits detached, its loss
+#: kept): its global norm must fail LM_MESH_GNORM, and the loss after
+#: one step of it is set beside LM_MESH_FOLLOW.  Measured on an H100
+#: (NVIDIA H100 80GB HBM3, 700.00 W): grad_norm 2.2e-4 relative, the
+#: gradient tree 1.25 % relative RMS apart (the size of the card's bf16
+#: rounding: phase 14's card against the CPU, 0.8-1.1 %), the sign
+#: differing on 0.24 % of the elements; the losses 9.5e-4 apart at
+#: most; the fault 13.7 % on grad_norm and 1.6e-2 on the next loss
+LM_MESH = (2, 2)
+LM_MESH_SMOKE = (4, 32)
+LM_MESH_NEAR = 0.98
+LM_MESH_FOLLOW = 2e-3
+LM_MESH_GNORM = 1e-3
+LM_MESH_FAULT = 3
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -2261,6 +2295,279 @@ def phase_15(drive, wrappers, plains, tables) -> dict:
     torch.cuda.empty_cache()
     out["shards_s"] = time.perf_counter() - t0
     return out
+
+
+def phase_16(full_losses) -> dict:
+    """The LM train step on a mesh of LM_MESH shards on the card: each
+    smoke architecture against the card's one-shard step, then
+    LM_ARCH at full width against phase 14's losses (``full_losses``).
+    A mesh run must not quietly run one shard: every shard computes
+    rows.  Returns the full width's numbers."""
+    import copy
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config, \
+        get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_model
+    from repro_torch.train import (OptConfig, make_loss_fn,
+                                   make_train_step, opt_init)
+    from repro_torch.train import optim as lm_optim
+    from repro_torch.train import step as train_step
+    from repro_torch.train.sharding import param_shardings, place
+
+    card = torch.device("cuda")
+    mesh = make_debug_mesh(n_devices=LM_MESH[0] * LM_MESH[1],
+                           model=LM_MESH[1], device=card)
+    check(mesh.shape == LM_MESH and mesh.size > 1, f"mesh {mesh.shape}")
+    computed = []
+    split_rows = train_step.split_rows
+
+    def recording(params, batch):
+        parts = split_rows(params, batch)
+        computed.append([(i, len(p["labels"])) for i, p in parts])
+        return parts
+    train_step.split_rows = recording
+    out = {"mesh": list(LM_MESH)}
+    try:
+        # -- 16.1 every architecture's step at smoke width -----------------
+        rows = {}
+        ocfg = OptConfig(**LM_SMOKE_OPT)
+        for i, arch in enumerate(ARCH_IDS):
+            cfg = get_smoke_config(arch)
+            one = init_model(cfg, 600 + i, device=card)
+            placed = place(copy.deepcopy(one), param_shardings(cfg, one,
+                                                               mesh))
+            b, s = LM_MESH_SMOKE
+            batch = make_batch(cfg, SHAPES["train_4k"], step=i, seed=16,
+                               batch_override=b, seq_override=s,
+                               device=card)
+            _, _, m1 = make_train_step(cfg, ocfg)(one, opt_init(one), batch)
+            computed.clear()
+            _, _, mm = make_train_step(cfg, ocfg, mesh=mesh)(
+                placed, opt_init(placed), batch)
+            shards = sorted(i for step in computed for i, _ in step)
+            check(shards == list(range(mesh.size)), f"{arch}: on the mesh "
+                  f"the shards {shards} computed rows")
+            m1 = {k: float(v) for k, v in m1.items()}
+            mm = {k: float(v) for k, v in mm.items()}
+            loss_rel = abs(mm["loss"] - m1["loss"]) / abs(m1["loss"])
+            gnorm_rel = abs(mm["grad_norm"] - m1["grad_norm"]) \
+                / m1["grad_norm"]
+            whole = placed.tree(card)
+            worst, near, n = 0.0, 0, 0
+            with torch.no_grad():
+                for a, w in zip(whole.parameters(), one.parameters()):
+                    d = (a - w).abs()
+                    worst = max(worst, float(d.max()))
+                    near += int((d < 1e-4).sum())
+                    n += d.numel()
+            check(math.isfinite(mm["loss"]) and loss_rel <= LM_TRAIN_LOSS,
+                  f"{arch}: mesh loss {mm['loss']} against one shard's "
+                  f"{m1['loss']}")
+            check(gnorm_rel <= LM_TRAIN_GNORM, f"{arch}: mesh grad_norm "
+                  f"{mm['grad_norm']} against one shard's "
+                  f"{m1['grad_norm']}")
+            check(worst <= 2.1 * m1["lr"] and near / n >= LM_MESH_NEAR,
+                  f"{arch}: mesh parameters off one shard's: largest "
+                  f"{worst} (lr {m1['lr']}), {near / n:.4f} within 1e-4")
+            rows[arch] = {"loss": mm["loss"], "loss_rel": loss_rel,
+                          "grad_norm_rel": gnorm_rel, "aux": mm["aux"],
+                          "aux_one_shard": m1["aux"],
+                          "max_param_diff_over_lr": worst / m1["lr"],
+                          "within_1e-4": near / n}
+            del one, placed, whole
+        print("phase 16: smoke archs' step on a " f"{LM_MESH} mesh against "
+              "one shard, card: " + json.dumps(rows))
+        out["smoke"] = rows
+
+        # -- 16.2 internlm2-1.8b at full width, remat on -------------------
+        cfg = get_config(LM_ARCH)
+        b, s = LM_TRAIN
+        batch = make_batch(cfg, SHAPES["train_4k"], batch_override=b,
+                           seq_override=s, device=card)
+        out["first_step"] = first_step_gradients(cfg, mesh, batch,
+                                                 full_losses)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        whole = init_model(cfg, 13, device=card)
+        sh = param_shardings(cfg, whole, mesh)
+        params = place(whole, sh)
+        leaves = {p.replace("/", "."): whole.get_parameter(
+            p.replace("/", ".")) for p in sh}
+        counted = roofline.memory_per_device(
+            [(sh[p.replace(".", "/")], leaf) for p, leaf in leaves.items()]
+            * 3)["argument_size_in_bytes"]
+        del whole, leaves
+        opt = opt_init(params)
+        torch.cuda.synchronize()
+        state_bytes = torch.cuda.memory_allocated() - before
+        shard_bytes = [sum(x.numel() * x.element_size() for t in (
+            params.pieces[i], opt["mu"].pieces[i], opt["nu"].pieces[i])
+            for x in t.parameters()) for i in range(mesh.size)]
+        check(all(x == counted for x in shard_bytes),
+              f"each shard's state {shard_bytes} B, counted {counted} B")
+        step = make_train_step(cfg, OptConfig(**LM_TRAIN_OPT), remat=True,
+                               mesh=mesh)
+        losses, step_ms, host_ms = [], [], []
+        for _ in range(LM_TRAIN_STEPS):
+            computed.clear()
+            ms, (params, opt, m) = cuda_events(torch, lambda: step(
+                params, opt, batch))
+            step_ms.append(ms)
+            host_ms.append(cuda_events.host_ms)
+            losses.append(float(m["loss"]))
+            check([i for i, _ in computed[0]] == list(range(mesh.size)),
+                  f"full width: the shards that computed rows: {computed}")
+        peak = torch.cuda.max_memory_allocated()
+        # AdamW alone on the pieces, on this batch's gradients
+        plist = lm_optim.leaves(params)
+        total, _ = make_loss_fn(cfg, mesh=mesh)(params, batch)
+        total.backward()
+        grads = [p.grad for p in plist]
+        adam_ms = statistics.median(
+            cuda_events(torch, lambda: lm_optim.update(
+                OptConfig(**LM_TRAIN_OPT), grads, params, opt))[0]
+            for _ in range(LM_ADAM_TRIALS))
+        for p in plist:
+            p.grad = None
+        del grads, total, plist
+        follow = [abs(a - w) / abs(w) for a, w in zip(losses, full_losses)]
+        check(all(math.isfinite(x) for x in losses)
+              and max(follow) <= LM_MESH_FOLLOW,
+              f"full width on {LM_MESH}: losses {losses} against one "
+              f"shard's {full_losses}")
+        median_ms = statistics.median(step_ms[1:])
+        del params, opt, batch
+        torch.cuda.empty_cache()
+    finally:
+        train_step.split_rows = split_rows
+    card_line = nvidia_smi("name,power.limit")
+    full = {"arch": LM_ARCH, "batch": b, "tokens": s, "losses": losses,
+            "one_shard_losses": list(full_losses), "loss_rel": follow,
+            "step_ms": step_ms, "host_ms": host_ms, "median_ms": median_ms,
+            "tokens_per_s": b * s / median_ms * 1e3, "peak_bytes": peak,
+            "adamw_ms": adam_ms,
+            "state_bytes": state_bytes, "shard_state_bytes": shard_bytes,
+            "memory_per_device_bytes": counted,
+            "rows_per_shard": [n for _, n in computed[0]],
+            "card": card_line}
+    print(f"phase 16: {LM_ARCH} full width training, remat, {b} x {s} on "
+          f"a {LM_MESH} mesh of one card: losses "
+          f"{[round(x, 4) for x in losses]} (one shard, phase 14: "
+          f"{[round(x, 4) for x in full_losses]}; largest relative "
+          f"difference {max(follow):.3g}); step ms "
+          f"{[round(x, 3) for x in step_ms]} (host to return "
+          f"{[round(x, 3) for x in host_ms]}), median of 2-{LM_TRAIN_STEPS} "
+          f"{median_ms:.3f} ({full['tokens_per_s']:.1f} tokens/s); AdamW "
+          f"alone {adam_ms:.3f} ms; peak "
+          f"{peak} B; state allocated {state_bytes} B, each shard's "
+          f"{shard_bytes[0]} B = memory_per_device's {counted} B; rows a "
+          f"shard {full['rows_per_shard']}; {card_line}")
+    out["full"] = full
+    return out
+
+
+def first_step_gradients(cfg, mesh, batch, full_losses) -> dict:
+    """Phase 16's first step at full width from phase 14's weights: the
+    mesh's gradients against one shard's, then the planted fault (the
+    module's notes at LM_MESH_GNORM).  Leaves nothing on the card."""
+    import torch
+
+    from repro_torch.models import init_model
+    from repro_torch.models.shards import paths
+    from repro_torch.train import OptConfig, make_loss_fn, opt_init
+    from repro_torch.train import optim as lm_optim
+    from repro_torch.train import step as train_step
+    from repro_torch.train.sharding import param_shardings, place
+
+    def grads(loss_fn, params, plist):
+        for p in plist:
+            p.requires_grad_(True)
+        loss_fn(params, batch)[0].backward()
+        out = [p.grad for p in plist]
+        for p in plist:
+            p.grad = None
+            p.requires_grad_(False)
+        return out
+
+    whole = init_model(cfg, 13, device=mesh.device_of(0))
+    sh = param_shardings(cfg, whole, mesh)
+    one = dict(zip(paths(whole), grads(make_loss_fn(cfg), whole,
+                                       list(whole.parameters()))))
+    one_norm = float(lm_optim.global_norm(list(one.values())))
+    params = place(whole, sh)
+    del whole
+    plist = lm_optim.leaves(params)
+    firsts = lm_optim.counted(params)
+    loss_fn = make_loss_fn(cfg, mesh=mesh)
+    got = grads(loss_fn, params, plist)
+    mesh_norm = float(lm_optim.global_norm(got, firsts))
+    keys = [(i, path) for i, t in enumerate(params.pieces)
+            for path in paths(t)]
+    diff2 = ref2 = flips = 0
+    n = 0
+    for (i, path), g, first in zip(keys, got, firsts):
+        if first:
+            r = one[path][sh[path].index(i, one[path].shape)]
+            diff2 = diff2 + (g - r).double().pow(2).sum()
+            ref2 = ref2 + r.double().pow(2).sum()
+            flips = flips + (torch.sign(g) != torch.sign(r)).sum()
+            n += r.numel()
+    rel = abs(mesh_norm - one_norm) / one_norm
+    tree_rel = math.sqrt(float(diff2) / float(ref2))
+    flipped = int(flips) / n
+    del got, one
+
+    # the planted fault: shard LM_MESH_FAULT's rows give no gradient
+    forward_parts = train_step.forward_parts
+
+    def dropping(*args, **kw):
+        outs = forward_parts(*args, **kw)
+        logits, aux = outs[LM_MESH_FAULT]
+        outs[LM_MESH_FAULT] = (logits.detach(), aux.detach())
+        return outs
+    opt = opt_init(params)
+    train_step.forward_parts = dropping
+    try:
+        bad = grads(loss_fn, params, plist)
+    finally:
+        train_step.forward_parts = forward_parts
+    fault_norm = float(lm_optim.global_norm(bad, firsts))
+    lm_optim.update(OptConfig(**LM_TRAIN_OPT), bad, params, opt)
+    del bad
+    with torch.no_grad():
+        fault_loss = float(loss_fn(params, batch)[1][0])
+    del params, opt, plist
+    torch.cuda.empty_cache()
+    fault_rel = abs(fault_norm - one_norm) / one_norm
+    fault_follow = abs(fault_loss - full_losses[1]) / full_losses[1]
+    check(rel <= LM_MESH_GNORM, f"full width on {LM_MESH}: the first "
+          f"step's grad_norm {mesh_norm} against one shard's {one_norm}")
+    check(fault_rel > LM_MESH_GNORM, f"the planted fault (shard "
+          f"{LM_MESH_FAULT}'s gradient dropped) passes the grad_norm "
+          f"bound: {fault_norm} against {one_norm}")
+    res = {"grad_norm_one_shard": one_norm, "grad_norm_mesh": mesh_norm,
+           "grad_norm_rel": rel, "grad_tree_rel_rms": tree_rel,
+           "sign_differs": flipped, "elements": n,
+           "fault_shard": LM_MESH_FAULT, "fault_grad_norm": fault_norm,
+           "fault_grad_norm_rel": fault_rel, "fault_loss_2": fault_loss,
+           "fault_loss_2_rel": fault_follow}
+    print(f"phase 16: {LM_ARCH} full width, first step's gradients on "
+          f"{LM_MESH} against one shard: grad_norm {mesh_norm} / {one_norm}"
+          f" (rel {rel:.3g}, bound {LM_MESH_GNORM}); tree relative RMS "
+          f"{tree_rel:.3g}; sign differs on {flipped:.4g} of {n} elements;"
+          f" planted fault (shard {LM_MESH_FAULT}'s gradient dropped): "
+          f"grad_norm {fault_norm} (rel {fault_rel:.3g}), the loss after "
+          f"its step {fault_loss} against one shard's {full_losses[1]} "
+          f"(rel {fault_follow:.3g}, LM_MESH_FOLLOW {LM_MESH_FOLLOW})")
+    return res
 
 
 def nvidia_smi(query: str) -> str:
@@ -4475,6 +4782,14 @@ def main() -> int:
     phase_s[15] = time.perf_counter() - t0
     print(f"phase 15: {phase_s[15]:.1f} s; " + json.dumps(
         {"dryrun": {k: v for k, v in dry.items() if k != "cells"}}))
+
+    # -- 16. the LM train step on a mesh of several shards -------------------
+    t0 = time.perf_counter()
+    lm_mesh = drive("lm mesh training", None, None, lambda: phase_16(
+        lm_train["full"]["losses"]))
+    phase_s[16] = time.perf_counter() - t0
+    print(f"phase 16: {phase_s[16]:.1f} s; "
+          + json.dumps({"lm_mesh_training": lm_mesh["full"]}))
 
     def by_path(name):
         return {path: c[name] for path, c in launches_by_path.items()}

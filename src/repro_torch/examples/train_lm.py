@@ -23,7 +23,7 @@ def main(argv=None) -> int:
         prog="python -m repro_torch.examples.train_lm",
         description="train internlm2-1.8b's smoke config for 60 steps")
     ap.add_argument("--device", default="",
-                    help="torch device, e.g. cpu (default: the CUDA card)")
+                    help="one torch device, e.g. cpu (default: every CUDA card)")
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train_ck"))
     args = ap.parse_args(argv)

@@ -3,16 +3,17 @@
 
 ``python -m repro_torch.launch.train --arch internlm2-1.8b --smoke --steps 200``
 
-Runs the train step on one device, the CUDA card unless ``--device``
-names another (``--device cpu``), with: deterministic restart-exact data
-skip, periodic async checkpoints, auto-restore from the latest
-checkpoint, and optional simulated preemption (``--die-at``, exit 42) to
-demonstrate the restart path end-to-end.  Checkpoints hold ``{"params",
-"opt"}`` in the JAX package's layout (``params_to_jax``,
-``opt_to_jax``), so either package resumes the other's.  The mesh is
-``make_debug_mesh(n_devices=1)`` on the device, and the parameters are
-placed through ``param_shardings`` on it, as JAX's driver places them
-on its debug mesh: the port runs the LM step on one card.
+Runs the sharded train step on every CUDA card there is, as JAX's
+driver runs it on whatever devices exist: ``make_debug_mesh()`` over
+the cards (one card: one shard), the parameters placed on it through
+``param_shardings`` (``repro_torch.train.sharding.place``).
+``--device`` names one device instead (``--device cpu``: one shard on
+the CPU).  With: deterministic restart-exact data skip, periodic async
+checkpoints, auto-restore from the latest checkpoint, and optional
+simulated preemption (``--die-at``, exit 42) to demonstrate the restart
+path end-to-end.  Checkpoints hold ``{"params", "opt"}`` in the JAX
+package's layout (``params_to_jax``, ``opt_to_jax``: the pieces
+gathered), so either package resumes the other's, on any mesh.
 
 ``--deterministic`` runs under ``torch.use_deterministic_algorithms``
 (on the card set ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in the environment
@@ -58,7 +59,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA card)")
+                    help="one torch device (default: every CUDA card)")
     ap.add_argument("--deterministic", action="store_true",
                     help="torch.use_deterministic_algorithms(True)")
     args = ap.parse_args(argv)
@@ -68,12 +69,13 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(
         args.arch)
-    mesh = make_debug_mesh(n_devices=1, device=device)
+    mesh = make_debug_mesh(device=device if args.device else None)
     print(f"arch={cfg.name} mesh={dict(zip(mesh.axis_names, mesh.shape))} "
           f"devices={len(mesh.devices)}")
 
-    params = init_model(cfg, args.seed, device=device)
-    params = place(params, param_shardings(cfg, params, mesh))
+    params = init_model(cfg, args.seed, device=mesh.device_of(0))
+    p_sh = param_shardings(cfg, params, mesh)
+    params = place(params, p_sh)
     opt_state = opt_init(params)
 
     ocfg = OptConfig(lr=args.lr, warmup=min(20, args.steps // 5 + 1),
@@ -87,13 +89,14 @@ def main(argv=None) -> int:
         if ckpt.latest_step() is not None:
             start_step, restored = ckpt.restore(
                 state_tree(cfg, params, opt_state))
-            params = params_from_jax(cfg, restored["params"], device=device)
-            opt_state = opt_from_jax(cfg, restored["opt"], device=device)
+            params = params_from_jax(cfg, restored["params"],
+                                     shardings=p_sh)
+            opt_state = opt_from_jax(cfg, restored["opt"], shardings=p_sh)
             print(f"restored checkpoint at step {start_step}")
 
     it = DataIterator(cfg, SHAPES["train_4k"], seed=args.seed,
                       batch_override=args.batch, seq_override=args.seq,
-                      device=device)
+                      device=mesh.device_of(0))
     it.skip_to(start_step)
 
     t0 = time.time()

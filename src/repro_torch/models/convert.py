@@ -7,6 +7,12 @@ port holds one :class:`~repro_torch.models.layers.Params` a layer in an
 both, shared by every layer that runs it, and xLSTM's ``blocks_list`` is
 a list in both.  Trees travel as nested dicts (and lists) of numpy
 arrays: ``jax.tree.map(np.asarray, params)`` on the JAX side.
+
+A tree on a mesh of several shards
+(:class:`~repro_torch.models.shards.Sharded`) travels whole: its pieces
+are gathered into JAX's full arrays, and a full tree is scattered onto
+a mesh by the parameters' shardings, so a checkpoint has JAX's layout
+whatever mesh wrote it and restores on any other.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from repro_torch.api.session import resolve_device
 from repro_torch.configs.base import ArchConfig
 
 from .layers import Params
+from .shards import Sharded
 
 #: the tree's keys whose arrays carry a leading layer axis in JAX
 STACKED = ("blocks", "dense_blocks", "moe_blocks", "enc_blocks",
@@ -49,10 +56,21 @@ def _layer(tree, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def params_from_jax(cfg: ArchConfig, tree: dict, *, device=None) -> Params:
+def params_from_jax(cfg: ArchConfig, tree: dict, *, device=None,
+                    shardings=None):
     """The port's parameter tree from a JAX one (nested dicts of numpy
     arrays), its stacks unstacked, on ``device`` (default the CUDA card;
-    raises without one)."""
+    raises without one).  With ``shardings`` (``{path: NamedSharding}``,
+    ``repro_torch.train.sharding.param_shardings``) it is laid out on
+    their mesh instead, as ``place`` lays it: whole on the device of a
+    mesh of one shard, else a :class:`Sharded` tree of each shard's
+    pieces (cut from the host's arrays, ``device`` unused)."""
+    if shardings:
+        mesh = next(iter(shardings.values())).mesh
+        if mesh.size > 1:
+            return Sharded.scatter(params_from_jax(cfg, tree, device="cpu"),
+                                   shardings)
+        device = mesh.device_of(0)
     device = resolve_device(device)
     sizes = _stack_sizes(cfg)
     if set(sizes) != {k for k in tree if k in STACKED}:
@@ -93,9 +111,12 @@ def _tree(node) -> dict:
             else _host(node[k]) for k in node.keys()}
 
 
-def params_to_jax(cfg: ArchConfig, params: Params) -> dict:
+def params_to_jax(cfg: ArchConfig, params) -> dict:
     """The JAX layout of the port's tree: nested dicts of numpy arrays
-    (host copies), each stack's layers stacked on a leading axis."""
+    (host copies), each stack's layers stacked on a leading axis; a
+    :class:`Sharded` tree's pieces gathered into whole arrays."""
+    if isinstance(params, Sharded):
+        params = params.tree("cpu")
     out = {}
     for key in params.keys():
         node = params[key]

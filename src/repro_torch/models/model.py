@@ -12,6 +12,7 @@ after every ``attn_every``-th Mamba2 block, chosen by the layer's index.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -25,6 +26,7 @@ from . import layers as L
 from . import moe as M
 from . import ssm as S
 from .layers import Init, Params
+from .shards import Reader, Sharded, split_rows, weigh
 
 
 def _norm_init(cfg):
@@ -114,8 +116,16 @@ def _apply_attn_block(cfg, p, x, positions, cache=None, *, causal=True,
 
 def _apply_moe_block(cfg, p, x, positions, cache=None, dropless=False,
                      per_sequence=False, shard_axes=None):
-    na = _norm_apply(cfg)
-    h = na(p["norm1"], x)
+    x, new_attn = _moe_attn(cfg, p, x, positions, cache)
+    x, aux = _moe_ffn(cfg, p, x, cache=cache, dropless=dropless,
+                      per_sequence=per_sequence, shard_axes=shard_axes)
+    new_cache = None if cache is None else {"attn": new_attn}
+    return x, aux, new_cache
+
+
+def _moe_attn(cfg, p, x, positions, cache=None):
+    """An MoE block's attention half: ``(x + attention, its cache)``."""
+    h = _norm_apply(cfg)(p["norm1"], x)
     if cfg.mla:
         y, new_attn = L.mla_attention(p["attn"], h, positions=positions,
                                       qk_nope=cfg.qk_nope,
@@ -130,17 +140,26 @@ def _apply_moe_block(cfg, p, x, positions, cache=None, dropless=False,
                                       rope_theta=cfg.rope_theta,
                                       cache=None if cache is None
                                       else cache["attn"])
-    x = x + y
+    return x + y, new_attn
+
+
+def _moe_capacity_factor(cfg, cache=None, dropless=False) -> float:
     # decode uses dropless capacity (cap >= T * top_k): per-step batches
     # are tiny and token drops would make decode diverge from prefill
-    cf = float(cfg.n_routed) if (cache is not None or dropless) else 1.25
-    y, aux = M.moe_block(p["moe"], na(p["norm2"], x), top_k=cfg.top_k,
-                         capacity_factor=cf,
+    return float(cfg.n_routed) if (cache is not None or dropless) else 1.25
+
+
+def _moe_ffn(cfg, p, x, *, cache=None, dropless=False, per_sequence=False,
+             shard_axes=None, across=None):
+    """An MoE block's expert half: ``(x + experts, aux)``; ``across`` as
+    :func:`repro_torch.models.moe.moe_block`'s."""
+    y, aux = M.moe_block(p["moe"], _norm_apply(cfg)(p["norm2"], x),
+                         top_k=cfg.top_k,
+                         capacity_factor=_moe_capacity_factor(cfg, cache,
+                                                              dropless),
                          per_sequence=per_sequence or cache is not None,
-                         shard_axes=shard_axes)
-    x = x + y
-    new_cache = None if cache is None else {"attn": new_attn}
-    return x, aux, new_cache
+                         shard_axes=shard_axes, across=across)
+    return x + y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +261,23 @@ def _checkpointed(remat: bool):
                                                    use_reentrant=False)
 
 
+class _Whole:
+    """:func:`forward_parts`'s view of a tree on one device: its own
+    nodes (:class:`~repro_torch.models.shards.Sharded` is the other)."""
+
+    def __init__(self, params: Params):
+        self.params = params
+
+    def count(self, key: str) -> int:
+        return len(self.params[key])
+
+    def take(self, j: int, *keys):
+        node = self.params
+        for k in keys:
+            node = node[k]
+        return node
+
+
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, remat: bool = True, sliding_window: int = 0,
             act_sharding=None, dropless_moe: bool = False,
@@ -259,63 +295,125 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     (training) and the per-sequence one for inference (``remat=False``),
     which drop different tokens at capacity.  ``act_sharding`` and
     ``scan_unroll`` are JAX's sharding and compile knobs and change
-    nothing on one device.
+    nothing on one device.  A tree on a mesh
+    (:class:`~repro_torch.models.shards.Sharded`) computes each shard's
+    rows (:func:`forward_parts`); the logits are gathered on shard 0's
+    device and the parts' aux weighted by their rows (JAX's aux in the
+    training layout; inference discards it).
     """
+    parts = split_rows(params, batch)
+    outs = forward_parts(cfg, params, parts, remat=remat,
+                         sliding_window=sliding_window,
+                         dropless_moe=dropless_moe)
+    if len(outs) == 1 and parts[0][1] is batch:
+        return outs[0]
+    device = params.mesh.device_of(0)
+    logits = torch.cat([lg.to(device) for lg, _ in outs])
+    return logits, weigh(parts, [a for _, a in outs], len(batch["tokens"]),
+                         device)
+
+
+def forward_parts(cfg: ArchConfig, params, parts, *, remat: bool = True,
+                  sliding_window: int = 0, dropless_moe: bool = False):
+    """:func:`forward` of the blocks of rows that the shards of a mesh
+    compute: ``parts`` is ``(shard, batch)`` pairs, each batch on its
+    shard's device; ``params`` a ``Params`` tree (shard 0 alone) or a
+    :class:`~repro_torch.models.shards.Sharded` one, whose layers each
+    shard gathers whole inside the layer's checkpointed body (so remat's
+    recomputation gathers again).  Returns ``(logits, aux)`` a part.
+
+    Layer by layer, every part's layer ``l`` before any part's ``l + 1``.
+    With more than one part, an MoE layer in the training layout first
+    routes every part under no gradient and gives each JAX's dispatch of
+    the whole batch (:func:`repro_torch.models.moe.across_parts`): the
+    global capacity, the slots after the earlier parts' tokens, the
+    global density of the aux loss; a part's aux is its share, so the
+    parts' aux weighted by their tokens is JAX's.  The per-sequence
+    (inference) layout dispatches each row on its own, so the parts
+    drop the whole batch's tokens; each part's aux is then its own."""
+    src = Reader(params) if isinstance(params, Sharded) else _Whole(params)
+    if cfg.family == "audio":
+        return _forward_audio(cfg, src, parts, remat=remat)
     na = _norm_apply(cfg)
     ck = _checkpointed(remat)
-    if cfg.family == "audio":
-        return _forward_audio(cfg, params, batch, remat=remat)
 
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens)
-    if cfg.family == "vlm":
-        x = torch.cat([batch["patch_emb"].to(x.dtype), x], dim=1)
-    s = x.shape[1]
-    positions = torch.arange(s, device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    xs, pos = [], []
+    for j, batch in parts:
+        x = L.embed(src.take(j, "embed"), batch["tokens"])
+        if cfg.family == "vlm":
+            x = torch.cat([batch["patch_emb"].to(x.dtype), x], dim=1)
+        xs.append(x)
+        pos.append(torch.arange(x.shape[1], device=x.device))
+    aux = [torch.zeros((), dtype=torch.float32, device=x.device)
+           for x in xs]
+
+    def each(body, *extra):
+        """``xs[i] = body(shard, positions, xs[i], *extra)`` a part,
+        checkpointed."""
+        for i, (j, _) in enumerate(parts):
+            xs[i] = ck(functools.partial(body, j, pos[i]), xs[i], *extra)
 
     if cfg.family in ("dense", "vlm"):
-        def body(p, h):
-            return _apply_attn_block(cfg, p, h, positions,
-                                     sliding_window=sliding_window)[0]
-        for p in params["blocks"]:
-            x = ck(body, p, x)
+        for l in range(src.count("blocks")):
+            each(lambda j, positions, h, l=l: _apply_attn_block(
+                cfg, src.take(j, "blocks", l), h, positions,
+                sliding_window=sliding_window)[0])
 
     elif cfg.family == "moe":
-        def dense_body(p, h):
-            return _apply_attn_block(cfg, p, h, positions)[0]
+        for l in range(src.count("dense_blocks")):
+            each(lambda j, positions, h, l=l: _apply_attn_block(
+                cfg, src.take(j, "dense_blocks", l), h, positions)[0])
+        # inference (remat=False) uses the batch-local dispatch layout;
+        # training keeps the global buffer
+        per_sequence = not remat
 
-        def moe_body(p, h):
-            # inference (remat=False) uses the batch-local dispatch
-            # layout; training keeps the global buffer
-            return _apply_moe_block(cfg, p, h, positions,
-                                    dropless=dropless_moe,
-                                    per_sequence=not remat)[:2]
-        for p in params["dense_blocks"]:
-            x = ck(dense_body, p, x)
-        for p in params["moe_blocks"]:
-            x, aux_l = ck(moe_body, p, x)
-            aux = aux + aux_l
+        def half(j, l, *keys):
+            return {k: src.take(j, "moe_blocks", l, k) for k in keys}
+        for l in range(src.count("moe_blocks")):
+            each(lambda j, positions, h, l=l: _moe_attn(
+                cfg, half(j, l, "norm1", "attn"), h, positions)[0])
+            across = [None] * len(parts)
+            if len(parts) > 1 and not per_sequence:
+                with torch.no_grad():
+                    across = M.across_parts(
+                        [src.take(j, "moe_blocks", l, "moe", "router")
+                         for j, _ in parts],
+                        [na(src.take(j, "moe_blocks", l, "norm2"), x)
+                         for (j, _), x in zip(parts, xs)],
+                        top_k=cfg.top_k,
+                        capacity_factor=_moe_capacity_factor(
+                            cfg, dropless=dropless_moe))
+
+            def ffn_body(j, ac, h, l=l):
+                return _moe_ffn(cfg, half(j, l, "norm2", "moe"), h,
+                                dropless=dropless_moe,
+                                per_sequence=per_sequence, across=ac)
+            for i, (j, _) in enumerate(parts):
+                xs[i], aux_l = ck(functools.partial(ffn_body, j, across[i]),
+                                  xs[i])
+                aux[i] = aux[i] + aux_l
 
     elif cfg.family == "hybrid":
-        shared = params["shared_attn"]
         every = cfg.attn_every
 
-        def mamba_body(p, h, with_attn):
+        def mamba_body(j, positions, h, l):
+            p = src.take(j, "blocks", l)
             h2, _ = S.mamba2_block(p["mamba"], na(p["norm1"], h),
                                    d_state=cfg.ssm_state,
                                    expand=cfg.mamba_expand,
                                    head_dim=cfg.mamba_head_dim)
             h = h + h2
-            if with_attn:
-                h, _ = _apply_attn_block(cfg, shared, h, positions,
+            if l % every == every - 1:
+                h, _ = _apply_attn_block(cfg, src.take(j, "shared_attn"), h,
+                                         positions,
                                          sliding_window=sliding_window)
             return h
-        for idx, p in enumerate(params["blocks"]):
-            x = ck(mamba_body, p, x, idx % every == every - 1)
+        for l in range(src.count("blocks")):
+            each(lambda j, positions, h, l=l: mamba_body(j, positions, h, l))
 
     elif cfg.family == "ssm":
-        def cell_body(p, h, kind):
+        def cell_body(j, positions, h, l, kind):
+            p = src.take(j, "blocks_list", l)
             hn = na(p["norm1"], h)
             if kind == "slstm":
                 y, _ = S.slstm_block(p["cell"], hn)
@@ -323,43 +421,56 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
                 y, _ = S.mlstm_block(p["cell"], hn, n_heads=cfg.n_heads,
                                      head_dim=cfg.head_dim)
             return h + y
-        for p, kind in zip(params["blocks_list"], xlstm_kinds(cfg)):
-            x = ck(cell_body, p, x, kind)
+        for l, kind in enumerate(xlstm_kinds(cfg)):
+            each(lambda j, positions, h, l=l, kind=kind: cell_body(
+                j, positions, h, l, kind))
 
-    x = na(params["final_norm"], x)
-    logits = L.unembed(params["embed"], x)
-    return logits, aux
+    out = []
+    for (j, _), x, a in zip(parts, xs, aux):
+        x = na(src.take(j, "final_norm"), x)
+        out.append((L.unembed(src.take(j, "embed"), x), a))
+    return out
 
 
 def encode_audio(cfg, params, frames, *, remat: bool = False):
     """Encoder-only forward (serving: run once, then cached decode);
     ``remat`` as :func:`forward`'s."""
+    return _encode(cfg, _Whole(params), 0, frames, remat=remat)
+
+
+def _encode(cfg, src, j, frames, *, remat: bool):
     na = _norm_apply(cfg)
     ck = _checkpointed(remat)
     enc = frames.to(torch.bfloat16)
     enc_pos = torch.arange(enc.shape[1], device=enc.device)
     enc = enc + _sinusoid(enc_pos, cfg.d_model).to(enc.dtype)
 
-    def enc_body(p, h):
-        return _apply_attn_block(cfg, p, h, enc_pos, causal=False)[0]
-    for p in params["enc_blocks"]:
-        enc = ck(enc_body, p, enc)
-    return na(params["enc_norm"], enc)
+    def enc_body(l, h):
+        return _apply_attn_block(cfg, src.take(j, "enc_blocks", l), h,
+                                 enc_pos, causal=False)[0]
+    for l in range(src.count("enc_blocks")):
+        enc = ck(functools.partial(enc_body, l), enc)
+    return na(src.take(j, "enc_norm"), enc)
 
 
-def _forward_audio(cfg, params, batch, *, remat=True):
+def _forward_audio(cfg, src, parts, *, remat=True):
     """Whisper-style: frames (stub frontend output) -> encoder; tokens ->
-    causal decoder with cross attention."""
+    causal decoder with cross attention.  Each part's encoder, then each
+    part's decoder, layer by layer."""
     na = _norm_apply(cfg)
     ck = _checkpointed(remat)
-    enc = encode_audio(cfg, params, batch["frames"], remat=remat)
+    encs = [_encode(cfg, src, j, batch["frames"], remat=remat)
+            for j, batch in parts]
 
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
-    x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
+    xs, pos = [], []
+    for j, batch in parts:
+        x = L.embed(src.take(j, "embed"), batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        xs.append(x + _sinusoid(positions, cfg.d_model).to(x.dtype))
+        pos.append(positions)
 
-    def dec_body(p, h, enc):
+    def dec_body(j, positions, l, h, enc):
+        p = src.take(j, "dec_blocks", l)
         # per-layer cross k/v from the shared encoder output
         k = L.project_heads(enc, p["xattn"]["wk"])
         v = L.project_heads(enc, p["xattn"]["wv"])
@@ -368,9 +479,14 @@ def _forward_audio(cfg, params, batch, *, remat=True):
             v = v + p["xattn"]["bv"].to(v.dtype)
         return _apply_attn_block(cfg, p, h, positions,
                                  enc_kv={"k": k, "v": v})[0]
-    for p in params["dec_blocks"]:
-        x = ck(dec_body, p, x, enc)
+    for l in range(src.count("dec_blocks")):
+        for i, (j, _) in enumerate(parts):
+            xs[i] = ck(functools.partial(dec_body, j, pos[i], l), xs[i],
+                       encs[i])
 
-    x = na(params["final_norm"], x)
-    return L.unembed(params["embed"], x), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    out = []
+    for (j, _), x in zip(parts, xs):
+        x = na(src.take(j, "final_norm"), x)
+        out.append((L.unembed(src.take(j, "embed"), x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)))
+    return out

@@ -17,9 +17,19 @@ Two dispatch layouts, as in JAX:
 
 The two give different results where capacity drops tokens; the order
 of the cumsum (token-major, then the k picks in ``topk``'s descending
-order) is JAX's, so the same tokens are dropped.  The scatter adds each
-kept token once into an empty slot (a dropped one adds 0), so the bf16
-buffer holds the tokens exactly whatever order the card adds in.
+order) is JAX's, so the same tokens are dropped.
+
+On a mesh each shard computes a block of the batch's rows, and JAX's
+training dispatch treats the batch as one: :func:`across_parts` routes
+every block first (no gradient) and gives each block the capacity of
+the whole batch, the count of each expert's picks in the blocks before
+it (its slots follow theirs) and the whole batch's density for the aux
+loss.  ``moe_block(..., across=...)`` then keeps the tokens that JAX's
+global cumsum keeps, in a buffer of the block's own slots.  (The
+per-sequence layout needs none of this: each row is dispatched on its
+own.)  The scatter adds each kept token once into an empty slot (a
+dropped one adds 0), so the bf16 buffer holds the tokens exactly
+whatever order the card adds in.
 """
 from __future__ import annotations
 
@@ -60,9 +70,13 @@ def _shared_path(params, xf, out_dtype):
     return mm(sh, params["shared_wo"], out=out_dtype)
 
 
-def _aux_loss(experts, probs, e):
-    lead = tuple(range(experts.dim() - 1))
-    density = torch.mean(F.one_hot(experts[..., 0], e).float(), dim=lead)
+def _aux_loss(experts, probs, e, density=None):
+    """JAX's Switch aux; ``density`` (no gradient) the whole batch's where
+    ``probs`` are a block of it."""
+    if density is None:
+        lead = tuple(range(experts.dim() - 1))
+        density = torch.mean(F.one_hot(experts[..., 0], e).float(),
+                             dim=lead)
     router_mean = torch.mean(probs, dim=tuple(range(probs.dim() - 1)))
     return e * torch.sum(density * router_mean)
 
@@ -85,10 +99,44 @@ def _positions(experts, e):
     return pos.amax(dim=-1).reshape(experts.shape)
 
 
+@torch.no_grad()
+def across_parts(routers, xs, *, top_k: int,
+                 capacity_factor: float) -> list:
+    """JAX's training dispatch of a batch whose row blocks ``xs`` (each
+    (b_i, S, D), on its own device, with its ``routers`` weight) are
+    computed apart: ``(cap, prefix, density)`` a block, for
+    ``moe_block``'s ``across``.  ``cap``: the whole batch's capacity;
+    ``prefix`` (E,): each expert's picks in the blocks before this one;
+    ``density`` (E,): the whole batch's first-pick density.  Each block
+    is routed as ``moe_block`` routes it, so its recomputation picks the
+    same."""
+    counts, firsts, t = [], [], 0
+    for router, x in zip(routers, xs):
+        e = router.shape[1]
+        _, _, experts = _route({"router": router},
+                               x.reshape(-1, x.shape[-1]), top_k)
+        counts.append(torch.bincount(experts.reshape(-1), minlength=e))
+        firsts.append(torch.bincount(experts[:, 0], minlength=e))
+        t += experts.shape[0]
+    cap = int((top_k * t * capacity_factor) / e) + 1
+    first = sum(f.to(firsts[0].device) for f in firsts)
+    out, before = [], torch.zeros_like(counts[0])
+    for count in counts:
+        dev = count.device
+        out.append((cap, before.to(dev),
+                    (first.to(dev).float() / t)))
+        before = before + count.to(before.device)
+    return out
+
+
 def moe_block(params, x, *, top_k: int, capacity_factor: float = 1.25,
-              per_sequence: bool = False, shard_axes=None):
+              per_sequence: bool = False, shard_axes=None, across=None):
     """x: (B, S, D). Returns (y, aux_loss).  ``shard_axes`` is accepted
-    for JAX's signature and does nothing here."""
+    for JAX's signature and does nothing here.  ``across`` (the training
+    layout): ``x`` is a block of a batch's rows and this is its ``(cap,
+    prefix, density)`` from :func:`across_parts`; the aux is then this
+    block's share of JAX's.  None: ``x`` is the whole batch (its own
+    capacity, no picks before it, its own density)."""
     b, s, d = x.shape
     e = params["router"].shape[1]
 
@@ -98,17 +146,22 @@ def moe_block(params, x, *, top_k: int, capacity_factor: float = 1.25,
 
     t = b * s
     xt = x.reshape(t, d)
-    cap = int((top_k * t * capacity_factor) / e) + 1
-
     probs, gates, experts = _route(params, xt, top_k)      # (t, k)
     pos = _positions(experts, e)
-    keep = pos < cap
+    if across is None:
+        across = (int((top_k * t * capacity_factor) / e) + 1,
+                  torch.zeros(e, dtype=pos.dtype, device=x.device), None)
+    # the slot in the whole batch's buffer follows the earlier blocks'
+    # picks; the block's buffer holds its own kept slots
+    cap, prefix, density = across
+    keep = pos + prefix[experts] < cap
+    rows = min(cap, t * top_k)
 
     eidx = experts.reshape(-1)
-    pidx = torch.where(keep, pos, cap - 1).reshape(-1)
+    pidx = torch.where(keep, pos, rows - 1).reshape(-1)
     wgt = keep.float().reshape(-1)
 
-    buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=x.device)
+    buf = torch.zeros((e, rows, d), dtype=xt.dtype, device=x.device)
     xk = xt[:, None, :].expand(t, top_k, d).reshape(-1, d)
     buf.index_put_((eidx, pidx), xk * wgt[:, None].to(xt.dtype),
                    accumulate=True)
@@ -120,7 +173,7 @@ def moe_block(params, x, *, top_k: int, capacity_factor: float = 1.25,
 
     if "shared_wi" in params:
         y = y + _shared_path(params, xt, x.dtype)
-    return y.reshape(b, s, d), _aux_loss(experts, probs, e)
+    return y.reshape(b, s, d), _aux_loss(experts, probs, e, density)
 
 
 def _moe_per_sequence(params, x, *, top_k: int, capacity_factor: float):

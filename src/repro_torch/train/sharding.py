@@ -30,8 +30,9 @@ with one entry a leading dim, ``None`` (whole), an axis name or a tuple
 of names (sharded over their product); dims past its end are whole.
 :class:`NamedSharding` pairs a spec with a
 :class:`~repro_torch.launch.mesh.Mesh` and gives shard shapes and
-indices.  The port runs the LM step on one device: :func:`place` puts a
-tree on a one-shard mesh and refuses a larger one.
+indices.  :func:`place` lays a tree out on a mesh as ``jax.device_put``
+lays it out by these shardings: each shard holds its ``index`` block of
+each leaf (:class:`~repro_torch.models.shards.Sharded`).
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.convert import STACKED
+from repro_torch.models.shards import Sharded
 
 
 class P(tuple):
@@ -303,15 +305,25 @@ def activation_spec(mesh, *, sp: bool = False) -> P:
 
 
 def place(params, shardings: Dict[str, NamedSharding]):
-    """Put each leaf of ``params`` where its sharding says: on a mesh of
-    one shard, its whole self on the shard's device (moved in place, the
-    tree returned).  A mesh of more shards raises ValueError: the port
-    runs the LM step on one card."""
-    from repro_torch.train.step import one_shard
+    """Put each leaf of ``params`` where its sharding says.  On a mesh of
+    one shard: its whole self on the shard's device (moved in place, the
+    tree returned).  On a mesh of ``n`` shards: a
+    :class:`~repro_torch.models.shards.Sharded` tree whose shard ``i``
+    holds the block ``sharding.index(i, shape)`` of each leaf on
+    ``mesh.device_of(i)`` (a replicated entry a whole copy; several
+    shards on one device hold separate copies); ``params`` is left as it
+    is.  ``shardings`` covers every leaf, on one mesh."""
     paths = leaf_paths(params)
+    if set(shardings) != set(paths):
+        raise ValueError("the shardings do not cover the tree's leaves")
+    meshes = {sh.mesh for sh in shardings.values()}
+    if len(meshes) != 1:
+        raise ValueError(f"the shardings name {len(meshes)} meshes")
+    (mesh,) = meshes
     for path, sh in shardings.items():
-        one_shard(sh.mesh)
-        leaf = paths[path]
-        sh.check(leaf.shape)
-        leaf.data = leaf.data.to(sh.mesh.device_of(0))
+        sh.check(paths[path].shape)
+    if mesh.size > 1:
+        return Sharded.scatter(params, shardings)
+    for leaf in paths.values():
+        leaf.data = leaf.data.to(mesh.device_of(0))
     return params

@@ -3,11 +3,25 @@
 loss's gradient (autograd), ``make_prefill_step`` the forward-only
 prefill, ``make_serve_step`` one KV-cached decode iteration.  The last
 two run without autograd.  All run on the device of the parameters
-they are given.  The port runs the LM step on one card: ``mesh`` and
-``sp`` are JAX's, and a mesh of one shard constrains nothing, as JAX's
-constraints do nothing there; a larger mesh raises ValueError (its
-specs are ``repro_torch.train.sharding``'s, and the dry-run counts its
-cells on the meta device: ``repro_torch.launch.dryrun``).
+they are given.
+
+The train step runs on a mesh of any shape, as JAX's ``pjit`` step runs
+on whatever devices exist: ``repro_torch.train.sharding.place`` lays
+the parameters out by JAX's specs (each shard holds its
+``NamedSharding.index`` piece of each leaf), and the step cuts each
+microbatch's rows into contiguous blocks, one a shard in the mesh's
+row-major order (``torch.tensor_split``: uneven blocks allowed, an
+empty one computes nothing).  Layer by layer, each shard gathers the
+layer's weights whole on its device and computes its rows; the
+gather's backward cuts the cotangent into the pieces' blocks, and each
+piece takes the sum of its cuts over the shards in shard order, so a
+step on several cards is bit for bit repeatable
+(:mod:`repro_torch.models.shards`).  Each shard's loss is
+weighted by its rows over all rows, so the sum is the batch's mean.
+GSPMD splits the products over ``model``; here ``model`` splits rows
+too: another schedule of the same arithmetic.  ``mesh`` and ``sp``
+change no value, as JAX's constraints change none; a step built for a
+mesh of several shards refuses parameters that are not placed on it.
 """
 from __future__ import annotations
 
@@ -15,6 +29,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import decode_step, forward
+from repro_torch.models.model import forward_parts
+from repro_torch.models.shards import Sharded, split_rows, weigh
 
 from . import optim
 
@@ -37,27 +53,45 @@ def cross_entropy(logits, labels):
     return (lse - gold).mean()
 
 
-def one_shard(mesh) -> None:
-    """Raises ValueError unless ``mesh`` is None or has one shard."""
-    if mesh is not None and mesh.size != 1:
-        shape = dict(zip(mesh.axis_names, mesh.shape))
-        raise ValueError(f"a mesh of {mesh.size} shards {shape}: the port "
-                         f"runs the LM step on one card (a mesh of one "
-                         f"shard)")
+def _check_layout(mesh, params) -> None:
+    """Raises ValueError unless ``params`` lie on ``mesh`` (None: any
+    layout): a tree on one device for a mesh of one shard, else a
+    :class:`Sharded` tree of that mesh."""
+    if mesh is None:
+        return
+    got = params.mesh if isinstance(params, Sharded) else None
+    if mesh.size > 1 and got != mesh:
+        raise ValueError(f"a step for a mesh of {mesh.size} shards "
+                         f"{dict(zip(mesh.axis_names, mesh.shape))} takes "
+                         f"parameters placed on it "
+                         f"(repro_torch.train.sharding.place)")
+    if mesh.size == 1 and got is not None:
+        raise ValueError("parameters placed on another mesh")
 
 
 def make_loss_fn(cfg: ArchConfig, *, remat: bool = True,
                  sliding_window: int = 0, aux_weight: float = 0.01,
                  mesh=None, sp: bool = False):
     """``loss_fn(params, batch) -> (loss + aux_weight * aux, (loss,
-    aux))``.  ``mesh``: None or one shard (:func:`one_shard`); ``sp``
-    then changes nothing."""
-    one_shard(mesh)
+    aux))``, on the device of shard 0.  ``params``: a tree on one device
+    or placed on a mesh (the module's docstring); each shard's loss and
+    aux weighted by its rows.  ``mesh`` checks the layout
+    (:func:`_check_layout`); ``sp`` changes nothing."""
 
     def loss_fn(params, batch):
-        logits, aux = forward(cfg, params, batch, remat=remat,
-                              sliding_window=sliding_window)
-        loss = cross_entropy(logits, batch["labels"])
+        _check_layout(mesh, params)
+        parts = split_rows(params, batch)
+        outs = forward_parts(cfg, params, parts, remat=remat,
+                             sliding_window=sliding_window)
+        if not isinstance(params, Sharded):
+            ((logits, aux),) = outs
+            loss = cross_entropy(logits, batch["labels"])
+            return loss + aux_weight * aux, (loss, aux)
+        device, rows = params.mesh.device_of(0), len(batch["labels"])
+        loss = weigh(parts, [cross_entropy(logits, part["labels"])
+                             for (_, part), (logits, _) in zip(parts, outs)],
+                     rows, device)
+        aux = weigh(parts, [a for _, a in outs], rows, device)
         return loss + aux_weight * aux, (loss, aux)
     return loss_fn
 
@@ -71,28 +105,32 @@ def make_train_step(cfg: ArchConfig, opt_cfg: optim.OptConfig, *,
     ``params`` and ``opt_state`` in place and returns the same objects;
     ``metrics`` holds ``loss``, ``aux``, ``total``, ``grad_norm`` and
     ``lr`` as 0-d tensors on the device (read them when needed: no step
-    waits for the card).  ``mesh``: None or a mesh of one shard
-    (:func:`one_shard`).
+    waits for the card).  ``params`` lie on one device or on a mesh
+    (``repro_torch.train.sharding.place``, with ``opt_state`` from
+    ``opt_init`` of them); ``mesh`` checks that layout.
 
-    grad_sync: optional fn(grads) -> grads on the list of gradients (the
-    parameters' order) before the update, e.g. a compressed
-    data-parallel sum.
+    grad_sync: optional fn(grads) -> grads on the list of gradients
+    (``optim.leaves(params)``'s order) before the update, e.g. a
+    compressed data-parallel sum.  On a mesh that list holds every
+    shard's pieces, shard by shard, each already the whole batch's
+    gradient of its block (the reduce-scatter done), as JAX's pjit path
+    hands ``grad_sync`` the reduced gradient.
 
     microbatches > 1: gradient accumulation -- the batch is split into
-    equal parts along its leading axis, their gradients summed in f32
-    (each ``backward`` adds into the f32 ``.grad``) and scaled by
-    ``1 / microbatches``, so live activation memory scales with the
-    microbatch (JAX's H9 lever for the train_4k cells); ``loss``,
-    ``aux`` and ``total`` are the parts' means.
+    equal parts along its leading axis (each then cut over the shards),
+    their gradients summed in f32 (each ``backward`` adds into the f32
+    ``.grad``) and scaled by ``1 / microbatches``, so live activation
+    memory scales with the microbatch (JAX's H9 lever for the train_4k
+    cells); ``loss``, ``aux`` and ``total`` are the parts' means.
     """
-    one_shard(mesh)
     if loss_fn is None:
         loss_fn = make_loss_fn(cfg, remat=remat,
                                sliding_window=sliding_window,
                                mesh=mesh, sp=sp)
 
     def train_step(params, opt_state, batch):
-        plist = list(params.parameters())
+        _check_layout(mesh, params)
+        plist = optim.leaves(params)
         for p in plist:
             p.requires_grad_(True)
             p.grad = None

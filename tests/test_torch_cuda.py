@@ -674,7 +674,9 @@ def test_bitplane_shard_kernel_groups_match_plain(cuda, case):
         plan = shard_planner.plan_shard_resident(
             "bitplane", 512, 512, 2, 2, k_cap=k, max_overlap=100.0)
         grid = ShardGrid.of(make_mesh((2, 2), ("data", "model")), 512, 256)
-        index = list(index_planes(plan, grid, 1))
+        # shard 1's planes, on the card of this test's other inputs (on a
+        # host of several cards the mesh puts shard 1 on another)
+        index = [t.to(cuda) for t in index_planes(plan, grid, 1)]
         n, w = index[0].shape
         tile = (plan.tile_rows, plan.tile_cols, plan.threads)
     else:
@@ -1494,14 +1496,159 @@ def test_param_shardings_and_place_on_card(cuda):
     assert all(p.device.type == "cuda" for p in params.parameters())
 
 
-def test_launch_train_on_card_mesh(cuda, capsys):
-    """``launch.train`` with no ``--device``: the card, its one-device
-    debug mesh printed as JAX's driver prints its mesh."""
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-moe-16b",
+                                  "whisper-large-v3"])
+def test_lm_mesh_step_on_card_equals_one_shard(cuda, arch):
+    """One ``make_train_step`` on a (2, 2) mesh whose four shards share
+    the card, against the card's one-shard step from one initialisation
+    and batch: each piece its ``NamedSharding.index`` slice on the card,
+    every shard computes rows, loss within 1e-3 relative, grad_norm 1e-2,
+    each parameter within 2.1 lr and 98 % within 1e-4 (chip_smoke.py's
+    phase 16 bounds)."""
+    import copy
+
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_model
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    from repro_torch.train import step as train_step
+    from repro_torch.train.sharding import param_shardings, place
+    cfg = get_smoke_config(arch)
+    one = init_model(cfg, 5, device=cuda)
+    mesh = make_debug_mesh(n_devices=4, device=cuda)
+    sh = param_shardings(cfg, one, mesh)
+    placed = place(copy.deepcopy(one), sh)
+    for i, tree in enumerate(placed.pieces):
+        for name, piece in tree.named_parameters():
+            leaf = one.get_parameter(name)
+            assert piece.device.type == "cuda"
+            assert torch.equal(piece, leaf[sh[name.replace(".", "/")].index(
+                i, leaf.shape)])
+    batch = make_batch(cfg, SHAPES["train_4k"], step=1, seed=6,
+                       batch_override=4, seq_override=32, device=cuda)
+    ocfg = OptConfig(lr=1e-2, warmup=0, total_steps=10)
+    _, _, m1 = make_train_step(cfg, ocfg)(one, opt_init(one), batch)
+    computed = []
+    parts = train_step.split_rows
+
+    def recording(params, b):
+        out = parts(params, b)
+        computed.extend(i for i, _ in out)
+        return out
+    train_step.split_rows = recording
+    try:
+        _, _, mm = make_train_step(cfg, ocfg, mesh=mesh)(
+            placed, opt_init(placed), batch)
+    finally:
+        train_step.split_rows = parts
+    assert sorted(computed) == [0, 1, 2, 3]
+    assert float(mm["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-3)
+    assert float(mm["grad_norm"]) == pytest.approx(float(m1["grad_norm"]),
+                                                   rel=1e-2)
+    lr = float(m1["lr"])
+    whole = placed.tree(cuda)
+    near = []
+    with torch.no_grad():
+        for (name, a), b in zip(whole.named_parameters(), one.parameters()):
+            assert float((a - b).abs().max()) <= 2.1 * lr, name
+            near.append(((a - b).abs() < 1e-4).flatten())
+    assert float(torch.cat(near).float().mean()) >= 0.98
+
+
+def test_lm_mesh_step_across_cards(cuda, tmp_path, capsys):
+    """On four cards or more: ``launch.train`` with no ``--device`` trains
+    on ``make_debug_mesh()`` over every card (each shard's pieces on its
+    card), and one step of that mesh equals the one-card step (the
+    bounds of the test above).  The mesh step repeats bit for bit from
+    one state, and under ``--deterministic`` a ``--die-at`` restart of
+    ``launch.train`` on every card ends with a straight run's checkpoint
+    bit for bit (each piece sums its shards' cuts in shard order,
+    whichever card's autograd thread finishes first)."""
+    import copy
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.ckpt import Checkpointer
+
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.data import make_batch
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_model
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    from repro_torch.train.sharding import param_shardings, place
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs four cards, has {n}")
+    assert train.main(["--smoke", "--arch", "deepseek-moe-16b", "--steps",
+                       "2", "--batch", "8", "--seq", "16", "--log-every",
+                       "1"]) == 0
+    out = capsys.readouterr().out
+    assert f"mesh={{'data': {n // 2}, 'model': 2}} devices={n}" in out
+    cfg = get_smoke_config("deepseek-moe-16b")
+    one = init_model(cfg, 5, device=cuda)
+    mesh = make_debug_mesh()
+    assert len(set(mesh.devices)) == n
+    sh = param_shardings(cfg, one, mesh)
+    placed, twin = (place(copy.deepcopy(one), sh) for _ in range(2))
+    assert {str(p.device) for t in placed.pieces
+            for p in t.parameters()} == {f"cuda:{i}" for i in range(n)}
+    batch = make_batch(cfg, SHAPES["train_4k"], step=1, seed=6,
+                       batch_override=2 * n, seq_override=32, device=cuda)
+    ocfg = OptConfig(lr=1e-2, warmup=0, total_steps=10)
+    _, _, m1 = make_train_step(cfg, ocfg)(one, opt_init(one), batch)
+    mesh_step = make_train_step(cfg, ocfg, mesh=mesh)
+    _, _, mm = mesh_step(placed, opt_init(placed), batch)
+    assert float(mm["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-3)
+    assert float(mm["grad_norm"]) == pytest.approx(float(m1["grad_norm"]),
+                                                   rel=1e-2)
+    lr = float(m1["lr"])
+    near = []
+    with torch.no_grad():
+        for a, b in zip(placed.tree(cuda).parameters(), one.parameters()):
+            assert float((a - b).abs().max()) <= 2.1 * lr
+            near.append(((a - b).abs() < 1e-4).flatten())
+    assert float(torch.cat(near).float().mean()) >= 0.98
+    mesh_step(twin, opt_init(twin), batch)
+    for a, b in zip(twin.leaves(), placed.leaves()):
+        assert torch.equal(a, b)
+
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+    def train(ckpt_dir, *extra):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+             "--steps", "6", "--batch", "8", "--seq", "16", "--ckpt-every",
+             "2", "--log-every", "1", "--deterministic", "--ckpt-dir",
+             str(tmp_path / ckpt_dir), *extra], env=env,
+            capture_output=True, text=True).returncode
+    assert train("straight") == 0
+    assert train("restarted", "--die-at", "3") == 42
+    assert train("restarted") == 0
+    a, b = (Checkpointer(str(tmp_path / d)).load_arrays(6)[1]
+            for d in ("straight", "restarted"))
+    assert sorted(a) == sorted(b)
+    assert [k for k in a if not np.array_equal(a[k], b[k])] == []
+
+
+def test_launch_train_on_card_mesh(cuda, capsys):
+    """``launch.train`` with no ``--device``: every card, its debug mesh
+    (one card: one shard) printed as JAX's driver prints its mesh."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_debug_mesh
     assert train.main(["--smoke", "--steps", "2", "--batch", "2", "--seq",
                        "16", "--log-every", "1"]) == 0
     out = capsys.readouterr().out
-    assert "mesh={'data': 1, 'model': 1} devices=1" in out
+    mesh = make_debug_mesh()
+    n = torch.cuda.device_count()
+    assert f"mesh={dict(zip(mesh.axis_names, mesh.shape))} devices={n}" \
+        in out
+    assert (n, mesh.size) != (1, 1) or \
+        "mesh={'data': 1, 'model': 1} devices=1" in out
     assert "done" in out
 
 

@@ -204,18 +204,30 @@ def test_production_and_debug_meshes():
     assert make_debug_mesh(n_devices=1, device="cpu").shape == (1, 1)
 
 
-def test_lm_step_takes_one_shard():
+def test_lm_step_takes_any_mesh():
+    """make_loss_fn, make_train_step and place take a (2, 2) CPU mesh and
+    the 256-shard production mesh on meta: each shard's pieces have its
+    shard shape, on its device; a mesh step refuses an unplaced tree."""
     cfg = tget_smoke("internlm2-1.8b")
     one = make_debug_mesh(n_devices=1, device="cpu")
     make_loss_fn(cfg, mesh=one, sp=True)
     make_train_step(cfg, OptConfig(), mesh=one)
-    for fn in (lambda m: make_loss_fn(cfg, mesh=m),
-               lambda m: make_train_step(cfg, OptConfig(), mesh=m)):
-        with pytest.raises(ValueError, match="one card"):
-            fn(make_debug_mesh(n_devices=4, device="cpu"))
-    params = init_model(cfg, device="meta")
-    with pytest.raises(ValueError, match="one card"):
-        place(params, param_shardings(cfg, params, MESH16))
+    for mesh, device in ((make_debug_mesh(n_devices=4, device="cpu"), "cpu"),
+                         (MESH16, "meta")):
+        make_loss_fn(cfg, mesh=mesh, sp=True)
+        make_train_step(cfg, OptConfig(), mesh=mesh)
+        params = init_model(cfg, device=device)
+        sh = param_shardings(cfg, params, mesh)
+        placed = place(params, sh)
+        assert placed is not params and len(placed.pieces) == mesh.size
+        for i in (0, mesh.size - 1):
+            for name, piece in placed.pieces[i].named_parameters():
+                path = name.replace(".", "/")
+                assert piece.device == torch.device(device)
+                assert tuple(piece.shape) == sh[path].shard_shape(
+                    params.get_parameter(name).shape)
+        with pytest.raises(ValueError, match="placed on it"):
+            make_loss_fn(cfg, mesh=mesh)(params, {})
 
 
 # -- parity with the JAX package ---------------------------------------------
