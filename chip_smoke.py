@@ -766,6 +766,137 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
+def profiled_spans(fn):
+    """``fn()`` with tracing on, under ``torch.profiler`` (CPU and CUDA),
+    the card synchronized before the profile closes: the trace's
+    complete events, and its ``repro_torch/`` ranges by span name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.telemetry as tel
+    from repro_torch.telemetry.trace import RANGE_PREFIX
+    tel.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        tel.disable()
+        tel.TRACER.clear()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "profile.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" \
+                and e["name"].startswith(RANGE_PREFIX):
+            ranges.setdefault(e["name"][len(RANGE_PREFIX):], []).append(e)
+    return events, ranges
+
+
+def span_cost_us(n: int = 20000) -> dict:
+    """Host microseconds of one empty span: off, traced, and traced
+    under ``torch.profiler`` (a ``repro_torch/`` range besides)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.telemetry as tel
+
+    def per_span():
+        t = time.perf_counter()
+        for _ in range(n):
+            with tel.span("cost"):
+                pass
+        return (time.perf_counter() - t) / n * 1e6
+
+    out = {"off": per_span()}
+    tel.enable()
+    try:
+        out["traced"] = per_span()
+        with profile(activities=[ProfilerActivity.CPU]):
+            out["profiled"] = per_span()
+    finally:
+        tel.disable()
+        tel.TRACER.clear()
+    return out
+
+
+def traced_run_checks(session, drive, timed_ms) -> None:
+    """A ``run(TRACE_SWEEPS)`` of ``session`` (multispin_pallas at
+    ``FULL_N``^2) untraced and traced: no host synchronization under
+    sync debug mode 'error' either way; under ``torch.profiler`` its
+    sweep kernels' launches inside the ``repro_torch/dispatch`` range,
+    that inside ``repro_torch/session.run``'s; and a span's cost.
+    ``drive`` and ``timed_ms`` are :func:`phase_10`'s."""
+    import torch
+
+    import repro_torch.telemetry as tel
+    path = f"multispin_pallas {FULL_N}^2 run({TRACE_SWEEPS})"
+    untraced_ms = drive(f"{path} untraced", "multispin", "k-sweep",
+                        lambda: timed_ms(lambda: session.run(TRACE_SWEEPS),
+                                         reps=1, warmup=False))
+
+    def sync_checked(traced):
+        def run():
+            torch.cuda.synchronize()
+            if traced:
+                tel.enable()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                session.run(TRACE_SWEEPS)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                tel.disable()
+                tel.TRACER.clear()
+        return run
+
+    drive(f"{path} sync debug mode error", "multispin", "k-sweep",
+          sync_checked(False))
+    drive(f"{path} traced, sync debug mode error", "multispin", "k-sweep",
+          sync_checked(True))
+    tel.enable()
+    try:
+        traced_ms = drive(f"{path} traced", "multispin", "k-sweep",
+                          lambda: timed_ms(lambda: session.run(TRACE_SWEEPS),
+                                           reps=1, warmup=False))
+    finally:
+        tel.disable()
+        tel.TRACER.clear()
+    # under torch.profiler: the dispatch's kernel launches lie inside its
+    # repro_torch/dispatch range, which lies inside repro_torch/session.run
+    events, ranges = drive(f"{path} profiled", "multispin", "k-sweep",
+                           lambda: profiled_spans(
+                               lambda: session.run(TRACE_SWEEPS)))
+    check(len(ranges.get("dispatch", ())) == 1
+          and len(ranges.get("session.run", ())) == 1,
+          f"{path} profiled: ranges {sorted(ranges)}")
+    (dsp,), (run,) = ranges["dispatch"], ranges["session.run"]
+    kernels = {e["args"].get("correlation") for e in events
+               if e.get("cat") == "kernel"
+               and "multispin_sweeps" in e["name"]}
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and e["args"].get("correlation") in kernels]
+    cost = span_cost_us()
+    print(f"phase 10: {path}: untraced {untraced_ms:.3f} ms, traced "
+          f"{traced_ms:.3f} ms; no host synchronization under sync debug "
+          f"mode 'error', untraced and traced; {len(launches)} sweep "
+          f"kernel launches in the profiled run, the dispatch range "
+          f"{dsp['dur']:.1f} us inside session.run's {run['dur']:.1f} us; "
+          f"a span costs {cost['off']:.3f} us off, {cost['traced']:.3f} us "
+          f"traced, {cost['profiled']:.3f} us under torch.profiler")
+    check(launches and len(launches) == len(kernels)
+          and all(dsp["ts"] <= e["ts"]
+                  and e["ts"] + e["dur"] <= dsp["ts"] + dsp["dur"]
+                  for e in launches)
+          and run["ts"] <= dsp["ts"]
+          and dsp["ts"] + dsp["dur"] <= run["ts"] + run["dur"],
+          f"{path} profiled: the sweep launches are not inside the "
+          f"dispatch range, or it is not inside session.run's")
+
+
 def phase_10(drive, timed_ms) -> None:
     """Telemetry, resilience and the checkpointer on the card: the
     supervised main path at half its side (preempted, its newest step
@@ -773,8 +904,10 @@ def phase_10(drive, timed_ms) -> None:
     demotion, to the uninterrupted digest), the chaos drill through the
     CLI (an ensemble; a 2 x 2 mesh resumed on 1 x 2), a real
     ``OutOfMemoryError`` and a shared-memory overflow demoting with the
-    trajectory unchanged, the traced CLI run's counters and the fence of
-    the ``dispatch`` span, and the weakscale rows' halo counters.
+    trajectory unchanged, the traced CLI run's counters, a traced run's
+    spans (no host synchronization; its launches inside the
+    ``repro_torch/dispatch`` range of a ``torch.profiler`` trace; a
+    span's cost), and the weakscale rows' halo counters.
     ``drive(path, family, tier, fn)`` is :func:`main`'s: each path
     launches its tier's kernel and no other.  Raises on any failed
     gate."""
@@ -1044,59 +1177,7 @@ def phase_10(drive, timed_ms) -> None:
 
     session = Session.open(spec)
     session.run(2)
-    path = f"multispin_pallas {FULL_N}^2 run({TRACE_SWEEPS})"
-    untraced_ms = drive(f"{path} untraced", "multispin", "k-sweep",
-                        lambda: timed_ms(lambda: session.run(TRACE_SWEEPS),
-                                         reps=1, warmup=False))
-
-    def sync_checked():
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            session.run(TRACE_SWEEPS)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-
-    drive(f"{path} sync debug mode error", "multispin", "k-sweep",
-          sync_checked)
-    # CUDA events just before the dispatch's first launch and just after
-    # its last, both inside its span: the span must last at least as long
-    marks = []
-    launch = session.engine.resident_sweeps
-
-    def marked(*args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = launch(*args, **kwargs)
-        end.record()
-        marks.append((start, end))
-        return out
-
-    session.engine.resident_sweeps = marked
-    tel.TRACER.clear()
-    tel.enable()
-    try:
-        traced_ms = drive(f"{path} traced", "multispin", "k-sweep",
-                          lambda: timed_ms(lambda: session.run(TRACE_SWEEPS),
-                                           reps=1, warmup=False))
-    finally:
-        tel.disable()
-        del session.engine.resident_sweeps
-    dispatches = [e for e in tel.TRACER.events if e["name"] == "dispatch"]
-    tel.TRACER.clear()
-    check(len(dispatches) == len(marks) == 1,
-          f"{path} traced: {len(dispatches)} dispatch spans, {len(marks)} "
-          f"marked launches")
-    span_ms = dispatches[0]["dur_us"] / 1e3
-    device_ms = marks[0][0].elapsed_time(marks[0][1])
-    print(f"phase 10: {path}: untraced {untraced_ms:.3f} ms, traced "
-          f"{traced_ms:.3f} ms; the dispatch span {span_ms:.3f} ms against "
-          f"its launches' CUDA-event time {device_ms:.3f} ms; no host "
-          f"synchronization under sync debug mode 'error' untraced")
-    check(span_ms >= device_ms,
-          f"{path}: the dispatch span ({span_ms} ms) closed before its "
-          f"launches finished ({device_ms} ms): the fence did not wait")
+    traced_run_checks(session, drive, timed_ms)
     del session
 
     # -- 10.5 weakscale rows: the halo counters against the plans ------------
@@ -3620,16 +3701,18 @@ def main() -> int:
     def budget(tier):
         return 0 if tier == "half-sweep" else None
 
+    import repro_torch.telemetry as tel
     from repro_torch.analysis import measure as measuring
     #: measure() through the graph and through the loop, by path
     graph_rows = {}
 
     def graph_measure(session, plan=None):
-        """Host copies of the planes, then ``session.measure()``, its
-        observables one captured graph, timed on the host clock to the
-        samples on the host; its replays (``DISPATCHES``), the graph's
-        capture and instantiation seconds, and the device memory it took
-        above what was allocated when it started."""
+        """Host copies of the planes, then ``session.measure()`` traced,
+        its observables one captured graph, timed on the host clock to
+        the samples on the host; its replays (``DISPATCHES``), the graph's
+        capture and instantiation seconds (its spans; ``None`` where
+        this PyTorch instantiates in the capture's end), and the device
+        memory it took above what was allocated when it started."""
         before = [p.cpu() for p in session.state]
         step = session.step_count
         torch.cuda.synchronize()
@@ -3637,14 +3720,29 @@ def main() -> int:
         start = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         replays = measuring.DISPATCHES
-        t1 = time.perf_counter()
-        traj = session.measure(plan)
-        seconds = time.perf_counter() - t1
+        check(not tel.enabled(), "graph_measure: tracing already on")
+        tel.TRACER.clear()
+        tel.enable()
+        try:
+            t1 = time.perf_counter()
+            traj = session.measure(plan)
+            seconds = time.perf_counter() - t1
+        finally:
+            tel.disable()
+        spans = {}
+        for e in tel.TRACER.events:
+            spans.setdefault(e["name"], []).append(e["dur_us"] * 1e-6)
+        tel.TRACER.clear()
         peak = torch.cuda.max_memory_allocated()
         return {"before": before, "step": step, "plan": plan, "traj": traj,
                 "seconds": seconds,
                 "replays": measuring.DISPATCHES - replays,
-                "stats": dict(measuring.GRAPH_STATS),
+                "stats": {
+                    "capture_s": sum(spans.get("measure.graph_capture",
+                                               [0.0])),
+                    "instantiate_s": sum(spans["measure.graph_instantiate"])
+                    if "measure.graph_instantiate" in spans else None,
+                    "replays": len(spans.get("measure.graph_replay", []))},
                 "extra_bytes": peak - start,
                 "path_peak": max(path_peak, peak)}
 

@@ -31,21 +31,25 @@ loop.  On the CPU (only where the caller asked for it) the plan runs as
 that loop, the plain version.  :func:`measure_scan` of a counter-based
 engine is the batch of one; the engines that are not counter-based
 (``tensorcore``, ``basic``, ``spinglass``, ``wolff``) keep a loop on
-either device.  The times of the last graph are in
-:data:`GRAPH_STATS`.
+either device.
 
 A measured trajectory is ONE dispatch in the telemetry counters, as the
 JAX package's one compiled scan is, inside a ``measure_scan`` span that
-holds its ``dispatch`` span.  Both are opened around the whole
-trajectory, never inside the graph's capture: a span's fence (an event
-synchronize) is illegal while a stream captures.
+holds its ``dispatch`` span.  Inside that, the phases are spans of their
+own: ``measure.sweeps`` (a block of sweeps, with its copy-back),
+``measure.observe`` (a sample's observables by the loop),
+``measure.graph_capture``, ``measure.graph_instantiate``,
+``measure.graph_replay`` (each replay) and ``measure.graph_reset`` (the
+wait for the last replay, the graph freed); around it,
+``measure.alloc`` (the sample buffers) and ``measure.to_host`` (their
+copy to the host).  Spans are host intervals: none waits for the card,
+and none opens inside the capture.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import inspect
-import time
 from typing import Tuple
 
 import numpy as np
@@ -64,10 +68,6 @@ def __getattr__(name: str):
     if name == "DISPATCHES":
         return GRAPH_REPLAYS.value
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-#: the last graph: seconds of its capture and its instantiation, and
-#: its replays
-GRAPH_STATS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,8 +96,8 @@ class MeasurementPlan:
 @contextlib.contextmanager
 def _traced(engine, plan: MeasurementPlan, batch: int):
     """The ``measure_scan`` span around a whole trajectory, its one
-    ``dispatch`` span inside (yielded: fence the samples on it), and the
-    trajectory's one dispatch in the counters once it has run."""
+    ``dispatch`` span inside, and the trajectory's one dispatch in the
+    counters once it has run."""
     with tel.span("measure_scan", engine=engine.name,
                   lattice=(engine.cfg.n, engine.cfg.m),
                   n_measure=plan.n_measure,
@@ -105,8 +105,8 @@ def _traced(engine, plan: MeasurementPlan, batch: int):
                   thermalize=plan.thermalize, batch=batch,
                   replicas=engine.replicas):
         with tel.span("dispatch", engine=engine.name, k=plan.total_sweeps,
-                      batch=batch) as dsp:
-            yield dsp
+                      batch=batch):
+            yield
         tel.record_dispatch(n_sweeps=plan.total_sweeps,
                             sites=engine.cfg.n * engine.cfg.m,
                             replicas=engine.replicas, batch=batch,
@@ -140,7 +140,7 @@ def measure_scan(engine, state, plan: MeasurementPlan, step_count: int = 0,
         return (engine.member(states, 0), {k: v[:, 0] for k, v in
                                             traj.items()}, step)
     step = step_count
-    with _traced(engine, plan, 1) as dsp:
+    with _traced(engine, plan, 1):
         if plan.thermalize:
             state = engine.scan_step(state, inv_temp, seed, step,
                                      plan.thermalize)
@@ -153,7 +153,6 @@ def measure_scan(engine, state, plan: MeasurementPlan, step_count: int = 0,
             o = engine.observables(state, inv_temp)
             for k in plan.fields:
                 samples[k].append(o[k])
-        dsp.fence(samples)
     traj = {k: torch.stack(v).cpu().numpy().astype(np.float32)
             for k, v in samples.items()}
     return state, traj, step_count + plan.total_sweeps
@@ -182,16 +181,17 @@ def measure_scan_batched(engine, states, inv_temps, seeds,
     device = states[0].device
     shape = (plan.n_measure, states[0].shape[0]) + (
         (engine.replicas,) if engine.replicas > 1 else ())
-    out = {k: torch.empty(shape, dtype=torch.float32, device=device)
-           for k in plan.fields}
+    with tel.span("measure.alloc"):
+        out = {k: torch.empty(shape, dtype=torch.float32, device=device)
+               for k in plan.fields}
     args = (engine, inv_temps, seeds, plan, step_count, out)
-    with _traced(engine, plan, len(seeds)) as dsp:
+    with _traced(engine, plan, len(seeds)):
         if device.type == "cuda" and not loop:
             states = _graph_trajectory(states, *args)
         else:
             states = _trajectory(states, *args)
-        dsp.fence(out)
-    traj = {k: v.cpu().numpy() for k, v in out.items()}
+    with tel.span("measure.to_host"):
+        traj = {k: v.cpu().numpy() for k, v in out.items()}
     return states, traj, step_count + plan.total_sweeps
 
 
@@ -199,14 +199,17 @@ def _trajectory(states, engine, inv_temps, seeds, plan, step, out):
     """Thermalize, then ``n_measure`` x (sweeps; every member's
     observables into row i of ``out``); returns the final states."""
     if plan.thermalize:
-        states = engine.scan_step_batched(states, inv_temps, seeds, step,
-                                          plan.thermalize)
+        with tel.span("measure.sweeps", k=plan.thermalize):
+            states = engine.scan_step_batched(states, inv_temps, seeds,
+                                              step, plan.thermalize)
         step += plan.thermalize
     for i in range(plan.n_measure):
-        states = engine.scan_step_batched(states, inv_temps, seeds, step,
-                                          plan.sweeps_between)
+        with tel.span("measure.sweeps", k=plan.sweeps_between):
+            states = engine.scan_step_batched(states, inv_temps, seeds,
+                                              step, plan.sweeps_between)
         step += plan.sweeps_between
-        _observe(engine, states, inv_temps, plan, out, i)
+        with tel.span("measure.observe", row=i):
+            _observe(engine, states, inv_temps, plan, out, i)
     return states
 
 
@@ -223,7 +226,7 @@ def _observe(engine, states, inv_temps, plan, out, row) -> None:
 
 def _new_graph():
     """A ``CUDAGraph`` kept after its capture and instantiated apart, so
-    that the two are timed apart, where this PyTorch can
+    that the two are spanned apart, where this PyTorch can
     (``keep_graph``; the package asks for torch 2.4 or later, where an
     older one instantiates in ``capture_end``); and whether it is."""
     if "keep_graph" in inspect.signature(torch.cuda.CUDAGraph.__new__) \
@@ -236,33 +239,32 @@ def _graph_trajectory(states, engine, inv_temps, seeds, plan, step, out):
     """:func:`_trajectory` with the observables of every sample after the
     first one replay of a graph captured on ``states``, which end each
     block of sweeps and which it returns, advanced."""
-    GRAPH_STATS.clear()
-
     def sweep(n_sweeps, step):
-        new = engine.scan_step_batched(states, inv_temps, seeds, step,
-                                       n_sweeps)
-        for dst, src in zip(states, new):
-            if src.data_ptr() != dst.data_ptr():
-                dst.copy_(src)
+        with tel.span("measure.sweeps", k=n_sweeps):
+            new = engine.scan_step_batched(states, inv_temps, seeds, step,
+                                           n_sweeps)
+            for dst, src in zip(states, new):
+                if src.data_ptr() != dst.data_ptr():
+                    dst.copy_(src)
         return step + n_sweeps
 
     if plan.thermalize:
         step = sweep(plan.thermalize, step)
     step = sweep(plan.sweeps_between, step)
-    _observe(engine, states, inv_temps, plan, out, 0)
+    with tel.span("measure.observe", row=0):
+        _observe(engine, states, inv_temps, plan, out, 0)
     if plan.n_measure == 1:
         return states
     device = states[0].device
     stream = torch.cuda.current_stream(device)
     row = torch.ones(1, dtype=torch.int64, device=device)
-    t0 = time.perf_counter()
     graph, separate = _new_graph()
     # captured on a side stream, as ``torch.cuda.graph`` does, but without
     # its emptying of the allocator's cache, which would make the next
     # run's allocations pay for new device memory
     capture = torch.cuda.Stream(device)
     capture.wait_stream(stream)
-    with torch.cuda.stream(capture):
+    with torch.cuda.stream(capture), tel.span("measure.graph_capture"):
         graph.capture_begin()
         try:
             _observe(engine, states, inv_temps, plan, out, row)
@@ -270,18 +272,16 @@ def _graph_trajectory(states, engine, inv_temps, seeds, plan, step, out):
         finally:
             graph.capture_end()     # raises where the capture failed
     stream.wait_stream(capture)
-    t1 = time.perf_counter()
     if separate:
-        graph.instantiate()
-    t2 = time.perf_counter()
+        with tel.span("measure.graph_instantiate"):
+            graph.instantiate()
     for _ in range(1, plan.n_measure):
         step = sweep(plan.sweeps_between, step)
-        graph.replay()
+        with tel.span("measure.graph_replay"):
+            graph.replay()
         GRAPH_REPLAYS.inc()
-    stream.synchronize()        # the pool's blocks are free once it is done
-    graph.reset()
-    del graph
-    GRAPH_STATS.update(capture_s=t1 - t0,
-                       instantiate_s=t2 - t1 if separate else None,
-                       replays=plan.n_measure - 1)
+    with tel.span("measure.graph_reset"):
+        stream.synchronize()    # the pool's blocks are free once it is done
+        graph.reset()
+        del graph
     return states

@@ -33,9 +33,9 @@ one dispatch through ``resilience.degrade.run_dispatch`` (counted in the
 canonical counters, a ``dispatch`` span when tracing is on, retried or
 demoted on the failures that allow it); the session adds the
 ``session.open``, ``session.run``, ``session.measure``, ``ckpt.save``
-and ``ckpt.restore`` spans, the ``spec.validate`` span with its
+and ``ckpt.restore`` spans, and the ``spec.validate`` span with its
 ``planner.decide`` and ``planner.decide_shard`` instants in
-:func:`describe`, and the ``rolling_flips_per_ns`` gauge of traced runs.
+:func:`describe`.
 A sharded run's halo exchanges go into the ``halo_exchanges`` and
 ``halo_bytes`` counters as well as ``Session.halo_exchanges``.
 """
@@ -230,12 +230,10 @@ class _EnsembleRunner:
 
         def attempt():
             with engine._dispatch(n_sweeps, batch=self.size,
-                                  **engine.resident_attrs) as sp:
-                out = engine.sweep_fn_batched(
+                                  **engine.resident_attrs):
+                return engine.sweep_fn_batched(
                     self.state, self.inv_temps, self.seeds,
                     (2 * self.step_count) & rng.MASK32, n_sweeps)
-                sp.fence(out)
-            return out
 
         self.state = degrade.run_dispatch(attempt, engine=engine)
         self.step_count += n_sweeps
@@ -396,7 +394,6 @@ class _ShardedRunner:
                         & rng.MASK32
                     state = self._step(*state, table, start, n_sweeps)
                 sp.set(halo_exchanges=self._record_halo(n_sweeps))
-                sp.fence(state)
             return state
 
         self.state = degrade.run_dispatch(attempt, engine=self.engine,
@@ -574,10 +571,9 @@ class Session:
                       engine=spec.engine.name,
                       lattice=(spec.lattice.n, spec.lattice.m),
                       batch=1 if spec.batch is None
-                      else spec.batch.size) as sp:
+                      else spec.batch.size):
             runner = _runner(spec, device,
                              resident_budget_bytes=resident_budget_bytes)
-            sp.fence(runner.state)
         return cls(spec, runner)
 
     @property
@@ -639,27 +635,13 @@ class Session:
     def step_count(self, value: int) -> None:
         self._runner.step_count = value
 
-    def _flip_rate(self, n_sweeps: int, duration_ns) -> None:
-        """Update the ``rolling_flips_per_ns`` gauge from a fenced span's
-        duration (only when tracing is on: otherwise there is no honest
-        device-complete duration to divide by)."""
-        if not duration_ns:
-            return
-        eng = self._runner.engine
-        batch = self._runner.size if self.mode == "ensemble" else 1
-        flips = n_sweeps * eng.cfg.n * eng.cfg.m * eng.replicas * batch
-        tel.REGISTRY.gauge("rolling_flips_per_ns").set(flips / duration_ns)
-
     def run(self, n_sweeps: int):
         """Advance ``n_sweeps`` full lattice sweeps (every member, in
         ensemble mode, which returns the (B,) per-member
         magnetizations)."""
         with tel.span("session.run", mode=self.mode,
-                      engine=self.spec.engine.name, k=n_sweeps) as sp:
-            out = self._runner.run(n_sweeps)
-            sp.fence(self.state)
-        self._flip_rate(n_sweeps, sp.duration_ns)
-        return out
+                      engine=self.spec.engine.name, k=n_sweeps):
+            return self._runner.run(n_sweeps)
 
     def measure(self, plan=None) -> dict:
         """Run a measurement plan (default: ``spec.sweep``); returns
@@ -674,11 +656,8 @@ class Session:
                       engine=self.spec.engine.name,
                       n_measure=plan.n_measure,
                       sweeps_between=plan.sweeps_between,
-                      thermalize=plan.thermalize) as sp:
-            traj = self._runner.measure(plan)
-            sp.fence(self.state)
-        self._flip_rate(plan.total_sweeps, sp.duration_ns)
-        return traj
+                      thermalize=plan.thermalize):
+            return self._runner.measure(plan)
 
     def plan(self) -> dict:
         """The dispatch plan of this session's spec (:func:`describe`)."""

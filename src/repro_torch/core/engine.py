@@ -177,11 +177,10 @@ class Engine:
     def _dispatch(self, n_sweeps: int, batch: int = 1, **attrs):
         """Account and trace ONE dispatch: the canonical counters advance
         at once (on the host, once a call, as in the JAX package), and
-        when tracing is on a ``dispatch`` span records the phase;
-        ``sp.fence(out)`` inside the ``with`` makes the span wait for the
-        card.  ``attrs`` are the planner's decision; its sweeps per
-        launch ``k`` become ``resident_k`` (the span's ``k`` is the
-        dispatch's sweeps, as in the JAX package)."""
+        a ``dispatch`` span records the phase (the host's launches, which
+        do not wait for the card).  ``attrs`` are the planner's
+        decision; its sweeps per launch ``k`` become ``resident_k`` (the
+        span's ``k`` is the dispatch's sweeps, as in the JAX package)."""
         attrs = {("resident_k" if key == "k" else key): v
                  for key, v in attrs.items()}
         tel.record_dispatch(n_sweeps=n_sweeps,
@@ -200,11 +199,9 @@ class Engine:
         each (re)attempt is its own accounted dispatch, and a k-sweep
         tier the card cannot hold demotes to the per-half-sweep tier."""
         def attempt():
-            with self._dispatch(n_sweeps, **self.resident_attrs) as sp:
-                out = self.scan_step(state, self.cfg.inv_temp,
-                                     self.cfg.seed, step_count, n_sweeps)
-                sp.fence(out)
-            return out
+            with self._dispatch(n_sweeps, **self.resident_attrs):
+                return self.scan_step(state, self.cfg.inv_temp,
+                                      self.cfg.seed, step_count, n_sweeps)
 
         return degrade.run_dispatch(attempt, engine=self)
 

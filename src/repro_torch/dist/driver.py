@@ -24,12 +24,14 @@ Offsets advance by ``rng.half_sweep_offset`` from a half-sweep-unit
 
 :func:`extend` writes the strips and the interior straight into one
 preallocated extended buffer per shard (one copy, where two
-concatenations would make two).
+concatenations would make two).  Each block's gather is a
+``dist.extend`` span (the host's copies, which do not wait for them).
 """
 from __future__ import annotations
 
 import torch
 
+import repro_torch.telemetry as tel
 from repro_torch.core import lattice as lat
 from repro_torch.core import rng
 from repro_torch.core.distributed import ShardGrid, ring_shift
@@ -99,7 +101,8 @@ def make_resident_step(mesh, plan: ShardPlan, *, seed: int = 0,
     index = [index_planes(plan, grid, i) for i in range(mesh.size)]
 
     def block(black, white, table, offset, sweeps):
-        bx, wx = extend(black, grid, h), extend(white, grid, h)
+        with tel.span("dist.extend", halo=h, shards=mesh.size):
+            bx, wx = extend(black, grid, h), extend(white, grid, h)
         out_b, out_w = [], []
         for i in range(mesh.size):
             b, w = kernel(bx[i], wx[i], table, *index[i], n_sweeps=sweeps,

@@ -2,16 +2,19 @@
 
 Counterpart of ``repro.telemetry``: observability for the whole
 execution stack, with no dependency beyond the standard library (and
-``torch`` to fence).  Two halves with different costs:
+``torch``'s profiler, where it records).  Two halves with different
+costs:
 
 * **Metrics** (:data:`REGISTRY`) are *always on*: one locked integer
   add per dispatch on the host.  The canonical counters below count
   what the JAX package's count, so the same spec through either
   package's ``Session`` gives equal :func:`diff_counters`.
-* **Spans** (:data:`TRACER`) are *opt-in* (``enable()`` /
-  ``python -m repro_torch run --trace out.json``): when disabled, a
-  span is one ``if not enabled`` branch and fencing never happens, so
-  the host never waits for the card on their account.
+* **Spans** (:data:`TRACER`) are host intervals that never wait for
+  the card.  They are recorded while tracing is on (``enable()`` /
+  ``python -m repro_torch run --trace out.json``) and, as
+  ``repro_torch/<name>`` ranges beside the card's kernels, while a
+  ``torch.profiler`` session records; otherwise a span is one flag
+  test and one call.
 
 Quickstart::
 

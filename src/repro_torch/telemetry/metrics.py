@@ -11,11 +11,8 @@ Three instrument kinds, all process-global through :data:`REGISTRY`:
 
 * :class:`Counter`   -- monotone int (dispatches, sweeps, spin_flips,
   philox_draws, planner decisions).  ``value`` reads, ``inc`` adds.
-* :class:`Gauge`     -- last-written float (rolling flips/ns).
-* :class:`Histogram` -- streaming count/sum/min/max of float samples;
-  span close times feed ``span_ms.<name>`` histograms when tracing is
-  enabled, so the snapshot carries a per-phase timing summary even
-  without the event list.
+* :class:`Gauge`     -- last-written float.
+* :class:`Histogram` -- streaming count/sum/min/max of float samples.
 
 ``REGISTRY.snapshot()`` renders everything as one plain-JSON dict in
 the validated schema of :mod:`repro_torch.telemetry.schema` (every

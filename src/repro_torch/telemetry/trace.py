@@ -1,22 +1,28 @@
-"""Span tracer: monotonic-clock phase timing with explicit fencing.
+"""Span tracer: named host intervals, on the device trace's clock too.
 
 Counterpart of ``repro.telemetry.trace``.  A *span* is one named,
 attributed, nested interval of host wall-clock
 (``time.perf_counter_ns``) around a phase of the execution stack --
 ``spec.validate``, ``session.open``, ``measure_scan``, ``dispatch``,
-``ckpt.save`` ...  CUDA launches return before the card has run them,
-so a span that times device work must *fence* before it closes:
-``sp.fence(out)`` remembers the output (a tensor, or a tuple, list or
-dict of them, nested: a sharded state is lists of shards on their
-devices), and at close the tracer records a ``torch.cuda.Event`` on the
-current stream of each CUDA device among them and synchronizes it (what
-the JAX tracer does with ``jax.block_until_ready``), so the recorded
-duration covers the device work, not just the enqueue.  CPU tensors
-need no fence.  Fencing (like every other part of a span) is a NO-OP
-while tracing is disabled -- the default -- so instrumented code adds
-no host synchronization when nobody is looking.  No span may be open
-around a CUDA graph capture: an event synchronize is illegal while a
-stream captures.
+``ckpt.save`` ...  A span is a host interval and never waits for the
+card: CUDA launches return before the card has run them, so a span
+around device work ends when the host has queued it (or when the code
+inside synchronized on its own).  The device's time comes from the
+device trace, never from a host wait, and a span may enclose a CUDA
+graph capture (none may open inside one).
+
+A span is recorded in two cases, each checked when it opens:
+
+* while ``enabled`` -- into this tracer's event list, for the exports
+  below;
+* while a ``torch.profiler`` session records in the process -- as a
+  ``record_function`` range named ``repro_torch/<span name>``, which the
+  profiler exports as a ``user_annotation`` event on its own clock,
+  beside the card's kernels (an instant is a range of no length).
+
+Otherwise a span is the shared :data:`NULL_SPAN`: one flag test and one
+``torch.autograd._profiler_enabled()`` call (``torch`` read from
+``sys.modules``, so the telemetry imports without it).
 
 Export formats:
 
@@ -26,52 +32,36 @@ Export formats:
 * ``export_jsonl(path)`` -- one JSON object per line (``kind: span |
   instant | metrics | meta``), for streaming consumers.
 
-Span close also feeds a ``span_ms.<name>`` histogram in the metrics
-registry, so the snapshot carries per-phase timing even without the
-event list.  Thread-safe: the nesting stack is thread-local (the async
-checkpoint writer records ``ckpt.write`` spans from its worker thread),
-the event list is lock-guarded, and events carry their ``tid``.
+Thread-safe: the nesting stack is thread-local (the async checkpoint
+writer records ``ckpt.write`` spans from its worker thread), the event
+list is lock-guarded, and events carry their ``tid``.
 """
+
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
-from .metrics import REGISTRY
+#: the prefix of a span's range in a ``torch.profiler`` trace
+RANGE_PREFIX = "repro_torch/"
 
 
-def fence_devices(value, out=None) -> list:
-    """The CUDA devices of the tensors in ``value`` (a tensor, or a
-    tuple, list or dict of them, nested), each once, in first-seen
-    order."""
-    out = [] if out is None else out
-    if isinstance(value, dict):
-        for v in value.values():
-            fence_devices(v, out)
-    elif isinstance(value, (tuple, list)):
-        for v in value:
-            fence_devices(v, out)
-    else:
-        device = getattr(value, "device", None)
-        if getattr(device, "type", None) == "cuda" and device not in out:
-            out.append(device)
-    return out
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session records in this process
+    (never where ``torch`` is not loaded)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
 
 
-def wait_for(value) -> None:
-    """Block the host until the work queued so far on the current stream
-    of every CUDA device in ``value`` is done: an event recorded there,
-    then synchronized."""
-    devices = fence_devices(value)
-    if not devices:
-        return
-    import torch
-    for device in devices:
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(device))
-        event.synchronize()
+def _enter_range(name: str):
+    """The profiler range of the span or instant ``name``, entered."""
+    from torch.profiler import record_function
+    r = record_function(RANGE_PREFIX + name)
+    r.__enter__()
+    return r
 
 
 def _jsonable(v) -> Any:
@@ -84,7 +74,7 @@ def _jsonable(v) -> Any:
 
 
 class _NullSpan:
-    """The shared no-op handle yielded while tracing is disabled."""
+    """The shared no-op span of a phase that nothing records."""
 
     __slots__ = ()
     duration_ns: Optional[int] = None
@@ -92,64 +82,59 @@ class _NullSpan:
     def set(self, **attrs) -> None:
         pass
 
-    def fence(self, value) -> None:
-        pass  # disabled tracing: no event, no synchronize
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
 
 
 NULL_SPAN = _NullSpan()
 
 
 class SpanHandle:
-    """Live span: ``set`` adds attributes, ``fence`` registers tensors
-    to wait for before the close timestamp is taken; after the ``with``
-    block exits, ``duration_ns`` holds the fenced wall-clock."""
+    """Live span, a context manager (:meth:`Tracer.span`): ``set`` adds
+    attributes; after the ``with`` block exits, ``duration_ns`` holds its
+    host wall-clock.  ``keep``: it goes into the tracer's event list
+    (tracing was enabled when it opened); ``profiled``: it is a
+    ``torch.profiler`` range too."""
 
-    __slots__ = ("name", "attrs", "t0_ns", "depth", "tid", "_fence",
-                 "duration_ns")
+    __slots__ = ("name", "attrs", "t0_ns", "depth", "tid", "keep",
+                 "profiled", "duration_ns", "_tracer", "_range")
 
-    def __init__(self, name: str, attrs: Dict[str, Any], t0_ns: int,
-                 depth: int, tid: int):
+    def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any],
+                 keep: bool, profiled: bool):
+        self._tracer = tracer
         self.name = name
         self.attrs = attrs
-        self.t0_ns = t0_ns
-        self.depth = depth
-        self.tid = tid
-        self._fence = None
+        self.t0_ns = 0
+        self.depth = 0
+        self.tid = threading.get_ident()
+        self.keep = keep
+        self.profiled = profiled
         self.duration_ns: Optional[int] = None
+        self._range = None
 
     def set(self, **attrs) -> None:
         for k, v in attrs.items():
             self.attrs[k] = _jsonable(v)
 
-    def fence(self, value) -> None:
-        self._fence = value
-
-
-class _Scope:
-    """Context manager returned by :meth:`Tracer.span`."""
-
-    __slots__ = ("_tracer", "_handle")
-
-    def __init__(self, tracer: "Tracer", handle):
-        self._tracer = tracer
-        self._handle = handle
-
     def __enter__(self):
-        h = self._handle
-        if h is not NULL_SPAN:
-            self._tracer._push(h)
-            h.t0_ns = time.perf_counter_ns()
-        return h
+        if self.keep:
+            self._tracer._push(self)
+        if self.profiled:
+            self._range = _enter_range(self.name)
+        self.t0_ns = time.perf_counter_ns()
+        return self
 
     def __exit__(self, exc_type, exc, tb):
-        h = self._handle
-        if h is not NULL_SPAN:
-            self._tracer._close(h, error=exc_type is not None)
+        self._tracer._close(self, error=exc_type is not None)
         return False
 
 
 class Tracer:
-    """Collects span/instant events while ``enabled``; no-ops otherwise."""
+    """Collects span/instant events while ``enabled``, and mirrors them
+    into a recording ``torch.profiler``; no-ops otherwise."""
 
     def __init__(self):
         self.enabled = False
@@ -182,30 +167,31 @@ class Tracer:
         handle.depth = len(st)
         st.append(handle)
 
-    def span(self, name: str, **attrs) -> _Scope:
+    def span(self, name: str, **attrs):
         """``with tracer.span("dispatch", engine="multispin") as sp:``
 
-        Yields :data:`NULL_SPAN` while disabled.  Attributes are
-        JSON-normalized at entry; ``sp.set(...)`` adds more, and
-        ``sp.fence(out)`` makes the close wait for the device work on
-        the streams that produced ``out``.
+        :data:`NULL_SPAN` while tracing is disabled and no profiler
+        records.  Attributes are JSON-normalized at entry;
+        ``sp.set(...)`` adds more.
         """
-        if not self.enabled:
-            return _Scope(self, NULL_SPAN)
-        handle = SpanHandle(name,
-                            {k: _jsonable(v) for k, v in attrs.items()},
-                            0, 0, threading.get_ident())
-        return _Scope(self, handle)
+        profiled = profiling()
+        if not (self.enabled or profiled):
+            return NULL_SPAN
+        return SpanHandle(self, name,
+                          {k: _jsonable(v) for k, v in attrs.items()},
+                          self.enabled, profiled)
 
     def _close(self, handle: SpanHandle, error: bool = False) -> None:
-        if handle._fence is not None:
-            wait_for(handle._fence)
-            handle._fence = None
         t1 = time.perf_counter_ns()
+        if handle._range is not None:
+            handle._range.__exit__(None, None, None)
+            handle._range = None
+        handle.duration_ns = t1 - handle.t0_ns
+        if not handle.keep:
+            return
         st = self._stack()
         if st and st[-1] is handle:
             st.pop()
-        handle.duration_ns = t1 - handle.t0_ns
         if error:
             handle.attrs["error"] = True
         event = {"kind": "span", "name": handle.name,
@@ -215,11 +201,11 @@ class Tracer:
                  "args": handle.attrs}
         with self._lock:
             self._events.append(event)
-        REGISTRY.histogram(f"span_ms.{handle.name}").observe(
-            handle.duration_ns / 1e6)
 
     def instant(self, name: str, **attrs) -> None:
         """A zero-duration annotation event (e.g. ``planner.decide``)."""
+        if profiling():
+            _enter_range(name).__exit__(None, None, None)
         if not self.enabled:
             return
         event = {"kind": "instant", "name": name,

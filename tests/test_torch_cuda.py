@@ -1099,38 +1099,65 @@ def clean_resilience():
     torch.cuda.set_per_process_memory_fraction(1.0)
 
 
-def test_dispatch_span_fence_waits(cuda):
-    """The traced dispatch span lasts at least as long as its launches on
-    the card (CUDA events just before the first and just after the last,
-    inside the span); disabled, the span records nothing."""
+def test_measure_phases_on_the_profiler_clock(cuda, tmp_path):
+    """A traced ``Session.measure`` of a bitplane session under
+    ``torch.profiler``: every phase of the graph's trajectory is a
+    ``repro_torch/`` range, and the sweep kernels start inside
+    ``repro_torch/dispatch``'s interval on the trace's clock (the
+    trajectory ends in a wait for its last replay)."""
+    import inspect
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
     import repro_torch.telemetry as tel
-    session = Session.open(_resilience_spec("multispin_pallas", 2048))
-    session.run(2)
-    marks = []
-    launch = session.engine.resident_sweeps
-
-    def marked(*args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = launch(*args, **kwargs)
-        end.record()
-        marks.append((start, end))
-        return out
-
-    session.engine.resident_sweeps = marked
+    from repro_torch.analysis.measure import MeasurementPlan
+    spec = RunSpec(lattice=LatticeSpec(1024, 1024),
+                   engine=EngineSpec("bitplane_pallas"), temperature=3.0,
+                   seed=SEED)
+    session = Session.open(spec)
+    plan = MeasurementPlan(4, 2, thermalize=1)
+    session.measure(plan)
+    torch.cuda.synchronize()
     tel.TRACER.clear()
     tel.enable()
     try:
-        session.run(40)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            session.measure(plan)
+            torch.cuda.synchronize()
     finally:
         tel.disable()
-    spans = [e for e in tel.TRACER.events if e["name"] == "dispatch"]
+    path = str(tmp_path / "profile.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" \
+                and e["name"].startswith("repro_torch/"):
+            ranges.setdefault(e["name"][len("repro_torch/"):], []).append(e)
+    separate = "keep_graph" in inspect.signature(
+        torch.cuda.CUDAGraph.__new__).parameters
+    want = {"measure.sweeps": 1 + 4, "measure.observe": 1,
+            "measure.graph_capture": 1,
+            "measure.graph_instantiate": 1 if separate else 0,
+            "measure.graph_replay": 3, "measure.graph_reset": 1,
+            "measure.alloc": 1, "measure.to_host": 1, "dispatch": 1,
+            "measure_scan": 1, "session.measure": 1}
+    assert {k: len(ranges.get(k, [])) for k in want} == want
+    traced = {}
+    for e in tel.TRACER.events:
+        traced[e["name"]] = traced.get(e["name"], 0) + 1
     tel.TRACER.clear()
-    assert len(spans) == len(marks) == 1
-    assert spans[0]["dur_us"] / 1e3 >= marks[0][0].elapsed_time(marks[0][1])
-    session.run(2)
-    assert tel.TRACER.events == []
+    assert {k: traced.get(k, 0) for k in want} == want
+    (dsp,) = ranges["dispatch"]
+    sweeps = [e for e in events if e.get("cat") == "kernel"
+              and "bitplane" in e["name"]]
+    assert len(sweeps) >= 5
+    assert all(dsp["ts"] <= k["ts"] <= dsp["ts"] + dsp["dur"]
+               for k in sweeps)
 
 
 def _fill_cached_blocks(device) -> list:

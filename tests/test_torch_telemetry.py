@@ -184,44 +184,95 @@ def test_span_error_attr(traced):
     assert e["args"]["error"] is True
 
 
-def test_disabled_tracing_is_inert(monkeypatch):
-    """Disabled: no event, and the fence never waits (no CUDA event, no
-    synchronize)."""
-    waited = []
-    monkeypatch.setattr(trace_mod, "wait_for", waited.append)
+def test_disabled_tracing_is_inert():
+    """Disabled, with no profiler recording: no event, and every span is
+    the shared no-op handle."""
     tel.TRACER.clear()
-    assert not tel.enabled()
+    assert not tel.enabled() and not trace_mod.profiling()
     with tel.span("ghost") as sp:
         sp.set(a=1)
-        sp.fence(object())
     assert sp is tel.NULL_SPAN and sp.duration_ns is None
     tel.instant("ghost")
-    assert tel.TRACER.events == [] and waited == []
+    assert tel.TRACER.events == []
 
 
-def test_fence_waits_for_the_fenced_values(traced, monkeypatch):
-    """Enabled: the close waits for the fenced value (the card's streams
-    of its tensors); CPU tensors have no device to wait for."""
+@pytest.mark.parametrize("enabled", [False, True],
+                         ids=["disabled", "enabled"])
+def test_no_profiler_range_without_a_profiler(enabled, monkeypatch):
+    """With no profiler recording, no ``record_function`` is entered,
+    whether or not tracing is on."""
+    import torch.profiler
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    tel.TRACER.clear()
+    if enabled:
+        tel.enable()
+    try:
+        with tel.span("quiet", k=1):
+            tel.instant("quiet.mark")
+    finally:
+        tel.disable()
+    assert [e["name"] for e in tel.TRACER.events] == \
+        (["quiet.mark", "quiet"] if enabled else [])
+    tel.TRACER.clear()
+
+
+def _profiled(tmp_path, body):
+    """``body()`` under a CPU ``torch.profiler`` inside an ``outer``
+    range; the exported trace's complete events by name."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("outer"):
+            body()
+    path = str(tmp_path / "profile.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("ph") == "X":
+            by_name.setdefault(e["name"], []).append(e)
+    return by_name
+
+
+def _inside(inner, outer) -> bool:
+    return outer["ts"] <= inner["ts"] \
+        and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+
+
+@pytest.mark.parametrize("enabled", [False, True],
+                         ids=["profiler-only", "enabled"])
+def test_spans_enter_the_profiler_trace(enabled, tmp_path):
+    """While a profiler records, a span and an instant are
+    ``repro_torch/<name>`` ``user_annotation`` events on its clock,
+    nested in the range around them; the tracer's own event list holds
+    them only while tracing is on."""
     import torch
-    waited = []
-    monkeypatch.setattr(trace_mod, "wait_for", waited.append)
-    value = {"a": [torch.zeros(2)], "b": (torch.ones(1),)}
-    with tel.span("fenced") as sp:
-        sp.fence(value)
-    assert waited == [value]
-    assert trace_mod.fence_devices(value) == []
-    cuda = torch.device("cuda", 0)
-    fake = type("T", (), {"device": cuda})()
-    assert trace_mod.fence_devices([fake, {"x": (fake, torch.zeros(1))}]) \
-        == [cuda]
+    tel.TRACER.clear()
+    if enabled:
+        tel.enable()
 
+    def body():
+        with tel.span("phase", k=2):
+            torch.ones(4).sum()
+            tel.instant("mark")
 
-def test_span_feeds_timing_histogram(traced):
-    before = tel.REGISTRY.histogram("span_ms.histspan").stats()["count"]
-    with tel.span("histspan"):
-        pass
-    assert tel.REGISTRY.histogram("span_ms.histspan").stats()["count"] \
-        == before + 1
+    try:
+        by_name = _profiled(tmp_path, body)
+    finally:
+        tel.disable()
+    (outer,) = by_name["outer"]
+    (phase,) = by_name[trace_mod.RANGE_PREFIX + "phase"]
+    (mark,) = by_name[trace_mod.RANGE_PREFIX + "mark"]
+    assert phase["cat"] == mark["cat"] == "user_annotation"
+    assert _inside(phase, outer) and _inside(mark, phase)
+    assert any(_inside(op, phase) for op in by_name["aten::sum"])
+    assert [e["name"] for e in tel.TRACER.events] == \
+        (["mark", "phase"] if enabled else [])
+    tel.TRACER.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +496,6 @@ def test_session_run_counters_and_spans(engine, params, traced):
     assert run["ts_us"] <= dsp["ts_us"]
     assert dsp["ts_us"] + dsp["dur_us"] \
         <= run["ts_us"] + run["dur_us"] + 1e-3
-    assert tel.REGISTRY.gauge("rolling_flips_per_ns").value is not None
 
 
 def _jax_counts(spec_json: str, action) -> dict:
@@ -623,6 +673,74 @@ def test_session_measure_counts_one_fused_dispatch(traced):
     # the trajectory's dispatch span nests inside measure_scan's
     dsp = [e for e in traced.events if e["name"] == "dispatch"][-1]
     assert dsp["depth"] == scan["depth"] + 1 and dsp["args"]["k"] == 19
+
+
+def test_no_span_synchronizes(traced, tmp_path, monkeypatch):
+    """A span is a host interval: with every CUDA event and synchronize
+    refused, a traced run and measure (under a profiler too) pass."""
+    import torch
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a span waited for the card")
+
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    spec = PLAN_CASES["measure"][0]
+    session = Session.open(spec, device="cpu")
+    session.run(2)
+    traj = session.measure()
+    by_name = _profiled(tmp_path, lambda: (session.run(2),
+                                           session.measure()))
+    assert traj["m"].shape == (5,)
+    names = {e["name"] for e in traced.events}
+    assert {"session.run", "session.measure", "dispatch",
+            "measure.sweeps"} <= names
+    assert {trace_mod.RANGE_PREFIX + n
+            for n in ("session.run", "session.measure")} <= set(by_name)
+
+
+def test_measure_phases_are_spanned_in_order(traced):
+    """``measure_scan_batched`` on the CPU (the loop): the buffers, each
+    block of sweeps, each sample's observables, the copy to the host."""
+    from repro_torch.analysis.measure import (MeasurementPlan,
+                                              measure_scan_batched)
+    spec = RunSpec(lattice=LatticeSpec(16, 16), engine=EngineSpec("bitplane"),
+                   temperature=2.0, seed=5,
+                   batch=BatchSpec(temperatures=(2.0, 3.0)))
+    session = Session.open(spec, device="cpu")
+    runner = session._runner
+    plan = MeasurementPlan(3, 2, thermalize=1)
+    tel.TRACER.clear()
+    _, traj, step = measure_scan_batched(runner.engine, runner.state,
+                                         runner.inv_temps, runner.seeds,
+                                         plan, loop=True)
+    assert traj["m"].shape == (3, 2, 32) and step == 7
+    phases = [e for e in traced.events if e["name"].startswith("measure.")]
+    assert [e["name"] for e in phases] == (
+        ["measure.alloc", "measure.sweeps"]
+        + ["measure.sweeps", "measure.observe"] * 3 + ["measure.to_host"])
+    assert [e["args"].get("k") for e in phases
+            if e["name"] == "measure.sweeps"] == [1, 2, 2, 2]
+    dsp = [e for e in traced.events if e["name"] == "dispatch"][-1]
+    assert all(e["depth"] == dsp["depth"] + 1 for e in phases[1:-1])
+    assert phases[0]["depth"] == phases[-1]["depth"] == dsp["depth"] - 1
+
+
+def test_halo_gather_is_spanned_on_a_mesh(traced):
+    """The sharded resident tier's gather is one ``dist.extend`` span a
+    block of sweeps, inside the dispatch."""
+    spec = _mesh_spec("multispin_pallas", (32, 256), (2, 2))
+    plan = describe(spec)["dist"]
+    assert plan["sharded_resident"] and plan["halo_k"] == 1
+    session = Session.open(spec, device="cpu")
+    tel.TRACER.clear()
+    session.run(3)
+    extends = [e for e in traced.events if e["name"] == "dist.extend"]
+    (dsp,) = [e for e in traced.events if e["name"] == "dispatch"]
+    assert len(extends) == 3 == dsp["args"]["halo_exchanges"]
+    assert all(e["args"] == {"halo": 2, "shards": 4} for e in extends)
+    assert all(dsp["ts_us"] <= e["ts_us"] and e["depth"] > dsp["depth"]
+               for e in extends)
 
 
 def test_planner_decision_instant_matches_dry_run(traced):
