@@ -14,7 +14,9 @@ ensemble's members as a grid axis (``BatchSpec``: B members' stacked
 planes in one launch).  The eleventh kernel, ``philox_fill``, replaces no
 TPU kernel: it draws the uniforms of the engines whose update is plain
 PyTorch (``basic_philox``, ``basic``, ``spinglass``, ``wolff`` and the 3D
-model).  Phases, each of which raises (and so exits non-zero) when it
+model).  Nor does the twelfth, ``bitplane_counts``: the per-replica
+counts behind the bitplane engines' observables (m and e), which the JAX
+package computes in ``jnp``.  Phases, each of which raises (and so exits non-zero) when it
 fails:
 
 1. the card's name and power limit, torch and CUDA versions;
@@ -74,7 +76,11 @@ fails:
    seeds, lanes 1 and 2, offsets near 2^31 and 2^32, the streams' c1 =
    0, 2 and 3 with c3 > 0, and at the main path's (32768, 16384) plane,
    timed there beside its plain version and (a note: another function)
-   ``torch.rand``;
+   ``torch.rand``; ``bitplane_counts`` at the ensemble main path's
+   (16, 4096, 2048) planes and at the main path's two (16384, 8192)
+   ones, timed there beside its plain version (every path below that
+   reads a bitplane session's observables must launch it, and no other
+   path may);
 4. the Session at 512^2 for each engine: the card's k-sweep tier, its
    per-half-sweep tier (``resident_budget_bytes=0``) and the CPU plain
    versions give one ``state_digest``, and restore-continue equals the
@@ -420,7 +426,7 @@ FMA_WIDE_SLOTS = 2
 #: Philox and the multispin accept take the sum of their times, not the
 #: larger: as if a wide multiply also took an ALU slot
 WIDE_ALU_SLOTS = 1
-#: the eleven kernels: family, tier, TPU kernel replaced
+#: the twelve kernels: family, tier, TPU kernel replaced
 KERNELS = {
     "stencil_update": ("stencil", "half-sweep",
                        "src/repro/kernels/stencil/stencil.py:76"),
@@ -445,7 +451,14 @@ KERNELS = {
     # not a TPU kernel: the draws the JAX package computes in jnp
     "philox_fill": ("draws", "fill",
                     "none: src/repro/core/rng.py:112 uniforms, in jnp"),
+    # not a TPU kernel: the bitplane observables' counts, in jnp there
+    "bitplane_counts": ("bitplane", "counts",
+                        "none: src/repro/core/bitplane.py:228 "
+                        "replica_observables, in jnp"),
 }
+#: the kernel a path launches where it reads a bitplane session's
+#: observables on the card, besides the kernel of its tier
+COUNT_KERNEL = "bitplane_counts"
 ENGINE_FAMILY = {"stencil_pallas": "stencil",
                  "multispin_pallas": "multispin",
                  "bitplane_pallas": "bitplane"}
@@ -1344,7 +1357,7 @@ def phase_11(drive, launches_by_path) -> None:
             t1 = time.perf_counter()
             path = (f"farm wave {wave} batch of {hi - lo} "
                     f"{specs[lo].engine.name} {specs[lo].lattice.n}^2")
-            check(drive(path, family, tier, farm.step),
+            check(drive(path, family, tier, farm.step, observes=True),
                   f"{path}: no batch ran")
             batch_s = time.perf_counter() - t1
             rows.append({"path": path, "batch_s": round(batch_s, 3),
@@ -1352,7 +1365,9 @@ def phase_11(drive, launches_by_path) -> None:
                          "checkpoint_s": round(sum(timings[ckpt0:]), 3),
                          "dispatches": diff_counters(c0, counters()).get(
                              "dispatches", 0),
-                         "launches": sum(launches_by_path[path].values())})
+                         "launches": sum(
+                             v for name, v in launches_by_path[path].items()
+                             if name != COUNT_KERNEL)})
             for jid, digest in zip(ids[lo:hi], want[lo:hi]):
                 job = farm.job(jid)
                 check(job["status"] == "completed"
@@ -3627,6 +3642,33 @@ def main() -> int:
           f"{FILL_SHAPE} (lane 0), plain version {plain_ms:.1f} ms; "
           f"torch.rand of that shape (another function) {rand_ms:.4f} ms")
     check(fill_stats[1] == 0, f"{fill} disagrees with its plain version")
+
+    # bitplane_counts, the counts of the bitplane observables: (B, 2, 32)
+    # int64 counts against the plain version's, 0 mismatches, at the
+    # ensemble main path's (16, 4096, 2048) planes and at the main path's
+    # two (16384, 8192) ones, which it is timed at (the zeroed buffer
+    # included, as a sample's graph replays it)
+    shapes = (ensemble_shape["bitplane"], full_plane["bitplane"])
+    for shape in shapes:
+        b, w = (random_batch("bitplane", *shape, 13) if len(shape) == 3
+                else random_planes("bitplane", *shape, 13))
+        want, plain_ms = plain_timed(lambda: plains[COUNT_KERNEL](b, w))
+        got = wrappers[COUNT_KERNEL](b, w)
+        torch.cuda.synchronize()
+        compare(COUNT_KERNEL, [got], [want],
+                plain_ms if len(shape) == 2 else None)
+        del want, got
+    kernel_ms[COUNT_KERNEL] = timed_ms(lambda: wrappers[COUNT_KERNEL](b, w),
+                                       reps=20)
+    del b, w
+    count_stats = stats[COUNT_KERNEL]
+    print(f"phase 3: {COUNT_KERNEL}: {count_stats[0]} comparisons of the "
+          f"(B, 2, 32) counts with the plain version at {shapes[0]} and "
+          f"{shapes[1]}, {count_stats[1]} mismatches; "
+          f"{kernel_ms[COUNT_KERNEL]:.4f} ms a launch at {shapes[1]}, plain "
+          f"version {count_stats[3]:.1f} ms")
+    check(count_stats[1] == 0,
+          f"{COUNT_KERNEL} disagrees with its plain version")
     phase_s[3] = time.perf_counter() - t0
 
     # bounds at the full plane: bytes of each input read once and each
@@ -3666,17 +3708,24 @@ def main() -> int:
     elements = FILL_SHAPE[0] * FILL_SHAPE[1]
     bounds[fill] = bound("draws", 4 * elements, elements, sm_clocks_per_s)
     full_plane["draws"] = FILL_SHAPE
+    # bitplane_counts reads both planes once; the bound is bytes alone
+    elements = full_plane["bitplane"][0] * full_plane["bitplane"][1]
+    bounds[COUNT_KERNEL] = bound("bitplane", 2 * 4 * elements, 0,
+                                 sm_clocks_per_s)
 
     # -- 4. Session at 512^2, both tiers and the CPU -----------------------
     t0 = time.perf_counter()
     launches_by_path = {}
 
-    def drive(path, family, tier, fn):
+    def drive(path, family, tier, fn, observes=False):
         """Run one Session path with every launch count set to 0 just
         before it and read just after it; the path must launch the
         kernel of its tier and no other (``family=None``: no kernel), a
         bitplane kernel with the three-threshold accept only (a Session's
-        table has a ferromagnet's layout)."""
+        table has a ferromagnet's layout).  ``observes``: the path reads
+        the observables of a single-mode or ensemble session (an
+        ensemble's ``run`` reads its magnetizations), so a bitplane path
+        must also launch ``bitplane_counts``, and no other path may."""
         for wrapper in wrappers.values():
             wrapper.launches = 0
             if hasattr(wrapper, "general_launches"):
@@ -3692,7 +3741,10 @@ def main() -> int:
         print(f"launches on path {path!r}: {counts}; of them with the "
               f"general accept {general}")
         for name, count in counts.items():
-            check((count > 0) == (KERNELS[name][:2] == (family, tier)),
+            want = (observes and family == "bitplane"
+                    if name == COUNT_KERNEL
+                    else KERNELS[name][:2] == (family, tier))
+            check((count > 0) == want,
                   f"path {path!r} launched {name} {count} times")
         check(not any(general.values()),
               f"path {path!r} launched the general bitplane accept")
@@ -3772,7 +3824,7 @@ def main() -> int:
             return out[0], out[1], time.perf_counter() - t1
 
         final, want, loop_s = drive(f"{path} as the loop", family, tier,
-                                    loop)
+                                    loop, observes=True)
         extra = torch.cuda.max_memory_allocated() - start
         traj = graph["traj"]
         same = all(np.array_equal(traj[k], want[k]) for k in traj) and all(
@@ -3845,7 +3897,7 @@ def main() -> int:
 
         check_restore_continue(engine, *drive(
             f"{engine} {SMALL_N}^2 save, restore, measure", family,
-            "k-sweep", lambda: restore_continue(small)))
+            "k-sweep", lambda: restore_continue(small), observes=True))
 
     # tensorcore: one tier (two launches a sweep), block 64
     small = RunSpec(lattice=LatticeSpec(SMALL_N, SMALL_N, init_p_up=0.5),
@@ -3995,7 +4047,7 @@ def main() -> int:
                 e.run(ENSEMBLE_CHECK_SWEEPS)
                 return e
 
-            e = drive(path, family, tier, ensemble_run)
+            e = drive(path, family, tier, ensemble_run, observes=True)
             if tier == "k-sweep":
                 name = f"{family}_sweeps_resident"
                 blocks = math.ceil(ENSEMBLE_CHECK_SWEEPS
@@ -4017,7 +4069,7 @@ def main() -> int:
               f"{engine}: an ensemble member is not its single-mode run")
         check_restore_continue(f"{engine} ensemble", *drive(
             f"{engine} {SMALL_N}^2 ensemble save, restore, measure", family,
-            "k-sweep", lambda: restore_continue(spec)))
+            "k-sweep", lambda: restore_continue(spec), observes=True))
         rebound = dataclasses.replace(spec, batch=BatchSpec(
             (2.2, 2.7, 1.9), (9, 2 ** 32 - 2, 10)))
 
@@ -4035,7 +4087,7 @@ def main() -> int:
             return e, f
 
         e, f = drive(f"{engine} {SMALL_N}^2 ensemble rebind", family,
-                     "k-sweep", rebind)
+                     "k-sweep", rebind, observes=True)
         print(f"phase 4: {engine} rebind to {rebound.batch.members}: "
               f"digest {e.state_digest()}, fresh session "
               f"{f.state_digest()}")
@@ -4075,7 +4127,7 @@ def main() -> int:
 
         torch.cuda.reset_peak_memory_stats()
         session, open_s, run_ms, measured = drive(
-            main_path, family, "k-sweep", main_run)
+            main_path, family, "k-sweep", main_run, observes=True)
         traj, measure_s = measured["traj"], measured["seconds"]
         if family == "stencil":
             # its planes after run(200) on the host: phase 9's
@@ -4294,7 +4346,7 @@ def main() -> int:
 
         torch.cuda.reset_peak_memory_stats()
         session, open_s, run_ms, mag_ms, firsts = drive(
-            run_path, family, "k-sweep", open_run)
+            run_path, family, "k-sweep", open_run, observes=True)
         plan = session.engine.resident_plan
         limit = member_limit(family)
         blocks = math.ceil(200 / plan.k) * math.ceil(batch.size / limit)
@@ -4342,7 +4394,7 @@ def main() -> int:
 
         measure_path = f"{engine} ensemble {batch.size} x {n}^2 measure()"
         measured = drive(measure_path, family, "k-sweep",
-                         lambda: graph_measure(session))
+                         lambda: graph_measure(session), observes=True)
         traj, measure_s = measured["traj"], measured["seconds"]
         print(f"phase 7: {run_path}: measure() {spec.sweep.total_sweeps} "
               f"sweeps + {spec.sweep.n_measure} samples of {batch.size} "
@@ -4398,7 +4450,8 @@ def main() -> int:
                           reps=1, warmup=False)
             return session, ms
 
-        half, half_ms = drive(half_path, family, "half-sweep", half_run)
+        half, half_ms = drive(half_path, family, "half-sweep", half_run,
+                              observes=True)
         launched = launches_by_path[half_path][f"{family}_update"]
         blocks = 2 * HALF_SWEEP_CHECK * math.ceil(batch.size / limit)
         ref = Session.open(spec)
@@ -4527,7 +4580,7 @@ def main() -> int:
                     f"{'single' if batch is None else 'ensemble of 3'}"
                     f" measure()")
             measured = drive(path, family, tier,
-                             lambda: graph_measure(session))
+                             lambda: graph_measure(session), observes=True)
             loop_against_graph(8, path, family, tier, session, measured)
             if tier == "fill":
                 half_sweeps = 2 * parity_plan.plan().total_sweeps
@@ -4895,9 +4948,11 @@ def main() -> int:
     kernels = []
     for name, (family, tier, replaces) in KERNELS.items():
         path = {"k-sweep": main_paths, "half-sweep": half_paths,
-                "shard": shard_paths, "fill": fill_paths}[tier][family]
+                "shard": shard_paths, "fill": fill_paths,
+                "counts": main_paths}[tier][family]
+        source = "counts" if tier == "counts" else family
         entry = {"name": name, "route": "cuda",
-                 "source": f"src/repro_torch/csrc/{family}.cu",
+                 "source": f"src/repro_torch/csrc/{source}.cu",
                  "replaces": replaces,
                  "launches": launches_by_path[path][name],
                  "launches_path": path,

@@ -17,8 +17,12 @@ the plan as one compiled ``lax.scan``: one dispatch a trajectory.  Here
    after each later sample's sweeps, each replay counted in the
    telemetry counter ``measure.graph_replays`` (read as
    :data:`DISPATCHES`);
-4. the samples to the host once, after the last replay; the graph and
-   its memory pool freed.
+4. the samples to the host once, after the last replay; the graph kept
+   until the engine's next measurement has captured its own graph, on
+   the same side stream, into the same memory pool, and freed then: a
+   capture into a new pool allocates new device memory (``cudaMalloc``,
+   which can stall the host for tens of ms), a capture into a kept one
+   takes the blocks its last capture freed.
 
 Only the observables are captured: a sweep launch carries its
 half-sweep offset as a by-value parameter, different in every sample,
@@ -40,7 +44,7 @@ own: ``measure.sweeps`` (a block of sweeps, with its copy-back),
 ``measure.observe`` (a sample's observables by the loop),
 ``measure.graph_capture``, ``measure.graph_instantiate``,
 ``measure.graph_replay`` (each replay) and ``measure.graph_reset`` (the
-wait for the last replay, the graph freed); around it,
+engine's previous graph freed, this one kept); around it,
 ``measure.alloc`` (the sample buffers) and ``measure.to_host`` (their
 copy to the host).  Spans are host intervals: none waits for the card,
 and none opens inside the capture.
@@ -50,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import inspect
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -60,6 +65,10 @@ import repro_torch.telemetry as tel
 #: CUDA graph replays: one per sample after the first of a measured
 #: trajectory on the card (module-held: survives ``REGISTRY.reset()``)
 GRAPH_REPLAYS = tel.REGISTRY.counter("measure.graph_replays")
+#: each engine's last measurement graph and the side stream it was
+#: captured on, kept for the engine's next capture (the pool's blocks are
+#: the stream's) and freed with the engine
+_KEPT = weakref.WeakKeyDictionary()
 
 
 def __getattr__(name: str):
@@ -261,11 +270,14 @@ def _graph_trajectory(states, engine, inv_temps, seeds, plan, step, out):
     graph, separate = _new_graph()
     # captured on a side stream, as ``torch.cuda.graph`` does, but without
     # its emptying of the allocator's cache, which would make the next
-    # run's allocations pay for new device memory
-    capture = torch.cuda.Stream(device)
+    # run's allocations pay for new device memory; the engine's stream
+    # and, while its last graph lives, that graph's pool
+    kept, capture = _KEPT.get(engine, (None, None))
+    if capture is None:
+        capture = torch.cuda.Stream(device)
     capture.wait_stream(stream)
     with torch.cuda.stream(capture), tel.span("measure.graph_capture"):
-        graph.capture_begin()
+        graph.capture_begin(pool=None if kept is None else kept.pool())
         try:
             _observe(engine, states, inv_temps, plan, out, row)
             row.add_(1)
@@ -281,7 +293,8 @@ def _graph_trajectory(states, engine, inv_temps, seeds, plan, step, out):
             graph.replay()
         GRAPH_REPLAYS.inc()
     with tel.span("measure.graph_reset"):
-        stream.synchronize()    # the pool's blocks are free once it is done
-        graph.reset()
-        del graph
+        # its pool is this graph's now: freeing it frees no device memory
+        if kept is not None:
+            kept.reset()
+        _KEPT[engine] = graph, capture
     return states

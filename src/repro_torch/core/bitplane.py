@@ -282,38 +282,61 @@ def _means(total: torch.Tensor, count: int) -> torch.Tensor:
     return (total.to(torch.float64) / count).to(torch.float32)
 
 
-def _sites(words: torch.Tensor) -> int:
-    """Sites of one ``(..., n, w)`` word plane (of one member)."""
-    return words.shape[-2] * words.shape[-1]
+def replica_sites(black_words) -> int:
+    """Sites of one replica lattice of ``(..., n, w)`` word planes (of
+    one member): ``2 n w``, the black and the white half."""
+    return 2 * black_words.shape[-2] * black_words.shape[-1]
 
 
-def replica_magnetizations(black_words, white_words) -> torch.Tensor:
-    """(32,) float32: replica r's mean spin, ``(2 up_r - N) / N`` from
-    exact int64 counts, each rounded once to float32; ``(B, 32)`` for an
-    ensemble's ``(B, n, w)`` planes."""
-    count = _sites(black_words) + _sites(white_words)
-    up = plane_bit_counts(black_words) + plane_bit_counts(white_words)
-    return _means(2 * up - count, count)
+def up_counts(black_words, white_words) -> torch.Tensor:
+    """(32,) int64: replica r's up spins, the set bits r of both planes;
+    ``(B, 32)`` for an ensemble's ``(B, n, w)`` planes."""
+    return plane_bit_counts(black_words) + plane_bit_counts(white_words)
 
 
-def replica_energies(black_words, white_words) -> torch.Tensor:
-    """(32,) float32: replica r's energy per spin.  Every bond joins a
-    black site and one of its 4 white neighbours; it contributes
-    ``1 - 2 (b xor w)``, so replica r's bond sum is ``2 N - 2 D_r`` with
-    ``D_r`` the bonds whose ends disagree in bit r -- the same integer as
-    the sum over the merged lattice.  ``(B, 32)`` for ``(B, n, w)``
+def disagreements(black_words, white_words) -> torch.Tensor:
+    """(32,) int64: ``D_r``, the bonds whose ends disagree in bit r.
+    Every bond joins a black site and one of its 4 white neighbours (up,
+    down, centre and the side tap), so XORing each black word with each
+    neighbour counts every bond once.  ``(B, 32)`` for ``(B, n, w)``
     planes."""
-    count = _sites(black_words) + _sites(white_words)
     disagree = 0
     for nb in (torch.roll(white_words, 1, dims=-2),
                torch.roll(white_words, -1, dims=-2), white_words,
                lat.side_shift(white_words, is_black=True)):
         disagree += plane_bit_counts(black_words ^ nb)
+    return disagree
+
+
+def replica_counts(black_words, white_words) -> torch.Tensor:
+    """(2, 32) int64: ``[0, r]`` = :func:`up_counts`, ``[1, r]`` =
+    :func:`disagreements`; ``(B, 2, 32)`` for ``(B, n, w)`` planes."""
+    return torch.stack([up_counts(black_words, white_words),
+                        disagreements(black_words, white_words)], dim=-2)
+
+
+def magnetizations_of(up: torch.Tensor, count: int) -> torch.Tensor:
+    """Float32 mean spins ``(2 up - N) / N`` of int64 up counts of
+    lattices of ``count`` sites, each rounded once from float64."""
+    return _means(2 * up - count, count)
+
+
+def energies_of(disagree: torch.Tensor, count: int) -> torch.Tensor:
+    """Float32 energies per spin of int64 disagreement counts: a bond
+    contributes ``1 - 2 (b xor w)``, so the bond sum is ``2 N - 2 D`` --
+    the same integer as the sum over the merged lattice."""
     return _means(-(2 * count - 2 * disagree), count)
+
+
+def observables_of(counts: torch.Tensor, count: int) -> dict:
+    """``{"m": (..., 32), "e": (..., 32)}`` float32 of ``(..., 2, 32)``
+    :func:`replica_counts` of lattices of ``count`` sites."""
+    return {"m": magnetizations_of(counts[..., 0, :], count),
+            "e": energies_of(counts[..., 1, :], count)}
 
 
 def replica_observables(black_words, white_words) -> dict:
     """``{"m": (32,), "e": (32,)}`` float32, one value per replica
     (``(B, 32)`` each for an ensemble's planes)."""
-    return {"m": replica_magnetizations(black_words, white_words),
-            "e": replica_energies(black_words, white_words)}
+    return observables_of(replica_counts(black_words, white_words),
+                          replica_sites(black_words))

@@ -610,7 +610,8 @@ class MultispinPallasEngine(MultispinEngine):
 class BitplaneEngine(_WordPlanesEngine):
     """Bitplane multi-spin coding, 32 replicas per uint32 word (bit r =
     replica r): ``bitplane_update`` per half-sweep,
-    ``bitplane_sweeps_resident`` for k sweeps per launch.
+    ``bitplane_sweeps_resident`` for k sweeps per launch,
+    ``bitplane_counts`` for the observables.
 
     State: ``(black_bits, white_bits)``, ``(n, m/2)`` int32 tensors.
     ``observables`` returns per-replica ``(32,)`` vectors, so
@@ -649,14 +650,29 @@ class BitplaneEngine(_WordPlanesEngine):
         return bp.replica_lattice(*state, r=0)
 
     def magnetization(self, state) -> torch.Tensor:
-        return _replica_mean(bp.replica_magnetizations(*state))
+        return _replica_mean(bp.magnetizations_of(
+            self._counts(state, 0, bp.up_counts), bp.replica_sites(state[0])))
 
     def energy(self, state) -> torch.Tensor:
-        return _replica_mean(bp.replica_energies(*state))
+        return _replica_mean(bp.energies_of(
+            self._counts(state, 1, bp.disagreements),
+            bp.replica_sites(state[0])))
 
     def observables(self, state, inv_temp) -> dict:
-        """Per-replica vectors: ``{"m": (32,), "e": (32,)}``."""
-        return bp.replica_observables(*state)
+        """Per-replica vectors: ``{"m": (32,), "e": (32,)}``, from the
+        counts of one ``bitplane_counts`` launch on the card."""
+        from repro_torch.kernels.bitplane.counts import bitplane_counts
+        return bp.observables_of(bitplane_counts(*state),
+                                 bp.replica_sites(state[0]))
+
+    @staticmethod
+    def _counts(state, row: int, plain) -> torch.Tensor:
+        """Row ``row`` of ``bitplane_counts`` (0: up spins, 1: disagreeing
+        bonds) on the card; on the CPU that row's plain count alone."""
+        if state[0].device.type == "cpu":
+            return plain(*state)
+        from repro_torch.kernels.bitplane.counts import bitplane_counts
+        return bitplane_counts(*state)[..., row, :]
 
     def color_update(self, targets, ops, tables, is_black, seeds,
                      offset):

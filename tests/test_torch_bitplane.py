@@ -24,6 +24,7 @@ from repro_torch.core import rng
 from repro_torch.kernels import _words, resident
 from repro_torch.kernels.bitplane import (bitplane_sweeps_resident,
                                           bitplane_update)
+from repro_torch.kernels.bitplane import counts as bp_counts
 
 BETA = 1 / 2.2
 SEED = 2 ** 36 + 5
@@ -190,6 +191,190 @@ def test_replica_observables_match_reference(n, m):
     for k in ("m", "e"):
         assert got[k].dtype == torch.float32 and got[k].shape == (32,)
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+@pytest.mark.parametrize("members", [None, 3])
+@pytest.mark.parametrize("n,m", SHAPES + ((2, 8), (6, 24)))
+def test_counts_wrapper_observables_match_reference(n, m, members):
+    """The counts wrapper's CPU path (the plain counts), formed into m
+    and e as the engine forms them, gives the JAX package's per-replica
+    m and e bit for bit, for one plane pair and for ``(B, n, w)`` planes
+    (member i: seed i)."""
+    seeds = [n * m] if members is None else range(n * m, n * m + members)
+    pairs = [jax_words(n, m, seed=s) for s in seeds]
+    black = torch.stack([to_port(jb) for jb, _ in pairs])
+    white = torch.stack([to_port(jw) for _, jw in pairs])
+    if members is None:
+        black, white = black[0], white[0]
+    before = bp_counts.bitplane_counts.launches
+    counts = bp_counts.bitplane_counts(black, white)
+    assert bp_counts.bitplane_counts.launches == before
+    got = bp.observables_of(counts, bp.replica_sites(black))
+    assert counts.dtype == torch.int64
+    assert counts.shape == black.shape[:-2] + (2, bp.N_REPLICAS)
+    for k in ("m", "e"):
+        want = np.stack([np.asarray(jbp.replica_observables(jb, jw)[k])
+                         for jb, jw in pairs])
+        assert got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(),
+                                      want if members else want[0])
+
+
+def _csa(a, b, c):
+    """Carry-save add of three uint32 word arrays: ``(high, low)``."""
+    u = a ^ b
+    return (a & b) | (u & c), u ^ c
+
+
+def _tree(v, x):
+    """Harley-Seal: ``len(x)`` (8 or 16) words of weight 1 into levels
+    ``v[0]``, ``v[1]``, ... in place; returns the carry word of weight
+    ``len(x)``."""
+    if len(x) == 2:
+        high, v[0] = _csa(v[0], x[0], x[1])
+        return high
+    k = len(x).bit_length() - 2          # the level this tree adds into
+    a, b = _tree(v, x[:len(x) // 2]), _tree(v, x[len(x) // 2:])
+    high, v[k] = _csa(v[k], a, b)
+    return high
+
+
+def _warp_count(levels):
+    """The butterfly of ``csrc/counts.cu``'s ``warp_count``: the 32
+    lanes' counters added bit-sliced, lane r reading bit r of each
+    level; the levels zeroed."""
+    s = [v.copy() for v in levels] + [None] * 5
+    for step in range(5):
+        other, carry = np.arange(32) ^ (16 >> step), np.zeros(32, np.uint32)
+        for j in range(len(levels) + step):
+            a = s[j]
+            u = a ^ a[other]
+            s[j], carry = u ^ carry, (a & a[other]) | (u & carry)
+        s[len(levels) + step] = carry
+    for v in levels:
+        v[:] = 0
+    lane = np.arange(32, dtype=np.uint32)
+    return sum(((s[j] >> lane) & 1).astype(np.int64) << j
+               for j in range(len(s)))
+
+
+def emulated_counts(black, white, rows, ripple_levels=8):
+    """numpy emulation of ``bitplane_counts_kernel`` on one ``(n, w)``
+    uint32 plane pair, its 32 lanes a vector axis: a warp a run of
+    ``rows`` rows of a 128-word strip, the row above kept, the side tap
+    by shuffle and an edge lane's load, Harley-Seal trees into ripple
+    counters flushed by the butterfly before they overflow.  Returns the
+    ``(2, 32)`` counts."""
+    n, w = black.shape
+    groups, lane = w // 4, np.arange(32)
+    total = np.zeros((2, 32), np.int64)
+    for unit in range(-(-groups // 32) * -(-n // rows)):
+        strips = -(-groups // 32)
+        g = (unit % strips) * 32 + lane
+        valid = g < groups
+        col = np.where(valid, 4 * g, 0)
+        edge = {True: valid & ((lane == 31) | (g == groups - 1)),
+                False: valid & (lane == 0)}
+        edge_col = {True: (col + 4) % w, False: (col - 1) % w}
+
+        def load(i):
+            odd = bool(i % 2)
+            cols = col[None] + np.arange(4)[:, None]
+            return (np.where(valid, black[i][cols], 0).astype(np.uint32),
+                    np.where(valid, white[i][cols], 0).astype(np.uint32),
+                    np.where(edge[odd], white[i][edge_col[odd]],
+                             0).astype(np.uint32))
+
+        up = [np.zeros(32, np.uint32) for _ in range(3 + ripple_levels)]
+        bond = [np.zeros(32, np.uint32) for _ in range(4 + ripple_levels)]
+        r0 = (unit // strips) * rows
+        above, counted = load((r0 - 1) % n), 0
+        for i in range(r0, min(n, r0 + rows)):
+            # the kernel takes rows in pairs, flushing before a pair that
+            # could overflow a ripple counter
+            if i % 2 == 0 and counted + 2 > (1 << ripple_levels) - 1:
+                total += [_warp_count(up), _warp_count(bond)]
+                counted = 0
+            counted += 1
+            (b, wh, e), (ab, aw, _) = load(i), above
+            odd = bool(i % 2)
+            shuffled = (np.append(wh[0][1:], wh[0][31]) if odd
+                        else np.insert(wh[3][:-1], 0, wh[3][0]))
+            tap = np.where(edge[odd], e, np.where(valid, shuffled, 0))
+            side = ([wh[1], wh[2], wh[3], tap] if odd
+                    else [tap, wh[0], wh[1], wh[2]])
+            words = ([b[j] ^ aw[j] for j in range(4)]
+                     + [ab[j] ^ wh[j] for j in range(4)]
+                     + [b[j] ^ wh[j] for j in range(4)]
+                     + [b[j] ^ side[j] for j in range(4)])
+            for levels, tree, x in ((bond, 4, words),
+                                    (up, 3, list(b) + list(wh))):
+                carry = _tree(levels, x)
+                for j in range(tree, len(levels)):
+                    levels[j], carry = levels[j] ^ carry, levels[j] & carry
+                assert not carry.any()
+            above = (b, wh, e)
+        total += [_warp_count(up), _warp_count(bond)]
+    return total
+
+
+@pytest.mark.parametrize("n,w,rows,pattern", [
+    (2, 4, 16, "random"), (17, 200, 16, "random"), (30, 132, 4, "random"),
+    (30, 132, 16, "edges-black"), (30, 132, 16, "edges-white"),
+    (64, 4, 16, "edges-white"), (40, 8, 40, "random")])
+def test_counting_kernel_algorithm_equals_plain(n, w, rows, pattern):
+    """The algorithm of ``csrc/counts.cu``, emulated, gives the plain
+    counts: strips that end inside a warp, an odd row count, runs of 4
+    and 16 rows, and ripple counters of 3 levels flushed 6 times a run
+    of 40 rows."""
+    r = np.random.default_rng(n * w + rows)
+    if pattern == "random":
+        black, white = (r.integers(0, 2 ** 32, (n, w), dtype=np.uint64)
+                        .astype(np.uint32) for _ in range(2))
+    else:
+        black, white = np.zeros((n, w), np.uint32), np.zeros((n, w),
+                                                             np.uint32)
+        edged = black if pattern == "edges-black" else white
+        edged[0] = edged[-1] = edged[:, 0] = edged[:, -1] = 0xFFFFFFFF
+    levels = 3 if rows == 40 else 8
+    got = emulated_counts(black, white, rows, ripple_levels=levels)
+    want = bp_counts.bitplane_counts_plain(
+        *(torch.from_numpy(p.view(np.int32).copy()) for p in (black, white)))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def _count_planes(case):
+    """Planes (of (8, 16) words unless the case changes them) that the
+    counts wrapper refuses, and what its error says."""
+    b = torch.zeros((8, 16), dtype=torch.int32)
+    if case == "dtype":
+        return b.to(torch.int64), b.to(torch.int64), "int32"
+    if case == "shapes":
+        return b, b[:4].clone(), "one shape"
+    if case == "batch-shapes":
+        return b[None].repeat(3, 1, 1), b[None].repeat(2, 1, 1), "one shape"
+    if case == "dims":
+        return b[None, None], b[None, None], "one shape"
+    if case == "empty":
+        return b[:0], b[:0], "non-empty"
+    if case == "contiguous":
+        wide = torch.zeros((8, 32), dtype=torch.int32)
+        return wide[:, ::2], b, "contiguous"
+    if case == "batch-contiguous":
+        wide = torch.zeros((3, 8, 32), dtype=torch.int32)
+        return wide[..., :16], b[None].repeat(3, 1, 1), "contiguous"
+    if case == "width":
+        return b[:, :6].clone(), b[:, :6].clone(), "multiple-of-4 width"
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shapes", "batch-shapes", "dims",
+                                  "empty", "contiguous", "batch-contiguous",
+                                  "width"])
+def test_counts_wrapper_refuses_planes(case):
+    black, white, says = _count_planes(case)
+    with pytest.raises(ValueError, match=says):
+        bp_counts.bitplane_counts(black, white)
 
 
 def tiled_sweeps(black, white, thr, k, seed, start, tile_r, tile_c):

@@ -1013,6 +1013,70 @@ def test_graph_capture_failure_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
 
 
+# -- bitplane_counts: the counts of the bitplane observables -----------------
+
+def count_planes(members, n, w, pattern, device):
+    """``(members, n, w)`` black and white int32 word planes: random
+    words, or all ones on the first and last row and column of one plane
+    (``edges-black``, ``edges-white``) against zeros elsewhere, which a
+    wrong wrap or a wrong row parity of the side tap miscounts."""
+    if pattern == "random":
+        gen = torch.Generator(device=device).manual_seed(members * n + w)
+        return tuple((torch.randint(0, 2 ** 32, (members, n, w),
+                                    generator=gen, device=device)
+                      - 2 ** 31).to(torch.int32) for _ in range(2))
+    planes = [torch.zeros((members, n, w), dtype=torch.int32, device=device)
+              for _ in range(2)]
+    edged = planes[0 if pattern == "edges-black" else 1]
+    edged[:, 0] = edged[:, -1] = -1
+    edged[:, :, 0] = edged[:, :, -1] = -1
+    return tuple(planes)
+
+
+#: (rows, words): 2 rows; a width of one 4-word group; widths that are not
+#: a multiple of a warp's 128-word strip; an odd row count
+COUNT_SHAPES = ((2, 4), (64, 4), (30, 132), (17, 200), (96, 256))
+
+
+@pytest.mark.parametrize("members,n,w,pattern", [
+    (members, n, w, pattern) for members in (1, 3) for n, w in COUNT_SHAPES
+    for pattern in ("random", "edges-black", "edges-white")] + [
+    (1, 16384, 8192, "random"),     # the sample cell's planes
+    (8, 4096, 8192, "random"),      # runs longer than a counter's flush
+])
+def test_bitplane_counts_kernel_matches_plain(cuda, members, n, w, pattern):
+    """The kernel's ``(B, 2, 32)`` counts (``(2, 32)`` for one plane pair)
+    equal the plain version's bit for bit, one launch a call."""
+    from repro_torch.kernels.bitplane.counts import (bitplane_counts,
+                                                     bitplane_counts_plain)
+    black, white = count_planes(members, n, w, pattern, cuda)
+    if members == 1:
+        black, white = black[0], white[0]
+    want = bitplane_counts_plain(black, white)
+    before = bitplane_counts.launches
+    got = bitplane_counts(black, white)
+    torch.cuda.synchronize()
+    assert bitplane_counts.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_bitplane_measure_launches_the_counts_kernel(cuda):
+    """A bitplane ``Session.measure`` on the card counts with
+    ``bitplane_counts``: one launch for the first sample, one captured in
+    the graph, whose replays give the later samples."""
+    from repro_torch.api import SweepSpec
+    from repro_torch.kernels.bitplane.counts import bitplane_counts
+    spec = RunSpec(lattice=LatticeSpec(64, 96, init_p_up=0.5),
+                   engine=EngineSpec("bitplane"), temperature=2.3,
+                   seed=2 ** 33 + 5,
+                   sweep=SweepSpec(measure_every=2, n_measure=3))
+    session = Session.open(spec)
+    before = bitplane_counts.launches
+    got = session.measure()
+    assert bitplane_counts.launches == before + 2
+    assert got["m"].shape == got["e"].shape == (3, 32)
+
+
 # -- philox_fill and the engines of plain updates ----------------------------
 
 @pytest.mark.parametrize("members,shape,offset,c1,c3,lanes", [
